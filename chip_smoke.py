@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # 2^24 keys, one card, about three minutes
+    python3 chip_smoke.py            # 2^24 keys, then the paged path; one card
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit (``nvidia-smi``), build both CUDA
-   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a;
-2. hold each kernel bit for bit against its plain PyTorch version on the
-   card (``ludo_lookup`` over a real shard's CN arrays, ``slot_unpack``
+1. print the card's name and power limit (``nvidia-smi``), build the three
+   CUDA libraries of ``src/repro_torch/kernels/csrc`` (``ludo_lookup``,
+   ``slot_unpack``, and ``paged_attention`` with both paged kernels) with
+   one ``nvcc`` each, all at once, for sm_90a;
+2. hold each index kernel bit for bit against its plain PyTorch version on
+   the card (``ludo_lookup`` over a real shard's CN arrays, ``slot_unpack``
    over 2^22 random slot words with all-ones words among them; batch sizes
    1, 1023, 1024, 1025 and 2^20), and time both with CUDA events;
 3. check that a small store on the card answers and meters exactly as the
@@ -18,11 +20,29 @@ Phases; any failure exits non-zero:
    (2^18 ops, half reads, half updates), then 2^14 inserts of new keys and
    2^14 deletes, all through ``submit``/``flush`` at window 1024, every
    answer checked against a host oracle of the latest values.  The kernel
-   launch counters are zeroed just before this phase and read just after.
+   launch counters are zeroed just before this phase and read just after;
+4. hold ``paged_attention`` and ``cuckoo_paged_attention`` against their
+   plain version on the card, within the tests' tolerance: the test shapes
+   (float32 and bf16, ragged ``seq_len``, a cuckoo map whose first step is
+   unselected), then the serve shape (llama3.2-1b's attention width: 8 KV
+   heads of 4 queries, d=64, pages of 16 bf16 tokens, L=1954) over a
+   2^17-page bf16 pool; time each with CUDA events and ``torch.profiler``
+   beside its byte bound, its plain version and a gather +
+   ``scaled_dot_product_attention`` yardstick;
+5. drive the Ludo-paged decode path: ``LudoPageTable`` and
+   ``CuckooPageTable`` of 2^17 pages on the card, 32 sequences of 977 to
+   31264 tokens appended page by page, then 4 decode steps each through
+   ``lookup_batch`` -> ``ops.paged_attention`` and ``lookup2_batch`` ->
+   ``ops.cuckoo_paged_attention``, every matched page-map entry checked
+   against the allocator, the cuckoo output against a dense oracle over the
+   true pages, the Ludo output against the cuckoo one wherever its map
+   matched whole; then 4 sequences released.  The launch counters are
+   zeroed just before this phase and read just after, and each kernel must
+   have launched at least once a decode step.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a card the script exits 1 and
-prints no result.
+The line before the last is the kernels' JSON record (all four kernels);
+the last line is ``{"ok": true, "device": {...}}``.  Without a card the
+script exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -54,6 +74,9 @@ WINDOW = 1024
 # the serve path.
 COLD_SETS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# H100 SXM peak float32 rate outside the tensor cores (data sheet); the
+# paged kernels do their products as float32 FMAs.
+F32_FLOPS_PER_S = 67e12
 # H100 SXM peak 32-bit integer rate (architecture white paper: 132 SMs x 64
 # INT32 lanes x 1.98 GHz, a multiply-add counted as two).
 INT32_OPS_PER_S = 33.5e12
@@ -65,6 +88,32 @@ INT32_OPS_PER_S = 33.5e12
 LUDO_OPS_PER_KEY = 4 * 29 + 4 + 8 + 1 + 13 + 4
 # slot_unpack: three shift-and-mask pairs and the address copy.
 UNPACK_OPS_PER_SLOT = 7
+
+# The paged decode path at the attention width of llama3.2-1b
+# (src/repro/configs/llama3_2_1b.py: 32 query heads over 8 KV heads, head
+# width 64), with a bf16 page pool of 2^17 pages of 16 tokens: 2 GiB for K
+# and 2 GiB for V, one layer's pool for 2M tokens.  N_SEQS sequences of
+# SEQ_TOKENS * (i + 1) tokens (977 to 31264, ragged last pages), about 32.2k
+# pages, 24.6% of the pool: under the 36% at which the sentinel-seeded
+# index's overflow cache breaches.  Each sequence then takes DECODE_STEPS
+# decode steps, and N_RELEASE sequences are released at the end.
+PAGE_POOL_LOG2 = 17
+N_KV, GROUP, HEAD_DIM, PAGE_SIZE = 8, 4, 64, 16
+N_SEQS = 32
+SEQ_TOKENS = 977
+DECODE_STEPS = 4
+N_RELEASE = 4
+# The page-map length of the longest sequence, the kernels' timed shape.
+SERVE_PAGES = -(-SEQ_TOKENS * N_SEQS // PAGE_SIZE)  # 1954
+# The paged kernels' shapes from tests/test_torch_kernels.py:
+# (n_kv, g, d, ps, L, seq_len, dtype), ragged seq_len and bf16 among them.
+PAGED_TEST_SHAPES = [(2, 4, 64, 16, 4, 64, "float32"),
+                     (2, 4, 64, 16, 4, 49, "float32"),
+                     (4, 2, 128, 32, 8, 250, "float32"),
+                     (1, 8, 64, 16, 2, 32, "bfloat16")]
+# The tests' tolerance (rtol and atol): both sides compute in float32 from
+# the same values and differ only in the order of their sums.
+PAGED_TOL = 1e-5
 
 
 def log(*a) -> None:
@@ -456,6 +505,284 @@ def verify_final(store, keys, rng, o) -> None:
         "latest values")
 
 
+# ------------------------------------------------------------ phase 4
+def paged_bound(n_pages: int, fetches: int) -> tuple:
+    """The least time of one paged decode at the serve shape: the pages'
+    K and V tiles (bf16) ``fetches`` times, q, the page ids and the float32
+    outputs moved once, against 4 * n_kv * g * d flops a fetched token at
+    the float32 rate."""
+    tokens = fetches * n_pages * PAGE_SIZE
+    by_bytes = (2 * tokens * N_KV * HEAD_DIM * 2 + N_KV * GROUP * HEAD_DIM * 2
+                + 4 * n_pages * fetches + 4 * N_KV * GROUP * (HEAD_DIM + 2)
+                ) / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * N_KV * GROUP * HEAD_DIM * tokens / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
+        else "operations"
+
+
+def paged_err(got, want, errs: dict | None = None) -> None:
+    """Check each of (o, m, l) within the tests' tolerance of ``want``, and
+    keep the largest absolute error of each in ``errs``."""
+    import torch
+    for name, g, w in zip("oml", got, want):
+        check(g.dtype == torch.float32 and g.shape == w.shape
+              and torch.allclose(g, w, rtol=PAGED_TOL, atol=PAGED_TOL),
+              f"a paged kernel's {name} differs from its plain version "
+              f"beyond {PAGED_TOL}")
+        if errs is not None:
+            errs[name] = max(errs.get(name, 0.0), float((g - w).abs().max()))
+
+
+def paged_maps(gen, n_pool: int, n_pages: int):
+    """A page map of distinct pages, and a cuckoo map holding it beside
+    distinct random decoys, with step 0 the unselected candidate."""
+    import torch
+    pm = torch.randperm(n_pool, generator=gen, device="cuda")[:n_pages].int()
+    decoy = torch.randperm(n_pool, generator=gen,
+                           device="cuda")[:n_pages].int()
+    sel = torch.randint(0, 2, (n_pages,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    sel[0] = 1
+    pm2 = torch.where(sel[:, None] == 0, torch.stack([pm, decoy], 1),
+                      torch.stack([decoy, pm], 1)).contiguous()
+    return pm, pm2, sel
+
+
+def sdpa_yardstick(q, k_pool, v_pool, pm, seq_len: int):
+    """The library yardstick: a gather of the pages, then PyTorch's
+    ``scaled_dot_product_attention`` with GQA; gives ``o`` only, and the
+    port never calls it."""
+    import torch.nn.functional as F
+    n_pages = pm.shape[0]
+    k = k_pool[pm.long()].reshape(n_pages * PAGE_SIZE, N_KV, HEAD_DIM)
+    v = v_pool[pm.long()].reshape(n_pages * PAGE_SIZE, N_KV, HEAD_DIM)
+    k = k[:seq_len].transpose(0, 1)[None]
+    v = v[:seq_len].transpose(0, 1)[None]
+    return F.scaled_dot_product_attention(
+        q.reshape(1, N_KV * GROUP, 1, HEAD_DIM), k, v, enable_gqa=True)
+
+
+def check_paged_kernels(k_pool, v_pool, gen) -> dict:
+    """Each paged kernel against its plain version on the card: the test
+    shapes, then the serve shape (bf16, L = SERVE_PAGES, over the serve
+    pools), and timed at the serve shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    errs = {"paged_attention": {}, "cuckoo_paged_attention": {}}
+    for n_kv, g, d, ps, n_pages, seq_len, dt in PAGED_TEST_SHAPES:
+        dtype = getattr(torch, dt)
+        pool = 3 * n_pages
+        q = torch.randn((n_kv, g, d), generator=gen, device="cuda").to(dtype)
+        kp, vp = (torch.randn((pool, ps, n_kv, d), generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        pm, pm2, sel = paged_maps(gen, pool, n_pages)
+        want = ref.paged_attention_ref(q, kp, vp, pm, seq_len)
+        paged_err(ops.paged_attention(q, kp, vp, pm, seq_len), want,
+                  errs["paged_attention"])
+        paged_err(ops.cuckoo_paged_attention(q, kp, vp, pm2, sel, seq_len),
+                  want, errs["cuckoo_paged_attention"])
+    # the serve shape; COLD_SETS maps of distinct pages, 64 MB of tiles
+    # each, so a timed launch finds its pages outside the 50 MB L2
+    n_pool = k_pool.shape[0]
+    seq_len = SEQ_TOKENS * N_SEQS
+    sets = []
+    for _ in range(COLD_SETS):
+        q = torch.randn((N_KV, GROUP, HEAD_DIM), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        sets.append((q, *paged_maps(gen, n_pool, SERVE_PAGES)))
+    for q, pm, pm2, sel in sets[:2]:
+        want = ref.paged_attention_ref(q, k_pool, v_pool, pm, seq_len)
+        paged_err(ops.paged_attention(q, k_pool, v_pool, pm, seq_len), want,
+                  errs["paged_attention"])
+        paged_err(ops.cuckoo_paged_attention(q, k_pool, v_pool, pm2, sel,
+                                             seq_len),
+                  want, errs["cuckoo_paged_attention"])
+    ludo_sets = [(q, k_pool, v_pool, pm, seq_len) for q, pm, _, _ in sets]
+    cuckoo_sets = [(q, k_pool, v_pool, pm2, sel, seq_len)
+                   for q, _, pm2, sel in sets]
+
+    def cuckoo_plain(q, kp, vp, pm2, sel, n):
+        return ref.paged_attention_ref(
+            q, kp, vp, pm2[torch.arange(pm2.shape[0], device="cuda"),
+                           sel.long()], n)
+
+    def cuckoo_library(q, kp, vp, pm2, sel, n):
+        return sdpa_yardstick(q, kp, vp, pm2.gather(1, sel[:, None].long())
+                              .reshape(-1), n)
+
+    out = {}
+    for name, src_line, sets_, plain, library, fetches in (
+            ("paged_attention", 87, ludo_sets, ref.paged_attention_ref,
+             sdpa_yardstick, 1),
+            ("cuckoo_paged_attention", 152, cuckoo_sets, cuckoo_plain,
+             cuckoo_library, 2)):
+        kern = cycling(getattr(ops, name), sets_)
+        bound, by = paged_bound(SERVE_PAGES, fetches)
+        out[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces=f"src/repro/kernels/paged_attention.py:{src_line}",
+            max_abs_err=max(errs[name].values()),
+            max_abs_err_oml=errs[name], tolerance=PAGED_TOL,
+            shape=dict(n_kv=N_KV, g=GROUP, d=HEAD_DIM, ps=PAGE_SIZE,
+                       L=SERVE_PAGES, seq_len=seq_len, dtype="bfloat16"),
+            ms=time_ms(kern, 40),
+            device_ms=device_ms(kern, 10, "paged_decode_kernel"),
+            plain_ms=time_ms(cycling(plain, sets_), 40),
+            bound_ms=bound, bound_by=by,
+            library_ms=time_ms(cycling(library, sets_), 40),
+            library_call="gather + scaled_dot_product_attention "
+                         "(two calls, o only)")
+        k = out[name]
+        log(f"kernel {name}: within {PAGED_TOL} of its plain version (max "
+            f"abs err of o, m, l: {k['max_abs_err_oml']}); L={SERVE_PAGES} "
+            f"bf16: "
+            f"{k['ms']:.6f} ms (device {k['device_ms']}), plain "
+            f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms "
+            f"({by}), gather + SDPA {k['library_ms']:.6f} ms")
+    return out
+
+
+# ------------------------------------------------------------ phase 5
+def paged_serve(k_pool, v_pool, gen) -> dict:
+    """The Ludo-paged decode path: both page tables fill from the same
+    allocator order, then every decode step runs ``lookup_batch`` ->
+    ``ops.paged_attention`` and ``lookup2_batch`` ->
+    ``ops.cuckoo_paged_attention``, each checked against a dense oracle over
+    the true pages.  Returns the phase's numbers."""
+    import torch
+    from repro_torch.cache import CuckooPageTable, LudoPageTable
+    from repro_torch.kernels import ops, ref
+    n_pool = k_pool.shape[0]
+    t0 = time.perf_counter()
+    lt, ct = LudoPageTable(n_pool), CuckooPageTable(n_pool)
+    check(lt.device.type == "cuda" and ct.device.type == "cuda",
+          "a page table is not on the card")
+    build_s = time.perf_counter() - t0
+    lens = [SEQ_TOKENS * (i + 1) for i in range(N_SEQS)]
+    pages: list[list[int]] = [[] for _ in range(N_SEQS)]
+    t_app = {"ludo": 0.0, "cuckoo": 0.0}
+
+    def append(i: int) -> None:
+        lp = len(pages[i])
+        t0 = time.perf_counter()
+        a = lt.append_page(i, lp)
+        t1 = time.perf_counter()
+        b = ct.append_page(i, lp)
+        t_app["ludo"] += t1 - t0
+        t_app["cuckoo"] += time.perf_counter() - t1
+        check(a == b, "the two tables' allocators diverged")
+        pages[i].append(a)
+
+    for i in range(N_SEQS):
+        for _ in range(-(-lens[i] // PAGE_SIZE)):
+            append(i)
+    torch.cuda.synchronize()
+    n_filled = sum(map(len, pages))
+    log(f"paged fill: {n_filled} pages of {n_pool} "
+        f"({n_filled / n_pool:.4f}) in {N_SEQS} sequences; Ludo "
+        f"{1e6 * t_app['ludo'] / n_filled:.1f} us a page, cuckoo "
+        f"{1e6 * t_app['cuckoo'] / n_filled:.1f} us a page; Ludo table "
+        f"built in {build_s:.3f} s")
+
+    unmatched, whole, steps = 0, 0, 0
+    for _ in range(DECODE_STEPS):
+        for i in range(N_SEQS):
+            if lens[i] % PAGE_SIZE == 0:  # the new token opens a page
+                append(i)
+            page, off = pages[i][lens[i] // PAGE_SIZE], lens[i] % PAGE_SIZE
+            kv = torch.randn((2, N_KV, HEAD_DIM), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            k_pool[page, off], v_pool[page, off] = kv[0], kv[1]
+            lens[i] += 1
+            n_pages = len(pages[i])
+            q = torch.randn((N_KV, GROUP, HEAD_DIM), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            pm, ok = lt.lookup_batch(i, n_pages)
+            o_l = ops.paged_attention(q, k_pool, v_pool, pm, lens[i])
+            pm2, sel = ct.lookup2_batch(i, n_pages)
+            o_c = ops.cuckoo_paged_attention(q, k_pool, v_pool, pm2, sel,
+                                             lens[i])
+            true_pm = torch.tensor(pages[i], dtype=torch.int32,
+                                   device="cuda")
+            check(torch.equal(pm[ok], true_pm[ok]),
+                  "a matched page-map entry is not the allocator's page")
+            check(torch.equal(pm2[torch.arange(n_pages, device="cuda"),
+                                  sel.long()], true_pm),
+                  "the cuckoo table lost a page")
+            paged_err(o_c, ref.paged_attention_ref(q, k_pool, v_pool,
+                                                   true_pm, lens[i]))
+            miss = int((~ok).sum())
+            unmatched += miss
+            if miss == 0:
+                whole += 1
+                paged_err(o_l, o_c)
+            steps += 1
+    check(whole > 0, "no sequence's page map matched whole")
+    for i in range(N_RELEASE):
+        n_rel = len(pages[i])
+        check(lt.release_sequence(i) == ct.release_sequence(i) == n_rel,
+              "release freed another page count")
+        check(all(lt.lookup(i, lp) is None for lp in range(n_rel)),
+              "a released page is still found")
+    torch.cuda.synchronize()
+    n_decode = sum(map(len, pages)) - n_filled
+    log(f"paged decode: {steps} steps over {N_SEQS} sequences; "
+        f"{n_decode} pages appended on the way; "
+        f"{unmatched} unmatched page-map lanes in all (overflow residents, "
+        f"no Makeup-Get); {whole} steps with a whole map, where Ludo equals "
+        f"cuckoo; cuckoo equals the dense oracle on every step; "
+        f"{N_RELEASE} sequences released and gone")
+    res = dict(
+        pages=n_filled, decode_pages=n_decode, seqs=N_SEQS, steps=steps,
+        unmatched=unmatched, whole_map_steps=whole,
+        append_us_ludo=1e6 * t_app["ludo"] / (n_filled + n_decode),
+        append_us_cuckoo=1e6 * t_app["cuckoo"] / (n_filled + n_decode),
+        cn_bits_per_page=lt.cn_bits_per_page(),
+        cuckoo_bits_per_page=ct.table_bits_per_page())
+    log(f"page-table memory: Ludo CN {res['cn_bits_per_page']:.4f} bits a "
+        f"page, cuckoo {res['cuckoo_bits_per_page']:.4f} bits a page")
+    return res, (lt, ct, pages, lens)
+
+
+def paged_timings(k_pool, v_pool, gen, lt, ct, pages, lens) -> dict:
+    """The path's times at the longest sequence, on its real maps (the
+    cuckoo decoys are page 0), after the counted run."""
+    import torch
+    from repro_torch.kernels import ops
+    i = N_SEQS - 1
+    n_pages = len(pages[i])
+    lat = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm, ok = lt.lookup_batch(i, n_pages)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    pm2, sel = ct.lookup2_batch(i, n_pages)
+    lookup2_s = time.perf_counter() - t0
+    q = torch.randn((N_KV, GROUP, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    res = dict(
+        longest_pages=n_pages,
+        lookup_batch_p50_ms=1e3 * float(np.percentile(lat, 50)),
+        lookup2_batch_ms=1e3 * lookup2_s,
+        decoys_page0=int((pm2[torch.arange(n_pages, device="cuda"),
+                              1 - sel.long()] == 0).sum()),
+        ludo_ms=time_ms(lambda: ops.paged_attention(
+            q, k_pool, v_pool, pm, lens[i]), 40),
+        cuckoo_ms=time_ms(lambda: ops.cuckoo_paged_attention(
+            q, k_pool, v_pool, pm2, sel, lens[i]), 40))
+    log(f"longest sequence ({n_pages} pages): lookup_batch p50 "
+        f"{res['lookup_batch_p50_ms']:.4f} ms, lookup2_batch "
+        f"{res['lookup2_batch_ms']:.4f} ms (host loop); attention on the "
+        f"real maps: Ludo {res['ludo_ms']:.6f} ms, cuckoo "
+        f"{res['cuckoo_ms']:.6f} ms ({res['decoys_page0']} of {n_pages} "
+        f"decoys are page 0)")
+    return res
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -468,6 +795,8 @@ def main() -> int:
     from repro_torch.api import BatchPolicy, StoreSpec, open_store
     from repro_torch.core.hashing import splitmix64
     from repro_torch.kernels import build, ops
+    # the plain versions' float32 products run in full float32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -513,14 +842,14 @@ def main() -> int:
     launches = dict(ops.LAUNCHES)
     for name, k in kernels.items():
         k["launches"] = launches[name]
-    log(f"launches on the main path: {launches}")
+    log(f"launches on the Outback serve path: {launches}")
     for name in ("ycsb_c", "ycsb_c_profiled", "ycsb_a", "inserts",
                  "deletes"):
         p = res[name]
         for kern in ("ludo_lookup", "slot_unpack"):
             check(p["launches"][kern] >= p["batches"] > 0,
                   f"{name}: fewer {kern} launches than flushed batches")
-    check(all(v > 0 for v in launches.values()), "a kernel never launched")
+    check(all(launches[k] > 0 for k in kernels), "a kernel never launched")
     verify_final(store, keys, rng, oracle)
 
     c = res["ycsb_c"]
@@ -537,6 +866,42 @@ def main() -> int:
         f"{1 << N_YCSB_A_LOG2} ops")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
     log(f"meter: {store.meter_totals().snapshot()}")
+    del store, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: the paged kernels against their plain versions ----
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    shape = (1 << PAGE_POOL_LOG2, PAGE_SIZE, N_KV, HEAD_DIM)
+    k_pool = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    v_pool = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    paged = check_paged_kernels(k_pool, v_pool, gen)
+
+    # ---- phase 5: the paged decode path ----
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pres, tables = paged_serve(k_pool, v_pool, gen)
+    torch.cuda.synchronize()
+    paged_s = time.perf_counter() - t0
+    plaunch = dict(ops.LAUNCHES)
+    log(f"launches on the paged decode path: {plaunch} ({paged_s:.3f} s)")
+    for name in ops.LAUNCHES:
+        check(plaunch[name] >= pres["steps"] > 0,
+              f"paged decode: fewer {name} launches than decode steps")
+    for name, k in paged.items():
+        k["launches"] = plaunch[name]
+    for name, k in kernels.items():
+        k["launches_paged_path"] = plaunch[name]
+    kernels.update(paged)
+    pres.update(paged_timings(k_pool, v_pool, gen, *tables))
+    log(f"paged path: {json.dumps(pres)}")
+    log(f"paged phase max_memory_allocated: "
+        f"{torch.cuda.max_memory_allocated()} B (pools "
+        f"{2 * k_pool.numel() * k_pool.element_size()} B)")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source is compiled by its own ``nvcc`` into a shared library with a
-plain C interface, for ``sm_90a`` (Hopper), and loaded with ``ctypes``.
+plain C interface (one library may hold several kernels' launch functions), for ``sm_90a`` (Hopper), and loaded with ``ctypes``.
 :func:`build_all` starts one ``nvcc`` per source at once, so a cold build
 costs the slowest file, not the sum.  Libraries land in ``_build/`` beside
 this module (listed in ``.gitignore``), inside the package's own tree
@@ -28,15 +28,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
-# C signature of each library's launch function: (name, argtypes)
+_PAGED = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# Each kernel's launch function: kernel -> (library, C symbol, argtypes).
+# A library is built from ``csrc/<library>.cu``.
 SIGNATURES = {
-    "ludo_lookup": ("ludo_lookup_launch",
+    "ludo_lookup": ("ludo_lookup", "ludo_lookup_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _I,
                      _U, _U, _U, _U, _U, _U, _U, _P]),
-    "slot_unpack": ("slot_unpack_launch", [_P, _P, _P, _P, _P, _P, _I, _P]),
+    "slot_unpack": ("slot_unpack", "slot_unpack_launch",
+                    [_P, _P, _P, _P, _P, _P, _I, _P]),
+    "paged_attention": ("paged_attention", "paged_attention_launch", _PAGED),
+    "cuckoo_paged_attention": ("paged_attention",
+                               "cuckoo_paged_attention_launch",
+                               [_P, _P, _P, _P, _P, *_PAGED[4:]]),
 }
+LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
-_loaded: dict[str, tuple] = {}  # name -> (CDLL, launch function)
+_libs: dict[str, ctypes.CDLL] = {}  # library -> loaded library
+_loaded: dict[str, object] = {}  # kernel -> launch function
 
 
 def nvcc_path() -> str:
@@ -54,7 +63,8 @@ def _lib_path(name: str) -> Path:
 
 
 def _compile(names) -> None:
-    """Run one nvcc per missing library, all at once; raise on any failure."""
+    """Run one nvcc per missing library (``names`` are library names), all
+    at once; raise on any failure."""
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return
@@ -79,20 +89,23 @@ def _compile(names) -> None:
 
 
 def build_all() -> float:
-    """Compile every kernel that is not built yet; returns the seconds taken."""
+    """Compile every library that is not built yet; returns the seconds
+    taken."""
     t0 = time.perf_counter()
-    _compile(SIGNATURES)
+    _compile(LIBRARIES)
     return time.perf_counter() - t0
 
 
 def launcher(name: str):
-    """The ``ctypes`` launch function of kernel ``name`` (built if needed)."""
+    """The ``ctypes`` launch function of kernel ``name`` (its library built
+    if needed)."""
     if name not in _loaded:
-        _compile([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        sym, argtypes = SIGNATURES[name]
-        fn = getattr(lib, sym)
+        lib_name, sym, argtypes = SIGNATURES[name]
+        if lib_name not in _libs:
+            _compile([lib_name])
+            _libs[lib_name] = ctypes.CDLL(str(_lib_path(lib_name)))
+        fn = getattr(_libs[lib_name], sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = (lib, fn)
-    return _loaded[name][1]
+        _loaded[name] = fn
+    return _loaded[name]

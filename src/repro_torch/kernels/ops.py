@@ -5,9 +5,11 @@ use by ``repro_torch.kernels.build``) or an error: never the plain version.
 A CPU tensor gets the plain PyTorch version from ``ref.py``, which is how
 the tests run the same path on a machine without a card.
 
-Every wrapper takes int32 tensors holding uint32 bit patterns, checks
-device, dtype, shape, contiguity and the bounds its kernel relies on, and
-raises on anything the kernel does not take.  The kernel masks its own
+The index wrappers take int32 tensors holding uint32 bit patterns; the
+paged-attention wrappers take float32 or bfloat16 queries and pools and
+int32 page ids.  Every wrapper checks device, dtype, shape, contiguity and
+the bounds its kernel relies on, and raises on anything the kernel does not
+take.  The kernel masks its own
 ragged edge, so no padding is needed.  It launches on the current stream
 and raises if ``cudaGetLastError()`` is not 0.  :data:`LAUNCHES` counts the
 launches of each kernel, and nothing else adds to it.
@@ -19,7 +21,11 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"ludo_lookup": 0, "slot_unpack": 0}
+LAUNCHES = {"ludo_lookup": 0, "slot_unpack": 0, "paged_attention": 0,
+            "cuckoo_paged_attention": 0}
+# the pool types and head widths the paged-attention kernels are built for
+POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
 
 
 def reset_launch_counts() -> None:
@@ -122,6 +128,113 @@ def slot_unpack(s_lo, s_hi):
         _raise_on(err, "slot_unpack")
         LAUNCHES["slot_unpack"] += 1
     return outs
+
+
+def _check_int32(name: str, t, shape: tuple, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous tensor of shape {shape}, "
+                         f"got {tuple(t.shape)} (contiguous={t.is_contiguous()})")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
+    """Check the operands shared by both paged kernels; returns the launch
+    sizes."""
+    if not isinstance(q, torch.Tensor):
+        raise TypeError(f"q must be a torch.Tensor, got {type(q).__name__}")
+    device = q.device
+    if q.dtype not in POOL_DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous (n_kv, g, d) tensor, got "
+                         f"shape {tuple(q.shape)}")
+    n_kv, g, d = (int(x) for x in q.shape)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width d={d} is not one of {HEAD_DIMS}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} like q, got {t.dtype}")
+        if (t.dim() != 4 or tuple(t.shape[2:]) != (n_kv, d)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (P, ps, {n_kv}, "
+                             f"{d}) tensor, got {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"k_pool/v_pool shapes differ: "
+                         f"{tuple(k_pool.shape)} vs {tuple(v_pool.shape)}")
+    n_pool, ps = int(k_pool.shape[0]), int(k_pool.shape[1])
+    if n_pages < 1 or int(seq_len) < 1:
+        raise ValueError(f"need at least one page and one valid token, got "
+                         f"{n_pages} pages and seq_len={seq_len}")
+    if n_pool >= 2**31 or 2 * n_pages >= 2**31 or int(seq_len) >= 2**31:
+        raise ValueError("a size exceeds the kernel's int index")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"paged attention runs on cuda or cpu, not {device}")
+    return dict(device=device, n_kv=n_kv, g=g, d=d, n_pool=n_pool, ps=ps,
+                dtype=POOL_DTYPES[q.dtype], seq_len=int(seq_len))
+
+
+def _paged_launch(kernel: str, sz: dict, q, k_pool, v_pool, ids: tuple,
+                  n_pages: int):
+    device, n_kv, g, d = sz["device"], sz["n_kv"], sz["g"], sz["d"]
+    o = torch.empty((n_kv, g, d), dtype=torch.float32, device=device)
+    m = torch.empty((n_kv, g), dtype=torch.float32, device=device)
+    l = torch.empty((n_kv, g), dtype=torch.float32, device=device)
+    fn = build.launcher(kernel)
+    with torch.cuda.device(device):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 *(t.data_ptr() for t in ids), o.data_ptr(), m.data_ptr(),
+                 l.data_ptr(), n_pages, sz["n_pool"], sz["ps"], n_kv, g, d,
+                 sz["dtype"], sz["seq_len"], _stream(device))
+    _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
+    return o, m, l
+
+
+def paged_attention(q, k_pool, v_pool, page_map, seq_len):
+    """Ludo-paged flash decode for one sequence -> float32 (o, m, l).
+
+    ``q`` (n_kv, g, d) and the pools (P, ps, n_kv, d) are float32 or
+    bfloat16 alike; ``page_map`` (L,) int32 holds the physical page of each
+    logical page; ``seq_len`` is the number of valid tokens."""
+    n_pages = len(page_map)
+    sz = _check_paged(q, k_pool, v_pool, n_pages, seq_len)
+    _check_int32("page_map", page_map, (n_pages,), sz["device"])
+    if sz["device"].type == "cpu":
+        return ref.paged_attention_ref(q, k_pool, v_pool, page_map, seq_len)
+    return _paged_launch("paged_attention", sz, q, k_pool, v_pool,
+                         (page_map,), n_pages)
+
+
+def cuckoo_paged_attention(q, k_pool, v_pool, page_map2, select, seq_len):
+    """The two-fetch cuckoo baseline -> float32 (o, m, l).
+
+    ``page_map2`` (L, 2) int32 holds both candidate pages of each logical
+    page and ``select`` (L,) int32 which of them is the true one; the kernel
+    loads both and masks the other."""
+    n_pages = len(page_map2)
+    sz = _check_paged(q, k_pool, v_pool, n_pages, seq_len)
+    _check_int32("page_map2", page_map2, (n_pages, 2), sz["device"])
+    _check_int32("select", select, (n_pages,), sz["device"])
+    if sz["device"].type == "cpu":
+        pm = page_map2[torch.arange(n_pages), select.long()]
+        return ref.paged_attention_ref(q, k_pool, v_pool, pm, seq_len)
+    return _paged_launch("cuckoo_paged_attention", sz, q, k_pool, v_pool,
+                         (page_map2, select), n_pages)
+
+
+def flash_combine(o_parts, m_parts, l_parts):
+    """Combine flash partials of disjoint KV ranges (no kernel, as in the
+    reference)."""
+    return ref.combine_flash_partials(o_parts, m_parts, l_parts)
 
 
 def cn_meta_from(shard_or_cn) -> dict:

@@ -6,10 +6,13 @@ the CPU against ``repro.kernels.ref``.  ``repro_torch.kernels.ops`` calls
 these for tensors that lie on the CPU, and only for those.
 
 Lanes are int32 tensors holding uint32 bit patterns; the math runs in int64
-masked to 32 bits (``repro_torch.core.hashing``).
+masked to 32 bits (``repro_torch.core.hashing``).  The paged-attention
+functions keep ``repro.kernels.ref``'s layouts and compute in float32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,3 +40,46 @@ def slot_unpack_ref(s_lo, s_hi):
     f = slots.unpack(s_lo, s_hi)
     return (f["cache"].to(torch.int32), f["fp"].to(torch.int32),
             f["len"].to(torch.int32), i32(f["addr_lo"]))
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_map, seq_len):
+    """Flash-decode oracle over a paged KV pool (one sequence).
+
+    q:        (n_kv, group, d)     GQA query heads grouped per KV head
+    k_pool:   (P, ps, n_kv, d)     physical page pool
+    v_pool:   (P, ps, n_kv, d)
+    page_map: (L,) int32           logical page -> physical page
+    seq_len:  int                  valid tokens
+    Returns the float32 flash partials (o, m, l): ``(n_kv, g, d)``,
+    ``(n_kv, g)``, ``(n_kv, g)``.  On the card the products run in full
+    float32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False.
+    """
+    L = page_map.shape[0]
+    ps = k_pool.shape[1]
+    n_kv, g, d = q.shape
+    pm = page_map.long()
+    k = k_pool[pm].reshape(L * ps, n_kv, d).transpose(0, 1)  # (n_kv, S, d)
+    v = v_pool[pm].reshape(L * ps, n_kv, d).transpose(0, 1)
+    scores = torch.einsum("hgd,hsd->hgs", q.float(), k.float()) \
+        / math.sqrt(float(d))
+    pos = torch.arange(L * ps, device=q.device)
+    scores = torch.where(pos[None, None, :] < int(seq_len), scores,
+                         float("-inf"))
+    m = scores.max(dim=-1).values
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("hgs,hsd->hgd", p, v.float()) / l[..., None]
+    return o, m, l
+
+
+def combine_flash_partials(o_parts, m_parts, l_parts):
+    """Combine flash partials from independent KV ranges: re-weight each
+    normalised ``o`` by ``exp(m - m_max) * l`` and renormalise by the sum of
+    the weights."""
+    m_max = torch.stack(list(m_parts)).max(dim=0).values  # (n_kv, g)
+    num, den = 0.0, 0.0
+    for o, m, l in zip(o_parts, m_parts, l_parts):
+        w = torch.exp(m - m_max) * l
+        num = num + o * w[..., None]
+        den = den + w
+    return num / den[..., None]

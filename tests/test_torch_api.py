@@ -113,7 +113,7 @@ def test_ycsb_through_open_store_matches_reference(data, mix, window):
         assert _result_tuple(r.insert(int(k), 9)) == \
             _result_tuple(t.insert(int(k), 9))
     assert r.meter_totals().snapshot() == t.meter_totals().snapshot()
-    assert ops.LAUNCHES == {"ludo_lookup": 0, "slot_unpack": 0}
+    assert not any(ops.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("policy", [dict(window=256, order="relaxed"),

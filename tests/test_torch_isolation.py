@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.api import StoreSpec, open_store
+from repro_torch.cache import CuckooPageTable, LudoPageTable
 from repro_torch.core import outback
 from repro_torch.core.hashing import splitmix64
 from repro_torch.kernels import build
@@ -71,8 +72,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 
 def test_kernels_are_built_from_the_repo_sources_only():
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["ludo_lookup.cu", "slot_unpack.cu"]
-    assert set(build.SIGNATURES) == {"ludo_lookup", "slot_unpack"}
+    assert srcs == ["ludo_lookup.cu", "paged_attention.cu", "slot_unpack.cu"]
+    assert set(build.SIGNATURES) == {"ludo_lookup", "slot_unpack",
+                                     "paged_attention",
+                                     "cuckoo_paged_attention"}
+    assert build.LIBRARIES == [s[:-3] for s in srcs]
     assert build.BUILD_DIR == ROOT / "src" / "repro_torch" / "kernels" / "_build"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     gitignore = (ROOT / ".gitignore").read_text().split()
@@ -87,8 +91,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         open_store(StoreSpec("outback"), keys, keys)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         outback.OutbackShard(keys, keys)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LudoPageTable(64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CuckooPageTable(64)
     assert open_store(StoreSpec("outback"), keys, keys,
                       device="cpu").engine.device.type == "cpu"
+    assert LudoPageTable(64, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

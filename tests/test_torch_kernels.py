@@ -1,5 +1,13 @@
 """Port kernels' plain versions and wrappers vs the reference's Pallas kernels.
 
+The paged-attention plain version and its CPU wrappers are held against
+``repro``'s ``paged_attention_kernel`` and ``cuckoo_paged_attention_kernel``
+in interpret mode at the shapes of ``tests/test_kernels.py`` (ragged
+``seq_len`` and bf16 included), to 1e-5 relative and absolute: both sides
+compute in float32 from identical values (bf16 inputs are made in float32
+with numpy and rounded to nearest even by both frameworks), and only the
+order of the sums differs.
+
 On the CPU the wrappers in ``repro_torch.kernels.ops`` take the plain
 PyTorch versions; both are held bit for bit against ``repro``'s Pallas
 kernels run in interpret mode (through ``repro.kernels.ops`` with
@@ -10,6 +18,7 @@ the same plain versions on the card by ``test_kernels_on_card`` and by
 ``chip_smoke.py``.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,6 +27,9 @@ from repro.core.hashing import split_u64, splitmix64
 from repro.core.outback import OutbackShard
 from repro.core.store import make_uniform_keys
 from repro.kernels import ops as r_ops
+from repro.kernels import ref as r_ref
+from repro.kernels.paged_attention import (cuckoo_paged_attention_kernel,
+                                           paged_attention_kernel)
 from repro_torch.core import outback as t_outback
 from repro_torch.core.hashing import lanes, to_u32_numpy
 from repro_torch.kernels import ops, ref
@@ -67,7 +79,7 @@ def test_ludo_lookup_vs_pallas_and_locate(shards, batch):
         np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
         np.testing.assert_array_equal(b.numpy(), hb.astype(np.int32))
         np.testing.assert_array_equal(s.numpy(), hs.astype(np.int32))
-    assert ops.LAUNCHES == {"ludo_lookup": 0, "slot_unpack": 0}
+    assert not any(ops.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("batch", BATCHES)
@@ -85,7 +97,7 @@ def test_slot_unpack_vs_pallas(batch):
         for g, w in zip(got[:3], want[:3]):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         np.testing.assert_array_equal(to_u32_numpy(got[3]), np.asarray(want[3]))
-    assert ops.LAUNCHES == {"ludo_lookup": 0, "slot_unpack": 0}
+    assert not any(ops.LAUNCHES.values())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(shards):
@@ -138,3 +150,151 @@ def test_kernels_on_card(shards):
         got = ops.slot_unpack(lo, hi)
         want = ref.slot_unpack_ref(lo, hi)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# --------------------------------------------------------- paged attention
+PAGED_SHAPES = [  # n_kv, g, d, ps, L, seq_len, dtype (tests/test_kernels.py)
+    (2, 4, 64, 16, 4, 64, "float32"),
+    (2, 4, 64, 16, 4, 49, "float32"),  # ragged last page
+    (4, 2, 128, 32, 8, 250, "float32"),
+    (1, 8, 64, 16, 2, 32, "bfloat16"),
+]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _paged_inputs(seed, n_kv, g, d, ps, L, dtype, pool=None):
+    """The same inputs for both packages: numpy float32, rounded to bf16 by
+    each framework where asked."""
+    rng = np.random.default_rng(seed)
+    pool = 3 * L if pool is None else pool
+    q = rng.standard_normal((n_kv, g, d)).astype(np.float32)
+    k = rng.standard_normal((pool, ps, n_kv, d)).astype(np.float32)
+    v = rng.standard_normal((pool, ps, n_kv, d)).astype(np.float32)
+    pm = rng.choice(pool, L, replace=False).astype(np.int32)
+    decoy = rng.choice(pool, L, replace=False).astype(np.int32)
+    sel = rng.integers(0, 2, L).astype(np.int32)
+    sel[0] = 1  # step 0 is the unselected candidate
+    pm2 = np.where(sel[:, None] == 0, np.stack([pm, decoy], 1),
+                   np.stack([decoy, pm], 1)).astype(np.int32)
+    jx = tuple(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
+    tx = tuple(torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in (q, k, v))
+    return jx, tx, pm, pm2, sel
+
+
+def _close(got, want):
+    for g_, w in zip(got, want):
+        assert g_.dtype == torch.float32
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w), **TOL)
+
+
+def test_bf16_inputs_round_alike():
+    (jq, jk, _), (tq, tk, _), *_ = _paged_inputs(0, 1, 8, 64, 16, 2,
+                                                 "bfloat16")
+    for j, t in ((jq, tq), (jk, tk)):
+        np.testing.assert_array_equal(np.asarray(j.astype(jnp.float32)),
+                                      t.float().numpy())
+
+
+@pytest.mark.parametrize("n_kv,g,d,ps,L,seq_len,dtype", PAGED_SHAPES)
+def test_paged_attention_vs_pallas(n_kv, g, d, ps, L, seq_len, dtype):
+    (jq, jk, jv), (tq, tk, tv), pm, _, _ = _paged_inputs(1, n_kv, g, d, ps,
+                                                         L, dtype)
+    ops.reset_launch_counts()
+    want = paged_attention_kernel(jq, jk, jv, jnp.asarray(pm),
+                                  jnp.asarray([seq_len], jnp.int32),
+                                  interpret=True)
+    tpm = torch.from_numpy(pm)
+    _close(ref.paged_attention_ref(tq, tk, tv, tpm, seq_len), want)
+    _close(ops.paged_attention(tq, tk, tv, tpm, seq_len), want)
+    _close(ref.paged_attention_ref(tq, tk, tv, tpm, seq_len),
+           r_ref.paged_attention_ref(jq, jk, jv, jnp.asarray(pm),
+                                     jnp.int32(seq_len)))
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n_kv,g,d,ps,L,seq_len,dtype", PAGED_SHAPES)
+def test_cuckoo_paged_attention_vs_pallas(n_kv, g, d, ps, L, seq_len, dtype):
+    """Both candidates of every page stream in; step 0 is the unselected
+    one, so the finite sentinel's wash-out is exercised."""
+    (jq, jk, jv), (tq, tk, tv), _, pm2, sel = _paged_inputs(
+        2, n_kv, g, d, ps, L, dtype)
+    ops.reset_launch_counts()
+    want = cuckoo_paged_attention_kernel(
+        jq, jk, jv, jnp.asarray(pm2), jnp.asarray(sel),
+        jnp.asarray([seq_len], jnp.int32), interpret=True)
+    got = ops.cuckoo_paged_attention(tq, tk, tv, torch.from_numpy(pm2),
+                                     torch.from_numpy(sel), seq_len)
+    _close(got, want)
+    # and the same as the Ludo kernel over the selected pages
+    true_pm = pm2[np.arange(L), sel]
+    _close(got, paged_attention_kernel(jq, jk, jv, jnp.asarray(true_pm),
+                                       jnp.asarray([seq_len], jnp.int32),
+                                       interpret=True))
+    assert not any(ops.LAUNCHES.values())
+
+
+def test_flash_combine_vs_reference():
+    """Partials over two page ranges combine to full attention, as in the
+    reference."""
+    n_kv, g, d, ps, L, seq = 2, 4, 64, 16, 8, 128
+    (jq, jk, jv), (tq, tk, tv), pm, _, _ = _paged_inputs(3, n_kv, g, d, ps,
+                                                         L, "float32")
+    tpm, jpm = torch.from_numpy(pm), jnp.asarray(pm)
+    t_parts = [ops.paged_attention(tq, tk, tv, tpm[sl].contiguous(), 64)
+               for sl in (slice(0, 4), slice(4, 8))]
+    j_parts = [r_ref.paged_attention_ref(jq, jk, jv, jpm[sl], jnp.int32(64))
+               for sl in (slice(0, 4), slice(4, 8))]
+    got = ops.flash_combine(*zip(*t_parts))
+    want = r_ref.combine_flash_partials(*(list(x) for x in zip(*j_parts)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    full = ref.paged_attention_ref(tq, tk, tv, tpm, seq)[0]
+    np.testing.assert_allclose(got.numpy(), full.numpy(), **TOL)
+
+
+def test_paged_wrappers_reject_what_the_kernels_do_not_take():
+    _, (q, k, v), pm, pm2, sel = _paged_inputs(4, 2, 4, 64, 16, 4, "float32")
+    pm, pm2, sel = (torch.from_numpy(a) for a in (pm, pm2, sel))
+    with pytest.raises(TypeError):
+        ops.paged_attention(q.double(), k.double(), v.double(), pm, 64)
+    with pytest.raises(TypeError):
+        ops.paged_attention(q, k.bfloat16(), v, pm, 64)
+    with pytest.raises(TypeError):
+        ops.paged_attention(q, k, v, pm.long(), 64)
+    with pytest.raises(ValueError):  # d = 32 is not built
+        ops.paged_attention(q[..., :32].contiguous(),
+                            k[..., :32].contiguous(),
+                            v[..., :32].contiguous(), pm, 64)
+    with pytest.raises(ValueError):
+        ops.paged_attention(q, k[:, :, :1].contiguous(), v, pm, 64)
+    with pytest.raises(ValueError):
+        ops.paged_attention(q, k, v, pm[::2], 64)
+    with pytest.raises(ValueError):
+        ops.paged_attention(q, k, v, pm[:0], 64)
+    with pytest.raises(ValueError):
+        ops.paged_attention(q, k, v, pm, 0)
+    with pytest.raises(ValueError):
+        ops.cuckoo_paged_attention(q, k, v, pm2, sel[:3], 64)
+    with pytest.raises(ValueError):
+        ops.cuckoo_paged_attention(q, k, v, pm2.t(), sel, 64)
+    with pytest.raises(ValueError):
+        ops.paged_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+                            pm.to("meta"), 64)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_on_card():
+    """The paged CUDA kernels against their plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
+    for n_kv, g, d, ps, L, seq_len, dtype in PAGED_SHAPES:
+        _, (q, k, v), pm, pm2, sel = _paged_inputs(5, n_kv, g, d, ps, L,
+                                                   dtype)
+        q, k, v = q.cuda(), k.cuda(), v.cuda()
+        pm, pm2, sel = (torch.from_numpy(a).cuda() for a in (pm, pm2, sel))
+        want = ref.paged_attention_ref(q, k, v, pm, seq_len)
+        for got in (ops.paged_attention(q, k, v, pm, seq_len),
+                    ops.cuckoo_paged_attention(q, k, v, pm2, sel, seq_len)):
+            for g_, w in zip(got, want):
+                torch.testing.assert_close(g_, w, **TOL)

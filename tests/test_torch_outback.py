@@ -371,4 +371,4 @@ def test_cpu_shard_launches_no_kernel():
     t = TShard(keys, splitmix64(keys), device="cpu")
     t.get_batch(keys, resolve_makeup=True)
     t.update_batch(keys[:10], keys[:10])
-    assert ops.LAUNCHES == {"ludo_lookup": 0, "slot_unpack": 0}
+    assert not any(ops.LAUNCHES.values())
