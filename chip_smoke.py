@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # 2^24 keys, then the paged path; one card
+    python3 chip_smoke.py   # 2^24 keys, the paged path, llama3.2-1b; one card
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit (``nvidia-smi``), build the three
+1. print the card's name and power limit (``nvidia-smi``), build the four
    CUDA libraries of ``src/repro_torch/kernels/csrc`` (``ludo_lookup``,
-   ``slot_unpack``, and ``paged_attention`` with both paged kernels) with
-   one ``nvcc`` each, all at once, for sm_90a;
+   ``slot_unpack``, ``paged_attention`` with both paged kernels, and
+   ``fused_norm_matmul``) with one ``nvcc`` each, all at once, for sm_90a;
 2. hold each index kernel bit for bit against its plain PyTorch version on
    the card (``ludo_lookup`` over a real shard's CN arrays, ``slot_unpack``
    over 2^22 random slot words with all-ones words among them; batch sizes
@@ -37,10 +37,28 @@ Phases; any failure exits non-zero:
    against the allocator, the cuckoo output against a dense oracle over the
    true pages, the Ludo output against the cuckoo one wherever its map
    matched whole; then 4 sequences released.  The launch counters are
-   zeroed just before this phase and read just after, and each kernel must
-   have launched at least once a decode step.
+   zeroed just before this phase and read just after, and each of the four
+   index and paged kernels must have launched at least once a decode step;
+6. hold ``fused_norm_matmul`` against its plain version on the card at the
+   shapes of ``tests/test_kernels.py``, a ragged shape (S=7, d=2048,
+   F=1000), llama3.2-1b's serve entries (S=8, d=2048, F=2048, 512, 8192,
+   bf16) and a prefill shape (S=256, F=8192), with TF32 off and the tests'
+   tolerances; time the last four with CUDA events and ``torch.profiler``
+   beside the bound, the plain version and an ``F.rms_norm`` +
+   ``torch.matmul`` yardstick, each launch on weights outside L2;
+7. serve llama3.2-1b at full width: ``Engine(LM(llama3.2-1b), lanes=8,
+   max_seq=256)`` with random bf16 weights drawn on the card from the seed
+   takes 16 requests (16-64 prompt tokens, 32 greedy new tokens) and runs
+   them to the end.  Every request must finish with in-range tokens,
+   ``prefill_tokens`` must be the sum of the prompt lengths, and
+   ``fused_norm_matmul`` must have launched exactly 5 x 16 times a
+   ``decode_step`` call (counters zeroed just before, read just after).
+   Then 16 decode steps under ``torch.profiler`` (device busy share, the
+   fused kernel's share of device time), and the float32 twin: the same
+   weights as float32 on the card and on the CPU, 4 teacher-forced steps of
+   the 8 lanes, logits within 1e-3 and the same argmax on every lane.
 
-The line before the last is the kernels' JSON record (all four kernels);
+The line before the last is the kernels' JSON record (all five kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits 1 and prints no result.
 """
@@ -115,6 +133,45 @@ PAGED_TEST_SHAPES = [(2, 4, 64, 16, 4, 64, "float32"),
 # the same values and differ only in the order of their sums.
 PAGED_TOL = 1e-5
 
+# Phase 6: fused_norm_matmul (S, d, F, dtype), checked against its plain
+# version: the shapes of tests/test_kernels.py, a ragged one, the serve
+# entries of llama3.2-1b (S = 8 lanes, d = 2048: F = 2048 for q, 512 for k
+# and v, 8192 for the SwiGLU gate and up) and a prefill shape; the last four
+# are timed.  Tolerances (rtol and atol) of tests/test_kernels.py:138.
+FNM_TIMED_SHAPES = [(8, 2048, 2048, "bfloat16"), (8, 2048, 512, "bfloat16"),
+                    (8, 2048, 8192, "bfloat16"), (256, 2048, 8192, "bfloat16")]
+FNM_CHECK_SHAPES = [(256, 512, 1024, "float32"), (512, 256, 512, "float32"),
+                    (128, 1024, 512, "bfloat16"), (7, 2048, 1000, "float32"),
+                    (7, 2048, 1000, "bfloat16"), *FNM_TIMED_SHAPES]
+FNM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# H100 SXM dense bf16 tensor-core peak (data sheet), the operation bound of
+# a bf16 product; a float32 product is held to F32_FLOPS_PER_S, since the
+# tensor cores' TF32 is another type.
+BF16_TC_FLOPS_PER_S = 989e12
+# timed launches cycle over weight sets of at least this many bytes in all,
+# twice the 50 MB L2, so each launch finds its weights in HBM
+COLD_BYTES = 100 << 20
+
+# Phase 7: Engine(LM(llama3.2-1b)) at full width (src/repro_torch/configs/
+# llama3_2_1b.py: 16 layers, d_model 2048, 32 query heads over 8 KV heads of
+# 64, d_ff 8192, vocab 128256, tied embeddings), random bf16 weights from
+# SEED; 16 requests of 16-64 prompt tokens and 32 greedy new tokens
+# through 8 lanes of 256 positions.
+LANES, MAX_SEQ = 8, 256
+N_REQUESTS, MAX_NEW = 16, 32
+PROMPT_MIN, PROMPT_MAX = 16, 64
+D_MODEL = 2048
+# the fused entries of one layer: wq, wk, wv, w_gate, w_up
+LAYER_ENTRY_FS = (2048, 512, 512, 8192, 8192)
+ENTRIES_PER_LAYER = len(LAYER_ENTRY_FS)
+PROFILED_STEPS = 16
+# The float32 twin: card against CPU, 4 teacher-forced steps.  Both sides
+# compute in float32 (TF32 off) and differ in the order of their sums over
+# d = 2048 and d_ff = 8192 through 16 layers: about 1e-5 on logits of order
+# 1; the tolerance leaves 100x room.
+TWIN_STEPS = 4
+TWIN_TOL = 1e-3
+
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -161,6 +218,20 @@ def device_ms(fn, iters: int, kernel: str):
                 total = getattr(ev, "cuda_time_total", 0)
             return total / ev.count / 1e3 if total else None
     return None
+
+
+def device_busy_us(prof) -> tuple:
+    """The union of the device intervals of a ``torch.profiler`` trace, in
+    us, and the number of device operations in it."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
 
 
 def cycling(fn, sets):
@@ -405,7 +476,6 @@ def serve(store, keys, vals, rng, n_get: int, n_a: int, n_write: int):
     def ycsb_c_profiled():
         """32 more windows of the same Gets under torch.profiler: the
         device's busy share of the host wall time."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         idx = idx_c[:32 * WINDOW]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -413,16 +483,9 @@ def serve(store, keys, vals, rng, n_get: int, n_a: int, n_write: int):
             get_windows(idx)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy, end = 0.0, float("-inf")
-        for a, b in spans:  # union of the device intervals
-            if b > end:
-                busy += b - max(a, end)
-                end = b
+        busy, spans = device_busy_us(prof)
         return dict(device_busy_share=busy / wall_us if spans else None,
-                    device_ops_per_window=len(spans) / 32)
+                    device_ops_per_window=spans / 32)
 
     phase("ycsb_c_profiled", ycsb_c_profiled)
 
@@ -783,6 +846,287 @@ def paged_timings(k_pool, v_pool, gen, lt, ct, pages, lens) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 6
+def fnm_bound(S: int, d: int, F: int, dtype) -> tuple:
+    """The least time of one fused norm -> matmul: x, gamma, w read once
+    and the output written once over the HBM rate, against 2*S*d*F flops
+    over the peak rate of the type."""
+    import torch
+    elt = 2 if dtype == torch.bfloat16 else 4
+    by_bytes = (S * d + d + d * F + S * F) * elt / HBM_BYTES_PER_S * 1e3
+    peak = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    by_ops = 2 * S * d * F / peak * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
+        else "operations"
+
+
+def fnm_inputs(gen, S: int, d: int, F: int, dtype, n_sets: int = 1):
+    """``n_sets`` tuples (x, gamma, w) drawn on the card, as the tests draw
+    them (w scaled by 1/sqrt(d)), in ``dtype``."""
+    import torch
+    sets = []
+    for _ in range(n_sets):
+        x = torch.randn((S, d), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((d,), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((d, F), generator=gen, device="cuda")
+             / d ** 0.5).to(dtype)
+        sets.append((x, g, w))
+    return sets
+
+
+def fnm_library(x, gamma, w):
+    """The library yardstick, which the port never calls: PyTorch's
+    ``rms_norm``, then ``matmul``."""
+    import torch
+    import torch.nn.functional as F
+    return torch.matmul(F.rms_norm(x, (x.shape[1],), gamma, 1e-6), w)
+
+
+def check_fused_norm_matmul(gen) -> dict:
+    """The kernel against its plain version on the card at the test, ragged,
+    serve and prefill shapes, then timed at the serve and prefill shapes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    shapes = []
+    err = 0.0
+    for S, d, F, dt in FNM_CHECK_SHAPES:
+        dtype = getattr(torch, dt)
+        x, g, w = fnm_inputs(gen, S, d, F, dtype)[0]
+        got = ops.fused_norm_matmul(x, g, w)
+        want = ref.fused_norm_matmul_ref(x, g, w)
+        torch.cuda.synchronize()
+        tol = FNM_TOL[dt]
+        e = float((got.float() - want.float()).abs().max())
+        check(got.dtype == dtype and got.shape == (S, F)
+              and torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+              f"fused_norm_matmul differs from its plain version beyond "
+              f"{tol} at S={S}, d={d}, F={F}, {dt} (max abs err {e})")
+        err = max(err, e)
+        shapes.append(dict(S=S, d=d, F=F, dtype=dt, max_abs_err=e,
+                           tolerance=tol))
+    log(f"kernel fused_norm_matmul: within tolerance of its plain version at "
+        f"{len(shapes)} shapes (max abs err {err})")
+    timed = {}
+    for S, d, F, dt in FNM_TIMED_SHAPES:
+        dtype = getattr(torch, dt)
+        # enough distinct weight sets that each launch finds its w outside
+        # the 50 MB L2, as a layer's weights are on the model path
+        w_bytes = d * F * (2 if dtype == torch.bfloat16 else 4)
+        sets = fnm_inputs(gen, S, d, F, dtype,
+                          max(2, -(-COLD_BYTES // w_bytes)))
+        iters = 200
+        bound, by = fnm_bound(S, d, F, dtype)
+        kern = cycling(ops.fused_norm_matmul, sets)
+        row = dict(S=S, d=d, F=F, dtype=dt, weight_sets=len(sets),
+                   ms=time_ms(kern, iters),
+                   device_ms=device_ms(kern, 20, "fused_norm_matmul_kernel"),
+                   plain_ms=time_ms(cycling(ref.fused_norm_matmul_ref, sets),
+                                    iters),
+                   library_ms=time_ms(cycling(fnm_library, sets), iters),
+                   bound_ms=bound, bound_by=by)
+        timed[(S, d, F, dt)] = row
+        log(f"fused_norm_matmul S={S} d={d} F={F} {dt}: {row['ms']:.6f} ms "
+            f"(device {row['device_ms']}), plain {row['plain_ms']:.6f} ms, "
+            f"rms_norm + matmul {row['library_ms']:.6f} ms, bound "
+            f"{bound:.6f} ms ({by})")
+        del sets
+    # the record's numbers: one layer's five entries of a decode step
+    layer = [(LANES, D_MODEL, f, "bfloat16") for f in LAYER_ENTRY_FS]
+    total = {k: sum(timed[sh][k] for sh in layer)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    dev = [timed[sh]["device_ms"] for sh in layer]
+    return dict(
+        name="fused_norm_matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_norm_matmul.cu",
+        replaces="src/repro/kernels/fused_norm_matmul.py:33",
+        max_abs_err=err,
+        work=f"one layer's five decode entries (wq, wk, wv, w_gate, w_up) "
+             f"at S={LANES}, d={D_MODEL}, bf16: F={list(LAYER_ENTRY_FS)}",
+        device_ms=None if None in dev else sum(dev),
+        bound_by="bytes" if all(timed[sh]["bound_by"] == "bytes"
+                                for sh in layer) else "operations",
+        library_call="F.rms_norm + torch.matmul (two calls)",
+        **total, check_shapes=shapes, timed_shapes=list(timed.values()))
+
+
+# ------------------------------------------------------------ phase 7
+def serve_model(gen_seed: int) -> dict:
+    """The dense-model serving path: ``Engine(LM(llama3.2-1b))`` at full
+    width on the card with bf16 weights from the seed, 16 requests through
+    8 lanes.  Returns the phase's numbers and the model, for the checks
+    that follow the counted run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import count_params
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import Engine, Request
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    params = model.init(gen_seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    check(model.device.type == "cuda"
+          and params["embed"].is_cuda and params["embed"].dtype
+          == torch.bfloat16, "the model is not on the card in bf16")
+    log(f"model: {cfg.name}, {n_params} parameters "
+        f"({2 * n_params} B in bf16), drawn on the card in {init_s:.3f} s")
+    eng = Engine(model, params, lanes=LANES, max_seq=MAX_SEQ)
+    rng = np.random.default_rng(gen_seed)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1)))],
+        max_new=MAX_NEW) for i in range(N_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+
+    # every decode_step call is synced and timed; a call made from the
+    # lane-by-lane prefill is told apart from the batched decode steps
+    step, lane_token = eng._step, eng._decode_lane_token
+    in_prefill, times = [False], {"prefill": [], "decode": []}
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a)
+        torch.cuda.synchronize()
+        times["prefill" if in_prefill[0] else "decode"].append(
+            time.perf_counter() - t0)
+        return out
+
+    def prefill_token(lane, tok):
+        in_prefill[0] = True
+        try:
+            lane_token(lane, tok)
+        finally:
+            in_prefill[0] = False
+
+    eng._step, eng._decode_lane_token = timed_step, prefill_token
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n_calls = len(times["prefill"]) + len(times["decode"])
+    st = eng.stats
+    check(st.finished == N_REQUESTS and all(r.done for r in reqs),
+          "a request did not finish")
+    check(all(len(r.out) == MAX_NEW for r in reqs),
+          "a request stopped before max_new")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+          "a generated token is out of range")
+    check(st.prefill_tokens == sum(len(r.prompt) for r in reqs),
+          "prefill_tokens is not the sum of the prompt lengths")
+    check(st.decode_steps == len(times["decode"]),
+          "decode steps and timed batched steps differ")
+    check(launches["fused_norm_matmul"]
+          == ENTRIES_PER_LAYER * cfg.num_layers * n_calls,
+          f"fused_norm_matmul launched {launches['fused_norm_matmul']} times "
+          f"in {n_calls} decode_step calls, not "
+          f"{ENTRIES_PER_LAYER * cfg.num_layers} a call")
+    dec = np.asarray(times["decode"]) * 1e3
+    pre = np.asarray(times["prefill"]) * 1e3
+    generated = sum(len(r.out) for r in reqs)
+    res = dict(
+        model=cfg.name, params=n_params, lanes=LANES, max_seq=MAX_SEQ,
+        requests=N_REQUESTS, prompt_tokens=st.prefill_tokens,
+        generated_tokens=generated, decode_steps=st.decode_steps,
+        decode_step_calls=n_calls, run_s=run_s,
+        generated_tokens_per_s=generated / run_s,
+        decode_step_p50_ms=float(np.percentile(dec, 50)),
+        decode_step_p99_ms=float(np.percentile(dec, 99)),
+        prefill_token_step_p50_ms=float(np.percentile(pre, 50)),
+        launches=launches)
+    log(f"served {N_REQUESTS} requests ({st.prefill_tokens} prompt tokens, "
+        f"{generated} generated) in {run_s:.3f} s: {st.decode_steps} batched "
+        f"decode steps p50 {res['decode_step_p50_ms']:.4f} ms, p99 "
+        f"{res['decode_step_p99_ms']:.4f} ms; prefill-token steps p50 "
+        f"{res['prefill_token_step_p50_ms']:.4f} ms; "
+        f"{res['generated_tokens_per_s']:.2f} generated tokens/s; launches "
+        f"{launches}")
+    return res, model, params, eng
+
+
+def profile_decode(model, params, cache) -> dict:
+    """16 batched decode steps as the engine runs them (step, greedy
+    sample, pull to the host) under ``torch.profiler``: the device busy
+    share of the host wall time and the fused kernel's share of device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.ones((LANES, 1), dtype=torch.int32, device="cuda")
+    model.decode_step(params, tokens, cache)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            logits, cache = model.decode_step(params, tokens, cache)
+            tokens = torch.argmax(logits, -1).int()[:, None]
+            tokens.tolist()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_ops = device_busy_us(prof)
+    fused = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and "fused_norm_matmul_kernel" in e.name)
+    res = dict(profiled_steps=PROFILED_STEPS,
+               profiled_step_ms=wall_us / PROFILED_STEPS / 1e3,
+               device_busy_share=busy / wall_us if n_ops else None,
+               fused_share_of_device_time=fused / busy if busy else None,
+               device_ops_per_step=n_ops / PROFILED_STEPS)
+    log(f"profiled decode ({PROFILED_STEPS} steps): "
+        f"{res['profiled_step_ms']:.4f} ms a step, device busy share "
+        f"{res['device_busy_share']}, fused_norm_matmul "
+        f"{res['fused_share_of_device_time']} of device time, "
+        f"{res['device_ops_per_step']:.1f} device ops a step")
+    return res
+
+
+def float32_twin(params, gen_seed: int) -> dict:
+    """The same weights as float32 on the card and on the CPU (plain
+    versions): 4 teacher-forced decode steps of the 8 lanes; logits within
+    TWIN_TOL absolute and the same argmax on every lane."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = LM(cfg, device=device)
+        p32 = tree_map(lambda t: t.to(device=device, dtype=torch.float32),
+                       params)
+        cache = model.init_cache(LANES, TWIN_STEPS + 1)
+        rng = np.random.default_rng(gen_seed + 1)
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(TWIN_STEPS):
+            tok = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (LANES, 1)).astype(np.int32)).to(device)
+            logits, cache = model.decode_step(p32, tok, cache)
+            out.append(logits.cpu())
+        runs[device] = (torch.stack(out), time.perf_counter() - t0)
+        del p32, cache
+    (gpu, gpu_s), (cpu, cpu_s) = runs["cuda"], runs["cpu"]
+    err = float((gpu - cpu).abs().max())
+    same = bool(torch.equal(gpu.argmax(-1), cpu.argmax(-1)))
+    check(torch.isfinite(gpu).all() and err <= TWIN_TOL,
+          f"float32 twin: card and CPU logits differ by {err} > {TWIN_TOL}")
+    check(same, "float32 twin: the argmax differs between card and CPU")
+    log(f"float32 twin: {TWIN_STEPS} teacher-forced steps of {LANES} lanes, "
+        f"card vs CPU max abs logit err {err} (tolerance {TWIN_TOL}, logits "
+        f"up to {float(cpu.abs().max()):.4f}), same argmax on every lane; "
+        f"card {gpu_s:.3f} s, CPU {cpu_s:.3f} s")
+    return dict(twin_steps=TWIN_STEPS, twin_max_abs_err=err,
+                twin_tolerance=TWIN_TOL, twin_same_argmax=same)
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -889,7 +1233,8 @@ def main() -> int:
     paged_s = time.perf_counter() - t0
     plaunch = dict(ops.LAUNCHES)
     log(f"launches on the paged decode path: {plaunch} ({paged_s:.3f} s)")
-    for name in ops.LAUNCHES:
+    for name in ("ludo_lookup", "slot_unpack", "paged_attention",
+                 "cuckoo_paged_attention"):
         check(plaunch[name] >= pres["steps"] > 0,
               f"paged decode: fewer {name} launches than decode steps")
     for name, k in paged.items():
@@ -902,6 +1247,27 @@ def main() -> int:
     log(f"paged phase max_memory_allocated: "
         f"{torch.cuda.max_memory_allocated()} B (pools "
         f"{2 * k_pool.numel() * k_pool.element_size()} B)")
+    del k_pool, v_pool, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: fused_norm_matmul against its plain version ----
+    kernels["fused_norm_matmul"] = check_fused_norm_matmul(gen)
+
+    # ---- phase 7: the dense-model serving path ----
+    torch.cuda.reset_peak_memory_stats()
+    mres, model, params, eng = serve_model(SEED)
+    mres["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    for name, k in kernels.items():
+        k["launches" if name == "fused_norm_matmul"
+          else "launches_model_path"] = mres["launches"][name]
+    check(kernels["fused_norm_matmul"]["launches"] > 0,
+          "fused_norm_matmul never launched on the model path")
+    log(f"model phase max_memory_allocated: {mres['max_memory_allocated']} B")
+    mres.update(profile_decode(model, params, eng.cache))
+    del eng
+    mres.update(float32_twin(params, SEED))
+    log(f"model path: {json.dumps(mres)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
 _PAGED = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # Each kernel's launch function: kernel -> (library, C symbol, argtypes).
 # A library is built from ``csrc/<library>.cu``.
@@ -41,6 +42,8 @@ SIGNATURES = {
     "cuckoo_paged_attention": ("paged_attention",
                                "cuckoo_paged_attention_launch",
                                [_P, _P, _P, _P, _P, *_PAGED[4:]]),
+    "fused_norm_matmul": ("fused_norm_matmul", "fused_norm_matmul_launch",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

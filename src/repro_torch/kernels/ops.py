@@ -7,12 +7,13 @@ the tests run the same path on a machine without a card.
 
 The index wrappers take int32 tensors holding uint32 bit patterns; the
 paged-attention wrappers take float32 or bfloat16 queries and pools and
-int32 page ids.  Every wrapper checks device, dtype, shape, contiguity and
-the bounds its kernel relies on, and raises on anything the kernel does not
-take.  The kernel masks its own
-ragged edge, so no padding is needed.  It launches on the current stream
-and raises if ``cudaGetLastError()`` is not 0.  :data:`LAUNCHES` counts the
-launches of each kernel, and nothing else adds to it.
+int32 page ids; ``fused_norm_matmul`` takes float32 or bfloat16 matrices.
+Every wrapper checks device, dtype, shape, contiguity and the bounds its
+kernel relies on, and raises on anything the kernel does not take.  The
+kernel masks its own ragged edge, so no padding is needed.  It launches
+on the current stream and raises if ``cudaGetLastError()`` is not 0.
+:data:`LAUNCHES` counts the launches of each kernel, and nothing else adds
+to it.
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"ludo_lookup": 0, "slot_unpack": 0, "paged_attention": 0,
-            "cuckoo_paged_attention": 0}
-# the pool types and head widths the paged-attention kernels are built for
+            "cuckoo_paged_attention": 0, "fused_norm_matmul": 0}
+# the float types the paged-attention and fused-norm kernels are built for
 POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+NORM_EPS = 1e-6  # the RMSNorm epsilon of the models and of the kernel
 
 
 def reset_launch_counts() -> None:
@@ -229,6 +231,50 @@ def cuckoo_paged_attention(q, k_pool, v_pool, page_map2, select, seq_len):
         return ref.paged_attention_ref(q, k_pool, v_pool, pm, seq_len)
     return _paged_launch("cuckoo_paged_attention", sz, q, k_pool, v_pool,
                          (page_map2, select), n_pages)
+
+
+def fused_norm_matmul(x, gamma, w):
+    """``RMSNorm(x; eps=1e-6) * gamma @ w`` -> (S, F) in the dtype of ``x``.
+
+    ``x`` (S, d), ``gamma`` (d,) and ``w`` (d, F) are contiguous tensors of
+    one dtype (float32 or bfloat16) on one device; the norm and the product
+    accumulate in float32."""
+    for name, t, dim in (("x", x, 2), ("gamma", gamma, 1), ("w", w, 2)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dim}-D tensor, got "
+                             f"shape {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+    if x.dtype not in POOL_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("gamma", gamma), ("w", w)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} must be {x.dtype} like x, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+    (S, d), F = x.shape, w.shape[1]
+    if d < 1 or gamma.shape[0] != d or w.shape[0] != d:
+        raise ValueError(f"d differs: x {tuple(x.shape)}, gamma "
+                         f"{tuple(gamma.shape)}, w {tuple(w.shape)}")
+    if max(S * d, d * F, S * F) >= 2**31 or S > 65535 * 32:
+        raise ValueError("a size exceeds the kernel's int index or grid")
+    device = x.device
+    if device.type == "cpu":
+        return ref.fused_norm_matmul_ref(x, gamma, w, eps=NORM_EPS)
+    if device.type != "cuda":
+        raise ValueError(f"fused_norm_matmul runs on cuda or cpu, not {device}")
+    out = torch.empty((S, F), dtype=x.dtype, device=device)
+    if S and F:
+        fn = build.launcher("fused_norm_matmul")
+        with torch.cuda.device(device):
+            err = fn(x.data_ptr(), gamma.data_ptr(), w.data_ptr(),
+                     out.data_ptr(), S, d, F, POOL_DTYPES[x.dtype], NORM_EPS,
+                     _stream(device))
+        _raise_on(err, "fused_norm_matmul")
+        LAUNCHES["fused_norm_matmul"] += 1
+    return out
 
 
 def flash_combine(o_parts, m_parts, l_parts):

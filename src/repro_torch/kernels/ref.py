@@ -7,7 +7,8 @@ these for tensors that lie on the CPU, and only for those.
 
 Lanes are int32 tensors holding uint32 bit patterns; the math runs in int64
 masked to 32 bits (``repro_torch.core.hashing``).  The paged-attention
-functions keep ``repro.kernels.ref``'s layouts and compute in float32.
+functions and ``fused_norm_matmul_ref`` keep ``repro.kernels.ref``'s
+layouts and compute in float32.
 """
 
 from __future__ import annotations
@@ -83,3 +84,13 @@ def combine_flash_partials(o_parts, m_parts, l_parts):
         num = num + o * w[..., None]
         den = den + w
     return num / den[..., None]
+
+
+def fused_norm_matmul_ref(x, gamma, w, eps: float = 1e-6):
+    """``RMSNorm(x) * gamma @ w``, the dense-arch QKV/MLP entry: x (S, d),
+    gamma (d,), w (d, F).  The norm and the product run in float32 and the
+    result has the dtype of ``x``; on the card the product is full float32
+    only while ``torch.backends.cuda.matmul.allow_tf32`` is False."""
+    xf = x.float()
+    nrm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return ((nrm * gamma.float()) @ w.float()).to(x.dtype)

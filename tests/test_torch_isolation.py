@@ -3,7 +3,8 @@
 * an AST scan of every module under ``src/repro_torch/`` and of
   ``chip_smoke.py`` finds no import of ``jax`` or of ``repro``;
 * a fresh interpreter that imports ``repro_torch.api`` (and builds a store
-  on the CPU) has neither ``jax`` nor ``repro`` in ``sys.modules``;
+  on the CPU), or ``repro_torch.serve`` (and serves a request on the CPU),
+  has neither ``jax`` nor ``repro`` in ``sys.modules``;
 * without a card, the entry points raise unless the caller passes
   ``device="cpu"``, and ``chip_smoke.py`` exits non-zero with no result.
 """
@@ -21,9 +22,12 @@ import torch
 
 from repro_torch.api import StoreSpec, open_store
 from repro_torch.cache import CuckooPageTable, LudoPageTable
+from repro_torch.configs import get_config
 from repro_torch.core import outback
 from repro_torch.core.hashing import splitmix64
 from repro_torch.kernels import build
+from repro_torch.models.lm import LM, init_params, params_from_reference
+from repro_torch.serve import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -70,12 +74,34 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_importing_the_serving_port_loads_neither_jax_nor_repro():
+    code = (
+        "import sys, json\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.lm import LM\n"
+        "from repro_torch.serve import Engine, Request\n"
+        "m = LM(get_config('llama3.2-1b', reduced=True), device='cpu')\n"
+        "eng = Engine(m, m.init(0), lanes=2, max_seq=16)\n"
+        "eng.submit(Request(rid=0, prompt=[1, 2], max_new=2))\n"
+        "eng.run()\n"
+        "assert eng.stats.finished == 1\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_kernels_are_built_from_the_repo_sources_only():
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["ludo_lookup.cu", "paged_attention.cu", "slot_unpack.cu"]
+    assert srcs == ["fused_norm_matmul.cu", "ludo_lookup.cu",
+                    "paged_attention.cu", "slot_unpack.cu"]
     assert set(build.SIGNATURES) == {"ludo_lookup", "slot_unpack",
                                      "paged_attention",
-                                     "cuckoo_paged_attention"}
+                                     "cuckoo_paged_attention",
+                                     "fused_norm_matmul"}
     assert build.LIBRARIES == [s[:-3] for s in srcs]
     assert build.BUILD_DIR == ROOT / "src" / "repro_torch" / "kernels" / "_build"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
@@ -98,6 +124,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert open_store(StoreSpec("outback"), keys, keys,
                       device="cpu").engine.device.type == "cpu"
     assert LudoPageTable(64, device="cpu").device.type == "cpu"
+
+
+def test_model_entry_points_raise_without_cuda(monkeypatch):
+    """``LM``, ``init_params``, ``params_from_reference`` and so ``Engine``
+    run on CUDA unless given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama3.2-1b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_reference({"embed": np.zeros((2, 2), np.float32)},
+                              device=None)
+    model = LM(cfg, device="cpu")
+    eng = Engine(model, init_params(cfg, device="cpu"), lanes=2, max_seq=8)
+    assert model.device.type == "cpu"
+    assert eng.cache["length"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -1,5 +1,10 @@
 """Port kernels' plain versions and wrappers vs the reference's Pallas kernels.
 
+The fused RMSNorm -> matmul plain version and its CPU wrapper are held
+against ``repro``'s ``fused_norm_matmul_kernel`` in interpret mode at the
+shapes of ``tests/test_kernels.py`` plus ragged S and F, with that file's
+tolerances (1e-4 in float32, 3e-2 in bf16).
+
 The paged-attention plain version and its CPU wrappers are held against
 ``repro``'s ``paged_attention_kernel`` and ``cuckoo_paged_attention_kernel``
 in interpret mode at the shapes of ``tests/test_kernels.py`` (ragged
@@ -28,6 +33,7 @@ from repro.core.outback import OutbackShard
 from repro.core.store import make_uniform_keys
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
+from repro.kernels.fused_norm_matmul import fused_norm_matmul_kernel
 from repro.kernels.paged_attention import (cuckoo_paged_attention_kernel,
                                            paged_attention_kernel)
 from repro_torch.core import outback as t_outback
@@ -298,3 +304,93 @@ def test_paged_kernels_on_card():
                     ops.cuckoo_paged_attention(q, k, v, pm2, sel, seq_len)):
             for g_, w in zip(got, want):
                 torch.testing.assert_close(g_, w, **TOL)
+
+
+# -------------------------------------------------------- fused norm matmul
+# (S, d, F, dtype, block_s, block_f): the shapes of tests/test_kernels.py,
+# then ragged S and F (the Pallas kernel takes them as whole blocks)
+FNM_SHAPES = [
+    (256, 512, 1024, "float32", 128, 256),
+    (512, 256, 512, "float32", 256, 512),
+    (128, 1024, 512, "bfloat16", 128, 128),
+    (7, 200, 100, "float32", 7, 100),
+    (9, 64, 131, "bfloat16", 9, 131),
+]
+FNM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py:138
+
+
+def _fnm_inputs(seed, S, d, F, dtype):
+    """tests/test_kernels.py's inputs: numpy float32, rounded to bf16 by
+    each framework where asked."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((S, d)), rng.standard_normal((d,)),
+            rng.standard_normal((d, F)) / np.sqrt(d))
+    arrs = tuple(a.astype(np.float32) for a in arrs)
+    return (tuple(jnp.asarray(a, getattr(jnp, dtype)) for a in arrs),
+            tuple(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs))
+
+
+@pytest.mark.parametrize("S,d,F,dtype,bs,bf", FNM_SHAPES)
+def test_fused_norm_matmul_vs_pallas(S, d, F, dtype, bs, bf):
+    (jx, jg, jw), (tx, tg, tw) = _fnm_inputs(4, S, d, F, dtype)
+    ops.reset_launch_counts()
+    want = np.asarray(fused_norm_matmul_kernel(jx, jg, jw, block_s=bs,
+                                               block_f=bf, interpret=True),
+                      np.float32)
+    tol = FNM_TOL[dtype]
+    for got in (ref.fused_norm_matmul_ref(tx, tg, tw),
+                ops.fused_norm_matmul(tx, tg, tw)):
+        assert got.dtype == getattr(torch, dtype) and got.shape == (S, F)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol)
+    np.testing.assert_allclose(
+        ref.fused_norm_matmul_ref(tx, tg, tw).float().numpy(),
+        np.asarray(r_ref.fused_norm_matmul_ref(jx, jg, jw), np.float32),
+        rtol=tol, atol=tol)
+    assert not any(ops.LAUNCHES.values())
+
+
+def test_fused_norm_matmul_wrapper_rejects_what_the_kernel_does_not_take():
+    _, (x, g, w) = _fnm_inputs(5, 8, 64, 96, "float32")
+    with pytest.raises(TypeError):  # mixed dtypes
+        ops.fused_norm_matmul(x, g.bfloat16(), w)
+    with pytest.raises(TypeError):
+        ops.fused_norm_matmul(x, g, w.bfloat16())
+    with pytest.raises(TypeError):  # a type the kernel is not built for
+        ops.fused_norm_matmul(x.double(), g.double(), w.double())
+    with pytest.raises(ValueError):  # wrong ranks
+        ops.fused_norm_matmul(x[None], g, w)
+    with pytest.raises(ValueError):
+        ops.fused_norm_matmul(x, g[None], w)
+    with pytest.raises(ValueError):  # non-contiguous w
+        ops.fused_norm_matmul(x, g, w.t().contiguous().t())
+    with pytest.raises(ValueError):  # mismatched d
+        ops.fused_norm_matmul(x, g, w[:32].contiguous())
+    with pytest.raises(ValueError):
+        ops.fused_norm_matmul(x, g[:32].contiguous(), w)
+    with pytest.raises(ValueError):  # one device
+        ops.fused_norm_matmul(x, g, w.to("meta"))
+    with pytest.raises(ValueError):
+        ops.fused_norm_matmul(x.to("meta"), g.to("meta"), w.to("meta"))
+    assert ops.fused_norm_matmul(x[:0], g, w).shape == (0, 96)
+
+
+@pytest.mark.cuda
+def test_fused_norm_matmul_on_card():
+    """The CUDA kernel against its plain version on the card, at the test
+    shapes and at llama3.2-1b's decode entries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
+    shapes = [s[:4] for s in FNM_SHAPES] + [
+        (8, 2048, f, "bfloat16") for f in (2048, 512, 8192)]
+    for S, d, F, dtype in shapes:
+        _, (x, g, w) = _fnm_inputs(6, S, d, F, dtype)
+        x, g, w = x.cuda(), g.cuda(), w.cuda()
+        n = ops.LAUNCHES["fused_norm_matmul"]
+        got = ops.fused_norm_matmul(x, g, w)
+        assert ops.LAUNCHES["fused_norm_matmul"] == n + 1
+        tol = FNM_TOL[dtype]
+        torch.testing.assert_close(got.float(),
+                                   ref.fused_norm_matmul_ref(x, g, w).float(),
+                                   rtol=tol, atol=tol)
