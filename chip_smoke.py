@@ -23,11 +23,18 @@ Phases; any failure exits non-zero:
    launch counters are zeroed just before this phase and read just after;
 4. hold ``paged_attention`` and ``cuckoo_paged_attention`` against their
    plain version on the card, within the tests' tolerance: the test shapes
-   (float32 and bf16, ragged ``seq_len``, a cuckoo map whose first step is
-   unselected), then the serve shape (llama3.2-1b's attention width: 8 KV
-   heads of 4 queries, d=64, pages of 16 bf16 tokens, L=1954) over a
-   2^17-page bf16 pool; time each with CUDA events and ``torch.profiler``
-   beside its byte bound, its plain version and a gather +
+   (float32 and bf16, ragged ``seq_len``), the edges of their split-KV
+   design (runs of 16 pages: L=1, a last run of one page, ``seq_len`` in
+   the first page of the last run, whole runs past ``seq_len``, float32
+   and d=128 at L in the hundreds, a group of 5 queries; every cuckoo run
+   starting on the unselected candidate), then the serve shape
+   (llama3.2-1b's attention width: 8 KV heads of 4 queries, d=64, pages of
+   16 bf16 tokens, L=1954) over a 2^17-page bf16 pool.  Each kernel is
+   bound by the bytes of its pages: a split pass over KV heads x runs of
+   pages keeps several pages' copies in flight in each block, and a
+   combine pass merges the runs.  Time each with CUDA events and
+   ``torch.profiler`` (device time a call: both launches, summed) beside
+   its byte bound, its plain version and a gather +
    ``scaled_dot_product_attention`` yardstick;
 5. drive the Ludo-paged decode path: ``LudoPageTable`` and
    ``CuckooPageTable`` of 2^17 pages on the card, 32 sequences of 977 to
@@ -129,6 +136,27 @@ PAGED_TEST_SHAPES = [(2, 4, 64, 16, 4, 64, "float32"),
                      (2, 4, 64, 16, 4, 49, "float32"),
                      (4, 2, 128, 32, 8, 250, "float32"),
                      (1, 8, 64, 16, 2, 32, "bfloat16")]
+# The split pass's edges, in the same layout: the kernels run a block over
+# a KV head and a run of pages (ops.paged_split_plan: runs of PAGED_RUN = 16
+# pages at these sizes on 132 SMs, which the phase checks).  L = 1 (one
+# run); a last run of one page; seq_len in the first page of the last run;
+# seq_len in the first run, so that 19 whole runs lie past it; float32, and
+# d = 128, at L in the hundreds; a group of 5 queries (two query tiles of
+# the kernels' 4); 64-token float32 pages of d = 128, whose ring holds 3
+# loop steps, not 4.  Every cuckoo map's first step of a run is the
+# unselected candidate.
+PAGED_RUN = 16
+PAGED_EDGE_SHAPES = [
+    (8, 4, 64, 16, 1, 9, "bfloat16"),
+    (8, 4, 64, 16, 20 * PAGED_RUN + 1, (20 * PAGED_RUN + 1) * 16 - 3,
+     "bfloat16"),
+    (8, 4, 64, 16, 20 * PAGED_RUN, 19 * PAGED_RUN * 16 + 5, "bfloat16"),
+    (8, 4, 64, 16, 20 * PAGED_RUN, 5, "bfloat16"),
+    (8, 4, 64, 16, 400, 400 * 16 - 8, "float32"),
+    (8, 4, 128, 16, 257, 257 * 16 - 1, "bfloat16"),
+    (4, 2, 128, 32, 300, 300 * 32 - 17, "float32"),
+    (2, 5, 64, 16, 33, 33 * 16 - 20, "float32"),
+    (1, 4, 128, 64, 40, 40 * 64 - 3, "float32")]
 # The tests' tolerance (rtol and atol): both sides compute in float32 from
 # the same values and differ only in the order of their sums.
 PAGED_TOL = 1e-5
@@ -199,10 +227,13 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str):
-    """Mean device time of the CUDA kernel named ``kernel`` over ``iters``
-    calls, from ``torch.profiler``; None when the trace holds no such
-    kernel time."""
+def device_ms(fn, iters: int, *kernels: str):
+    """Device time a call of ``fn``, which launches each CUDA kernel whose
+    name holds one of ``kernels`` once: from ``torch.profiler`` over
+    ``iters`` calls, each kernel's mean time a launch, summed over the
+    kernels; None when the trace holds none of them.  The mean a launch and
+    not the trace's total over ``iters``: a trace late in a long run can
+    miss launches (logged when it does)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -211,13 +242,16 @@ def device_ms(fn, iters: int, kernel: str):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    total = 0.0
     for ev in prof.key_averages():
-        if kernel in ev.key and ev.count:
-            total = getattr(ev, "device_time_total", None)
-            if total is None:
-                total = getattr(ev, "cuda_time_total", 0)
-            return total / ev.count / 1e3 if total else None
-    return None
+        if any(k in ev.key for k in kernels) and ev.count:
+            t = getattr(ev, "device_time_total", None)
+            t = getattr(ev, "cuda_time_total", 0) if t is None else t
+            total += t / ev.count
+            if ev.count != iters:
+                log(f"profiler: {ev.key[:60]} seen {ev.count} times in "
+                    f"{iters} calls")
+    return total / 1e3 if total else None
 
 
 def device_busy_us(prof) -> tuple:
@@ -596,16 +630,17 @@ def paged_err(got, want, errs: dict | None = None) -> None:
             errs[name] = max(errs.get(name, 0.0), float((g - w).abs().max()))
 
 
-def paged_maps(gen, n_pool: int, n_pages: int):
+def paged_maps(gen, n_pool: int, n_pages: int, split: int):
     """A page map of distinct pages, and a cuckoo map holding it beside
-    distinct random decoys, with step 0 the unselected candidate."""
+    distinct random decoys, whose first step of every run of ``split``
+    pages (step 0 among them) is the unselected candidate."""
     import torch
     pm = torch.randperm(n_pool, generator=gen, device="cuda")[:n_pages].int()
     decoy = torch.randperm(n_pool, generator=gen,
                            device="cuda")[:n_pages].int()
     sel = torch.randint(0, 2, (n_pages,), generator=gen, device="cuda",
                         dtype=torch.int32)
-    sel[0] = 1
+    sel[::split] = 1
     pm2 = torch.where(sel[:, None] == 0, torch.stack([pm, decoy], 1),
                       torch.stack([decoy, pm], 1)).contiguous()
     return pm, pm2, sel
@@ -631,28 +666,38 @@ def check_paged_kernels(k_pool, v_pool, gen) -> dict:
     pools), and timed at the serve shape."""
     import torch
     from repro_torch.kernels import ops, ref
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {"paged_attention": {}, "cuckoo_paged_attention": {}}
-    for n_kv, g, d, ps, n_pages, seq_len, dt in PAGED_TEST_SHAPES:
+    for n_kv, g, d, ps, n_pages, seq_len, dt in (PAGED_TEST_SHAPES
+                                                  + PAGED_EDGE_SHAPES):
         dtype = getattr(torch, dt)
         pool = 3 * n_pages
+        split = ops.paged_split_plan(n_pages, n_kv, g, n_sm)[0]
+        check(n_pages < 2 or split == PAGED_RUN,
+              f"the plan cut L={n_pages} into runs of {split} pages, not "
+              f"{PAGED_RUN}")
         q = torch.randn((n_kv, g, d), generator=gen, device="cuda").to(dtype)
         kp, vp = (torch.randn((pool, ps, n_kv, d), generator=gen,
                               device="cuda").to(dtype) for _ in range(2))
-        pm, pm2, sel = paged_maps(gen, pool, n_pages)
+        pm, pm2, sel = paged_maps(gen, pool, n_pages, split)
         want = ref.paged_attention_ref(q, kp, vp, pm, seq_len)
         paged_err(ops.paged_attention(q, kp, vp, pm, seq_len), want,
                   errs["paged_attention"])
         paged_err(ops.cuckoo_paged_attention(q, kp, vp, pm2, sel, seq_len),
                   want, errs["cuckoo_paged_attention"])
+    log(f"paged kernels: within {PAGED_TOL} of their plain version at "
+        f"{len(PAGED_TEST_SHAPES)} test shapes and {len(PAGED_EDGE_SHAPES)} "
+        f"split edges (runs of {PAGED_RUN} pages)")
     # the serve shape; COLD_SETS maps of distinct pages, 64 MB of tiles
     # each, so a timed launch finds its pages outside the 50 MB L2
     n_pool = k_pool.shape[0]
     seq_len = SEQ_TOKENS * N_SEQS
+    split, n_splits = ops.paged_split_plan(SERVE_PAGES, N_KV, GROUP, n_sm)
     sets = []
     for _ in range(COLD_SETS):
         q = torch.randn((N_KV, GROUP, HEAD_DIM), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        sets.append((q, *paged_maps(gen, n_pool, SERVE_PAGES)))
+        sets.append((q, *paged_maps(gen, n_pool, SERVE_PAGES, split)))
     for q, pm, pm2, sel in sets[:2]:
         want = ref.paged_attention_ref(q, k_pool, v_pool, pm, seq_len)
         paged_err(ops.paged_attention(q, k_pool, v_pool, pm, seq_len), want,
@@ -689,8 +734,13 @@ def check_paged_kernels(k_pool, v_pool, gen) -> dict:
             max_abs_err_oml=errs[name], tolerance=PAGED_TOL,
             shape=dict(n_kv=N_KV, g=GROUP, d=HEAD_DIM, ps=PAGE_SIZE,
                        L=SERVE_PAGES, seq_len=seq_len, dtype="bfloat16"),
+            splits=n_splits, split_pages=split,
+            split_blocks=N_KV * -(-GROUP // ops.PAGED_QUERY_TILE) * n_splits,
             ms=time_ms(kern, 40),
-            device_ms=device_ms(kern, 10, "paged_decode_kernel"),
+            device_ms=device_ms(kern, 10, "paged_split_kernel",
+                                "paged_combine_kernel"),
+            device_ms_split=device_ms(kern, 10, "paged_split_kernel"),
+            device_ms_combine=device_ms(kern, 10, "paged_combine_kernel"),
             plain_ms=time_ms(cycling(plain, sets_), 40),
             bound_ms=bound, bound_by=by,
             library_ms=time_ms(cycling(library, sets_), 40),
@@ -699,10 +749,21 @@ def check_paged_kernels(k_pool, v_pool, gen) -> dict:
         k = out[name]
         log(f"kernel {name}: within {PAGED_TOL} of its plain version (max "
             f"abs err of o, m, l: {k['max_abs_err_oml']}); L={SERVE_PAGES} "
-            f"bf16: "
-            f"{k['ms']:.6f} ms (device {k['device_ms']}), plain "
-            f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms "
+            f"bf16, {n_splits} runs of {split} pages: "
+            f"{k['ms']:.6f} ms (device {k['device_ms']}: split pass "
+            f"{k['device_ms_split']}, combine {k['device_ms_combine']}), "
+            f"plain {k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms "
             f"({by}), gather + SDPA {k['library_ms']:.6f} ms")
+    lu, cu = out["paged_attention"], out["cuckoo_paged_attention"]
+    for k in (lu, cu):
+        check(k["device_ms"] is not None, f"{k['name']}: no device time in "
+              f"the trace")
+        k["bound_ratio"] = k["device_ms"] / k["bound_ms"]
+    ratio = cu["device_ms"] / lu["device_ms"]
+    cu["device_ratio_to_ludo"] = ratio
+    log(f"paged kernels at the serve shape: device time "
+        f"{lu['bound_ratio']:.3f}x (Ludo) and {cu['bound_ratio']:.3f}x (cuckoo) their byte bounds; "
+        f"cuckoo / Ludo device time {ratio:.4f} with random decoys")
     return out
 
 
@@ -827,22 +888,31 @@ def paged_timings(k_pool, v_pool, gen, lt, ct, pages, lens) -> dict:
     lookup2_s = time.perf_counter() - t0
     q = torch.randn((N_KV, GROUP, HEAD_DIM), generator=gen,
                     device="cuda").to(torch.bfloat16)
+
+    def ludo():
+        return ops.paged_attention(q, k_pool, v_pool, pm, lens[i])
+
+    def cuckoo():
+        return ops.cuckoo_paged_attention(q, k_pool, v_pool, pm2, sel,
+                                          lens[i])
+
+    names = ("paged_split_kernel", "paged_combine_kernel")
     res = dict(
         longest_pages=n_pages,
         lookup_batch_p50_ms=1e3 * float(np.percentile(lat, 50)),
         lookup2_batch_ms=1e3 * lookup2_s,
         decoys_page0=int((pm2[torch.arange(n_pages, device="cuda"),
                               1 - sel.long()] == 0).sum()),
-        ludo_ms=time_ms(lambda: ops.paged_attention(
-            q, k_pool, v_pool, pm, lens[i]), 40),
-        cuckoo_ms=time_ms(lambda: ops.cuckoo_paged_attention(
-            q, k_pool, v_pool, pm2, sel, lens[i]), 40))
+        ludo_ms=time_ms(ludo, 40), cuckoo_ms=time_ms(cuckoo, 40),
+        ludo_device_ms=device_ms(ludo, 10, *names),
+        cuckoo_device_ms=device_ms(cuckoo, 10, *names))
     log(f"longest sequence ({n_pages} pages): lookup_batch p50 "
         f"{res['lookup_batch_p50_ms']:.4f} ms, lookup2_batch "
         f"{res['lookup2_batch_ms']:.4f} ms (host loop); attention on the "
-        f"real maps: Ludo {res['ludo_ms']:.6f} ms, cuckoo "
-        f"{res['cuckoo_ms']:.6f} ms ({res['decoys_page0']} of {n_pages} "
-        f"decoys are page 0)")
+        f"real maps: Ludo {res['ludo_ms']:.6f} ms (device "
+        f"{res['ludo_device_ms']}), cuckoo {res['cuckoo_ms']:.6f} ms "
+        f"(device {res['cuckoo_device_ms']}; {res['decoys_page0']} of "
+        f"{n_pages} decoys are page 0)")
     return res
 
 

@@ -29,7 +29,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-_PAGED = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# q, k_pool, v_pool, page_map, o, m, l, workspace; n_pages, n_pool, ps,
+# n_kv, g, d, dtype, seq_len, split_pages; stream
+_PAGED = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+          _P]
 # Each kernel's launch function: kernel -> (library, C symbol, argtypes).
 # A library is built from ``csrc/<library>.cu``.
 SIGNATURES = {

@@ -13,10 +13,14 @@ kernel relies on, and raises on anything the kernel does not take.  The
 kernel masks its own ragged edge, so no padding is needed.  It launches
 on the current stream and raises if ``cudaGetLastError()`` is not 0.
 :data:`LAUNCHES` counts the launches of each kernel, and nothing else adds
-to it.
+to it.  A paged-attention call counts one, though it may make two CUDA
+launches: the split pass over KV heads x runs of pages, and the combine
+pass over the runs' partials (see ``csrc/paged_attention.cu``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,6 +32,18 @@ LAUNCHES = {"ludo_lookup": 0, "slot_unpack": 0, "paged_attention": 0,
 POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 NORM_EPS = 1e-6  # the RMSNorm epsilon of the models and of the kernel
+# The paged kernels' split pass: a block takes one KV head, a tile of
+# PAGED_QUERY_TILE of its query rows and a run of split_pages logical pages;
+# the plan aims at PAGED_BLOCKS_PER_SM blocks an SM, with runs of 16 to 64
+# pages (csrc/paged_attention.cu: kQ, kMaxSplitPages, __launch_bounds__).
+PAGED_QUERY_TILE = 4
+PAGED_MIN_SPLIT_PAGES, PAGED_MAX_SPLIT_PAGES = 16, 64
+PAGED_BLOCKS_PER_SM = 6
+PAGED_MAX_HEAD_BLOCKS = 65535  # the grid's y limit: n_kv x query tiles
+# A split block keeps 2-4 loop steps of K and V rows in shared memory, at
+# most 227 KB (csrc/paged_attention.cu: split_smem_bytes, kSmemLimit).
+PAGED_MAX_STAGES, PAGED_SMEM_LIMIT = 4, 232448
+PAGED_ROWS_PER_ITER = 32
 
 
 def reset_launch_counts() -> None:
@@ -144,6 +160,37 @@ def _check_int32(name: str, t, shape: tuple, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def paged_split_plan(n_pages: int, n_kv: int, g: int, n_sm: int) -> tuple:
+    """The paged kernels' split of ``n_pages`` logical pages over a card of
+    ``n_sm`` SMs -> ``(split_pages, n_splits)``: runs of ``split_pages``
+    pages (the last one shorter), enough of them that the split pass's
+    blocks (one a KV head, query tile and run) put about
+    ``PAGED_BLOCKS_PER_SM`` on each SM, each run 16 to 64 pages long.  A
+    cuckoo page's two candidates are one logical page, so they stay in one
+    run."""
+    heads = n_kv * -(-g // PAGED_QUERY_TILE)
+    per_block = -(-n_pages * heads // (PAGED_BLOCKS_PER_SM * n_sm))
+    split_pages = min(PAGED_MAX_SPLIT_PAGES,
+                      max(PAGED_MIN_SPLIT_PAGES, per_block))
+    return split_pages, -(-n_pages // split_pages)
+
+
+def paged_smem_bytes(stages: int, ps: int, d: int, elt: int) -> int:
+    """Shared memory of a split block keeping ``stages`` loop steps of
+    ``max(1, 32 // ps)`` pages in flight: the ring of K and V rows (at least
+    the 4 x 4 x d floats of the warps' final merge), 32 floats a warp for
+    its p and alpha, the run's page ids and selects, and a flag a step in
+    the ring (``split_smem_bytes`` in ``csrc/paged_attention.cu``)."""
+    spi = max(1, PAGED_ROWS_PER_ITER // ps)
+    ring = max(stages * 2 * spi * ps * d * elt, 4 * 4 * PAGED_QUERY_TILE * d)
+    return ring + 4 * 4 * 32 + 4 * (3 * PAGED_MAX_SPLIT_PAGES + stages * spi)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
     """Check the operands shared by both paged kernels; returns the launch
     sizes."""
@@ -173,6 +220,13 @@ def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
         raise ValueError(f"k_pool/v_pool shapes differ: "
                          f"{tuple(k_pool.shape)} vs {tuple(v_pool.shape)}")
     n_pool, ps = int(k_pool.shape[0]), int(k_pool.shape[1])
+    if paged_smem_bytes(2, ps, d, q.element_size()) > PAGED_SMEM_LIMIT:
+        raise ValueError(f"pages of ps={ps} tokens of d={d} need more than "
+                         f"the {PAGED_SMEM_LIMIT} B of shared memory a block "
+                         f"may use")
+    if n_kv * -(-g // PAGED_QUERY_TILE) > PAGED_MAX_HEAD_BLOCKS:
+        raise ValueError(f"n_kv={n_kv} KV heads of g={g} queries exceed the "
+                         f"grid's {PAGED_MAX_HEAD_BLOCKS} head blocks")
     if n_pages < 1 or int(seq_len) < 1:
         raise ValueError(f"need at least one page and one valid token, got "
                          f"{n_pages} pages and seq_len={seq_len}")
@@ -180,6 +234,9 @@ def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
         raise ValueError("a size exceeds the kernel's int index")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"paged attention runs on cuda or cpu, not {device}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:  # the kernel copies 16-byte chunks
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     return dict(device=device, n_kv=n_kv, g=g, d=d, n_pool=n_pool, ps=ps,
                 dtype=POOL_DTYPES[q.dtype], seq_len=int(seq_len))
 
@@ -190,12 +247,20 @@ def _paged_launch(kernel: str, sz: dict, q, k_pool, v_pool, ids: tuple,
     o = torch.empty((n_kv, g, d), dtype=torch.float32, device=device)
     m = torch.empty((n_kv, g), dtype=torch.float32, device=device)
     l = torch.empty((n_kv, g), dtype=torch.float32, device=device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    split_pages, n_splits = paged_split_plan(n_pages, n_kv, g,
+                                             _sm_count(index))
+    # the split pass's partials (acc, then m, then l), for the combine pass
+    ws = torch.empty(n_kv * n_splits * g * (d + 2), dtype=torch.float32,
+                     device=device) if n_splits > 1 else None
     fn = build.launcher(kernel)
     with torch.cuda.device(device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  *(t.data_ptr() for t in ids), o.data_ptr(), m.data_ptr(),
-                 l.data_ptr(), n_pages, sz["n_pool"], sz["ps"], n_kv, g, d,
-                 sz["dtype"], sz["seq_len"], _stream(device))
+                 l.data_ptr(), None if ws is None else ws.data_ptr(),
+                 n_pages, sz["n_pool"], sz["ps"], n_kv, g, d, sz["dtype"],
+                 sz["seq_len"], split_pages, _stream(device))
     _raise_on(err, kernel)
     LAUNCHES[kernel] += 1
     return o, m, l

@@ -86,6 +86,79 @@ def combine_flash_partials(o_parts, m_parts, l_parts):
     return num / den[..., None]
 
 
+# the finite score of a masked position in the paged kernels
+NEG_SENTINEL = -1e30
+
+
+def split_step_ranges(n_pages: int, split_pages: int, fetches: int) -> list:
+    """The step ranges ``[s0, s1)`` of the paged kernels' runs of
+    ``split_pages`` logical pages, ``fetches`` steps a page (1 for Ludo, 2
+    for cuckoo: both candidates of a page in one run)."""
+    return [(p0 * fetches, min(n_pages, p0 + split_pages) * fetches)
+            for p0 in range(0, n_pages, split_pages)]
+
+
+def paged_split_partials(q, k_pool, v_pool, page_ids, seq_len,
+                         split_pages: int, select=None):
+    """The split pass of ``csrc/paged_attention.cu``, step by step as the
+    kernel takes it: for each run of ``split_pages`` logical pages, the
+    online softmax over its steps with masked positions at the finite
+    ``NEG_SENTINEL`` -> float32 ``acc (S, n_kv, g, d)``, ``m`` and ``l``
+    ``(S, n_kv, g)`` for S runs, ``acc`` not yet divided by ``l``.
+
+    ``page_ids`` is ``page_map (L,)``, or ``page_map2 (L, 2)`` with
+    ``select (L,)`` for the cuckoo baseline, whose unselected candidate is
+    loaded and scores as masked.  A page id outside the pool reads zero
+    tiles and scores as masked."""
+    n_kv, g, d = q.shape
+    n_pool, ps = k_pool.shape[0], k_pool.shape[1]
+    fetches = 1 if select is None else 2
+    ids = page_ids.reshape(-1).tolist()
+    sel = None if select is None else select.tolist()
+    qf = q.float()
+    zeros = torch.zeros((ps, n_kv, d), device=q.device)
+    accs, ms, ls = [], [], []
+    for s0, s1 in split_step_ranges(len(ids) // fetches, split_pages,
+                                    fetches):
+        m = torch.full((n_kv, g), NEG_SENTINEL, device=q.device)
+        l = torch.zeros((n_kv, g), device=q.device)
+        acc = torch.zeros((n_kv, g, d), device=q.device)
+        for step in range(s0, s1):
+            page, pos = ids[step], step // fetches
+            in_pool = 0 <= page < n_pool
+            valid = in_pool and (sel is None or sel[pos] == step % 2)
+            k = k_pool[page].float() if in_pool else zeros
+            v = v_pool[page].float() if in_pool else zeros
+            s = torch.einsum("hgd,thd->hgt", qf, k) / math.sqrt(float(d))
+            live = valid & (pos * ps + torch.arange(ps, device=q.device)
+                            < int(seq_len))
+            s = torch.where(live, s, NEG_SENTINEL)
+            m_new = torch.maximum(m, s.max(dim=-1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("hgt,thd->hgd", p, v)
+            m = m_new
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+
+
+def combine_split_partials(acc, m, l):
+    """The combine pass of ``csrc/paged_attention.cu`` over the runs'
+    partials (leading axis): ``m = max m_i``, ``l = sum l_i exp(m_i - m)``,
+    ``o = sum acc_i exp(m_i - m) / max(l, 1e-30)`` -> float32 (o, m, l).
+    ``combine_flash_partials``' formula over un-normalised ``acc``, also
+    returning ``m`` and ``l``; a run past ``seq_len`` (``m_i = -1e30``)
+    weighs 0."""
+    m_max = m.max(dim=0).values
+    w = torch.exp(m - m_max)
+    l_tot = (l * w).sum(dim=0)
+    o = (acc * w[..., None]).sum(dim=0) / l_tot.clamp_min(1e-30)[..., None]
+    return o, m_max, l_tot
+
+
 def fused_norm_matmul_ref(x, gamma, w, eps: float = 1e-6):
     """``RMSNorm(x) * gamma @ w``, the dense-arch QKV/MLP entry: x (S, d),
     gamma (d,), w (d, F).  The norm and the product run in float32 and the

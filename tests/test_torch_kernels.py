@@ -168,9 +168,11 @@ PAGED_SHAPES = [  # n_kv, g, d, ps, L, seq_len, dtype (tests/test_kernels.py)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _paged_inputs(seed, n_kv, g, d, ps, L, dtype, pool=None):
+def _paged_inputs(seed, n_kv, g, d, ps, L, dtype, pool=None, starts=None):
     """The same inputs for both packages: numpy float32, rounded to bf16 by
-    each framework where asked."""
+    each framework where asked.  The cuckoo map's first step is the
+    unselected candidate, and with ``starts`` the first step of every run
+    of ``starts`` pages."""
     rng = np.random.default_rng(seed)
     pool = 3 * L if pool is None else pool
     q = rng.standard_normal((n_kv, g, d)).astype(np.float32)
@@ -180,6 +182,8 @@ def _paged_inputs(seed, n_kv, g, d, ps, L, dtype, pool=None):
     decoy = rng.choice(pool, L, replace=False).astype(np.int32)
     sel = rng.integers(0, 2, L).astype(np.int32)
     sel[0] = 1  # step 0 is the unselected candidate
+    if starts:
+        sel[::starts] = 1
     pm2 = np.where(sel[:, None] == 0, np.stack([pm, decoy], 1),
                    np.stack([decoy, pm], 1)).astype(np.int32)
     jx = tuple(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
@@ -288,15 +292,37 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take():
                             pm.to("meta"), 64)
 
 
+# The split pass's edges (n_kv, g, d, ps, L, seq_len, dtype), for runs of
+# 16 pages (ops.paged_split_plan at these sizes on a card of 22 SMs or
+# more): one run; a last run of one page; seq_len in the first page of the
+# last run; seq_len in the first run, whole runs past it; float32 and
+# d = 128 at L in the hundreds; a group of 5 (two query tiles).
+PAGED_EDGE_SHAPES = [
+    (8, 4, 64, 16, 1, 9, "bfloat16"),
+    (8, 4, 64, 16, 321, 321 * 16 - 3, "bfloat16"),
+    (8, 4, 64, 16, 320, 19 * 16 * 16 + 5, "bfloat16"),
+    (8, 4, 64, 16, 320, 5, "bfloat16"),
+    (8, 4, 64, 16, 400, 400 * 16 - 8, "float32"),
+    (4, 2, 128, 32, 300, 300 * 32 - 17, "float32"),
+    (2, 5, 64, 16, 33, 33 * 16 - 20, "float32"),
+    (1, 4, 128, 64, 40, 40 * 64 - 3, "float32"),  # a ring of 3 loop steps
+]
+
+
 @pytest.mark.cuda
 def test_paged_kernels_on_card():
-    """The paged CUDA kernels against their plain versions on the card."""
+    """The paged CUDA kernels against their plain versions on the card, at
+    the test shapes and the split pass's edges; every cuckoo run starts on
+    the unselected candidate."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run on the GPU machine")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
-    for n_kv, g, d, ps, L, seq_len, dtype in PAGED_SHAPES:
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for n_kv, g, d, ps, L, seq_len, dtype in PAGED_SHAPES + PAGED_EDGE_SHAPES:
+        split = ops.paged_split_plan(L, n_kv, g, n_sm)[0]
+        assert L < 2 or split == 16
         _, (q, k, v), pm, pm2, sel = _paged_inputs(5, n_kv, g, d, ps, L,
-                                                   dtype)
+                                                   dtype, starts=split)
         q, k, v = q.cuda(), k.cuda(), v.cuda()
         pm, pm2, sel = (torch.from_numpy(a).cuda() for a in (pm, pm2, sel))
         want = ref.paged_attention_ref(q, k, v, pm, seq_len)
