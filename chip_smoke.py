@@ -49,8 +49,13 @@ Phases; any failure exits non-zero:
 6. hold ``fused_norm_matmul`` against its plain version on the card at the
    shapes of ``tests/test_kernels.py``, a ragged shape (S=7, d=2048,
    F=1000), llama3.2-1b's serve entries (S=8, d=2048, F=2048, 512, 8192,
-   bf16) and a prefill shape (S=256, F=8192), with TF32 off and the tests'
-   tolerances; time the last four with CUDA events and ``torch.profiler``
+   bf16), a prefill shape (S=256, F=8192, both types) and the edges of the
+   kernel's regimes (S = 1, 7, 8, 9, 31, 32, 33, 64; d = 1000; F = 1, 100,
+   131, 512, 8192; both types), with TF32 off and the tests' tolerances,
+   each call twice and bit for bit alike, logging each shape's plan
+   (``ops.fused_norm_matmul_plan``: regime, tile, splits); time the serve
+   and prefill shapes with CUDA events and ``torch.profiler`` (device time
+   a call: every CUDA kernel of the call, each kernel's share logged)
    beside the bound, the plain version and an ``F.rms_norm`` +
    ``torch.matmul`` yardstick, each launch on weights outside L2;
 7. serve llama3.2-1b at full width: ``Engine(LM(llama3.2-1b), lanes=8,
@@ -61,7 +66,8 @@ Phases; any failure exits non-zero:
    ``fused_norm_matmul`` must have launched exactly 5 x 16 times a
    ``decode_step`` call (counters zeroed just before, read just after).
    Then 16 decode steps under ``torch.profiler`` (device busy share, the
-   fused kernel's share of device time), and the float32 twin: the same
+   share of device time of all the fused entry's CUDA kernels,
+   ``ops.FNM_KERNELS``), and the float32 twin: the same
    weights as float32 on the card and on the CPU, 4 teacher-forced steps of
    the 8 lanes, logits within 1e-3 and the same argmax on every lane.
 
@@ -164,13 +170,24 @@ PAGED_TOL = 1e-5
 # Phase 6: fused_norm_matmul (S, d, F, dtype), checked against its plain
 # version: the shapes of tests/test_kernels.py, a ragged one, the serve
 # entries of llama3.2-1b (S = 8 lanes, d = 2048: F = 2048 for q, 512 for k
-# and v, 8192 for the SwiGLU gate and up) and a prefill shape; the last four
-# are timed.  Tolerances (rtol and atol) of tests/test_kernels.py:138.
+# and v, 8192 for the SwiGLU gate and up) and a prefill shape (timed, in
+# bf16), the prefill shape in float32 (the FMA tile).  Then the edges of the
+# kernel's regimes (ops.fused_norm_matmul_plan): S across the decode /
+# prefill boundary at 32 and the row groups and n8 tiles of 8, F of one
+# column, of ragged column tiles and not whole 16-byte chunks (100 and 131
+# columns), and d = 1000, not a multiple of any K-split.
+# Tolerances (rtol and atol) of tests/test_kernels.py:138.
 FNM_TIMED_SHAPES = [(8, 2048, 2048, "bfloat16"), (8, 2048, 512, "bfloat16"),
                     (8, 2048, 8192, "bfloat16"), (256, 2048, 8192, "bfloat16")]
+FNM_EDGE_S = (1, 7, 8, 9, 31, 32, 33, 64)
+FNM_EDGE_F = (1, 100, 131, 512, 8192)
+FNM_EDGE_D = 1000
+FNM_EDGE_SHAPES = [(S, FNM_EDGE_D, F, dt) for dt in ("float32", "bfloat16")
+                   for S in FNM_EDGE_S for F in FNM_EDGE_F]
 FNM_CHECK_SHAPES = [(256, 512, 1024, "float32"), (512, 256, 512, "float32"),
                     (128, 1024, 512, "bfloat16"), (7, 2048, 1000, "float32"),
-                    (7, 2048, 1000, "bfloat16"), *FNM_TIMED_SHAPES]
+                    (7, 2048, 1000, "bfloat16"), *FNM_TIMED_SHAPES,
+                    (256, 2048, 8192, "float32"), *FNM_EDGE_SHAPES]
 FNM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # H100 SXM dense bf16 tensor-core peak (data sheet), the operation bound of
 # a bf16 product; a float32 product is held to F32_FLOPS_PER_S, since the
@@ -227,13 +244,13 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, *kernels: str):
-    """Device time a call of ``fn``, which launches each CUDA kernel whose
-    name holds one of ``kernels`` once: from ``torch.profiler`` over
-    ``iters`` calls, each kernel's mean time a launch, summed over the
-    kernels; None when the trace holds none of them.  The mean a launch and
-    not the trace's total over ``iters``: a trace late in a long run can
-    miss launches (logged when it does)."""
+def device_times(fn, iters: int, *kernels: str) -> dict:
+    """Device time a call of ``fn``, by kernel: for each name in
+    ``kernels``, the mean time a launch of the CUDA kernels whose names hold
+    it, from ``torch.profiler`` over ``iters`` calls (each such kernel
+    launches once a call); names the trace does not hold are left out.  The
+    mean a launch and not the trace's total over ``iters``: a trace late in
+    a long run can miss launches (logged when it does)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -242,16 +259,25 @@ def device_ms(fn, iters: int, *kernels: str):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    times = {}
     for ev in prof.key_averages():
-        if any(k in ev.key for k in kernels) and ev.count:
+        hit = [k for k in kernels if k in ev.key]
+        if hit and ev.count:
             t = getattr(ev, "device_time_total", None)
             t = getattr(ev, "cuda_time_total", 0) if t is None else t
-            total += t / ev.count
+            times[hit[0]] = times.get(hit[0], 0.0) + t / ev.count / 1e3
             if ev.count != iters:
                 log(f"profiler: {ev.key[:60]} seen {ev.count} times in "
                     f"{iters} calls")
-    return total / 1e3 if total else None
+    return times
+
+
+def device_ms(fn, iters: int, *kernels: str):
+    """Device time a call of ``fn``, which launches each CUDA kernel whose
+    name holds one of ``kernels`` once: :func:`device_times` summed over the
+    kernels; None when the trace holds none of them."""
+    total = sum(device_times(fn, iters, *kernels).values())
+    return total if total else None
 
 
 def device_busy_us(prof) -> tuple:
@@ -952,31 +978,51 @@ def fnm_library(x, gamma, w):
     return torch.matmul(F.rms_norm(x, (x.shape[1],), gamma, 1e-6), w)
 
 
+def fnm_plan_of(S: int, d: int, F: int, dt: str) -> dict:
+    """The plan ``ops.fused_norm_matmul`` takes for a contiguous call of
+    these sizes on card 0."""
+    import torch
+    from repro_torch.kernels import ops
+    elt = getattr(torch, dt).itemsize
+    return ops.fused_norm_matmul_plan(
+        S, d, F, elt, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def check_fused_norm_matmul(gen) -> dict:
     """The kernel against its plain version on the card at the test, ragged,
-    serve and prefill shapes, then timed at the serve and prefill shapes."""
+    serve, prefill and regime-edge shapes, two calls bit for bit alike, then
+    timed at the serve and prefill shapes."""
     import torch
     from repro_torch.kernels import ops, ref
     shapes = []
     err = 0.0
+    regimes = {}
     for S, d, F, dt in FNM_CHECK_SHAPES:
         dtype = getattr(torch, dt)
         x, g, w = fnm_inputs(gen, S, d, F, dtype)[0]
         got = ops.fused_norm_matmul(x, g, w)
+        again = ops.fused_norm_matmul(x, g, w)
         want = ref.fused_norm_matmul_ref(x, g, w)
         torch.cuda.synchronize()
         tol = FNM_TOL[dt]
         e = float((got.float() - want.float()).abs().max())
+        plan = fnm_plan_of(S, d, F, dt)
         check(got.dtype == dtype and got.shape == (S, F)
               and torch.allclose(got.float(), want.float(), rtol=tol,
                                  atol=tol),
               f"fused_norm_matmul differs from its plain version beyond "
-              f"{tol} at S={S}, d={d}, F={F}, {dt} (max abs err {e})")
+              f"{tol} at S={S}, d={d}, F={F}, {dt}, plan {plan} (max abs "
+              f"err {e})")
+        check(torch.equal(got, again),
+              f"fused_norm_matmul: two calls differ at S={S}, d={d}, F={F}, "
+              f"{dt}, plan {plan}")
         err = max(err, e)
+        regimes[plan["regime"]] = regimes.get(plan["regime"], 0) + 1
         shapes.append(dict(S=S, d=d, F=F, dtype=dt, max_abs_err=e,
-                           tolerance=tol))
-    log(f"kernel fused_norm_matmul: within tolerance of its plain version at "
-        f"{len(shapes)} shapes (max abs err {err})")
+                           tolerance=tol, plan=plan))
+    log(f"kernel fused_norm_matmul: within tolerance of its plain version, "
+        f"and two calls bit for bit alike, at {len(shapes)} shapes (max abs "
+        f"err {err}; shapes by regime {regimes})")
     timed = {}
     for S, d, F, dt in FNM_TIMED_SHAPES:
         dtype = getattr(torch, dt)
@@ -988,24 +1034,35 @@ def check_fused_norm_matmul(gen) -> dict:
         iters = 200
         bound, by = fnm_bound(S, d, F, dtype)
         kern = cycling(ops.fused_norm_matmul, sets)
+        by_kernel = device_times(kern, 20, *ops.FNM_KERNELS)
+        dev = sum(by_kernel.values()) or None
         row = dict(S=S, d=d, F=F, dtype=dt, weight_sets=len(sets),
-                   ms=time_ms(kern, iters),
-                   device_ms=device_ms(kern, 20, "fused_norm_matmul_kernel"),
+                   plan=fnm_plan_of(S, d, F, dt),
+                   ms=time_ms(kern, iters), device_ms=dev,
+                   device_ms_by_kernel=by_kernel,
                    plain_ms=time_ms(cycling(ref.fused_norm_matmul_ref, sets),
                                     iters),
                    library_ms=time_ms(cycling(fnm_library, sets), iters),
                    bound_ms=bound, bound_by=by)
+        row["device_below_library"] = dev is not None \
+            and dev < row["library_ms"]
         timed[(S, d, F, dt)] = row
-        log(f"fused_norm_matmul S={S} d={d} F={F} {dt}: {row['ms']:.6f} ms "
-            f"(device {row['device_ms']}), plain {row['plain_ms']:.6f} ms, "
-            f"rms_norm + matmul {row['library_ms']:.6f} ms, bound "
-            f"{bound:.6f} ms ({by})")
+        shares = {k: round(v / dev, 4) for k, v in by_kernel.items()} \
+            if dev else {}
+        log(f"fused_norm_matmul S={S} d={d} F={F} {dt}, plan {row['plan']}: "
+            f"{row['ms']:.6f} ms (device {dev}; share by kernel {shares}), "
+            f"plain {row['plain_ms']:.6f} ms, rms_norm + matmul "
+            f"{row['library_ms']:.6f} ms, bound {bound:.6f} ms ({by}); "
+            f"device below library: {row['device_below_library']}")
         del sets
     # the record's numbers: one layer's five entries of a decode step
     layer = [(LANES, D_MODEL, f, "bfloat16") for f in LAYER_ENTRY_FS]
     total = {k: sum(timed[sh][k] for sh in layer)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     dev = [timed[sh]["device_ms"] for sh in layer]
+    log(f"fused_norm_matmul, one layer's five decode entries: device "
+        f"{None if None in dev else sum(dev)} ms, rms_norm + matmul "
+        f"{total['library_ms']:.6f} ms, bound {total['bound_ms']:.6f} ms")
     return dict(
         name="fused_norm_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_norm_matmul.cu",
@@ -1017,6 +1074,7 @@ def check_fused_norm_matmul(gen) -> dict:
         bound_by="bytes" if all(timed[sh]["bound_by"] == "bytes"
                                 for sh in layer) else "operations",
         library_call="F.rms_norm + torch.matmul (two calls)",
+        cuda_kernels=list(ops.FNM_KERNELS),
         **total, check_shapes=shapes, timed_shapes=list(timed.values()))
 
 
@@ -1128,6 +1186,8 @@ def profile_decode(model, params, cache) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
     tokens = torch.ones((LANES, 1), dtype=torch.int32, device="cuda")
     model.decode_step(params, tokens, cache)  # warm-up
     torch.cuda.synchronize()
@@ -1142,7 +1202,7 @@ def profile_decode(model, params, cache) -> dict:
     busy, n_ops = device_busy_us(prof)
     fused = sum(e.time_range.end - e.time_range.start for e in prof.events()
                 if e.device_type == DeviceType.CUDA
-                and "fused_norm_matmul_kernel" in e.name)
+                and any(k in e.name for k in ops.FNM_KERNELS))
     res = dict(profiled_steps=PROFILED_STEPS,
                profiled_step_ms=wall_us / PROFILED_STEPS / 1e3,
                device_busy_share=busy / wall_us if n_ops else None,

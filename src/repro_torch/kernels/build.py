@@ -45,8 +45,11 @@ SIGNATURES = {
     "cuckoo_paged_attention": ("paged_attention",
                                "cuckoo_paged_attention_launch",
                                [_P, _P, _P, _P, _P, *_PAGED[4:]]),
+    # x, gamma, w, out, workspace; S, d, F, dtype, eps, regime, splits,
+    # krange; stream
     "fused_norm_matmul": ("fused_norm_matmul", "fused_norm_matmul_launch",
-                          [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                           _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

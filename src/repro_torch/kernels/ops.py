@@ -15,7 +15,14 @@ on the current stream and raises if ``cudaGetLastError()`` is not 0.
 :data:`LAUNCHES` counts the launches of each kernel, and nothing else adds
 to it.  A paged-attention call counts one, though it may make two CUDA
 launches: the split pass over KV heads x runs of pages, and the combine
-pass over the runs' partials (see ``csrc/paged_attention.cu``).
+pass over the runs' partials (see ``csrc/paged_attention.cu``).  A
+``fused_norm_matmul`` call counts one too: its plan
+(:func:`fused_norm_matmul_plan`) makes one or two CUDA launches (see
+``csrc/fused_norm_matmul.cu``).
+
+The checks that only the CUDA kernels need (the paged kernels' head
+widths, shared memory, grid and alignment) run on the CUDA branch alone:
+a CPU tensor gets the plain version at any width the reference computes.
 """
 
 from __future__ import annotations
@@ -44,6 +51,42 @@ PAGED_MAX_HEAD_BLOCKS = 65535  # the grid's y limit: n_kv x query tiles
 # most 227 KB (csrc/paged_attention.cu: split_smem_bytes, kSmemLimit).
 PAGED_MAX_STAGES, PAGED_SMEM_LIMIT = 4, 232448
 PAGED_ROWS_PER_ITER = 32
+# fused_norm_matmul (csrc/fused_norm_matmul.cu).  Up to FNM_DECODE_MAX_ROWS
+# rows of x split d into K-splits of krange rows whose float32 partials a
+# combine pass sums (one split: no combine).  In bf16, with w rows of whole
+# 16-byte chunks, the mma regime: blocks of FNM_MMA_COLS columns of w x
+# K-splits of about FNM_MMA_SPLIT_ROWS rows (krange a multiple of
+# FNM_MMA_KRANGE_UNIT, at most FNM_MAX_KRANGE: the block's x * gamma in
+# shared memory and registers), at most FNM_MMA_MAX_SPLITS and
+# FNM_MMA_MAX_BLOCKS_PER_SM blocks an SM where d allows.
+FNM_REGIMES = ("stream", "fma", "wgmma", "mma")
+FNM_DECODE_MAX_ROWS = 32
+FNM_MAX_KRANGE = 512
+FNM_MMA_COLS = 128
+FNM_MMA_SPLIT_ROWS, FNM_MMA_KRANGE_UNIT = 128, 64
+FNM_MMA_MAX_SPLITS, FNM_MMA_MAX_BLOCKS_PER_SM = 16, 1
+# Otherwise the stream regime on the CUDA cores: blocks of FNM_ROW_BYTES of
+# a w row x K-splits (krange a multiple of FNM_KRANGE_UNIT, at most
+# FNM_MAX_KRANGE) x groups of FNM_ROW_GROUP rows of x, about
+# FNM_BLOCKS_PER_SM blocks an SM, at most FNM_MAX_SPLITS splits where d
+# allows.  More rows take the FMA tile (float32) or wgmma (bf16), after a
+# rows pass that writes x * gamma padded to FNM_PAD columns and the inverse
+# RMS of each row.
+FNM_ROW_BYTES = 128
+FNM_ROW_GROUP = 8
+FNM_KRANGE_UNIT = 32
+FNM_BLOCKS_PER_SM = 4
+FNM_MAX_SPLITS = 16
+FNM_PAD = 64
+# the output tiles of the FMA tile and of the tensor cores (rows, columns)
+FNM_FMA_TILE, FNM_WGMMA_TILE = (64, 64), (128, 128)
+# the CUDA kernels a call may launch, as the profiler names them
+FNM_KERNELS = ("fused_norm_matmul_mma_kernel",
+               "fused_norm_matmul_stream_kernel",
+               "fused_norm_matmul_combine_kernel",
+               "fused_norm_matmul_rows_kernel",
+               "fused_norm_matmul_fma_kernel",
+               "fused_norm_matmul_wgmma_kernel")
 
 
 def reset_launch_counts() -> None:
@@ -187,8 +230,13 @@ def paged_smem_bytes(stages: int, ps: int, d: int, elt: int) -> int:
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
+def _sm_count_of(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device: torch.device) -> int:
+    return _sm_count_of(torch.cuda.current_device() if device.index is None
+                        else device.index)
 
 
 def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
@@ -203,8 +251,6 @@ def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
         raise ValueError(f"q must be a contiguous (n_kv, g, d) tensor, got "
                          f"shape {tuple(q.shape)}")
     n_kv, g, d = (int(x) for x in q.shape)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head width d={d} is not one of {HEAD_DIMS}")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -220,13 +266,6 @@ def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
         raise ValueError(f"k_pool/v_pool shapes differ: "
                          f"{tuple(k_pool.shape)} vs {tuple(v_pool.shape)}")
     n_pool, ps = int(k_pool.shape[0]), int(k_pool.shape[1])
-    if paged_smem_bytes(2, ps, d, q.element_size()) > PAGED_SMEM_LIMIT:
-        raise ValueError(f"pages of ps={ps} tokens of d={d} need more than "
-                         f"the {PAGED_SMEM_LIMIT} B of shared memory a block "
-                         f"may use")
-    if n_kv * -(-g // PAGED_QUERY_TILE) > PAGED_MAX_HEAD_BLOCKS:
-        raise ValueError(f"n_kv={n_kv} KV heads of g={g} queries exceed the "
-                         f"grid's {PAGED_MAX_HEAD_BLOCKS} head blocks")
     if n_pages < 1 or int(seq_len) < 1:
         raise ValueError(f"need at least one page and one valid token, got "
                          f"{n_pages} pages and seq_len={seq_len}")
@@ -234,23 +273,39 @@ def _check_paged(q, k_pool, v_pool, n_pages: int, seq_len) -> dict:
         raise ValueError("a size exceeds the kernel's int index")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"paged attention runs on cuda or cpu, not {device}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.data_ptr() % 16:  # the kernel copies 16-byte chunks
-            raise ValueError(f"{name} must start on a 16-byte boundary")
     return dict(device=device, n_kv=n_kv, g=g, d=d, n_pool=n_pool, ps=ps,
                 dtype=POOL_DTYPES[q.dtype], seq_len=int(seq_len))
 
 
+def _check_paged_cuda(sz: dict, k_pool, v_pool) -> None:
+    """The limits of the CUDA paged kernels, on top of :func:`_check_paged`
+    (whose sizes ``sz`` are): a head width they are built for, two loop
+    steps of pages in a block's shared memory, the grid's head blocks and
+    pools on 16-byte boundaries.  The plain version takes any of these."""
+    n_kv, g, d, ps = sz["n_kv"], sz["g"], sz["d"], sz["ps"]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width d={d} is not one of {HEAD_DIMS}")
+    if paged_smem_bytes(2, ps, d, k_pool.element_size()) > PAGED_SMEM_LIMIT:
+        raise ValueError(f"pages of ps={ps} tokens of d={d} need more than "
+                         f"the {PAGED_SMEM_LIMIT} B of shared memory a block "
+                         f"may use")
+    if n_kv * -(-g // PAGED_QUERY_TILE) > PAGED_MAX_HEAD_BLOCKS:
+        raise ValueError(f"n_kv={n_kv} KV heads of g={g} queries exceed the "
+                         f"grid's {PAGED_MAX_HEAD_BLOCKS} head blocks")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:  # the kernel copies 16-byte chunks
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _paged_launch(kernel: str, sz: dict, q, k_pool, v_pool, ids: tuple,
                   n_pages: int):
+    _check_paged_cuda(sz, k_pool, v_pool)
     device, n_kv, g, d = sz["device"], sz["n_kv"], sz["g"], sz["d"]
     o = torch.empty((n_kv, g, d), dtype=torch.float32, device=device)
     m = torch.empty((n_kv, g), dtype=torch.float32, device=device)
     l = torch.empty((n_kv, g), dtype=torch.float32, device=device)
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
     split_pages, n_splits = paged_split_plan(n_pages, n_kv, g,
-                                             _sm_count(index))
+                                             _sm_count(device))
     # the split pass's partials (acc, then m, then l), for the combine pass
     ws = torch.empty(n_kv * n_splits * g * (d + 2), dtype=torch.float32,
                      device=device) if n_splits > 1 else None
@@ -298,6 +353,62 @@ def cuckoo_paged_attention(q, k_pool, v_pool, page_map2, select, seq_len):
                          (page_map2, select), n_pages)
 
 
+def _split_d(d: int, want: int, unit: int, most: int) -> tuple:
+    """``(krange, splits)``: about ``want`` K-splits of d, each a multiple
+    of ``unit`` rows and at most ``most``."""
+    per = -(-d // max(1, want))
+    krange = min(most, -(-per // unit) * unit)
+    return krange, -(-d // krange)
+
+
+def fused_norm_matmul_plan(S: int, d: int, F: int, elt: int, n_sm: int,
+                           w_aligned: bool = True) -> dict:
+    """How ``csrc/fused_norm_matmul.cu`` computes an (S, d) x (d, F) call
+    of ``elt``-byte values on a card of ``n_sm`` SMs -> ``dict(regime,
+    tile, splits, krange)``.
+
+    Up to 32 rows: ``mma`` (bf16 whose w rows are whole 16-byte chunks:
+    ``F * elt % 16 == 0`` and ``w`` on a 16-byte boundary) or ``stream``
+    (the rest), with ``tile`` columns a block and ``splits`` K-splits of
+    ``krange`` rows of d; one split finishes the output in one launch.
+    More rows: ``wgmma`` (bf16) or ``fma`` (float32) with ``tile`` =
+    (rows, columns) of an output tile over the whole of d, or ``stream``
+    where w rows are not whole chunks."""
+    whole = F * elt % 16 == 0 and w_aligned
+    if S > FNM_DECODE_MAX_ROWS and whole:
+        if elt == 2:
+            return dict(regime="wgmma", tile=FNM_WGMMA_TILE, splits=1,
+                        krange=d)
+        return dict(regime="fma", tile=FNM_FMA_TILE, splits=1, krange=d)
+    if S <= FNM_DECODE_MAX_ROWS and whole and elt == 2:
+        tiles = -(-F // FNM_MMA_COLS)
+        want = min(-(-d // FNM_MMA_SPLIT_ROWS), FNM_MMA_MAX_SPLITS,
+                   max(1, FNM_MMA_MAX_BLOCKS_PER_SM * n_sm // tiles))
+        krange, splits = _split_d(d, want, FNM_MMA_KRANGE_UNIT,
+                                  FNM_MAX_KRANGE)
+        return dict(regime="mma", tile=FNM_MMA_COLS, splits=splits,
+                    krange=krange)
+    tile = FNM_ROW_BYTES // elt
+    blocks = -(-F // tile) * -(-S // FNM_ROW_GROUP)
+    want = min(FNM_MAX_SPLITS, -(-FNM_BLOCKS_PER_SM * n_sm // blocks))
+    krange, splits = _split_d(d, want, FNM_KRANGE_UNIT, FNM_MAX_KRANGE)
+    return dict(regime="stream", tile=tile, splits=splits, krange=krange)
+
+
+def fused_norm_matmul_workspace(plan: dict, S: int, d: int, F: int,
+                                elt: int) -> int:
+    """Float32 workspace a call of ``plan`` needs, in floats: the stream
+    and mma regimes' partials ``(splits, S, F)`` and x^2 sums
+    ``(splits, S)`` when they have more than one split; the prefill
+    regimes' x * gamma (S rows of d padded to ``FNM_PAD``, in the input
+    type) and inverse RMS (S)."""
+    if plan["regime"] in ("stream", "mma"):
+        n = plan["splits"]
+        return 0 if n == 1 else n * S * F + n * S
+    dp = -(-d // FNM_PAD) * FNM_PAD
+    return S * dp * elt // 4 + S
+
+
 def fused_norm_matmul(x, gamma, w):
     """``RMSNorm(x; eps=1e-6) * gamma @ w`` -> (S, F) in the dtype of ``x``.
 
@@ -323,7 +434,7 @@ def fused_norm_matmul(x, gamma, w):
     if d < 1 or gamma.shape[0] != d or w.shape[0] != d:
         raise ValueError(f"d differs: x {tuple(x.shape)}, gamma "
                          f"{tuple(gamma.shape)}, w {tuple(w.shape)}")
-    if max(S * d, d * F, S * F) >= 2**31 or S > 65535 * 32:
+    if max(S * d, d * F, S * F) >= 2**31 or S > 65535 * FNM_ROW_GROUP:
         raise ValueError("a size exceeds the kernel's int index or grid")
     device = x.device
     if device.type == "cpu":
@@ -332,11 +443,19 @@ def fused_norm_matmul(x, gamma, w):
         raise ValueError(f"fused_norm_matmul runs on cuda or cpu, not {device}")
     out = torch.empty((S, F), dtype=x.dtype, device=device)
     if S and F:
+        elt = x.element_size()
+        plan = fused_norm_matmul_plan(S, d, F, elt, _sm_count(device),
+                                      w.data_ptr() % 16 == 0)
+        n_ws = fused_norm_matmul_workspace(plan, S, d, F, elt)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device) \
+            if n_ws else None
         fn = build.launcher("fused_norm_matmul")
         with torch.cuda.device(device):
             err = fn(x.data_ptr(), gamma.data_ptr(), w.data_ptr(),
-                     out.data_ptr(), S, d, F, POOL_DTYPES[x.dtype], NORM_EPS,
-                     _stream(device))
+                     out.data_ptr(), None if ws is None else ws.data_ptr(),
+                     S, d, F, POOL_DTYPES[x.dtype], NORM_EPS,
+                     FNM_REGIMES.index(plan["regime"]), plan["splits"],
+                     plan["krange"], _stream(device))
         _raise_on(err, "fused_norm_matmul")
         LAUNCHES["fused_norm_matmul"] += 1
     return out

@@ -167,3 +167,44 @@ def fused_norm_matmul_ref(x, gamma, w, eps: float = 1e-6):
     xf = x.float()
     nrm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return ((nrm * gamma.float()) @ w.float()).to(x.dtype)
+
+
+def fused_norm_matmul_split_partials(x, gamma, w, krange: int):
+    """The stream regime's split pass of ``csrc/fused_norm_matmul.cu``, with
+    the norm factored out of the dot: for each K-split of ``krange`` rows of
+    d (the last one shorter), ``sum_k (x * gamma)[s, k] * w[k, f]`` and
+    ``sum_k x[s, k]^2`` over its rows -> float32 ``part (splits, S, F)`` and
+    ``ss (splits, S)``."""
+    xf, gf, wf = x.float(), gamma.float(), w.float()
+    parts, sss = [], []
+    for k0 in range(0, x.shape[1], krange):
+        xs = xf[:, k0:k0 + krange]
+        parts.append((xs * gf[k0:k0 + krange]) @ wf[k0:k0 + krange])
+        sss.append((xs * xs).sum(dim=1))
+    return torch.stack(parts), torch.stack(sss)
+
+
+def combine_fused_norm_matmul_partials(part, ss, d: int, eps: float = 1e-6,
+                                       dtype=torch.float32):
+    """The combine pass over the splits' partials (leading axis), summed in
+    split order: ``out = sum part_i * rsqrt(sum ss_i / d + eps)``, rounded
+    once to ``dtype``."""
+    tot, sst = part[0], ss[0]
+    for p, s in zip(part[1:], ss[1:]):
+        tot, sst = tot + p, sst + s
+    return (tot * torch.rsqrt(sst / d + eps)[:, None]).to(dtype)
+
+
+def fused_norm_matmul_rows(x, gamma, a_dtype, pad: int = 64,
+                           eps: float = 1e-6):
+    """The prefill regimes' rows pass: ``x * gamma`` rounded once to
+    ``a_dtype`` (bf16 for the tensor cores, float32 for the FMA tile) with
+    the rows padded by zeros to a multiple of ``pad`` columns, and the
+    float32 inverse RMS of each row; the kernel then computes
+    ``inv_rms[:, None] * (xg @ w)`` in float32 (``w`` padded alike)."""
+    xf = x.float()
+    S, d = x.shape
+    dp = -(-d // pad) * pad
+    xg = torch.zeros((S, dp), dtype=a_dtype, device=x.device)
+    xg[:, :d] = (xf * gamma.float()).to(a_dtype)
+    return xg, torch.rsqrt((xf * xf).sum(dim=1) / d + eps)

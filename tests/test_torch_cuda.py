@@ -1,0 +1,250 @@
+"""The port's CUDA kernels against their plain versions, on an NVIDIA card.
+
+    python -m pytest -q tests/test_torch_cuda.py   # on the GPU machine
+
+This file imports only ``torch``, ``numpy``, ``pytest`` and ``repro_torch``
+(no jax, no ``repro``), so it runs where the port runs.  Every test needs a
+card and skips without one.  It holds:
+
+* ``ludo_lookup`` and ``slot_unpack`` bit for bit against their plain
+  versions over a port ``OutbackShard``'s CN arrays (batches 1, 1023, 1025,
+  4096);
+* both paged-attention kernels against ``ref.paged_attention_ref`` at the
+  shapes of ``tests/test_torch_kernels.py`` and the split pass's edges, to
+  1e-5 relative and absolute (both sides in float32, sums in another
+  order), and the limits only the CUDA kernels have (head widths 16 and
+  32, shared memory, the grid, 16-byte starts) raised for CUDA tensors;
+* ``fused_norm_matmul`` against ``ref.fused_norm_matmul_ref`` with TF32 off
+  and the tolerances of ``tests/test_kernels.py`` (1e-4 in float32, 3e-2 in
+  bf16: the bf16 regimes round x * gamma to bf16 once, 2^-9 relative), at
+  the test shapes, llama3.2-1b's serve entries, and the edges of its
+  regimes (S = 1, 7, 8, 9, 31, 32, 33, 64 across the row groups and the
+  decode / prefill boundary; d = 1000, no multiple of a K-split; F = 1,
+  100, 131, 512 and 8192), each call counted once in ``ops.LAUNCHES``, and
+  two calls on the same inputs bit for bit alike.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import outback
+from repro_torch.core.hashing import lanes, split_u64, splitmix64
+from repro_torch.core.store import make_uniform_keys
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+BATCHES = [1, 1023, 1025, 4096]
+PAGED_TOL = dict(rtol=1e-5, atol=1e-5)
+FNM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py:138
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+# ------------------------------------------------------------- index kernels
+def test_kernels_on_card(card):
+    """The index kernels bit for bit against their plain versions."""
+    keys = make_uniform_keys(40_000)
+    shard = outback.OutbackShard(keys, splitmix64(keys), load_factor=0.9,
+                                 device="cuda")
+    meta = ops.cn_meta_from(shard)
+    oth = shard.cn.othello
+    wa, wb, seeds = oth.words_a, oth.words_b, shard.cn.seeds
+    assert wa.is_cuda and seeds.is_cuda
+    for batch in BATCHES:
+        lo, hi = (lanes(x, "cuda") for x in split_u64(keys[:batch]))
+        got = ops.ludo_lookup(lo, hi, wa, wb, seeds, meta)
+        want = ref.ludo_lookup_ref(lo, hi, wa, wb, seeds, **meta)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        got = ops.slot_unpack(lo, hi)
+        want = ref.slot_unpack_ref(lo, hi)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ----------------------------------------------------------- paged attention
+PAGED_SHAPES = [  # n_kv, g, d, ps, L, seq_len, dtype (tests/test_kernels.py)
+    (2, 4, 64, 16, 4, 64, "float32"),
+    (2, 4, 64, 16, 4, 49, "float32"),  # ragged last page
+    (4, 2, 128, 32, 8, 250, "float32"),
+    (1, 8, 64, 16, 2, 32, "bfloat16"),
+]
+# The split pass's edges, for runs of 16 pages (ops.paged_split_plan at
+# these sizes on a card of 22 SMs or more): one run; a last run of one
+# page; seq_len in the first page of the last run; seq_len in the first
+# run, whole runs past it; float32 and d = 128 at L in the hundreds; a
+# group of 5 (two query tiles); a ring of 3 loop steps.
+PAGED_EDGE_SHAPES = [
+    (8, 4, 64, 16, 1, 9, "bfloat16"),
+    (8, 4, 64, 16, 321, 321 * 16 - 3, "bfloat16"),
+    (8, 4, 64, 16, 320, 19 * 16 * 16 + 5, "bfloat16"),
+    (8, 4, 64, 16, 320, 5, "bfloat16"),
+    (8, 4, 64, 16, 400, 400 * 16 - 8, "float32"),
+    (4, 2, 128, 32, 300, 300 * 32 - 17, "float32"),
+    (2, 5, 64, 16, 33, 33 * 16 - 20, "float32"),
+    (1, 4, 128, 64, 40, 40 * 64 - 3, "float32"),
+]
+
+
+def _paged_inputs(seed, n_kv, g, d, ps, L, dtype, starts=None):
+    """Pools, a Ludo map and a cuckoo map (the first step of every run of
+    ``starts`` pages, and step 0, on the unselected candidate) on the
+    card."""
+    rng = np.random.default_rng(seed)
+    pool = 3 * L
+    q = rng.standard_normal((n_kv, g, d)).astype(np.float32)
+    k = rng.standard_normal((pool, ps, n_kv, d)).astype(np.float32)
+    v = rng.standard_normal((pool, ps, n_kv, d)).astype(np.float32)
+    pm = rng.choice(pool, L, replace=False).astype(np.int32)
+    decoy = rng.choice(pool, L, replace=False).astype(np.int32)
+    sel = rng.integers(0, 2, L).astype(np.int32)
+    sel[0] = 1
+    if starts:
+        sel[::starts] = 1
+    pm2 = np.where(sel[:, None] == 0, np.stack([pm, decoy], 1),
+                   np.stack([decoy, pm], 1)).astype(np.int32)
+    q, k, v = (torch.from_numpy(a).to("cuda", getattr(torch, dtype))
+               for a in (q, k, v))
+    pm, pm2, sel = (torch.from_numpy(a).cuda() for a in (pm, pm2, sel))
+    return q, k, v, pm, pm2, sel
+
+
+def test_paged_kernels_on_card(card):
+    """Both paged kernels at the test shapes and the split pass's edges;
+    every cuckoo run starts on the unselected candidate."""
+    for n_kv, g, d, ps, L, seq_len, dtype in PAGED_SHAPES + PAGED_EDGE_SHAPES:
+        split = ops.paged_split_plan(L, n_kv, g, card)[0]
+        assert L < 2 or split == 16
+        q, k, v, pm, pm2, sel = _paged_inputs(5, n_kv, g, d, ps, L, dtype,
+                                              starts=split)
+        want = ref.paged_attention_ref(q, k, v, pm, seq_len)
+        for got in (ops.paged_attention(q, k, v, pm, seq_len),
+                    ops.cuckoo_paged_attention(q, k, v, pm2, sel, seq_len)):
+            for g_, w in zip(got, want):
+                torch.testing.assert_close(g_, w, **PAGED_TOL)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_paged_kernels_refuse_unbuilt_head_widths_on_card(card, d):
+    """The CUDA kernels are built for d = 64 and 128; on CUDA tensors the
+    wrappers raise for the widths the plain version takes on the CPU."""
+    q, k, v, pm, pm2, sel = _paged_inputs(6, 2, 4, d, 16, 4, "float32")
+    n = ops.LAUNCHES["paged_attention"], \
+        ops.LAUNCHES["cuckoo_paged_attention"]
+    with pytest.raises(ValueError, match="head width"):
+        ops.paged_attention(q, k, v, pm, 50)
+    with pytest.raises(ValueError, match="head width"):
+        ops.cuckoo_paged_attention(q, k, v, pm2, sel, 50)
+    assert (ops.LAUNCHES["paged_attention"],
+            ops.LAUNCHES["cuckoo_paged_attention"]) == n
+
+
+def test_paged_kernels_refuse_their_limits_on_card(card):
+    """Shared memory, the grid's head blocks and 16-byte starts."""
+    pm = torch.zeros(1, dtype=torch.int32, device="cuda")
+    q = torch.zeros((1, 4, 128), device="cuda")
+    pool = torch.zeros((2, 256, 1, 128), device="cuda")
+    with pytest.raises(ValueError, match="shared"):
+        ops.paged_attention(q, pool, pool, pm, 1)
+    q = torch.zeros((65536, 1, 64), device="cuda")
+    pool = torch.zeros((1, 1, 65536, 64), device="cuda")
+    with pytest.raises(ValueError, match="grid"):
+        ops.paged_attention(q, pool, pool, pm, 1)
+    q, k, v, pm, pm2, sel = _paged_inputs(7, 2, 4, 64, 16, 4, "float32")
+    shifted = torch.zeros(k.numel() + 1, device="cuda")[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.paged_attention(q, shifted, v, pm, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.cuckoo_paged_attention(q, k, shifted, pm2, sel, 64)
+
+
+# ---------------------------------------------------------- fused norm matmul
+FNM_SHAPES = [  # S, d, F, dtype: tests/test_torch_kernels.py's, serve entries
+    (256, 512, 1024, "float32"), (512, 256, 512, "float32"),
+    (128, 1024, 512, "bfloat16"), (7, 200, 100, "float32"),
+    (9, 64, 131, "bfloat16"),
+    (8, 2048, 2048, "bfloat16"), (8, 2048, 512, "bfloat16"),
+    (8, 2048, 8192, "bfloat16"), (256, 2048, 8192, "bfloat16"),
+]
+FNM_EDGE_S = (1, 7, 8, 9, 31, 32, 33, 64)
+FNM_EDGE_F = (1, 100, 131, 512, 8192)
+FNM_EDGE_D = 1000
+
+
+def _fnm_inputs(seed, S, d, F, dtype):
+    """tests/test_kernels.py's inputs (w scaled by 1/sqrt(d)), on the
+    card."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((S, d)), rng.standard_normal((d,)),
+            rng.standard_normal((d, F)) / np.sqrt(d))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(
+        "cuda", getattr(torch, dtype)) for a in arrs)
+
+
+def _check_fnm(S, d, F, dtype, seed=6):
+    x, g, w = _fnm_inputs(seed, S, d, F, dtype)
+    n = ops.LAUNCHES["fused_norm_matmul"]
+    got = ops.fused_norm_matmul(x, g, w)
+    assert ops.LAUNCHES["fused_norm_matmul"] == n + 1
+    assert got.dtype == x.dtype and got.shape == (S, F)
+    tol = FNM_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               ref.fused_norm_matmul_ref(x, g, w).float(),
+                               rtol=tol, atol=tol)
+    return x, g, w, got
+
+
+def test_fused_norm_matmul_on_card(card):
+    """The test shapes and llama3.2-1b's decode and prefill entries."""
+    for S, d, F, dtype in FNM_SHAPES:
+        _check_fnm(S, d, F, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", FNM_EDGE_S)
+def test_fused_norm_matmul_regime_edges_on_card(card, S, dtype):
+    elt = 4 if dtype == "float32" else 2
+    for F in FNM_EDGE_F:
+        plan = ops.fused_norm_matmul_plan(S, FNM_EDGE_D, F, elt, card)
+        assert (plan["regime"] in ("mma", "stream")) \
+            == bool(S <= 32 or F * elt % 16)
+        _check_fnm(S, FNM_EDGE_D, F, dtype, seed=S + F)
+
+
+@pytest.mark.parametrize("S,d,F,dtype", [
+    (8, 2048, 8192, "bfloat16"), (8, 2048, 512, "bfloat16"),
+    (9, 1000, 131, "bfloat16"), (8, 2048, 2048, "float32"),
+    (256, 2048, 8192, "bfloat16"), (64, 1000, 512, "float32")])
+def test_fused_norm_matmul_repeats_bit_for_bit_on_card(card, S, d, F, dtype):
+    """No atomics: the K-splits add up in a fixed order, so two calls give
+    the same bits (each regime: mma, stream, wgmma, fma)."""
+    x, g, w, got = _check_fnm(S, d, F, dtype, seed=11)
+    for _ in range(3):
+        assert torch.equal(ops.fused_norm_matmul(x, g, w), got)
+
+
+def test_fused_norm_matmul_takes_its_plan_on_card(card):
+    """The serve entries on this card: the mma regime, at least as many
+    blocks as SMs at F = 8192, and the workspace the plan asks for."""
+    for F in (2048, 512, 8192):
+        plan = ops.fused_norm_matmul_plan(8, 2048, F, 2, card)
+        assert plan["regime"] == "mma"
+        assert (plan["splits"] - 1) * plan["krange"] < 2048 \
+            <= plan["splits"] * plan["krange"]
+    big = ops.fused_norm_matmul_plan(8, 2048, 8192, 2, card)
+    assert -(-8192 // big["tile"]) * big["splits"] >= card
+    x, g, w = _fnm_inputs(12, 8, 2048, 8192, "bfloat16")
+    off = torch.empty(w.numel() + 8, dtype=w.dtype, device="cuda")[1:]
+    off[:w.numel()].copy_(w.reshape(-1))
+    w_off = off[:w.numel()].view(w.shape)  # 2 bytes past a 16-byte start
+    assert ops.fused_norm_matmul_plan(8, 2048, 8192, 2, card, False)[
+        "regime"] == "stream"
+    torch.testing.assert_close(ops.fused_norm_matmul(x, g, w_off).float(),
+                               ops.fused_norm_matmul(x, g, w).float(),
+                               rtol=3e-2, atol=3e-2)

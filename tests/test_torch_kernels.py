@@ -19,8 +19,15 @@ kernels run in interpret mode (through ``repro.kernels.ops`` with
 ``mode="pallas"``, which pads to the kernel block the way the reference
 does) and against the reference's host ``LudoCN.locate``.  Ragged batch
 sizes 1, 1023 and 1025 are covered; the CUDA kernels are checked against
-the same plain versions on the card by ``test_kernels_on_card`` and by
+the same plain versions on the card by ``tests/test_torch_cuda.py`` (which
+imports neither jax nor ``repro``, so it runs on the GPU machine) and by
 ``chip_smoke.py``.
+
+The paged wrappers take the plain version on the CPU at every head width
+the reference computes: d = 16 (the reduced configs' width) and d = 32
+are held against ``repro``'s reference and Pallas kernels here, while the
+CUDA kernels' own limits (``ops._check_paged_cuda``: widths 64 and 128,
+shared memory, grid, 16-byte starts) apply to CUDA tensors only.
 """
 
 import jax.numpy as jnp
@@ -140,24 +147,6 @@ def test_empty_batches(shards):
     assert all(o.shape == (0,) for o in ops.slot_unpack(e, e))
 
 
-@pytest.mark.cuda
-def test_kernels_on_card(shards):
-    """The CUDA kernels against their plain versions on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run on the GPU machine")
-    r, _, keys = shards
-    meta = r_ops.cn_meta_from(r)
-    wa, wb, seeds = (x.cuda() for x in _cn_tensors(r))
-    for batch in BATCHES:
-        lo, hi = (lanes(x, "cuda") for x in split_u64(keys[:batch]))
-        got = ops.ludo_lookup(lo, hi, wa, wb, seeds, meta)
-        want = ref.ludo_lookup_ref(lo, hi, wa, wb, seeds, **meta)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-        got = ops.slot_unpack(lo, hi)
-        want = ref.slot_unpack_ref(lo, hi)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-
-
 # --------------------------------------------------------- paged attention
 PAGED_SHAPES = [  # n_kv, g, d, ps, L, seq_len, dtype (tests/test_kernels.py)
     (2, 4, 64, 16, 4, 64, "float32"),
@@ -271,10 +260,6 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take():
         ops.paged_attention(q, k.bfloat16(), v, pm, 64)
     with pytest.raises(TypeError):
         ops.paged_attention(q, k, v, pm.long(), 64)
-    with pytest.raises(ValueError):  # d = 32 is not built
-        ops.paged_attention(q[..., :32].contiguous(),
-                            k[..., :32].contiguous(),
-                            v[..., :32].contiguous(), pm, 64)
     with pytest.raises(ValueError):
         ops.paged_attention(q, k[:, :, :1].contiguous(), v, pm, 64)
     with pytest.raises(ValueError):
@@ -292,44 +277,61 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take():
                             pm.to("meta"), 64)
 
 
-# The split pass's edges (n_kv, g, d, ps, L, seq_len, dtype), for runs of
-# 16 pages (ops.paged_split_plan at these sizes on a card of 22 SMs or
-# more): one run; a last run of one page; seq_len in the first page of the
-# last run; seq_len in the first run, whole runs past it; float32 and
-# d = 128 at L in the hundreds; a group of 5 (two query tiles).
-PAGED_EDGE_SHAPES = [
-    (8, 4, 64, 16, 1, 9, "bfloat16"),
-    (8, 4, 64, 16, 321, 321 * 16 - 3, "bfloat16"),
-    (8, 4, 64, 16, 320, 19 * 16 * 16 + 5, "bfloat16"),
-    (8, 4, 64, 16, 320, 5, "bfloat16"),
-    (8, 4, 64, 16, 400, 400 * 16 - 8, "float32"),
-    (4, 2, 128, 32, 300, 300 * 32 - 17, "float32"),
-    (2, 5, 64, 16, 33, 33 * 16 - 20, "float32"),
-    (1, 4, 128, 64, 40, 40 * 64 - 3, "float32"),  # a ring of 3 loop steps
+# Head widths below the CUDA kernels' 64 and 128, which the reference
+# computes and a CPU tensor must get (the reduced configs have d = 16).
+PAGED_SMALL_D_SHAPES = [  # n_kv, g, d, ps, L, seq_len, dtype
+    (2, 4, 16, 16, 4, 50, "float32"),
+    (2, 4, 16, 16, 4, 50, "bfloat16"),
+    (1, 8, 32, 16, 2, 20, "float32"),
+    (1, 8, 32, 16, 2, 20, "bfloat16"),
 ]
 
 
-@pytest.mark.cuda
-def test_paged_kernels_on_card():
-    """The paged CUDA kernels against their plain versions on the card, at
-    the test shapes and the split pass's edges; every cuckoo run starts on
-    the unselected candidate."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run on the GPU machine")
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for n_kv, g, d, ps, L, seq_len, dtype in PAGED_SHAPES + PAGED_EDGE_SHAPES:
-        split = ops.paged_split_plan(L, n_kv, g, n_sm)[0]
-        assert L < 2 or split == 16
-        _, (q, k, v), pm, pm2, sel = _paged_inputs(5, n_kv, g, d, ps, L,
-                                                   dtype, starts=split)
-        q, k, v = q.cuda(), k.cuda(), v.cuda()
-        pm, pm2, sel = (torch.from_numpy(a).cuda() for a in (pm, pm2, sel))
-        want = ref.paged_attention_ref(q, k, v, pm, seq_len)
-        for got in (ops.paged_attention(q, k, v, pm, seq_len),
-                    ops.cuckoo_paged_attention(q, k, v, pm2, sel, seq_len)):
-            for g_, w in zip(got, want):
-                torch.testing.assert_close(g_, w, **TOL)
+@pytest.mark.parametrize("n_kv,g,d,ps,L,seq_len,dtype", PAGED_SMALL_D_SHAPES)
+def test_paged_attention_small_heads_on_cpu(n_kv, g, d, ps, L, seq_len,
+                                            dtype):
+    (jq, jk, jv), (tq, tk, tv), pm, _, _ = _paged_inputs(6, n_kv, g, d, ps,
+                                                         L, dtype)
+    ops.reset_launch_counts()
+    tpm = torch.from_numpy(pm)
+    got = ops.paged_attention(tq, tk, tv, tpm, seq_len)
+    assert tuple(got[0].shape) == (n_kv, g, d)
+    _close(got, paged_attention_kernel(jq, jk, jv, jnp.asarray(pm),
+                                       jnp.asarray([seq_len], jnp.int32),
+                                       interpret=True))
+    _close(got, r_ref.paged_attention_ref(jq, jk, jv, jnp.asarray(pm),
+                                          jnp.int32(seq_len)))
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n_kv,g,d,ps,L,seq_len,dtype", PAGED_SMALL_D_SHAPES)
+def test_cuckoo_paged_attention_small_heads_on_cpu(n_kv, g, d, ps, L,
+                                                   seq_len, dtype):
+    (jq, jk, jv), (tq, tk, tv), _, pm2, sel = _paged_inputs(
+        7, n_kv, g, d, ps, L, dtype)
+    ops.reset_launch_counts()
+    got = ops.cuckoo_paged_attention(tq, tk, tv, torch.from_numpy(pm2),
+                                     torch.from_numpy(sel), seq_len)
+    _close(got, cuckoo_paged_attention_kernel(
+        jq, jk, jv, jnp.asarray(pm2), jnp.asarray(sel),
+        jnp.asarray([seq_len], jnp.int32), interpret=True))
+    true_pm = jnp.asarray(pm2[np.arange(L), sel])
+    _close(got, r_ref.paged_attention_ref(jq, jk, jv, true_pm,
+                                          jnp.int32(seq_len)))
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_cuda_paged_check_refuses_unbuilt_head_widths(d):
+    """The CUDA kernels are built for d = 64 and 128 only; the check that
+    only their branch runs refuses the rest (on CUDA tensors the wrappers
+    raise it: tests/test_torch_cuda.py)."""
+    _, (q, k, v), pm, _, _ = _paged_inputs(8, 2, 4, d, 16, 4, "float32")
+    sz = ops._check_paged(q, k, v, len(pm), 64)
+    with pytest.raises(ValueError, match="head width"):
+        ops._check_paged_cuda(sz, k, v)
+    wide = _paged_inputs(8, 2, 4, 64, 16, 4, "float32")[1]
+    ops._check_paged_cuda(ops._check_paged(*wide, len(pm), 64), *wide[1:])
 
 
 # -------------------------------------------------------- fused norm matmul
@@ -399,24 +401,3 @@ def test_fused_norm_matmul_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         ops.fused_norm_matmul(x.to("meta"), g.to("meta"), w.to("meta"))
     assert ops.fused_norm_matmul(x[:0], g, w).shape == (0, 96)
-
-
-@pytest.mark.cuda
-def test_fused_norm_matmul_on_card():
-    """The CUDA kernel against its plain version on the card, at the test
-    shapes and at llama3.2-1b's decode entries."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run on the GPU machine")
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
-    shapes = [s[:4] for s in FNM_SHAPES] + [
-        (8, 2048, f, "bfloat16") for f in (2048, 512, 8192)]
-    for S, d, F, dtype in shapes:
-        _, (x, g, w) = _fnm_inputs(6, S, d, F, dtype)
-        x, g, w = x.cuda(), g.cuda(), w.cuda()
-        n = ops.LAUNCHES["fused_norm_matmul"]
-        got = ops.fused_norm_matmul(x, g, w)
-        assert ops.LAUNCHES["fused_norm_matmul"] == n + 1
-        tol = FNM_TOL[dtype]
-        torch.testing.assert_close(got.float(),
-                                   ref.fused_norm_matmul_ref(x, g, w).float(),
-                                   rtol=tol, atol=tol)

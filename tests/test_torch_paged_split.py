@@ -188,6 +188,15 @@ def test_out_of_pool_page_reads_zero_tiles_and_is_masked():
 
 
 # ------------------------------------------------------------ the wrappers
+# The CUDA kernels' limits are checked on the CUDA branch only
+# (ops._check_paged_cuda); these tests call that check on CPU tensors, and
+# tests/test_torch_cuda.py sees the wrappers raise it on CUDA tensors.  On
+# the CPU the wrappers take the plain version, which has none of the limits.
+def _cuda_check(q, k_pool, v_pool, n_pages, seq_len):
+    ops._check_paged_cuda(ops._check_paged(q, k_pool, v_pool, n_pages,
+                                           seq_len), k_pool, v_pool)
+
+
 def test_paged_wrappers_reject_pools_off_16_byte_boundaries():
     """The kernel copies pages in 16-byte chunks, so both pools must start
     on a 16-byte boundary."""
@@ -197,9 +206,12 @@ def test_paged_wrappers_reject_pools_off_16_byte_boundaries():
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
     pm, pm2, sel = (torch.from_numpy(a) for a in (pm, pm2, sel))
     with pytest.raises(ValueError, match="16-byte"):
-        ops.paged_attention(q, shifted, v, pm, 64)
+        _cuda_check(q, shifted, v, len(pm), 64)
     with pytest.raises(ValueError, match="16-byte"):
-        ops.cuckoo_paged_attention(q, k, shifted, pm2, sel, 64)
+        _cuda_check(q, k, shifted, len(pm2), 64)
+    # the plain version takes a pool at any start
+    _close(ops.cuckoo_paged_attention(q, k, shifted, pm2, sel, 64),
+           ops.cuckoo_paged_attention(q, k, shifted.clone(), pm2, sel, 64))
 
 
 def test_paged_wrappers_reject_pages_beyond_shared_memory():
@@ -209,10 +221,13 @@ def test_paged_wrappers_reject_pages_beyond_shared_memory():
     pool = torch.zeros((2, 256, 1, 128))
     pm = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="shared"):
-        ops.paged_attention(q, pool, pool, pm, 1)
-    with pytest.raises(ValueError, match="shared"):
-        ops.cuckoo_paged_attention(q, pool, pool, torch.zeros(
-            (1, 2), dtype=torch.int32), pm, 1)
+        _cuda_check(q, pool, pool, 1, 1)
+    # the plain version takes such pages
+    o, m, l = ops.paged_attention(q, pool, pool, pm, 1)
+    assert o.shape == (1, 4, 128) and torch.all(l == 1)
+    o2, _, _ = ops.cuckoo_paged_attention(q, pool, pool, torch.zeros(
+        (1, 2), dtype=torch.int32), pm, 1)
+    assert torch.equal(o, o2)
     # 64-token float32 pages of d = 128 fit two steps, not four
     assert ops.paged_smem_bytes(2, 64, 128, 4) <= ops.PAGED_SMEM_LIMIT
     assert ops.paged_smem_bytes(4, 64, 128, 4) > ops.PAGED_SMEM_LIMIT
@@ -221,15 +236,16 @@ def test_paged_wrappers_reject_pages_beyond_shared_memory():
 def test_paged_wrappers_reject_more_head_blocks_than_the_grid_takes():
     """The split pass puts KV heads x query tiles of 4 on the grid's y axis,
     at most 65535 of them."""
-    pm = torch.zeros(1, dtype=torch.int32)
     for n_kv, g in ((65536, 1), (32768, 5)):
         q = torch.zeros((n_kv, g, 64))
         pool = torch.zeros((1, 1, n_kv, 64))
         with pytest.raises(ValueError, match="grid"):
-            ops.paged_attention(q, pool, pool, pm, 1)
+            _cuda_check(q, pool, pool, 1, 1)
     q = torch.zeros((65535, 1, 64))  # the most it takes
     pool = torch.zeros((1, 1, 65535, 64))
-    o, m, l = ops.paged_attention(q, pool, pool, pm, 1)
+    _cuda_check(q, pool, pool, 1, 1)
+    o, m, l = ops.paged_attention(q, pool, pool,
+                                  torch.zeros(1, dtype=torch.int32), 1)
     assert o.shape == (65535, 1, 64)
 
 
