@@ -10,9 +10,17 @@ Phases; any failure exits non-zero:
    ``slot_unpack``, ``paged_attention`` with both paged kernels, and
    ``fused_norm_matmul``) with one ``nvcc`` each, all at once, for sm_90a;
 2. hold each index kernel bit for bit against its plain PyTorch version on
-   the card (``ludo_lookup`` over a real shard's CN arrays, ``slot_unpack``
-   over 2^22 random slot words with all-ones words among them; batch sizes
-   1, 1023, 1024, 1025 and 2^20), and time both with CUDA events;
+   the card: ``ludo_lookup`` over a real shard's CN arrays (whose size it
+   prints) at the edges of its plan (``ops.ludo_lookup_plan``, printed at
+   B = 1, 1024 and 2^20: a warp, the serve window, each block width's
+   last batch and the next, 2^20), each on lanes 0-3 elements past a
+   16-byte boundary; ``slot_unpack`` over 2^22 random slot words with
+   all-ones words among them (batch sizes 1, 1023, 1024, 1025 and 2^22).
+   Time both with CUDA events and ``torch.profiler`` (``ludo_lookup`` at
+   B = 1, 1024 and 2^20, ``slot_unpack`` at 1024 and 2^20) beside their
+   bounds (the operations counted, ``LUDO_OPS``, printed beside the built
+   kernels' SASS opcodes by pipe), and print the two wrappers' host time
+   at B=1024 piece by piece (:func:`wrapper_breakdown`);
 3. check that a small store on the card answers and meters exactly as the
    same store on the CPU (the plain versions), then serve through
    ``open_store(StoreSpec("outback", load_factor=0.95))`` at 2^24 keys of
@@ -101,24 +109,60 @@ SEED = 0
 WINDOW = 1024
 # At B=2^20 the timed calls cycle over this many input sets, 64 MB or more
 # in all, so each launch finds its inputs outside the 50 MB L2 as a fresh
-# batch would; the CN arrays (9 MB at 2^24 keys) stay L2-resident, as on
-# the serve path.
+# batch would; the CN arrays (phase 2 prints their size) stay L2-resident,
+# as on the serve path.
 COLD_SETS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # H100 SXM peak float32 rate outside the tensor cores (data sheet); the
 # paged kernels do their products as float32 FMAs.
 F32_FLOPS_PER_S = 67e12
-# H100 SXM peak 32-bit integer rate (architecture white paper: 132 SMs x 64
-# INT32 lanes x 1.98 GHz, a multiply-add counted as two).
-INT32_OPS_PER_S = 33.5e12
-# 32-bit integer operations per key in the source of each kernel (a modulo
-# counted as one, so the operation bound is a lower bound):
-# ludo_lookup: 4 seeded 64-bit hashes of 29 (3 fmix32 of 8, 2 xor, 2 mul,
-# 1 seed xor), 4 modulos, 8 for the two Othello bit reads and their xor,
-# 1 select, 13 for the seeded slot hash, 4 for indexing and stores.
-LUDO_OPS_PER_KEY = 4 * 29 + 4 + 8 + 1 + 13 + 4
-# slot_unpack: three shift-and-mask pairs and the address copy.
-UNPACK_OPS_PER_SLOT = 7
+# H100 SXM integer rates: 132 SMs at 1.98 GHz (data sheet boost clock).
+# Each SM dispatches one warp instruction a clock from each of its 4
+# schedulers, 128 lanes in all, and each integer pipe takes 64 lanes a
+# clock: the ALU pipe (LOP3, SHF, IADD3, ISETP, SEL, LEA, ...) and the FMA
+# pipe's integer multiplies (IMAD, IMUL) (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0).  An
+# instruction counts once against the pipe it runs on.
+INT_PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+SCHEDULER_OPS_PER_S = 132 * 128 * 1.98e9
+# Integer operations a key (a slot) that the function needs, each counted
+# once against the pipe it issues on: the ALU pipe (LOP3, SHF, SEL) or the
+# FMA pipe's integer multiplies (IMAD and its WIDE and HI forms).  Moves,
+# the thread index, the i < n guard and the addresses of the key loads and
+# output stores are work of the kernel, not of the function, and are not
+# counted; phase 2 prints the built kernels' SASS opcodes beside this.
+# ludo_lookup, by part, (ALU, FMA):
+LUDO_OPS = {
+    # fmix32 is three shift-xors (SHF + LOP3) and two multiplies, hash64
+    # three fmix32 and two multiplies more: 18 ALU and 8 FMA.  A hash's
+    # first shift-xor folds into one LOP3 with lo ^ lo >> 16, its second
+    # into a SHF and a LOP3 with hi ^ hi >> 16 (made once a key: 4 ALU).
+    "four seeded hashes": (4 * 17 + 4, 4 * 8),
+    # m * a mod 2^64 (IMAD.WIDE.U32 + IMAD), then the high word of its
+    # halves times d (IMAD.HI.U32, IMAD.WIDE.U32 adding it)
+    "four multiply-high modulos": (0, 4 * 4),
+    # ia >> 5, ib >> 5, each word >> its bit, their xor & 1 (one LOP3)
+    "two Othello bit probes": (5, 0),
+    "bucket select": (1, 0),
+    # the two words' and the seed's addresses (IMAD.WIDE.U32 each)
+    "gather addressing": (0, 3),
+    # seed * C1, hi * C2, their xor with lo, fmix32 (the & 3 folds into
+    # its last LOP3)
+    "slot hash": (1 + 6, 2 + 2),
+}
+LUDO_OPS_PER_KEY = dict(alu=sum(a for a, _ in LUDO_OPS.values()),
+                        fma=sum(f for _, f in LUDO_OPS.values()))
+# slot_unpack: hi >> 31, (hi >> 25) & 0x3F, (hi >> 16) & 0x1FF
+UNPACK_OPS_PER_SLOT = dict(alu=5, fma=0)
+# SASS opcodes by the pipe they issue on (the rest: memory, uniform
+# datapath, control)
+SASS_ALU = ("LOP3", "SHF", "IADD3", "ISETP", "SEL", "LEA", "PRMT", "IABS",
+            "IMNMX", "FLO", "POPC", "BMSK", "SGXT", "MOV", "ICMP", "PLOP3",
+            "P2R", "R2P", "VIADD", "IADDC")
+SASS_FMA = ("IMAD", "IMUL", "IDP")
+SASS_XU = ("I2F", "F2I", "MUFU", "I2I", "F2F", "FRND")
+# ludo_lookup's timed batches: one key, the serve window, a bulk batch
+LUDO_TIMED = (1, WINDOW, 1 << 20)
 
 # The paged decode path at the attention width of llama3.2-1b
 # (src/repro/configs/llama3_2_1b.py: 32 query heads over 8 KV heads, head
@@ -313,11 +357,146 @@ def zipf_ranks(rng, n: int, size: int, theta: float = 0.99) -> np.ndarray:
 
 
 # ------------------------------------------------------------ phase 2
+def ops_bound_ms(per_item: dict, n: int) -> float:
+    """The least time of ``n`` items of ``per_item`` integer instructions
+    by pipe: the busier pipe at 64 lanes an SM a clock, or all of them at
+    the SMs' dispatch rate."""
+    return max(max(per_item.values()) / INT_PIPE_OPS_PER_S,
+               sum(per_item.values()) / SCHEDULER_OPS_PER_S) * n * 1e3
+
+
+def ludo_bound(b: int) -> tuple:
+    """``ludo_lookup``'s bound at ``b`` keys: each key's lanes read and
+    (bucket, slot) written once, 16 B a key (the CN arrays the gathers
+    read stay in L2, as phase 2 prints their size), or its integer
+    instructions."""
+    by_bytes = 16 * b / HBM_BYTES_PER_S * 1e3
+    by_ops = ops_bound_ms(LUDO_OPS_PER_KEY, b)
+    return max(by_bytes, by_ops), \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def ludo_edge_batches(n_sm: int) -> list:
+    """Batch sizes at the edges of ``ops.ludo_lookup_plan`` on a card of
+    ``n_sm`` SMs: a warp and one either side, the serve window and one
+    either side, each block width's last batch and the next, a ragged
+    batch past the widest, and 2^20."""
+    return sorted({1, 2, 3, 31, 32, 33, WINDOW - 1, WINDOW, WINDOW + 1,
+                   256 * n_sm + 5, 1 << 20}
+                  | {t * n_sm + d for t in (32, 64, 128, 256)
+                     for d in (0, 1)})
+
+
+def sass_opcodes(lib) -> dict:
+    """kernel -> its SASS opcodes (``cuobjdump -sass`` of the built
+    library ``lib``) and their totals by pipe."""
+    import re
+    from collections import Counter
+
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            found[name] = Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m and name:
+            found[name][m.group(1)] += 1
+    out = {}
+    for name, ops_ in found.items():
+        pipes = Counter()
+        for op, c in ops_.items():
+            root = op.split(".")[0]
+            pipes["alu" if root in SASS_ALU else "fma" if root in SASS_FMA
+                  else "xu" if root in SASS_XU else "uniform"
+                  if root.startswith("U") else "other"] += c
+        out[name] = dict(pipes=dict(pipes), opcodes=dict(ops_.most_common()))
+    return out
+
+
+def host_us(pieces: dict, iters: int = 2000) -> dict:
+    """Host us a call of each of ``pieces`` (name -> callable), each alone,
+    ``iters`` times back to back by ``time.perf_counter`` (launches end in
+    a synchronize)."""
+    import torch
+    res = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) / iters * 1e6
+    return res
+
+
+def wrapper_breakdown(lo, hi, wa, wb, seeds, meta, iters: int = 2000) -> dict:
+    """Host us a call of each piece of the CUDA branches of
+    ``ops.ludo_lookup`` and ``ops.slot_unpack`` at ``lo``'s batch (the
+    lanes stand in for slot words too), by :func:`host_us`, and each
+    whole wrapper by CUDA events."""
+    import torch
+    from repro_torch.kernels import build, ops
+    dev, n = lo.device, lo.shape[0]
+    scalar_args = tuple(meta[k] for k in ("ma", "mb", "nb", "seed_a",
+                                          "seed_b", "seed_ba", "seed_bb"))
+    scalars = ops._ludo_scalars(*scalar_args)
+    plan = ops._ludo_plan(n, ops._sm_count(dev))
+    out2 = torch.empty((2, n), dtype=torch.int32, device=dev)
+    out4 = torch.empty((4, n), dtype=torch.int32, device=dev)
+    ludo, unpack = build.launcher("ludo_lookup"), build.launcher("slot_unpack")
+    stream = ops._stream(dev)
+    p2, p4 = out2.data_ptr(), out4.data_ptr()
+
+    def checks():
+        for name, t, dt in (("key_lo", lo, torch.int32),
+                            ("key_hi", hi, torch.int32),
+                            ("words_a", wa, torch.int32),
+                            ("words_b", wb, torch.int32),
+                            ("seeds", seeds, torch.uint8)):
+            ops._check(name, t, dt, dev)
+
+    res = host_us({
+        "checks of 5 tensors": checks,
+        "launch scalars (cached)": lambda: ops._ludo_scalars(*scalar_args),
+        "plan": lambda: ops._ludo_plan(n, ops._sm_count(dev)),
+        "device check": lambda: dev.index == torch.cuda.current_device(),
+        "stream": lambda: ops._stream(dev),
+        "torch.empty (2, n)": lambda: torch.empty((2, n), dtype=torch.int32,
+                                                  device=dev),
+        "torch.empty (4, n)": lambda: torch.empty((4, n), dtype=torch.int32,
+                                                  device=dev),
+        "unbind of 2 rows": lambda: out2.unbind(0),
+        "unbind of 4 rows": lambda: out4.unbind(0),
+        "6 data_ptr": lambda: (lo.data_ptr(), hi.data_ptr(), wa.data_ptr(),
+                               wb.data_ptr(), seeds.data_ptr(),
+                               out2.data_ptr()),
+        "ctypes launch ludo_lookup": lambda: ludo(
+            lo.data_ptr(), hi.data_ptr(), wa.data_ptr(), wb.data_ptr(),
+            seeds.data_ptr(), p2, p2 + 4 * n, n, *scalars, *plan, stream),
+        "ctypes launch slot_unpack": lambda: unpack(
+            lo.data_ptr(), hi.data_ptr(), p4, p4 + 4 * n, p4 + 8 * n,
+            p4 + 12 * n, n, stream),
+    }, iters)
+    res["ludo_lookup whole (events)"] = 1e3 * time_ms(
+        lambda: ops.ludo_lookup(lo, hi, wa, wb, seeds, meta), iters)
+    res["slot_unpack whole (events)"] = 1e3 * time_ms(
+        lambda: ops.slot_unpack(lo, hi), iters)
+    return res
+
+
 def check_kernels(engine, keys: np.ndarray, rng) -> dict:
     """Each kernel against its plain version on the card, and timed."""
     import torch
     from repro_torch.core.hashing import lanes, split_u64
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
     dev = engine.device
     oth = engine.cn.othello
     meta = ops.cn_meta_from(engine)
@@ -325,39 +504,51 @@ def check_kernels(engine, keys: np.ndarray, rng) -> dict:
 
     absent = rng.integers(0, 2**64 - 1, 4096, dtype=np.uint64, endpoint=True)
     out = {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"CN arrays: {engine.cn.memory_bytes()} B at {keys.size} keys "
+        f"(ma={meta['ma']}, mb={meta['mb']}, nb={meta['nb']})")
+    log("ludo_lookup plans: " + "; ".join(
+        f"B={b}: {ops.ludo_lookup_plan(b, n_sm)}" for b in LUDO_TIMED))
+    log(f"integer operations the bound counts: ludo_lookup "
+        f"{LUDO_OPS_PER_KEY} a key ({LUDO_OPS}), slot_unpack "
+        f"{UNPACK_OPS_PER_SLOT} a slot")
+    for lib in ("ludo_lookup", "slot_unpack"):
+        for name, sass in sass_opcodes(build._lib_path(lib)).items():
+            log(f"SASS of {name}: {sass['pipes']} {sass['opcodes']}")
 
-    def ludo_inputs(b):
+    def ludo_inputs(b, offset=0):
+        """b keys (present and absent) as lanes on the card, viewed
+        ``offset`` elements past a 16-byte boundary."""
         q = np.concatenate([keys[rng.integers(0, keys.size, b)], absent])[:b]
         lo, hi = split_u64(rng.permutation(q))
-        return lanes(lo, dev), lanes(hi, dev)
-
-    def ludo_bound(b):
-        # each key's lanes read and (bucket, slot) written once: 16 B a key;
-        # the Othello words and seeds the gathers read stay in L2 (about
-        # 9 MB at 2^24 keys) and are not HBM traffic
-        by_bytes = 16 * b / HBM_BYTES_PER_S * 1e3
-        by_ops = LUDO_OPS_PER_KEY * b / INT32_OPS_PER_S * 1e3
-        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
-            else "operations"
+        pad = np.zeros(offset, np.uint32)
+        return (lanes(np.concatenate([pad, lo]), dev)[offset:],
+                lanes(np.concatenate([pad, hi]), dev)[offset:])
 
     err = 0
-    for b in (1, 1023, 1024, 1025, 1 << 20):
-        lo, hi = ludo_inputs(b)
-        got = ops.ludo_lookup(lo, hi, wa, wb, seeds, meta)
-        want = ref.ludo_lookup_ref(lo, hi, wa, wb, seeds, **meta)
-        torch.cuda.synchronize()
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"ludo_lookup differs from its plain version at B={b}")
-        err = max(err, max_abs_err(got, want))
+    edges = ludo_edge_batches(n_sm)
+    for b in edges:
+        for offset in range(4):
+            lo, hi = ludo_inputs(b, offset)
+            got = ops.ludo_lookup(lo, hi, wa, wb, seeds, meta)
+            want = ref.ludo_lookup_ref(lo, hi, wa, wb, seeds, **meta)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"ludo_lookup differs from its plain version at B={b}, "
+                  f"offset {offset}")
+            err = max(err, max_abs_err(got, want))
+    log(f"ludo_lookup: bit-identical to its plain version at B = {edges}, "
+        f"each on lanes 0-3 elements past a 16-byte boundary")
     timings = {}
-    for b in (WINDOW, 1 << 20):
+    for b in LUDO_TIMED:
         sets = [ludo_inputs(b) + (wa, wb, seeds)
-                for _ in range(1 if b == WINDOW else COLD_SETS)]
-        iters = 2000 if b == WINDOW else 200
+                for _ in range(COLD_SETS if b == 1 << 20 else 1)]
+        iters = 200 if b == 1 << 20 else 2000
         kern = cycling(lambda *a: ops.ludo_lookup(*a, meta), sets)
         bound, by = ludo_bound(b)
         timings[b] = dict(
-            batch=b, ms=time_ms(kern, iters),
+            batch=b, plan=ops.ludo_lookup_plan(b, n_sm),
+            ms=time_ms(kern, iters),
             device_ms=device_ms(kern, 50, "ludo_lookup_kernel"),
             plain_ms=time_ms(cycling(
                 lambda *a: ref.ludo_lookup_ref(*a, **meta), sets),
@@ -367,7 +558,13 @@ def check_kernels(engine, keys: np.ndarray, rng) -> dict:
         name="ludo_lookup", route="cuda",
         source="src/repro_torch/kernels/csrc/ludo_lookup.cu",
         replaces="src/repro/kernels/ludo_lookup.py:70", max_abs_err=err,
-        library_ms=None, **timings[WINDOW], large=timings[1 << 20])
+        library_ms=None, **timings[WINDOW], large=timings[1 << 20],
+        single=timings[1])
+    lo, hi = ludo_inputs(WINDOW)
+    out["ludo_lookup"]["host_breakdown_us"] = wrapper_breakdown(
+        lo, hi, wa, wb, seeds, meta)
+    log(f"index wrappers at B={WINDOW}, host us a piece: "
+        f"{json.dumps(out['ludo_lookup']['host_breakdown_us'])}")
 
     words = rng.integers(0, 2**32, (2, COLD_SETS << 20),
                          dtype=np.uint64).astype(np.uint32)
@@ -389,7 +586,7 @@ def check_kernels(engine, keys: np.ndarray, rng) -> dict:
         iters = 2000 if b == WINDOW else 200
         kern = cycling(ops.slot_unpack, sets)
         by_bytes = 24 * b / HBM_BYTES_PER_S * 1e3
-        by_ops = UNPACK_OPS_PER_SLOT * b / INT32_OPS_PER_S * 1e3
+        by_ops = ops_bound_ms(UNPACK_OPS_PER_SLOT, b)
         timings[b] = dict(
             batch=b, ms=time_ms(kern, iters),
             device_ms=device_ms(kern, 50, "slot_unpack_kernel"),
@@ -402,6 +599,9 @@ def check_kernels(engine, keys: np.ndarray, rng) -> dict:
         source="src/repro_torch/kernels/csrc/slot_unpack.cu",
         replaces="src/repro/kernels/slot_unpack.py:31", max_abs_err=err,
         library_ms=None, **timings[WINDOW], large=timings[1 << 20])
+    single = out["ludo_lookup"]["single"]
+    log(f"kernel ludo_lookup at B=1: {single['ms']:.6f} ms (device "
+        f"{single['device_ms']}), plain {single['plain_ms']:.6f} ms")
     for k in out.values():
         log(f"kernel {k['name']}: bit-identical to its plain version; "
             f"B={WINDOW}: {k['ms']:.6f} ms (device {k['device_ms']}), "

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 
 import torch
 
@@ -47,6 +48,26 @@ class LudoCN:
     othello: othello_mod.Othello
     seeds: torch.Tensor  # uint8[num_buckets]
     num_buckets: int
+    # (othello, num_buckets, meta) of the last meta made: see ``meta``
+    _meta: tuple | None = dataclasses.field(default=None, init=False,
+                                            repr=False, compare=False)
+
+    @property
+    def meta(self) -> types.MappingProxyType:
+        """The ``ludo_lookup`` meta of this CN (what ``ops.cn_meta_from``
+        returns), made once for each Othello and bucket count: the seeds
+        change in place on inserts, the Othello and the bucket count only
+        when the CN is rebuilt."""
+        cached = self._meta
+        if (cached is None or cached[0] is not self.othello
+                or cached[1] != self.num_buckets):
+            oth = self.othello
+            meta = dict(ma=oth.ma, mb=oth.mb, nb=self.num_buckets,
+                        seed_a=oth.seed_a, seed_b=oth.seed_b,
+                        seed_ba=SEED_BUCKET_A, seed_bb=SEED_BUCKET_B)
+            cached = self._meta = (oth, self.num_buckets,
+                                   types.MappingProxyType(meta))
+        return cached[2]
 
     def locate(self, lo: torch.Tensor, hi: torch.Tensor):
         """int32 lanes -> (bucket, slot) int32: the paper's entire CN-side
@@ -54,7 +75,7 @@ class LudoCN:
         when the lanes lie on the CPU)."""
         oth = self.othello
         return ops.ludo_lookup(lo, hi, oth.words_a, oth.words_b, self.seeds,
-                               ops.cn_meta_from(self))
+                               self.meta)
 
     def to(self, device) -> "LudoCN":
         return LudoCN(self.othello.to(device), self.seeds.to(device),

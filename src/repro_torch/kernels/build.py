@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_U64 = ctypes.c_uint64
 _F = ctypes.c_float
 # q, k_pool, v_pool, page_map, o, m, l, workspace; n_pages, n_pool, ps,
 # n_kv, g, d, dtype, seq_len, split_pages; stream
@@ -36,9 +37,12 @@ _PAGED = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
 # Each kernel's launch function: kernel -> (library, C symbol, argtypes).
 # A library is built from ``csrc/<library>.cu``.
 SIGNATURES = {
+    # key_lo, key_hi, words_a, words_b, seeds, bucket, slot; n; the magics
+    # of ma, mb, nb; ma, mb, nb and the four seeds; the plan's threads and
+    # blocks; stream
     "ludo_lookup": ("ludo_lookup", "ludo_lookup_launch",
-                    [_P, _P, _P, _P, _P, _P, _P, _I,
-                     _U, _U, _U, _U, _U, _U, _U, _P]),
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _U64, _U64, _U64,
+                     _U, _U, _U, _U, _U, _U, _U, _I, _I, _P]),
     "slot_unpack": ("slot_unpack", "slot_unpack_launch",
                     [_P, _P, _P, _P, _P, _P, _I, _P]),
     "paged_attention": ("paged_attention", "paged_attention_launch", _PAGED),

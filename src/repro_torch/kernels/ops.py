@@ -87,6 +87,10 @@ FNM_KERNELS = ("fused_norm_matmul_mma_kernel",
                "fused_norm_matmul_rows_kernel",
                "fused_norm_matmul_fma_kernel",
                "fused_norm_matmul_wgmma_kernel")
+# ludo_lookup (csrc/ludo_lookup.cu, ludo_lookup_plan): one key a thread in
+# blocks of LUDO_MIN_THREADS to LUDO_MAX_THREADS threads
+LUDO_MIN_THREADS, LUDO_MAX_THREADS = 32, 256
+_M32, _M64 = (1 << 32) - 1, (1 << 64) - 1
 
 
 def reset_launch_counts() -> None:
@@ -107,12 +111,61 @@ def _check(name: str, t, dtype: torch.dtype, device: torch.device) -> None:
 
 
 def _stream(device: torch.device) -> int:
+    """The current stream of ``device`` as a raw handle; PyTorch's raw
+    getter where the build has it skips making a ``torch.cuda.Stream``."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(device: torch.device, fn, *args) -> int:
+    """``fn(*args)`` with ``device`` current: the device guard is entered
+    only when another device is current."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
+
+
+def ludo_magic(d: int) -> int:
+    """The kernel's multiplier for ``a % d`` (``1 <= d < 2^32``):
+    ``floor((2^64 - 1) / d) + 1`` mod 2^64, so that ``a % d`` is the high
+    64 bits of ``(m * a mod 2^64) * d`` for every 32-bit ``a`` (0 at
+    d = 1, where m wraps to 0)."""
+    return (_M64 // d + 1) & _M64
+
+
+def ludo_lookup_plan(n: int, n_sm: int) -> dict:
+    """How ``csrc/ludo_lookup.cu`` takes ``n`` keys on a card of ``n_sm``
+    SMs -> ``dict(threads, blocks)``: one key a thread, in blocks of the
+    least power of two from ``LUDO_MIN_THREADS`` to ``LUDO_MAX_THREADS``
+    threads that holds an SM's share of the batch, so a small batch
+    spreads over many SMs, and as many blocks as the batch fills (none for
+    an empty one)."""
+    return dict(zip(("threads", "blocks"), _ludo_plan(n, n_sm)))
+
+
+@functools.lru_cache(maxsize=256)
+def _ludo_plan(n: int, n_sm: int) -> tuple:
+    share = max(1, -(-n // n_sm))
+    threads = min(LUDO_MAX_THREADS,
+                  max(LUDO_MIN_THREADS, 1 << (share - 1).bit_length()))
+    return threads, -(-n // threads)
+
+
+@functools.lru_cache(maxsize=64)
+def _ludo_scalars(ma, mb, nb, seed_a, seed_b, seed_ba, seed_bb) -> tuple:
+    """The launch's arguments after ``n``, made once for each CN: the
+    magics of ma, mb and nb, the sizes, and the four seeds as uint32."""
+    ma, mb, nb = int(ma), int(mb), int(nb)
+    return (ludo_magic(ma), ludo_magic(mb), ludo_magic(nb), ma, mb, nb,
+            *(int(s) & _M32 for s in (seed_a, seed_b, seed_ba, seed_bb)))
 
 
 def ludo_lookup(key_lo, key_hi, words_a, words_b, seeds, meta: dict):
@@ -121,23 +174,27 @@ def ludo_lookup(key_lo, key_hi, words_a, words_b, seeds, meta: dict):
     ``words_a``/``words_b`` are the Othello words (int32 bit patterns),
     ``seeds`` the per-bucket uint8 seeds, and ``meta`` =
     ``dict(ma, mb, nb, seed_a, seed_b, seed_ba, seed_bb)`` (see
-    :func:`cn_meta_from`)."""
+    :func:`cn_meta_from` and ``LudoCN.meta``).  On the card, bucket and
+    slot are the two rows of one ``(2, n)`` tensor."""
     device = key_lo.device if isinstance(key_lo, torch.Tensor) else None
     _check("key_lo", key_lo, torch.int32, device)
     _check("key_hi", key_hi, torch.int32, device)
     _check("words_a", words_a, torch.int32, device)
     _check("words_b", words_b, torch.int32, device)
     _check("seeds", seeds, torch.uint8, device)
-    n = int(key_lo.shape[0])
-    if key_hi.shape[0] != n:
-        raise ValueError(f"key_lo/key_hi lengths differ: {n} vs "
-                         f"{key_hi.shape[0]}")
-    ma, mb, nb = int(meta["ma"]), int(meta["mb"]), int(meta["nb"])
-    if not 0 < ma <= 32 * words_a.shape[0] or not 0 < mb <= 32 * words_b.shape[0]:
+    n, n_hi = key_lo.numel(), key_hi.numel()
+    if n_hi != n:
+        raise ValueError(f"key_lo/key_hi lengths differ: {n} vs {n_hi}")
+    ma, mb, nb = meta["ma"], meta["mb"], meta["nb"]
+    if max(ma, mb, nb) > _M32:
+        raise ValueError(f"Othello sizes ma={ma}, mb={mb} and nb={nb} must "
+                         f"lie below 2^32")
+    n_wa, n_wb, n_seeds = words_a.numel(), words_b.numel(), seeds.numel()
+    if not 0 < ma <= 32 * n_wa or not 0 < mb <= 32 * n_wb:
         raise ValueError(f"Othello sizes ma={ma}, mb={mb} exceed the words "
-                         f"given ({words_a.shape[0]}, {words_b.shape[0]})")
-    if not 0 < nb <= seeds.shape[0]:
-        raise ValueError(f"nb={nb} exceeds the {seeds.shape[0]} seeds given")
+                         f"given ({n_wa}, {n_wb})")
+    if not 0 < nb <= n_seeds:
+        raise ValueError(f"nb={nb} exceeds the {n_seeds} seeds given")
     if n >= 2**31:
         raise ValueError(f"batch of {n} keys exceeds the kernel's int index")
     if device.type == "cpu":
@@ -147,48 +204,47 @@ def ludo_lookup(key_lo, key_hi, words_a, words_b, seeds, meta: dict):
             seed_ba=meta["seed_ba"], seed_bb=meta["seed_bb"])
     if device.type != "cuda":
         raise ValueError(f"ludo_lookup runs on cuda or cpu, not {device}")
-    bucket = torch.empty(n, dtype=torch.int32, device=device)
-    slot = torch.empty(n, dtype=torch.int32, device=device)
+    out = torch.empty((2, n), dtype=torch.int32, device=device)
     if n:
-        fn = build.launcher("ludo_lookup")
-        with torch.cuda.device(device):
-            err = fn(key_lo.data_ptr(), key_hi.data_ptr(), words_a.data_ptr(),
-                     words_b.data_ptr(), seeds.data_ptr(), bucket.data_ptr(),
-                     slot.data_ptr(), n, ma, mb, nb,
-                     int(meta["seed_a"]) & 0xFFFFFFFF,
-                     int(meta["seed_b"]) & 0xFFFFFFFF,
-                     int(meta["seed_ba"]) & 0xFFFFFFFF,
-                     int(meta["seed_bb"]) & 0xFFFFFFFF, _stream(device))
+        ptr = out.data_ptr()
+        err = _launch(device, build.launcher("ludo_lookup"),
+                      key_lo.data_ptr(), key_hi.data_ptr(),
+                      words_a.data_ptr(), words_b.data_ptr(),
+                      seeds.data_ptr(), ptr, ptr + 4 * n, n,
+                      *_ludo_scalars(ma, mb, nb, meta["seed_a"],
+                                     meta["seed_b"], meta["seed_ba"],
+                                     meta["seed_bb"]),
+                      *_ludo_plan(n, _sm_count(device)), _stream(device))
         _raise_on(err, "ludo_lookup")
         LAUNCHES["ludo_lookup"] += 1
-    return bucket, slot
+    return out.unbind(0)
 
 
 def slot_unpack(s_lo, s_hi):
     """Packed 64-bit DMPH slots -> (cache, fp, length, addr), int32 each
-    (``addr`` is the uint32 address as an int32 bit pattern)."""
+    (``addr`` is the uint32 address as an int32 bit pattern).  On the card
+    the four are the rows of one ``(4, n)`` tensor."""
     device = s_lo.device if isinstance(s_lo, torch.Tensor) else None
     _check("s_lo", s_lo, torch.int32, device)
     _check("s_hi", s_hi, torch.int32, device)
-    n = int(s_lo.shape[0])
-    if s_hi.shape[0] != n:
-        raise ValueError(f"s_lo/s_hi lengths differ: {n} vs {s_hi.shape[0]}")
+    n, n_hi = s_lo.numel(), s_hi.numel()
+    if n_hi != n:
+        raise ValueError(f"s_lo/s_hi lengths differ: {n} vs {n_hi}")
     if n >= 2**31:
         raise ValueError(f"batch of {n} slots exceeds the kernel's int index")
     if device.type == "cpu":
         return ref.slot_unpack_ref(s_lo, s_hi)
     if device.type != "cuda":
         raise ValueError(f"slot_unpack runs on cuda or cpu, not {device}")
-    outs = tuple(torch.empty(n, dtype=torch.int32, device=device)
-                 for _ in range(4))
+    out = torch.empty((4, n), dtype=torch.int32, device=device)
     if n:
-        fn = build.launcher("slot_unpack")
-        with torch.cuda.device(device):
-            err = fn(s_lo.data_ptr(), s_hi.data_ptr(),
-                     *(o.data_ptr() for o in outs), n, _stream(device))
+        ptr = out.data_ptr()
+        err = _launch(device, build.launcher("slot_unpack"), s_lo.data_ptr(),
+                      s_hi.data_ptr(), ptr, ptr + 4 * n, ptr + 8 * n,
+                      ptr + 12 * n, n, _stream(device))
         _raise_on(err, "slot_unpack")
         LAUNCHES["slot_unpack"] += 1
-    return outs
+    return out.unbind(0)
 
 
 def _check_int32(name: str, t, shape: tuple, device) -> None:
@@ -309,13 +365,12 @@ def _paged_launch(kernel: str, sz: dict, q, k_pool, v_pool, ids: tuple,
     # the split pass's partials (acc, then m, then l), for the combine pass
     ws = torch.empty(n_kv * n_splits * g * (d + 2), dtype=torch.float32,
                      device=device) if n_splits > 1 else None
-    fn = build.launcher(kernel)
-    with torch.cuda.device(device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 *(t.data_ptr() for t in ids), o.data_ptr(), m.data_ptr(),
-                 l.data_ptr(), None if ws is None else ws.data_ptr(),
-                 n_pages, sz["n_pool"], sz["ps"], n_kv, g, d, sz["dtype"],
-                 sz["seq_len"], split_pages, _stream(device))
+    err = _launch(device, build.launcher(kernel), q.data_ptr(),
+                  k_pool.data_ptr(), v_pool.data_ptr(),
+                  *(t.data_ptr() for t in ids), o.data_ptr(), m.data_ptr(),
+                  l.data_ptr(), None if ws is None else ws.data_ptr(),
+                  n_pages, sz["n_pool"], sz["ps"], n_kv, g, d, sz["dtype"],
+                  sz["seq_len"], split_pages, _stream(device))
     _raise_on(err, kernel)
     LAUNCHES[kernel] += 1
     return o, m, l
@@ -449,13 +504,12 @@ def fused_norm_matmul(x, gamma, w):
         n_ws = fused_norm_matmul_workspace(plan, S, d, F, elt)
         ws = torch.empty(n_ws, dtype=torch.float32, device=device) \
             if n_ws else None
-        fn = build.launcher("fused_norm_matmul")
-        with torch.cuda.device(device):
-            err = fn(x.data_ptr(), gamma.data_ptr(), w.data_ptr(),
-                     out.data_ptr(), None if ws is None else ws.data_ptr(),
-                     S, d, F, POOL_DTYPES[x.dtype], NORM_EPS,
-                     FNM_REGIMES.index(plan["regime"]), plan["splits"],
-                     plan["krange"], _stream(device))
+        err = _launch(device, build.launcher("fused_norm_matmul"),
+                      x.data_ptr(), gamma.data_ptr(), w.data_ptr(),
+                      out.data_ptr(), None if ws is None else ws.data_ptr(),
+                      S, d, F, POOL_DTYPES[x.dtype], NORM_EPS,
+                      FNM_REGIMES.index(plan["regime"]), plan["splits"],
+                      plan["krange"], _stream(device))
         _raise_on(err, "fused_norm_matmul")
         LAUNCHES["fused_norm_matmul"] += 1
     return out
@@ -468,10 +522,6 @@ def flash_combine(o_parts, m_parts, l_parts):
 
 
 def cn_meta_from(shard_or_cn) -> dict:
-    """The kernel meta dict of an ``OutbackShard`` or a ``LudoCN``."""
-    from repro_torch.core.ludo import SEED_BUCKET_A, SEED_BUCKET_B
-    cn = getattr(shard_or_cn, "cn", shard_or_cn)
-    oth = cn.othello
-    return dict(ma=oth.ma, mb=oth.mb, nb=cn.num_buckets,
-                seed_a=oth.seed_a, seed_b=oth.seed_b,
-                seed_ba=SEED_BUCKET_A, seed_bb=SEED_BUCKET_B)
+    """The kernel meta dict of an ``OutbackShard`` or a ``LudoCN``: a copy
+    of ``LudoCN.meta``."""
+    return dict(getattr(shard_or_cn, "cn", shard_or_cn).meta)

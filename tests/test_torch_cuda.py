@@ -8,7 +8,12 @@ card and skips without one.  It holds:
 
 * ``ludo_lookup`` and ``slot_unpack`` bit for bit against their plain
   versions over a port ``OutbackShard``'s CN arrays (batches 1, 1023, 1025,
-  4096);
+  4096); ``ludo_lookup`` also at every edge of its plan
+  (``ops.ludo_lookup_plan``) on lanes 0-3 elements past a 16-byte
+  boundary, its kernel at covering grids of other widths (and a grid
+  that does not cover refused), and at large odd
+  divisors (ma = 2^31 - 1 over 2^26 words, nb = 2^24 + 1);
+  the two wrappers' rejections raised for CUDA tensors as for CPU ones;
 * both paged-attention kernels against ``ref.paged_attention_ref`` at the
   shapes of ``tests/test_torch_kernels.py`` and the split pass's edges, to
   1e-5 relative and absolute (both sides in float32, sums in another
@@ -31,7 +36,7 @@ import torch
 from repro_torch.core import outback
 from repro_torch.core.hashing import lanes, split_u64, splitmix64
 from repro_torch.core.store import make_uniform_keys
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +71,168 @@ def test_kernels_on_card(card):
         got = ops.slot_unpack(lo, hi)
         want = ref.slot_unpack_ref(lo, hi)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _ludo_edges(n_sm: int) -> list:
+    """Batch sizes at the edges of ``ops.ludo_lookup_plan``: a warp and one
+    either side, the serve window and one either side, each block width's
+    last batch and the next, a ragged batch past the widest, and 2^20."""
+    return sorted({1, 2, 3, 31, 32, 33, 1023, 1024, 1025, 256 * n_sm + 5,
+                   1 << 20}
+                  | {t * n_sm + d for t in (32, 64, 128, 256)
+                     for d in (0, 1)})
+
+
+def _synthetic_cn(seed, ma, mb, nb):
+    """Random Othello words and seeds of the given sizes on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    wa, wb = (torch.randint(-2**31, 2**31, (-(-m // 32),), generator=g,
+                            device="cuda", dtype=torch.int32)
+              for m in (ma, mb))
+    seeds = torch.randint(0, 256, (nb,), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    meta = dict(ma=ma, mb=mb, nb=nb, seed_a=0x0511AD01, seed_b=0x0B5EED02,
+                seed_ba=0xA11CE, seed_bb=0xB0BBE)
+    return wa, wb, seeds, meta
+
+
+def _lanes_at(seed, n, offset):
+    """Random key lanes on the card: key_lo ``offset`` elements past a
+    16-byte boundary, key_hi wherever its row of the same tensor falls."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    t = torch.randint(-2**31, 2**31, (2, n + 4), generator=g, device="cuda",
+                      dtype=torch.int32)
+    return t[0, offset:offset + n], t[1, offset:offset + n]
+
+
+def _same(got, want) -> bool:
+    torch.cuda.synchronize()
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.fixture(scope="module")
+def shard_cn():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    keys = make_uniform_keys(1 << 16)
+    shard = outback.OutbackShard(keys, splitmix64(keys), load_factor=0.95,
+                                 device="cuda")
+    oth = shard.cn.othello
+    return oth.words_a, oth.words_b, shard.cn.seeds, ops.cn_meta_from(shard)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_ludo_lookup_at_the_plan_edges_on_card(card, shard_cn, offset):
+    """Every plan edge, on lanes 0-3 elements past a 16-byte boundary."""
+    wa, wb, seeds, meta = shard_cn
+    for b in _ludo_edges(card):
+        lo, hi = _lanes_at(b + offset, b, offset)
+        n = ops.LAUNCHES["ludo_lookup"]
+        got = ops.ludo_lookup(lo, hi, wa, wb, seeds, meta)
+        assert ops.LAUNCHES["ludo_lookup"] == n + 1
+        assert all(g.shape == (b,) and g.is_contiguous() for g in got)
+        assert _same(got, ref.ludo_lookup_ref(lo, hi, wa, wb, seeds, **meta))
+
+
+def test_ludo_lookup_kernel_takes_any_covering_grid_on_card(card, shard_cn):
+    """Any grid that covers the batch, down to one block, gives the plain
+    version's answer at ragged sizes and every offset; a grid that does not cover it is refused before anything
+    runs."""
+    wa, wb, seeds, meta = shard_cn
+    fn = build.launcher("ludo_lookup")
+    cn = (wa.data_ptr(), wb.data_ptr(), seeds.data_ptr())
+    scalars = (*(ops.ludo_magic(meta[k]) for k in ("ma", "mb", "nb")),
+               *(meta[k] & 0xFFFFFFFF for k in ("ma", "mb", "nb", "seed_a",
+                                                 "seed_b", "seed_ba",
+                                                 "seed_bb")))
+    stream = torch.cuda.current_stream().cuda_stream
+    for b in (1, 5, 33, 1029, 40_003):
+        for offset in range(4):
+            lo, hi = _lanes_at(b * 7 + offset, b, offset)
+            want = ref.ludo_lookup_ref(lo, hi, wa, wb, seeds, **meta)
+            for threads in (32, 64, 256, 1024):
+                for blocks in (-(-b // threads), -(-b // threads) + 3):
+                    out = torch.full((2, b), -7, dtype=torch.int32,
+                                     device="cuda")
+                    err = fn(lo.data_ptr(), hi.data_ptr(), *cn,
+                             out.data_ptr(), out.data_ptr() + 4 * b, b,
+                             *scalars, threads, blocks, stream)
+                    assert err == 0
+                    assert _same(out, want), (b, offset, threads, blocks)
+            if b > 32:
+                out = torch.full((2, b), -7, dtype=torch.int32,
+                                 device="cuda")
+                err = fn(lo.data_ptr(), hi.data_ptr(), *cn, out.data_ptr(),
+                         out.data_ptr() + 4 * b, b, *scalars, 32,
+                         (b - 1) // 32, stream)
+                assert err != 0
+                torch.cuda.synchronize()
+                assert bool((out == -7).all())
+
+
+def test_ludo_lookup_at_large_odd_divisors_on_card(card):
+    """ma = 2^31 - 1 over 2^26 words (256 MB), mb = 2^30 + 3, and
+    nb = 2^24 + 1 seeds: the multiply-high modulos at large odd divisors."""
+    wa, wb, seeds, meta = _synthetic_cn(9, 2**31 - 1, 2**30 + 3, 2**24 + 1)
+    assert wa.numel() == 1 << 26
+    for b in (1, 1025, 1 << 20):
+        lo, hi = _lanes_at(b, b, 0)
+        got = ops.ludo_lookup(lo, hi, wa, wb, seeds, meta)
+        assert _same(got, ref.ludo_lookup_ref(lo, hi, wa, wb, seeds, **meta))
+    # keys whose hashes land on the last Othello bits and bucket
+    lo = torch.arange(-2**31, -2**31 + 4096, dtype=torch.int32,
+                      device="cuda")
+    got = ops.ludo_lookup(lo, lo.flip(0).contiguous(), wa, wb, seeds, meta)
+    want = ref.ludo_lookup_ref(lo, lo.flip(0).contiguous(), wa, wb, seeds,
+                               **meta)
+    assert _same(got, want)
+
+
+def test_index_wrappers_reject_on_card(card, shard_cn):
+    """The rejections of tests/test_torch_kernels.py on CUDA tensors, with
+    the same exception types, and no launch counted for any of them."""
+    wa, wb, seeds, meta = shard_cn
+    lo, _ = _lanes_at(1, 64, 0)
+    lo = lo.contiguous()
+    before = dict(ops.LAUNCHES)
+    cases = [
+        (TypeError, lambda: ops.ludo_lookup(lo.long(), lo, wa, wb, seeds,
+                                            meta)),
+        (TypeError, lambda: ops.ludo_lookup(lo, lo, wa, wb, seeds.int(),
+                                            meta)),
+        (ValueError, lambda: ops.ludo_lookup(lo, lo[:10], wa, wb, seeds,
+                                             meta)),
+        (ValueError, lambda: ops.ludo_lookup(lo[::2], lo[::2], wa, wb, seeds,
+                                             meta)),
+        (ValueError, lambda: ops.ludo_lookup(lo, lo, wa[:4], wb, seeds,
+                                             meta)),
+        (ValueError, lambda: ops.ludo_lookup(lo, lo, wa, wb, seeds[:10],
+                                             meta)),
+        (ValueError, lambda: ops.ludo_lookup(lo, lo.cpu(), wa, wb, seeds,
+                                             meta)),
+        (ValueError, lambda: ops.ludo_lookup(lo, lo, wa, wb, seeds,
+                                             dict(meta, nb=2**32))),
+        (ValueError, lambda: ops.slot_unpack(lo.view(8, 8), lo.view(8, 8))),
+        (ValueError, lambda: ops.slot_unpack(lo, lo[:3])),
+        (ValueError, lambda: ops.slot_unpack(lo, lo.cpu())),
+    ]
+    for exc, call in cases:
+        with pytest.raises(exc):
+            call()
+    assert ops.LAUNCHES == before
+
+
+def test_slot_unpack_rows_on_card(card):
+    """One (4, n) output: contiguous rows, bit for bit as the plain
+    version, one launch counted."""
+    lo, hi = _lanes_at(3, 4099, 1)
+    n = ops.LAUNCHES["slot_unpack"]
+    got = ops.slot_unpack(lo, hi)
+    assert ops.LAUNCHES["slot_unpack"] == n + 1
+    assert all(g.shape == (4099,) and g.is_contiguous() for g in got)
+    assert _same(got, ref.slot_unpack_ref(lo, hi))
 
 
 # ----------------------------------------------------------- paged attention

@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no ``repro``, no quiet CPU fallback.
 
 * an AST scan of every module under ``src/repro_torch/``, of
-  ``chip_smoke.py``, of ``tools/{fnm,step}_probe.py`` and of the on-card tests
-  (``tests/test_torch_cuda.py``, which must run on the GPU machine) finds
-  no import of ``jax`` or of ``repro``;
+  ``chip_smoke.py``, of ``tools/{fnm,step,ludo}_probe.py``, of the on-card
+  tests (``tests/test_torch_cuda.py``, which must run on the GPU machine)
+  and of ``tests/test_torch_ludo_plan.py`` finds no import of ``jax`` or
+  of ``repro``;
 * a fresh interpreter that imports ``repro_torch.api`` (and builds a store
   on the CPU), or ``repro_torch.serve`` (and serves a request on the CPU),
   has neither ``jax`` nor ``repro`` in ``sys.modules``;
@@ -34,7 +35,9 @@ from repro_torch.serve import Engine
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-    ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py"]
+    ROOT / "tests" / "test_torch_ludo_plan.py",
+    ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py",
+    ROOT / "tools" / "ludo_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
