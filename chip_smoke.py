@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py   # 2^24 keys, the paged path, llama3.2-1b; one card
+    python3 chip_smoke.py   # 2^24 keys, the paged path, llama3.2-1b, the
+                            # cached directory store; one card
 
 Phases; any failure exits non-zero:
 
@@ -77,7 +78,30 @@ Phases; any failure exits non-zero:
    share of device time of all the fused entry's CUDA kernels,
    ``ops.FNM_KERNELS``), and the float32 twin: the same
    weights as float32 on the card and on the CPU, 4 teacher-forced steps of
-   the 8 lanes, logits within 1e-3 and the same argmax on every lane.
+   the 8 lanes, logits within 1e-3 and the same argmax on every lane;
+8. the cached, resizable store: first a 2^14-key
+   ``StoreSpec("outback-dir", initial_depth=1)`` store with a 64 KiB CN
+   cache, on the card and on the CPU, takes the same stream (zipf Gets with
+   repeated absent keys, updates and deletes of hot keys, inserts until a
+   table splits on its own, a forced ``begin_split`` with Gets, inserts and
+   deletes inside its window): answers, ``meter_total().snapshot()``,
+   resize events (less their wall-clock seconds), directory, depths, every
+   table's MN image and the cache's whole state must agree exactly.  Then
+   ``open_store(StoreSpec("outback-dir", load_factor=0.85,
+   cache_budget_bytes=8 * 2^24, params={"initial_depth": 1}))`` over the
+   2^24 keys of phase 3 serves YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
+   (2^18 ops) through ``submit``/``flush`` at window 1024, every answer
+   checked against the host oracle, printing the hit and negative-hit
+   rates, Gets/s, window p50/p99, the host µs of the cache's
+   ``probe_batch`` and ``observe_batch`` a window and its
+   ``memory_bytes()``; both index kernels must launch in every window with
+   a cache miss or a write (counters zeroed just before, read just after).
+   Then table 0 (about 2^23 live keys) splits: 2^16 Gets before,
+   ``begin_split``, 2^16 Gets and 2^12 inserts of new keys in the window
+   (those routed to the frozen table come back ``"frozen"``), ``build()``
+   (timed), ``finish()``, 2^16 Gets after and a read-back of every insert;
+   every cached entry must equal the oracle and no negative entry may hold
+   a live key.
 
 The line before the last is the kernels' JSON record (all five kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -86,6 +110,7 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -260,6 +285,23 @@ PROFILED_STEPS = 16
 # 1; the tolerance leaves 100x room.
 TWIN_STEPS = 4
 TWIN_TOL = 1e-3
+
+# Phase 8: the cached, resizable store.  StoreSpec("outback-dir") over the
+# phase-3 keys with the reference's own settings: load factor 0.85 (its
+# fig17_resize, benchmarks/paper_figs.py) and a CN cache of 8 bytes a key
+# (its zipf_cache): 2^27 bytes for 2^24 keys, in two tables
+# (initial_depth 1).  YCSB-C 2^20 zipf(0.99) Gets and YCSB-A 2^18 ops at
+# window 1024, then a split of table 0 (about 2^23 live keys) with
+# 2^DIR_SPLIT_GETS_LOG2 Gets and 2^DIR_SPLIT_INSERTS_LOG2 inserts of new
+# keys inside its window, and as many Gets before and after it.  The
+# agreement step runs a 2^14-key store with a 64 KiB cache on the card and
+# on the CPU.
+DIR_LOAD_FACTOR = 0.85
+DIR_CACHE_BYTES_PER_KEY = 8
+DIR_SPLIT_GETS_LOG2 = 16
+DIR_SPLIT_INSERTS_LOG2 = 12
+DIR_AGREE_KEYS_LOG2 = 14
+DIR_AGREE_CACHE = 64 << 10
 
 
 def log(*a) -> None:
@@ -1457,6 +1499,341 @@ def float32_twin(params, gen_seed: int) -> dict:
                 twin_tolerance=TWIN_TOL, twin_same_argmax=same)
 
 
+# ------------------------------------------------------------ phase 8
+def _same(a, b) -> bool:
+    """Deep equality of nested dicts, lists and numpy arrays."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return a == b
+
+
+def _drive(store, stream) -> list:
+    hs = [store.submit(op, k) if v is None else store.submit(op, k, v)
+          for op, k, v in stream]
+    store.flush()
+    return _results(hs)
+
+
+def _store_image(store) -> dict:
+    """What the agreement compares: meter totals, resize events (less their
+    wall-clock seconds), directory, depths, every table's MN image and the
+    cache's whole state."""
+    eng = store.engine
+    return dict(meter=store.meter_totals().snapshot(),
+                events=[(e.step, e.table_keys, e.locator_bytes,
+                         e.buffered_mutations) for e in eng.resize_events],
+                directory=list(eng.directory),
+                local_depth=list(eng.local_depth),
+                tables=[t.mn_state() for t in eng.tables],
+                cache=store.cache.state())
+
+
+def store_agreement_check(seed: int, devices=("cuda", "cpu")) -> dict:
+    """A small cached outback-dir store on the card answers, meters, splits
+    and caches exactly as the same store on the CPU: zipf Gets with
+    repeated absent keys, updates and deletes of hot keys, inserts until a
+    table splits on its own, then a forced split with Gets, inserts and
+    deletes inside its window."""
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core.hashing import splitmix64
+    n = 1 << DIR_AGREE_KEYS_LOG2
+    keys = splitmix64(np.arange(n, dtype=np.uint64) + np.uint64(9 << 40))
+    vals = splitmix64(keys)
+    fresh = splitmix64(np.arange(n, 4 * n, dtype=np.uint64)
+                       + np.uint64(9 << 40))
+    absent = splitmix64(np.arange(64, dtype=np.uint64) + np.uint64(11 << 40))
+    rng = np.random.default_rng(seed)
+    ranks = zipf_ranks(rng, n, 1 << 15)
+    mixed = []
+    for t, kind in enumerate(rng.choice(4, 8192, p=[0.7, 0.1, 0.12, 0.08])):
+        k = int(keys[ranks[t]])
+        mixed.append([("get", k, None),
+                      ("get", int(absent[rng.integers(0, 64)]), None),
+                      ("update", k, t), ("delete", k, None)][kind])
+    after = [("get", int(keys[r]), None) for r in ranks[12288:16384]]
+    order = rng.permutation(2048 + 512 + 256)  # of the split window's ops
+    spec = StoreSpec("outback-dir", load_factor=DIR_LOAD_FACTOR,
+                     rng_seed=seed, cache_budget_bytes=DIR_AGREE_CACHE,
+                     params={"initial_depth": 1},
+                     batch=BatchPolicy(window=WINDOW))
+    runs = []
+    for device in devices:
+        st = open_store(spec, keys, vals, device=device)
+        eng, out = st.engine, []
+        out.append(_drive(st, mixed))
+        i = 0  # inserts of new keys until a table splits on its own
+        while not eng.resize_events:
+            check(i + WINDOW <= fresh.size // 2,
+                  "agreement: inserts never split a table")
+            out.append(_drive(st, [("insert", int(k), i) for k in
+                                   fresh[i:i + WINDOW]] + mixed[:256]))
+            i += WINDOW
+        organic = len(eng.resize_events)
+        h = eng.begin_split(eng.directory[0])
+        window = ([("get", int(keys[r]), None) for r in ranks[8192:10240]]
+                  + [("insert", int(k), 7) for k in fresh[i:i + 512]]
+                  + [("delete", int(keys[r]), None)
+                     for r in ranks[10240:10496]])
+        out.append(_drive(st, [window[j] for j in order]))
+        h.build()
+        h.finish()
+        out.append(_drive(st, after))
+        probe = st.get_batch(np.concatenate([keys, fresh[:i + 512], absent]))
+        out.append((probe.values.tolist(), probe.found.tolist()))
+        check(len(eng.resize_events) == organic + 1,
+              "agreement: the forced split did not finish")
+        runs.append((out, _store_image(st)))
+    check(runs[0][0] == runs[1][0], "the cached directory store on the card "
+          "answers otherwise than on the CPU")
+    check(_same(runs[0][1], runs[1][1]), "the cached directory store on the "
+          "card meters, splits or caches otherwise than on the CPU")
+    img = runs[0][1]
+    res = dict(keys=n, ops=sum(len(r) for r in runs[0][0][:-1]),
+               resize_events=img["events"],
+               cache_stats=img["cache"]["stats"])
+    log(f"store agreement: a {n}-key outback-dir store with a "
+        f"{DIR_AGREE_CACHE}-byte cache on {devices[0]} answers "
+        f"{res['ops']} ops (gets of absent keys, updates and deletes of "
+        f"hot keys, inserts through an organic split, a forced split) and "
+        f"meters, splits and caches exactly as on {devices[1]}: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def _timed_calls(obj, name: str, sink: list) -> None:
+    """Wrap ``obj.name`` so each call appends its host µs to ``sink``."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sink.append((time.perf_counter() - t0) * 1e6)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def serve_directory(keys, vals, rng) -> dict:
+    """Phase 8 at full size: the cached outback-dir store serves YCSB-C and
+    YCSB-A through submit/flush, then splits table 0 with traffic in the
+    window; every answer and, after the split, every cached entry is held
+    against the host oracle.  The index kernels must launch in every window
+    with a cache miss or a write."""
+    import torch
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core.hashing import splitmix64
+    from repro_torch.kernels import ops
+    n = keys.size
+    spec = StoreSpec("outback-dir", load_factor=DIR_LOAD_FACTOR,
+                     rng_seed=SEED,
+                     cache_budget_bytes=DIR_CACHE_BYTES_PER_KEY * n,
+                     params={"initial_depth": 1},
+                     batch=BatchPolicy(window=WINDOW))
+    t0 = time.perf_counter()
+    store = open_store(spec, keys, vals)
+    torch.cuda.synchronize()
+    eng, cache = store.engine, store.cache
+    res = dict(build_seconds=time.perf_counter() - t0,
+               table_keys=[t.n_keys for t in eng.tables],
+               cache_budget_bytes=cache.budget_bytes,
+               cache_memory_bytes=cache.memory_bytes(),
+               cache_capacity=cache.capacity)
+    check(cache.device.type == "cuda" and cache.k_lo.is_cuda
+          and all(t.slots_lo.is_cuda for t in eng.tables),
+          "the cached directory store is not on the card")
+    log(f"directory store build: {res['build_seconds']:.3f} s, tables "
+        f"{res['table_keys']}, cache {res['cache_memory_bytes']} B of "
+        f"{res['cache_budget_bytes']} ({cache.nsets} sets of {cache.ways}, "
+        f"{cache.nneg} negative slots, sketch 2 x {cache.sketch_w})")
+    probe_us, observe_us = [], []
+    _timed_calls(cache, "probe_batch", probe_us)
+    _timed_calls(cache, "observe_batch", observe_us)
+    latest = vals.copy()
+    perm = rng.permutation(n)
+    stats = cache.stats
+    windows_checked = [0, 0]  # [windows with a miss or a write, all-hit]
+
+    def window(stream, expect=None):
+        """One window of ops, flushed; checks its reads against ``expect``
+        and that both index kernels launched if it missed or wrote.
+        Returns (host ms, handles)."""
+        l0, m0 = dict(ops.LAUNCHES), stats.misses
+        t0 = time.perf_counter()
+        hs = [store.submit(op, k) if v is None else store.submit(op, k, v)
+              for op, k, v in stream]
+        store.flush()
+        ms = (time.perf_counter() - t0) * 1e3
+        wrote = any(op != "get" for op, _, _ in stream)
+        if stats.misses > m0 or wrote:
+            windows_checked[0] += 1
+            for kern in ("ludo_lookup", "slot_unpack"):
+                check(ops.LAUNCHES[kern] > l0[kern],
+                      f"a window with a miss launched no {kern}")
+        else:
+            windows_checked[1] += 1
+        if expect is not None:
+            got = [h for h, (op, _, _) in zip(hs, stream) if op == "get"]
+            check(all(bool(h.result().found[0]) for h in got),
+                  "a present key missed")
+            check(np.array_equal(np.asarray([h.result().values[0]
+                                             for h in got], np.uint64),
+                                 expect), "a read did not see the latest "
+                  "value")
+        return ms, hs
+
+    def gets(name, idx):
+        s0 = dataclasses.asdict(stats)
+        del probe_us[:], observe_us[:]
+        lat = []
+        t0 = time.perf_counter()
+        for w0 in range(0, idx.size, WINDOW):
+            wi = idx[w0:w0 + WINDOW]
+            ms, _ = window([("get", int(k), None) for k in keys[wi]],
+                           latest[wi])
+            lat.append(ms)
+        sec = time.perf_counter() - t0
+        d = {k: v - s0[k] for k, v in dataclasses.asdict(stats).items()}
+        looked = d["hits"] + d["neg_hits"] + d["misses"]
+        r = dict(gets=int(idx.size), seconds=sec, gets_per_s=idx.size / sec,
+                 p50_ms=float(np.percentile(lat, 50)),
+                 p99_ms=float(np.percentile(lat, 99)),
+                 hit_rate=d["hits"] / looked,
+                 neg_hit_rate=d["neg_hits"] / looked,
+                 admitted=d["admitted"], evicted=d["evicted"],
+                 probe_us_p50=float(np.median(probe_us)),
+                 observe_us_p50=float(np.median(observe_us)))
+        res[name] = r
+        log(f"{name}: {r['gets_per_s']:.1f} Gets/s over {r['gets']} Gets; "
+            f"window p50 {r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms; "
+            f"hit rate {r['hit_rate']:.6f}, negative {r['neg_hit_rate']:.6f}"
+            f"; probe_batch {r['probe_us_p50']:.1f} us, observe_batch "
+            f"{r['observe_us_p50']:.1f} us a window (host, median)")
+
+    ops.reset_launch_counts()
+    # ---- YCSB-C ----
+    gets("dir_ycsb_c", perm[zipf_ranks(rng, n, 1 << N_GETS_LOG2)])
+    # ---- YCSB-A: half reads, half updates, in submission order ----
+    n_a = 1 << N_YCSB_A_LOG2
+    idx_a = perm[zipf_ranks(rng, n, n_a)]
+    is_upd = rng.random(n_a) < 0.5
+    new_v = rng.integers(0, 2**64 - 1, n_a, dtype=np.uint64, endpoint=True)
+    t0 = time.perf_counter()
+    for w0 in range(0, n_a, WINDOW):
+        stream, expect = [], []
+        for t in range(w0, min(w0 + WINDOW, n_a)):
+            i = int(idx_a[t])
+            if is_upd[t]:
+                stream.append(("update", int(keys[i]), int(new_v[t])))
+                latest[i] = new_v[t]
+            else:
+                stream.append(("get", int(keys[i]), None))
+                expect.append(latest[i])
+        _, hs = window(stream, np.asarray(expect, np.uint64))
+        check(all(bool(h.result().found[0]) for h, (op, _, _)
+                  in zip(hs, stream) if op == "update"),
+              "YCSB-A: an update of a present key failed")
+    sec = time.perf_counter() - t0
+    res["dir_ycsb_a"] = dict(ops=n_a, seconds=sec, ops_per_s=n_a / sec)
+    log(f"dir_ycsb_a: {n_a / sec:.1f} ops/s over {n_a} ops")
+
+    # ---- the split of table 0, with traffic inside its window ----
+    n_split = 1 << DIR_SPLIT_GETS_LOG2
+    gets("split_before", perm[zipf_ranks(rng, n, n_split)])
+    t_idx = eng.directory[0]
+    res["split_table_keys"] = eng.tables[t_idx].n_keys
+    h = eng.begin_split(t_idx)
+    gets("split_during", perm[zipf_ranks(rng, n, n_split)])
+    n_ins = 1 << DIR_SPLIT_INSERTS_LOG2
+    fresh = splitmix64(np.arange(n, n + n_ins, dtype=np.uint64)
+                       + np.uint64(_KEY_OFFSET + (1 << 39)))
+    fresh_v = rng.integers(0, 2**64 - 1, n_ins, dtype=np.uint64,
+                           endpoint=True)
+    frozen_lane = eng._route_tables(fresh) == t_idx
+    cases = []
+    for w0 in range(0, n_ins, WINDOW):
+        _, hs = window([("insert", int(k), int(v)) for k, v in
+                        zip(fresh[w0:w0 + WINDOW], fresh_v[w0:w0 + WINDOW])])
+        cases += [hh.result().statuses[0] for hh in hs]
+    cases = np.asarray(cases)
+    check(np.array_equal(cases == "frozen", frozen_lane),
+          "an insert routed to the frozen table was not FALSE'd, or one "
+          "routed elsewhere was")
+    check(np.isin(cases[~frozen_lane], ["slot", "reseed", "overflow"]).all(),
+          "an insert of a new key did not place it")
+    t0 = time.perf_counter()
+    h.build()
+    build_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h.finish()
+    torch.cuda.synchronize()
+    finish_s = time.perf_counter() - t0
+    ev = eng.resize_events[-1]
+    res.update(rebuild_seconds=ev.rebuild_seconds, build_wall_s=build_wall,
+               finish_seconds=finish_s, locator_bytes=ev.locator_bytes,
+               buffered_mutations=ev.buffered_mutations,
+               tables_after=[t.n_keys for t in eng.tables],
+               directory_after=list(eng.directory))
+    check(ev.buffered_mutations == int(frozen_lane.sum()) > 0,
+          "the split window buffered another number of inserts")
+    log(f"split of table {t_idx} ({res['split_table_keys']} live keys): "
+        f"rebuild {ev.rebuild_seconds:.3f} s (host Ludo build of the two "
+        f"successors, then their arrays to the card), finish "
+        f"{finish_s:.3f} s (locator swap, cache invalidation, replay of "
+        f"{ev.buffered_mutations} buffered inserts), locator fetch "
+        f"{ev.locator_bytes} B a compute node; tables now "
+        f"{res['tables_after']}")
+    gets("split_after", perm[zipf_ranks(rng, n, n_split)])
+    r = store.get_batch(fresh)
+    check(r.found.all() and np.array_equal(r.values, fresh_v),
+          "an insert buffered in the split window, or placed beside it, "
+          "lost its value")
+
+    # ---- every cached entry against the oracle ----
+    st = cache.state()
+    order = np.argsort(keys)
+    skeys = keys[order]
+
+    def joined(lo, hi):
+        return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+    on = st["valid"] != 0
+    ck = joined(st["k_lo"][on], st["k_hi"][on])
+    cv = joined(st["v_lo"][on], st["v_hi"][on])
+    pos = np.minimum(np.searchsorted(skeys, ck), n - 1)
+    old = skeys[pos] == ck
+    fresh_of = dict(zip(fresh.tolist(), fresh_v.tolist()))
+    check(np.array_equal(cv[old], latest[order[pos[old]]]),
+          "a cached entry of an old key disagrees with the oracle")
+    check(all(fresh_of.get(int(k)) == int(v)
+              for k, v in zip(ck[~old], cv[~old])),
+          "a cached entry is neither an old nor an inserted key, or holds "
+          "another value")
+    nk = joined(st["nk_lo"][st["nvalid"] != 0], st["nk_hi"][st["nvalid"] != 0])
+    npos = np.minimum(np.searchsorted(skeys, nk), n - 1)
+    check(not (skeys[npos] == nk).any()
+          and not any(int(k) in fresh_of for k in nk),
+          "the negative cache holds a live key")
+    res.update(cached_entries=int(on.sum()), negative_entries=int(nk.size),
+               cache_stats=st["stats"], windows_with_miss=windows_checked[0],
+               all_hit_windows=windows_checked[1],
+               launches=dict(ops.LAUNCHES),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               meter=store.meter_totals().snapshot())
+    log(f"after the split: {res['cached_entries']} cached entries and "
+        f"{res['negative_entries']} negative ones, all agree with the "
+        f"oracle; {windows_checked[0]} windows missed or wrote (both index "
+        f"kernels launched in each), {windows_checked[1]} were answered by "
+        f"the cache whole")
+    return res
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -1598,6 +1975,21 @@ def main() -> int:
     del eng
     mres.update(float32_twin(params, SEED))
     log(f"model path: {json.dumps(mres)}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: the cached, resizable store ----
+    store_agreement_check(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    dres = serve_directory(keys, vals, rng)
+    for name, k in kernels.items():
+        k["launches_store_path"] = dres["launches"].get(name, 0)
+    for name in ("ludo_lookup", "slot_unpack"):
+        check(dres["launches"][name] > 0, f"{name} never launched on the "
+              f"cached directory store's path")
+    log(f"launches on the cached directory store's path: {dres['launches']}")
+    log(f"directory store path: {json.dumps(dres)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

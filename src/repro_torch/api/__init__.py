@@ -1,17 +1,19 @@
 """``repro_torch.api`` — one KVStore protocol, a CN stack, a registry.
 
-The port of ``repro.api`` for kind ``outback``:
+The port of ``repro.api`` for kinds ``outback`` and ``outback-dir``:
 
 * :mod:`repro_torch.api.protocol` — :class:`KVStore`,
   :class:`PipelinedKVStore` and the :class:`OpResult` every op returns;
 * :mod:`repro_torch.api.pipeline` — :class:`BatchPolicy`, ``submit`` /
   ``poll`` / ``flush`` and :class:`OpHandle`;
-* :mod:`repro_torch.api.stack` — ``Pipeline → Meter → adapter``;
+* :mod:`repro_torch.api.stack` — ``Pipeline → Meter → [CNCache →]
+  adapter``;
 * :mod:`repro_torch.api.registry` — :class:`StoreSpec` (the reference's
   JSON) and :func:`open_store`.
 """
 
-from repro_torch.api.adapters import OutbackShardAdapter, StoreAdapter
+from repro_torch.api.adapters import (OutbackShardAdapter,
+                                      OutbackStoreAdapter, StoreAdapter)
 from repro_torch.api.pipeline import (BatchPolicy, OpHandle, PipelineLayer,
                                       PipelineStats)
 from repro_torch.api.protocol import (OP_KINDS, KVStore, OpResult,
@@ -20,11 +22,12 @@ from repro_torch.api.protocol import (OP_KINDS, KVStore, OpResult,
 from repro_torch.api.registry import (SpecError, StoreSpec, build_adapter,
                                       open_store, register_store,
                                       registered_kinds, registry_docs)
-from repro_torch.api.stack import (CNStack, MeterLayer, StoreLayer,
-                                   TransportBinding)
+from repro_torch.api.stack import (CNCacheLayer, CNStack, MeterLayer,
+                                   StoreLayer, TransportBinding)
 
 __all__ = [
     "BatchPolicy",
+    "CNCacheLayer",
     "CNStack",
     "KVStore",
     "MeterLayer",
@@ -32,6 +35,7 @@ __all__ = [
     "OpHandle",
     "OpResult",
     "OutbackShardAdapter",
+    "OutbackStoreAdapter",
     "PipelineLayer",
     "PipelineStats",
     "PipelinedKVStore",

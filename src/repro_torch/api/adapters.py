@@ -1,6 +1,8 @@
 """Engine adapters: ``repro_torch.core`` stores behind the uniform ``KVStore``.
 
-The port of ``repro.api.adapters``, kind ``outback`` only.  An adapter owns
+The port of ``repro.api.adapters``, kinds ``outback`` and ``outback-dir``
+(the baselines' and the sharded host's adapters are not ported yet).  An
+adapter owns
 no policy: it translates the engine's native call surface (device tensors,
 ``GetResult``, case strings and bool masks) into the protocol's
 batched-first ``OpResult`` ops, and exposes the raw engine as ``.engine``.
@@ -13,19 +15,12 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.api.protocol import OpResult, pack_result, status_result
-from repro_torch.core.meter import MSG_BYTES, CommMeter
+from repro_torch.core.meter import CommMeter
+from repro_torch.core.outback import CACHE_HIT_SAVINGS, CACHE_NEG_SAVINGS
 
 _OK = "ok"
 _MISS = "miss"
 _FAILED = frozenset(("frozen", _MISS))
-
-# What one locally-answered read saves on Outback's wire: a positive answer
-# skips the 1-RT Get; a negative one the 2-RT miss-plus-makeup route.  Both
-# directions of an RPC message are padded to MSG_BYTES (paper §5.1).
-CACHE_HIT_SAVINGS = dict(saved_rts=1, saved_req=MSG_BYTES,
-                         saved_resp=MSG_BYTES)
-CACHE_NEG_SAVINGS = dict(saved_rts=2, saved_req=2 * MSG_BYTES,
-                         saved_resp=2 * MSG_BYTES)
 
 
 class StoreAdapter:
@@ -33,8 +28,9 @@ class StoreAdapter:
 
     kind = "?"
     verifies_keys = True
-    # what one locally-answered read (the pipeline's write-combined reads)
-    # saves on *this kind's* wire — the per-op cost of the Get it avoids
+    # what one locally-answered read (a CN-cache hit, or the pipeline's
+    # write-combined reads) saves on *this kind's* wire — the per-op cost
+    # of the Get it avoids
     cache_hit_savings = CACHE_HIT_SAVINGS
     cache_neg_savings = CACHE_NEG_SAVINGS
     telemetry = None
@@ -55,6 +51,9 @@ class StoreAdapter:
 
     def reset_meters(self) -> None:
         self.engine.meter.reset()
+
+    def bind_cache(self, cache) -> None:
+        """Hook for kinds with engine-side cache sync points (resize)."""
 
     # ---------------------------------------------------------------- gets
     def _engine_get_batch(self, keys, resolve_makeup):
@@ -129,3 +128,18 @@ class OutbackShardAdapter(StoreAdapter):
 
     def _get_value(self, key: int):
         return self.engine.get(int(key)).value
+
+
+class OutbackStoreAdapter(OutbackShardAdapter):
+    kind = "outback-dir"
+
+    def meter_totals(self) -> CommMeter:
+        return self.engine.meter_total()
+
+    def reset_meters(self) -> None:
+        self.engine.meter.reset()
+        for t in self.engine._unique_tables():
+            t.meter.reset()
+
+    def bind_cache(self, cache) -> None:
+        self.engine.bind_coherence_cache(cache)

@@ -5,17 +5,20 @@ reference's fields and JSON exactly, so one spec's JSON opens the same
 store in both packages.  ``open_store(spec, keys, values, device=...)``
 builds the engine on ``device`` (CUDA unless the caller passes
 ``device="cpu"``; it raises when CUDA is absent) and assembles the CN stack
-``Pipeline → Meter → adapter`` around it.
+``Pipeline → Meter → [CNCache →] adapter`` around it; a spec's
+``cache_budget_bytes`` builds the stack's ``CNKeyCache`` on the same
+device.
 
 Registered kinds in this slice:
 
 =============  ==========================================================
 ``outback``     one Outback DMPH shard (§4.3 protocols)
+``outback-dir`` extendible-hashing directory of shards + §4.4 resize
 =============  ==========================================================
 
 The reference's other kinds, and the options served by planes not ported
-yet (the CN hot-key cache, replication, fault schedules, telemetry, a
-transport), raise :class:`SpecError` saying so.
+yet (replication, fault schedules, telemetry, a transport), raise
+:class:`SpecError` saying so.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import numpy as np
 from repro_torch.api import adapters
 from repro_torch.api.pipeline import BatchPolicy
 from repro_torch.api.stack import CNStack
+from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.outback import OutbackShard, resolve_device
+from repro_torch.core.store import OutbackStore
 
 
 class SpecError(ValueError):
@@ -38,8 +43,8 @@ class SpecError(ValueError):
 
 
 # The reference's kinds that this package does not serve yet.
-_UNPORTED_KINDS = frozenset(("outback-dir", "race", "mica", "cluster",
-                             "dummy", "sharded"))
+_UNPORTED_KINDS = frozenset(("race", "mica", "cluster", "dummy",
+                             "sharded"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +126,9 @@ class StoreSpec:
         if self.load_factor is not None and not 0.0 < self.load_factor <= 1.0:
             raise SpecError(f"load_factor must be in (0, 1], "
                             f"got {self.load_factor}")
+        if self.cache_budget_bytes and self.cache_budget_bytes < 1024:
+            raise SpecError("cache_budget_bytes below 1 KiB is meaningless "
+                            "(0 disables the CN cache)")
         if self.batch is not None:
             if not isinstance(self.batch, BatchPolicy):
                 raise SpecError(f"batch must be a BatchPolicy (or its JSON "
@@ -139,8 +147,6 @@ class StoreSpec:
             raise SpecError(f"placement_k must be an int >= 1, "
                             f"got {self.placement_k!r}")
         for name, unported in (
-                ("cache_budget_bytes (the CN hot-key cache)",
-                 self.cache_budget_bytes),
                 ("replicas > 1 (MN replication)", self.replicas > 1),
                 ("faults (the failure plane)", self.faults is not None),
                 ("placement='hrw'", self.placement == "hrw"),
@@ -202,13 +208,17 @@ def open_store(spec: StoreSpec, keys, values, *, device=None, transport=None):
 
     ``device=None`` means CUDA and raises when no card is present: the
     port runs on the CPU only when the caller passes ``device="cpu"``.
-    Returns a ``PipelinedKVStore`` (Pipeline → Meter → adapter), with the
-    pipeline shaped by ``spec.batch`` (synchronous when the spec carries
-    none).  ``transport`` (the simulated RDMA transport) is not ported and
-    must be ``None``."""
+    Returns a ``PipelinedKVStore`` (Pipeline → Meter → [CNCache →]
+    adapter), with the pipeline shaped by ``spec.batch`` (synchronous when
+    the spec carries none) and a CN hot-key cache of
+    ``spec.cache_budget_bytes`` on the engine's device when that is not 0.
+    ``transport`` (the simulated RDMA transport) is not ported and must be
+    ``None``."""
     adapter = build_adapter(spec, keys, values, device=device,
                             transport=transport)
-    return CNStack(policy=spec.batch).assemble(adapter)
+    cache = (CNKeyCache(spec.cache_budget_bytes, device=adapter.engine.device)
+             if spec.cache_budget_bytes else None)
+    return CNStack(cache=cache, policy=spec.batch).assemble(adapter)
 
 
 def build_adapter(spec: StoreSpec, keys, values, *, device=None,
@@ -244,8 +254,17 @@ def _outback_factory(spec, keys, values, device):
     return adapters.OutbackShardAdapter(eng, spec)
 
 
+def _outback_dir_factory(spec, keys, values, device):
+    eng = OutbackStore(keys, values, device=device, **_common_kw(spec))
+    return adapters.OutbackStoreAdapter(eng, spec)
+
+
 register_store(
     "outback", _outback_factory,
     params=("heap_slack", "overflow_frac", "num_buckets", "oth_ma", "oth_mb",
             "heap_cap"),
     doc="one Outback DMPH shard: CN/MN split + the §4.3 1-RT protocols")
+register_store(
+    "outback-dir", _outback_dir_factory,
+    params=("initial_depth", "num_compute_nodes"),
+    doc="extendible-hashing directory of Outback shards + §4.4 resizing")

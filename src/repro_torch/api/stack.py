@@ -1,15 +1,25 @@
-"""The composable CN-side stack: ``Pipeline → Meter → adapter``.
+"""The composable CN-side stack: ``Pipeline → Meter → [CNCache →] adapter``.
 
-The port of ``repro.api.stack``, first slice: the meter stage and the
-composition root.  The reference's CN-cache and retry stages, and a live
-transport below the engine, are not ported yet; ``open_store`` refuses
+The port of ``repro.api.stack``: the meter and CN-cache stages and the
+composition root.  The reference's retry stage, its telemetry hooks and a
+live transport below the engine are not ported yet; ``open_store`` refuses
 specs that need them, and :class:`TransportBinding` holds no transport.
 
 * **Meter** (:class:`MeterLayer`) — stamps per-call attribution (round
   trips, wire bytes, Makeup-Get continuations, cache hits) onto every
   ``OpResult`` from the store's merged meter deltas.
+* **CNCache** (:class:`CNCacheLayer`) — the hot-key front
+  (``repro_torch.core.cn_cache``): probe on the device before the wire,
+  answer hits locally, forward misses with full Makeup-Get resolution (the
+  cache only learns resolved truths), keep coherence on every mutation, and
+  join the engine's split-time invalidation via ``adapter.bind_cache``.
 * **Pipeline** (``repro_torch.api.pipeline.PipelineLayer``) — the
   submission/completion plane, outermost.
+
+For Outback kinds the cache layer charges the same ``CACHE_*_SAVINGS``
+into the same engine meter as a store built with an internal cache
+(``cn_cache=`` / ``cn_cache_budget_bytes=``), so the two report identical
+totals.
 
 :class:`StoreLayer` forwards the protocol's members (``spec``,
 ``telemetry``, ``meter``, the ops, the meter accessors) as real attributes
@@ -22,7 +32,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
+
 from repro_torch.api.protocol import OpResult
+from repro_torch.core.cn_cache import CNKeyCache
+from repro_torch.core.hashing import split_u64
+
+_M32 = np.uint64(0xFFFFFFFF)
+_NOT_APPLIED = ("frozen", "backoff", "unavailable")
 
 
 class StoreLayer:
@@ -34,6 +52,8 @@ class StoreLayer:
     def __init__(self, inner):
         self.inner = inner
         self.spec = inner.spec
+        # the stack's CN hot-key cache (a CNCacheLayer's), or None
+        self.cache = getattr(inner, "cache", None)
 
     # ------------------------------------------------ forwarded attributes
     @property
@@ -82,6 +102,113 @@ class StoreLayer:
 
     def reset_meters(self) -> None:
         self.inner.reset_meters()
+
+
+class CNCacheLayer(StoreLayer):
+    """CN hot-key cache stage: hits answered locally, misses forwarded
+    with Makeup-Get resolution, coherence kept on every mutation.
+
+    Cache accounting lands in the *engine's* meter (``inner.meter``) so a
+    stack-built store and one with an internal cache report identical
+    totals, and ``saved_*`` attribution stays next to the wire counters it
+    offsets.  The probe runs on the cache's device; the answers come to the
+    host as an ``OpResult``."""
+
+    def __init__(self, inner, cache: CNKeyCache):
+        super().__init__(inner)
+        self.cache = cache
+        inner.bind_cache(cache)  # engine-side sync points (resize)
+
+    # ---------------------------------------------------------------- gets
+    def get(self, key: int) -> OpResult:
+        meter = self.inner.meter
+        state, val = self.cache.lookup(int(key))
+        if state == "hit":
+            meter.add_cache_hit(1, **self.inner.cache_hit_savings)
+            return OpResult(values=np.asarray([val], np.uint64),
+                            found=np.asarray([True]))
+        if state == "neg":
+            meter.add_cache_hit(1, neg=True, **self.inner.cache_neg_savings)
+            return OpResult(values=np.zeros(1, np.uint64),
+                            found=np.asarray([False]))
+        res = self.inner.get(key)
+        self.cache.fill(int(key), res.value)
+        return res
+
+    def get_batch(self, keys, *,
+                  resolve_makeup: bool | None = None) -> OpResult:
+        keys = np.asarray(keys, dtype=np.uint64)
+        lo, hi = split_u64(keys)
+        hit_t, neg_t, c_vlo, c_vhi = self.cache.probe_batch(lo, hi)
+        host = torch.stack([hit_t.to(torch.int32), neg_t.to(torch.int32),
+                            c_vlo, c_vhi]).cpu().numpy()  # one copy
+        hit, neg = host[0] != 0, host[1] != 0
+        # charge the savings the avoided Get would have cost on THIS
+        # kind's wire (the adapter declares its protocol's shape)
+        meter = self.inner.meter
+        meter.add_cache_hit(int(hit.sum()), **self.inner.cache_hit_savings)
+        meter.add_cache_hit(int(neg.sum()), neg=True,
+                            **self.inner.cache_neg_savings)
+        c_v = host[2:].view(np.uint32).astype(np.uint64)
+        values = (c_v[1] << np.uint64(32)) | c_v[0]
+        found = hit.copy()
+        miss = ~hit & ~neg
+        if miss.any():
+            # default: misses go down the stack with the full §4.3.1
+            # resolution so the cache (and the caller) only ever learn
+            # resolved truths; an explicit False is honoured (raw 1-RT
+            # stream)
+            if resolve_makeup is None:
+                resolve_makeup = True
+            sub = self.inner.get_batch(keys[miss],
+                                       resolve_makeup=resolve_makeup)
+            values[miss] = sub.values
+            found[miss] = sub.found
+        self.cache.observe_batch(
+            lo, hi, (values & _M32).astype(np.uint32),
+            (values >> np.uint64(32)).astype(np.uint32), found, hit, neg)
+        return OpResult(values=values, found=found)
+
+    # ----------------------------------------------------------- mutations
+    def insert(self, key: int, value: int) -> OpResult:
+        res = self.inner.insert(key, value)
+        if res.status not in _NOT_APPLIED:
+            self.cache.note_insert(int(key), int(value))
+        return res
+
+    def update(self, key: int, value: int) -> OpResult:
+        res = self.inner.update(key, value)
+        if bool(res.found[0]):
+            self.cache.note_update(int(key), int(value))
+        return res
+
+    def delete(self, key: int) -> OpResult:
+        res = self.inner.delete(key)
+        if bool(res.found[0]):
+            self.cache.note_delete(int(key))
+        return res
+
+    def insert_batch(self, keys, values) -> OpResult:
+        keys = np.asarray(keys, dtype=np.uint64)
+        values = np.asarray(values, dtype=np.uint64)
+        res = self.inner.insert_batch(keys, values)
+        done = np.asarray([c not in _NOT_APPLIED for c in res.statuses],
+                          bool)
+        self.cache.note_insert_batch(keys[done], values[done])
+        return res
+
+    def update_batch(self, keys, values) -> OpResult:
+        keys = np.asarray(keys, dtype=np.uint64)
+        values = np.asarray(values, dtype=np.uint64)
+        res = self.inner.update_batch(keys, values)
+        self.cache.note_update_batch(keys[res.found], values[res.found])
+        return res
+
+    def delete_batch(self, keys) -> OpResult:
+        keys = np.asarray(keys, dtype=np.uint64)
+        res = self.inner.delete_batch(keys)
+        self.cache.note_delete_batch(keys[res.found])
+        return res
 
 
 class MeterLayer(StoreLayer):
@@ -146,13 +273,19 @@ class TransportBinding:
 @dataclasses.dataclass(frozen=True)
 class CNStack:
     """Composition root for the CN-side stack; ``open_store`` builds one
-    per store.  ``policy`` (a ``BatchPolicy``, or ``None`` for the
-    synchronous ``BatchPolicy.sync()``) shapes the pipeline stage, so the
-    assembled order reads ``Pipeline → Meter → adapter``."""
+    per store.  ``cache`` (a ``CNKeyCache`` on the engine's device, or
+    ``None``) inserts the cache stage above the adapter; ``policy`` (a
+    ``BatchPolicy``, or ``None`` for the synchronous ``BatchPolicy.sync()``)
+    shapes the pipeline stage, so the assembled order reads
+    ``Pipeline → Meter → [CNCache →] adapter``."""
 
+    cache: CNKeyCache | None = None
     transport_binding: TransportBinding = TransportBinding()
     policy: object | None = None  # BatchPolicy; None -> sync()
 
     def assemble(self, adapter):
         from repro_torch.api.pipeline import PipelineLayer  # import cycle
-        return PipelineLayer(MeterLayer(adapter), policy=self.policy)
+        store = adapter
+        if self.cache is not None:
+            store = CNCacheLayer(store, self.cache)
+        return PipelineLayer(MeterLayer(store), policy=self.policy)

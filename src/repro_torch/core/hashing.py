@@ -16,8 +16,10 @@ eager hash math here runs in ``int64`` masked to 32 bits:
 The CUDA kernels (``repro_torch.kernels``) do the same math in native
 ``uint32_t``; these functions are the build path's and the plain versions'.
 The ``*_int`` twins compute the same values on Python ints for the scalar
-protocol walks, and ``split_u64``/``join_u64``/``splitmix64`` are host
-numpy helpers for key sets.
+protocol walks, :func:`hash64_32_np` on host numpy uint32 lanes (the CN
+cache's per-window index math, where a few thousand keys hash faster than
+through a few dozen device launches), and ``split_u64``/``join_u64``/
+``splitmix64`` are host numpy helpers for key sets.
 """
 
 from __future__ import annotations
@@ -139,6 +141,30 @@ def slot_hash_int(lo: int, hi: int, bucket_seed: int) -> int:
 
 def fingerprint6_int(lo: int, hi: int) -> int:
     return (hash64_32_int(lo, hi, 0xF1A9) >> 13) & 0x3F
+
+
+# ---------------------------------------------------------------------------
+# Host numpy twin (uint32 arithmetic wraps as C's does).
+
+
+def _fmix32_np(h: np.ndarray) -> np.ndarray:
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(_C1)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(_C2)
+    return h ^ (h >> np.uint32(16))
+
+
+def hash64_32_np(lo, hi, seed) -> np.ndarray:
+    """:func:`hash64_32` on host uint32 lanes (numpy arrays that broadcast:
+    e.g. ``(1, n)`` lanes against a ``(k, 1)`` column of seeds)."""
+    lo = np.asarray(lo, np.uint32)
+    hi = np.asarray(hi, np.uint32)
+    with np.errstate(over="ignore"):
+        h = np.asarray(seed, np.uint32) ^ np.uint32(_GOLDEN)
+        h = _fmix32_np(h ^ lo) * np.uint32(_C3)
+        h = _fmix32_np(h ^ hi) * np.uint32(_C4)
+        return _fmix32_np(h)
 
 
 # ---------------------------------------------------------------------------

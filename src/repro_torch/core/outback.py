@@ -25,8 +25,13 @@ pull the one bucket they touch in a single copy, and the batched Update
 and Delete run their fast lanes on the device and hand the rest to those
 walks.
 
-Lanes are int32 tensors holding uint32 bit patterns.  The CN-side hot-key
-cache of the reference (``cn_cache=``) is not part of this port yet.
+An optional CN-side hot-key cache (``repro_torch.core.cn_cache``) sits in
+front of the round trip: pass ``cn_cache=CNKeyCache(budget)`` and Gets
+consult it first (a batch probes it on the device and sends only its misses
+to the index), while Update/Delete/Insert keep it coherent.
+``cn_cache=None`` (the default) is the plain protocol.
+
+Lanes are int32 tensors holding uint32 bit patterns.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 from repro_torch.core import ludo, slots
 from repro_torch.core.hashing import (fingerprint6, i32, i32_int, lanes,
                                       slot_hash, slot_hash_int, split_u64)
-from repro_torch.core.meter import CommMeter
+from repro_torch.core.meter import MSG_BYTES, CommMeter
 from repro_torch.core.othello import Othello
 from repro_torch.core.overflow import OverflowCache
 from repro_torch.kernels import ops
@@ -70,6 +75,38 @@ class GetResult:
     value: int | None
     round_trips: int
     makeup: bool
+
+
+# What one CN-cache answer saves on the wire: a positive hit skips the 1-RT
+# Get; a negative hit skips the full 2-RT miss-plus-makeup route.  Shared by
+# every cache front (shard, store, the api stack) so the accounting cannot
+# diverge.  Both directions of an RPC message are padded to MSG_BYTES
+# (paper §5.1), so the saved response is the padded message.
+CACHE_HIT_SAVINGS = dict(saved_rts=1, saved_req=MSG_BYTES,
+                         saved_resp=MSG_BYTES)
+CACHE_NEG_SAVINGS = dict(saved_rts=2, saved_req=2 * MSG_BYTES,
+                         saved_resp=2 * MSG_BYTES)
+
+
+def cached_get(cache, meter, key: int, mn_get):
+    """Front a scalar Get with a CN cache: probe, account, fall through to
+    ``mn_get(key)`` on a miss and offer the result for admission."""
+    state, val = cache.lookup(key)
+    if state == "hit":
+        meter.add_cache_hit(1, **CACHE_HIT_SAVINGS)
+        return GetResult(val, 0, False)
+    if state == "neg":
+        meter.add_cache_hit(1, neg=True, **CACHE_NEG_SAVINGS)
+        return GetResult(None, 0, False)
+    res = mn_get(key)
+    cache.fill(key, res.value)
+    return res
+
+
+def meter_cache_batch(meter, n_hit: int, n_neg: int) -> None:
+    """Account a batched probe's hit/neg lanes (same savings as scalar)."""
+    meter.add_cache_hit(n_hit, **CACHE_HIT_SAVINGS)
+    meter.add_cache_hit(n_neg, neg=True, **CACHE_NEG_SAVINGS)
 
 
 class _Bucket:
@@ -176,7 +213,7 @@ class OutbackShard:
                  overflow_frac: float = 0.08, rng_seed: int = 0,
                  num_buckets: int | None = None, oth_ma: int | None = None,
                  oth_mb: int | None = None, heap_cap: int | None = None,
-                 device=None):
+                 cn_cache=None, device=None):
         self.device = resolve_device(device)
         keys = np.asarray(keys, dtype=np.uint64)
         values = np.asarray(values, dtype=np.uint64)
@@ -223,6 +260,7 @@ class OutbackShard:
         self.heap_top = n
         self.meter = CommMeter()
         self.frozen = False  # resize in progress: inserts/deletes rejected
+        self.cn_cache = cn_cache  # optional CN-side hot-key cache
         self.n_keys = n
 
     @classmethod
@@ -235,18 +273,27 @@ class OutbackShard:
         ``words_b``, ``ma``, ``mb``, ``seed_a``, ``seed_b`` (its Othello),
         ``seeds`` and ``num_buckets``; ``mn_state`` is its ``mn_state()``."""
         dev = torch.device(device)
-        t = cls.__new__(cls)
-        t.device = dev
-        t.load_factor = load_factor
         oth = Othello(lanes(cn["words_a"], dev), lanes(cn["words_b"], dev),
                       int(cn["ma"]), int(cn["mb"]), int(cn["seed_a"]),
                       int(cn["seed_b"]))
         seeds = torch.from_numpy(np.array(cn["seeds"], dtype=np.uint8)).to(dev)
-        t.cn = ludo.LudoCN(oth, seeds, int(cn["num_buckets"]))
+        return cls._from_state(ludo.LudoCN(oth, seeds, int(cn["num_buckets"])),
+                               mn_state, load_factor=load_factor)
+
+    @classmethod
+    def _from_state(cls, cn: ludo.LudoCN, mn_state: dict, *,
+                    load_factor: float) -> "OutbackShard":
+        """A shard from a CN locator (on its device) and an MN image,
+        without the constructor's build and without metering."""
+        t = cls.__new__(cls)
+        t.device = cn.device
+        t.load_factor = load_factor
+        t.cn = cn
         t.slots_lo = torch.empty(tuple(mn_state["slots_lo"].shape),
-                                 dtype=torch.int32, device=dev)
+                                 dtype=torch.int32, device=t.device)
         t.overflow = OverflowCache(int(mn_state["overflow"]["cap"]))
         t.meter = CommMeter()
+        t.cn_cache = None
         t.install_mn_state(mn_state)
         return t
 
@@ -295,6 +342,12 @@ class OutbackShard:
 
     # ------------------------------------------------------------- protocols
     def get(self, key: int) -> GetResult:
+        """Get: CN cache first (0 RT on a hit), else the §4.3 protocol."""
+        if self.cn_cache is None:
+            return self._get_mn(key)
+        return cached_get(self.cn_cache, self.meter, key, self._get_mn)
+
+    def _get_mn(self, key: int) -> GetResult:
         """Single-op Get, exactly the paper's Fig. 6(a) message sequence."""
         lo, hi = _split(key)
         # CN: locator math (5 hashes), then ONE round trip carrying 8 bytes
@@ -331,7 +384,8 @@ class OutbackShard:
 
     def insert(self, key: int, value: int) -> str:
         """Insert per §4.3.2. Returns the resolution case for accounting:
-        'slot' | 'reseed' | 'overflow' | 'update' | 'frozen'."""
+        'slot' | 'reseed' | 'overflow' | 'update' | 'frozen'.  Afterwards
+        the key exists, so the CN cache forgets any absence of it."""
         # CN sends ind_bucket + full KV (not ind_slot: MN owns latest seeds)
         return self.insert_batch(np.array([int(key)], dtype=np.uint64),
                                  np.array([int(value)], dtype=np.uint64))[0]
@@ -450,6 +504,13 @@ class OutbackShard:
             self.cn.seeds[idx] = seeds
 
     def update(self, key: int, value: int) -> bool:
+        """Update; on success the CN cache entry is refreshed (coherence)."""
+        ok = self._update_mn(key, value)
+        if ok and self.cn_cache is not None:
+            self.cn_cache.note_update(key, value)
+        return ok
+
+    def _update_mn(self, key: int, value: int) -> bool:
         """Update per §4.3.3 (1 RT; fp + full-key verify on the MN)."""
         lo, hi = _split(key)
         value = int(value)
@@ -481,6 +542,13 @@ class OutbackShard:
         return False
 
     def delete(self, key: int) -> bool:
+        """Delete; on success the CN cache entry is dropped (coherence)."""
+        ok = self._delete_mn(key)
+        if ok and self.cn_cache is not None:
+            self.cn_cache.note_delete(key)
+        return ok
+
+    def _delete_mn(self, key: int) -> bool:
         """Delete per §4.3.3: mark the slot length zero."""
         if self.frozen:
             return False
@@ -572,6 +640,9 @@ class OutbackShard:
                     fp_h[i]))
         finally:
             self._write_back(img)
+            if self.cn_cache is not None:  # every lane that completed
+                done = len(statuses)
+                self.cn_cache.note_insert_batch(keys[:done], values[:done])
         return statuses
 
     def update_batch(self, keys: np.ndarray, values: np.ndarray) -> np.ndarray:
@@ -597,7 +668,9 @@ class OutbackShard:
                            cn_hash=5, mn_reads=2, mn_cmp=1, mn_writes=1)
         ok = ok.copy()
         for i in np.nonzero(~ok)[0]:
-            ok[i] = self.update(int(keys[i]), int(values[i]))
+            ok[i] = self._update_mn(int(keys[i]), int(values[i]))
+        if self.cn_cache is not None:
+            self.cn_cache.note_update_batch(keys[ok], values[ok])
         return ok
 
     def delete_batch(self, keys: np.ndarray) -> np.ndarray:
@@ -626,28 +699,68 @@ class OutbackShard:
                            mn_reads=2, mn_cmp=1, mn_writes=1)
             self.n_keys -= n_fast
         for i in np.nonzero(~ok)[0]:
-            ok[i] = self.delete(int(keys[i]))
+            ok[i] = self._delete_mn(int(keys[i]))
+        if self.cn_cache is not None:
+            self.cn_cache.note_delete_batch(keys[ok])
         return ok
 
     # ----------------------------------------------------------- batched Get
+    def cn_arrays(self):
+        """The CN-cached arrays: the Othello words and the bucket seeds."""
+        oth = self.cn.othello
+        return oth.words_a, oth.words_b, self.cn.seeds
+
     def mn_arrays(self):
         return (self.slots_lo, self.slots_hi, self.heap_klo, self.heap_khi,
                 self.heap_vlo, self.heap_vhi)
 
-    def get_batch(self, keys: np.ndarray, *, resolve_makeup: bool = False):
+    def get_batch(self, keys: np.ndarray, *,
+                  resolve_makeup: bool | None = None):
         """Vectorised Get over a key batch -> (v_lo, v_hi, match) tensors.
 
         Mismatched lanes (stale CN seeds / overflow residents) are resolved
-        by the Makeup-Get when ``resolve_makeup`` is true."""
+        by the Makeup-Get when ``resolve_makeup`` is true — the default
+        whenever a CN cache is attached, so the cache only ever learns
+        resolved truths.
+
+        With a CN cache attached, the batch is probed first on the device:
+        hit and known-absent lanes are answered from the cache (no round
+        trip is accounted for them), only the misses go through the index
+        (a batch that the cache answers whole launches no index kernel),
+        and the cache adapts from the whole batch."""
         keys = np.asarray(keys, dtype=np.uint64)
         lo_h, hi_h = split_u64(keys)
-        out = outback_get_batch(self._lanes(lo_h), self._lanes(hi_h), self.cn,
-                                self.mn_arrays())
-        self.meter.add(int(keys.shape[0]), rts=1, req=GET_REQ_BYTES,
+        n = int(keys.shape[0])
+        if resolve_makeup is None:
+            resolve_makeup = self.cn_cache is not None
+        if self.cn_cache is None:
+            out = outback_get_batch(self._lanes(lo_h), self._lanes(hi_h),
+                                    self.cn, self.mn_arrays())
+            self.meter.add(n, rts=1, req=GET_REQ_BYTES, resp=KV_BLOCK_BYTES,
+                           cn_hash=5, cn_cmp=1, mn_reads=2)
+            if resolve_makeup:
+                out = self._resolve_makeups(keys, *out)
+            return out
+        # ---- CN-cache stage: hits never cross the wire ----
+        hit, neg, v_lo, v_hi = self.cn_cache.probe_batch(lo_h, hi_h)
+        hit_h, neg_h = torch.stack([hit, neg]).cpu().numpy()
+        n_hit, n_neg = int(hit_h.sum()), int(neg_h.sum())
+        self.meter.add(n - n_hit - n_neg, rts=1, req=GET_REQ_BYTES,
                        resp=KV_BLOCK_BYTES, cn_hash=5, cn_cmp=1, mn_reads=2)
-        if resolve_makeup:
-            out = self._resolve_makeups(keys, *out)
-        return out
+        meter_cache_batch(self.meter, n_hit, n_neg)
+        match = hit.clone()
+        mi = np.nonzero(~hit_h & ~neg_h)[0]
+        if mi.size:  # only the misses touch the MN arrays
+            mi_t = torch.from_numpy(mi).to(self.device)
+            m_out = outback_get_batch(self._lanes(lo_h[mi]),
+                                      self._lanes(hi_h[mi]), self.cn,
+                                      self.mn_arrays())
+            if resolve_makeup:
+                m_out = self._resolve_makeups(keys[mi], *m_out)
+            v_lo[mi_t], v_hi[mi_t], match[mi_t] = m_out
+        self.cn_cache.observe_batch(lo_h, hi_h, v_lo, v_hi, match, hit_h,
+                                    neg_h)
+        return v_lo, v_hi, match
 
     def _resolve_makeups(self, keys: np.ndarray, v_lo, v_hi, match, *,
                          skip=None):

@@ -5,8 +5,11 @@ held against ``repro.api.open_store`` on YCSB A-D mixes (made from seeds
 with numpy) at ``BatchPolicy(window=1 | 64 | 1024)``: every handle's
 ``OpResult`` — values, found, statuses and the meter stage's attribution —
 the pipeline's own counters and the final ``CommMeter.snapshot()`` must be
-identical.  A spec's JSON is the same in both packages, and each option
-this slice has not ported raises ``SpecError``.
+identical.  So is ``outback-dir`` with and without a CN cache, and
+``outback`` with one (then the cache's whole state too), and a stack's
+cache meters as an engine's internal cache does
+(``tests/test_api_stack.py``).  A spec's JSON is the same in both
+packages, and each option this slice has not ported raises ``SpecError``.
 """
 
 import dataclasses
@@ -15,10 +18,18 @@ import numpy as np
 import pytest
 
 from repro import api as r_api
+from repro.core.cn_cache import CNKeyCache as RCache
 from repro.core.hashing import splitmix64
+from repro.core.outback import OutbackShard as RShard
+from repro.core.store import OutbackStore as RStore
 from repro.core.store import make_uniform_keys
 from repro_torch import api as t_api
+from repro_torch.core.cn_cache import CNKeyCache as TCache
+from repro_torch.core.outback import OutbackShard as TShard
+from repro_torch.core.store import OutbackStore as TStore
 from repro_torch.kernels import ops
+
+from _torch_cache_state import assert_same_cache
 
 N = 4096
 N_OPS = 600
@@ -116,6 +127,134 @@ def test_ycsb_through_open_store_matches_reference(data, mix, window):
     assert not any(ops.LAUNCHES.values())
 
 
+# the directory store (two tables), with and without a CN cache, and the
+# shard with one: the same YCSB streams through both packages
+CONFIGS = {
+    "outback-dir": dict(kind="outback-dir", params={"initial_depth": 1}),
+    "outback-dir+cache": dict(kind="outback-dir", cache_budget_bytes=1 << 15,
+                              params={"initial_depth": 1}),
+    "outback+cache": dict(kind="outback", cache_budget_bytes=1 << 15),
+}
+
+
+@pytest.mark.parametrize("window", [1, 64, 1024])
+@pytest.mark.parametrize("mix", ["A", "B", "C", "D"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_ycsb_directory_and_cache_match_reference(data, config, mix, window):
+    keys, vals = data
+    kw = dict(CONFIGS[config], load_factor=0.85)
+    r = r_api.open_store(r_api.StoreSpec(
+        **kw, batch=r_api.BatchPolicy(window=window)), keys, vals)
+    t = t_api.open_store(t_api.StoreSpec(
+        **kw, batch=t_api.BatchPolicy(window=window)), keys, vals,
+        device="cpu")
+    stream = _ycsb(mix, keys, N_OPS, seed=ord(mix))
+    for a, b in zip(_drive(r, stream), _drive(t, stream)):
+        assert _result_tuple(a.result()) == _result_tuple(b.result())
+        assert _result_tuple(a.batch) == _result_tuple(b.batch)
+    assert dataclasses.asdict(r.stats) == dataclasses.asdict(t.stats)
+    probe = np.concatenate([keys[:300], np.asarray([k for _, k, _ in stream],
+                                                   np.uint64)])
+    for _ in range(2):  # the second read of a cached stack hits
+        assert _result_tuple(r.get_batch(probe)) == \
+            _result_tuple(t.get_batch(probe))
+    for k in probe[::37]:
+        for op in (lambda s: s.get(int(k)), lambda s: s.delete(int(k)),
+                   lambda s: s.get(int(k)), lambda s: s.insert(int(k), 9)):
+            assert _result_tuple(op(r)) == _result_tuple(op(t))
+    assert r.meter_totals().snapshot() == t.meter_totals().snapshot()
+    if "cache" in config:
+        assert_same_cache(r.inner.inner.cache, t.cache)
+        assert t.cache.stats.hits > 0
+    if kw["kind"] == "outback-dir":
+        assert (r.engine.directory, r.engine.local_depth) == \
+            (t.engine.directory, t.engine.local_depth)
+        assert len(t.engine.tables) == 2
+    assert not any(ops.LAUNCHES.values())
+
+
+def _stack_workload(keys):
+    absent = splitmix64(np.arange(1, 65, dtype=np.uint64) + np.uint64(1 << 44))
+    rng = np.random.default_rng(3)
+    return [np.concatenate([keys[rng.integers(0, keys.size // (i + 1), 384)],
+                            absent[: 16 * (i % 3)]]) for i in range(6)]
+
+
+def test_shard_stack_matches_internal_cache(data):
+    """A stack's cache layer meters and caches as a shard's own cache
+    (``cn_cache=``) does, in both packages (``tests/test_api_stack.py``)."""
+    keys, vals = data
+    budget = 1 << 16
+    legacy = TShard(keys, vals, load_factor=0.85, device="cpu",
+                    cn_cache=TCache(budget, device="cpu"))
+    r_legacy = RShard(keys, vals, load_factor=0.85, cn_cache=RCache(budget))
+    stack = t_api.open_store(t_api.StoreSpec(
+        "outback", load_factor=0.85, cache_budget_bytes=budget), keys, vals,
+        device="cpu")
+    absent = int(splitmix64(np.uint64([1 << 43]))[0])
+    for q in _stack_workload(keys):
+        res = stack.get_batch(q)
+        for out in (legacy.get_batch(q), r_legacy.get_batch(q)):
+            v_lo, v_hi, match = (np.asarray(x).astype(np.uint64)
+                                 & np.uint64(0xFFFFFFFF) for x in out)
+            np.testing.assert_array_equal(match.astype(bool), res.found)
+            got = (v_hi << np.uint64(32)) | v_lo
+            np.testing.assert_array_equal(got[res.found],
+                                          res.values[res.found])
+    for _ in range(4):
+        for k in (int(keys[0]), int(keys[1]), absent):
+            assert legacy.get(k).value == stack.get(k).value == \
+                r_legacy.get(k).value
+    assert legacy.meter.snapshot() == stack.meter_totals().snapshot() == \
+        r_legacy.meter.snapshot()
+    assert_same_cache(r_legacy.cn_cache, legacy.cn_cache)
+    assert_same_cache(r_legacy.cn_cache, stack.cache)
+    res = stack.get_batch(_stack_workload(keys)[0])
+    assert res.cache_hits + res.cache_neg_hits <= len(res)
+    assert res.round_trips >= len(res) - res.cache_hits - res.cache_neg_hits
+
+
+def test_store_stack_matches_internal_cache_through_resize(data):
+    """The directory store: inserts force a §4.4 split, and the stack's
+    cache joins the same invalidation the store's own cache gets."""
+    keys, vals = data
+    m, budget = keys.size // 2, 1 << 16
+    legacy = TStore(keys[:m], vals[:m], load_factor=0.85, device="cpu",
+                    cn_cache_budget_bytes=budget)
+    r_legacy = RStore(keys[:m], vals[:m], load_factor=0.85,
+                      cn_cache_budget_bytes=budget)
+    stack = t_api.open_store(t_api.StoreSpec(
+        "outback-dir", load_factor=0.85, cache_budget_bytes=budget),
+        keys[:m], vals[:m], device="cpu")
+    fresh = splitmix64(np.arange(1, 500, dtype=np.uint64) + np.uint64(1 << 47))
+    probe = keys[:256]
+    for i, k in enumerate(fresh):
+        case = legacy.insert(int(k), i)
+        assert case == stack.insert(int(k), i).status == \
+            r_legacy.insert(int(k), i)
+        if i % 41 == 0:
+            q = np.concatenate([probe, fresh[: max(1, i)]])
+            res = stack.get_batch(q)
+            for out in (legacy.get_batch(q), r_legacy.get_batch(q)):
+                match = np.asarray(out[2])
+                np.testing.assert_array_equal(match, res.found)
+        if i % 67 == 0:
+            kk = int(keys[i % m])
+            assert legacy.update(kk, i) == bool(stack.update(kk, i).found[0])
+            r_legacy.update(kk, i)
+    assert len(legacy.tables) > 1, "workload sized to force a resize"
+    assert len(stack.engine.tables) == len(legacy.tables)
+    for k in fresh[:32]:
+        assert legacy.delete(int(k)) == bool(stack.delete(int(k)).found[0]) \
+            == r_legacy.delete(int(k))
+    assert legacy.meter_total().snapshot() == \
+        stack.meter_totals().snapshot() == r_legacy.meter_total().snapshot()
+    for field in ("invalidated", "hits", "neg_hits"):
+        assert getattr(legacy.cn_cache.stats, field) == \
+            getattr(stack.cache.stats, field)
+    assert_same_cache(r_legacy.cn_cache, legacy.cn_cache)
+
+
 @pytest.mark.parametrize("policy", [dict(window=256, order="relaxed"),
                                     dict(window=128, combine_reads=True)])
 def test_pipeline_policies_match_reference(data, policy):
@@ -177,11 +316,11 @@ def test_spec_json_is_identical_in_both_packages(kw, batch):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kind="outback", cache_budget_bytes=1 << 16), "cache_budget_bytes"),
+    (dict(kind="mica"), "mica"),
     (dict(kind="outback", replicas=2), "replicas"),
     (dict(kind="outback", faults={"events": []}), "faults"),
     (dict(kind="outback", telemetry={"sample": 1.0}), "telemetry"),
-    (dict(kind="outback-dir"), "outback-dir"),
+    (dict(kind="cluster"), "cluster"),
     (dict(kind="race"), "race"),
     (dict(kind="sharded"), "sharded"),
 ])
@@ -199,6 +338,8 @@ def test_spec_errors_match_reference_validation(data):
                          device="cpu", transport=object())
     for bad in (dict(kind="nope"), dict(kind="outback", load_factor=1.5),
                 dict(kind="outback", params={"bogus": 1}),
+                dict(kind="outback-dir", params={"heap_slack": 1.5}),
+                dict(kind="outback", cache_budget_bytes=100),
                 dict(kind="outback", batch={"window": -3})):
         with pytest.raises(r_api.SpecError):
             r_api.StoreSpec(**bad).validate()
@@ -218,6 +359,15 @@ def test_store_satisfies_the_protocols(data):
     assert isinstance(t.inner.inner, t_api.OutbackShardAdapter)
     assert t.spec == t_api.StoreSpec("outback") and t.telemetry is None
     assert t.engine.device.type == "cpu"
-    assert t_api.registered_kinds() == ("outback",)
+    assert t_api.registered_kinds() == ("outback", "outback-dir")
     assert t_api.registry_docs() == {
-        "outback": r_api.registry_docs()["outback"]}
+        k: r_api.registry_docs()[k] for k in ("outback", "outback-dir")}
+    cached = t_api.open_store(t_api.StoreSpec("outback-dir",
+                                              cache_budget_bytes=1 << 14),
+                              keys, vals, device="cpu")
+    assert isinstance(cached, t_api.KVStore)
+    assert isinstance(cached.inner.inner, t_api.CNCacheLayer)
+    assert isinstance(cached.inner.inner.inner, t_api.OutbackStoreAdapter)
+    assert cached.cache is cached.inner.inner.cache
+    assert cached.cache.device.type == "cpu" and t.cache is None
+    assert cached.engine._coherence_caches == [cached.cache]

@@ -26,7 +26,14 @@ card and skips without one.  It holds:
   regimes (S = 1, 7, 8, 9, 31, 32, 33, 64 across the row groups and the
   decode / prefill boundary; d = 1000, no multiple of a K-split; F = 1,
   100, 131, 512 and 8192), each call counted once in ``ops.LAUNCHES``, and
-  two calls on the same inputs bit for bit alike.
+  two calls on the same inputs bit for bit alike;
+* the CN hot-key cache's device probe and ``observe_batch`` against the
+  same cache on the CPU (duplicate and top-bit keys, evictions, the
+  negative cache, sketch halving), state for state; a cached shard whose
+  batch the cache answers whole launching no index kernel; and a cached
+  ``OutbackStore`` driven through a forced §4.4 split (with Gets, inserts
+  and deletes inside the window) answering, metering, splitting and
+  caching exactly as on the CPU.
 """
 
 import numpy as np
@@ -415,3 +422,113 @@ def test_fused_norm_matmul_takes_its_plan_on_card(card):
     torch.testing.assert_close(ops.fused_norm_matmul(x, g, w_off).float(),
                                ops.fused_norm_matmul(x, g, w).float(),
                                rtol=3e-2, atol=3e-2)
+
+
+# --------------------------------------------------- CN cache and the store
+def _cache_state_equal(a, b) -> None:
+    sa, sb = a.state(), b.state()
+    for name in sa:
+        if isinstance(sa[name], np.ndarray):
+            np.testing.assert_array_equal(sa[name], sb[name], err_msg=name)
+        else:
+            assert sa[name] == sb[name], name
+
+
+def test_cn_cache_probe_and_observe_on_card_match_cpu(card):
+    from repro_torch.core.cn_cache import CNKeyCache
+    caches = [CNKeyCache(4 << 10, device=d) for d in ("cuda", "cpu")]
+    low = splitmix64(np.arange(1, 300, dtype=np.uint64)) >> np.uint64(1)
+    high = splitmix64(np.arange(1, 300, dtype=np.uint64)
+                      + np.uint64(5 << 36)) | np.uint64(1 << 63)
+    pool = np.concatenate([low, high])
+    rng = np.random.default_rng(0)
+    for step in range(12):
+        q = pool[rng.integers(0, pool.size, 700)]
+        lo, hi = split_u64(q)
+        v_lo, v_hi = split_u64(splitmix64(q + np.uint64(step)))
+        present = (q % np.uint64(3)) != 0
+        outs = []
+        for c in caches:
+            hit, neg, c_lo, c_hi = c.probe_batch(lo, hi)
+            assert hit.device.type == c.device.type
+            outs.append([x.cpu() for x in (hit, neg, c_lo, c_hi)])
+            c.observe_batch(lo, hi, v_lo, v_hi, present, hit, neg)
+        for x, y in zip(*outs):
+            assert torch.equal(x, y)
+        _cache_state_equal(*caches)
+        for c in caches:
+            c.note_update_batch(q[:40], q[:40] >> np.uint64(2))
+            c.note_delete_batch(q[40:60])
+        _cache_state_equal(*caches)
+    st = caches[0].stats
+    assert st.admitted and st.evicted and st.neg_admitted and st.hits
+    assert st.invalidated
+
+
+def test_cached_shard_on_card_launches_index_kernels_only_on_misses(card):
+    from repro_torch.core.cn_cache import CNKeyCache
+    keys = make_uniform_keys(4096, 3)
+    sh = outback.OutbackShard(keys, splitmix64(keys), device="cuda",
+                              cn_cache=CNKeyCache(1 << 16, device="cuda"))
+    hot = keys[:64]
+    for _ in range(3):
+        sh.get_batch(hot)
+    ops.reset_launch_counts()
+    v_lo, v_hi, match = sh.get_batch(hot)  # every lane hits
+    assert bool(match.all())
+    assert ops.LAUNCHES["ludo_lookup"] == ops.LAUNCHES["slot_unpack"] == 0
+    sh.get_batch(keys[1000:1064])  # misses go to the index
+    assert ops.LAUNCHES["ludo_lookup"] >= 1
+    assert ops.LAUNCHES["slot_unpack"] >= 1
+
+
+def _store_run(device):
+    from repro_torch.core.store import OutbackStore
+    keys = make_uniform_keys(6000, 13)
+    vals = splitmix64(keys)
+    st = OutbackStore(keys, vals, initial_depth=1, device=device,
+                      cn_cache_budget_bytes=32 << 10)
+    rng = np.random.default_rng(4)
+    fresh = splitmix64(np.arange(1, 900, dtype=np.uint64)
+                       + np.uint64(21 << 40))
+    out = []
+    for _ in range(3):
+        out.append([x.cpu() for x in st.get_batch(
+            keys[rng.integers(0, 800, 512)])])
+    out.append(st.update_batch(keys[:64], keys[:64] >> np.uint64(1)))
+    h = st.begin_split(0)
+    out.append(st.insert_batch(fresh[:300], fresh[:300]))
+    out.append(st.delete_batch(keys[100:140]))
+    out.append(st.update_batch(keys[:32], keys[:32]))
+    out.append([x.cpu() for x in st.get_batch(keys[:700])])
+    h.build()
+    h.finish()
+    out.append(st.insert_batch(fresh[300:], fresh[300:]))
+    out.append([x.cpu() for x in st.get_batch(
+        np.concatenate([keys[:800], fresh]), resolve_makeup=True)])
+    events = [(e.step, e.table_keys, e.locator_bytes, e.buffered_mutations)
+              for e in st.resize_events]
+    return st, out, events
+
+
+def test_store_forced_split_on_card_matches_cpu(card):
+    (g, g_out, g_ev), (c, c_out, c_ev) = _store_run("cuda"), _store_run("cpu")
+    assert g.tables[0].slots_lo.is_cuda and g.cn_cache.k_lo.is_cuda
+    assert len(g_out) == len(c_out)
+    for a, b in zip(g_out, c_out):
+        if isinstance(a, list) and a and isinstance(a[0], torch.Tensor):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+        else:
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert g_ev == c_ev and g_ev
+    assert g.meter_total().snapshot() == c.meter_total().snapshot()
+    assert (g.directory, g.local_depth, g.global_depth) == \
+        (c.directory, c.local_depth, c.global_depth)
+    for a, b in zip(g.tables, c.tables):
+        sa, sb = a.mn_state(), b.mn_state()
+        for k in sa:
+            if k != "overflow":
+                np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+    _cache_state_equal(g.cn_cache, c.cn_cache)
+    assert g.cn_cache.stats.invalidated > 0

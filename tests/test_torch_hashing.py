@@ -66,6 +66,18 @@ def test_hash64_32(lanes, seed):
                                   rh.hash64_32(lo, hi, seed))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 0xCACE5E7, 0x0FF5E7, 0xFFFFFFFF])
+def test_hash64_32_numpy_twin(lanes, seed):
+    lo, hi = lanes
+    np.testing.assert_array_equal(th.hash64_32_np(lo, hi, seed),
+                                  rh.hash64_32(lo, hi, seed))
+    seeds = np.array([[seed], [seed ^ 0x5EE71]], np.uint32)
+    both = th.hash64_32_np(lo[None, :], hi[None, :], seeds)
+    assert both.dtype == np.uint32 and both.shape == (2, lo.size)
+    np.testing.assert_array_equal(both[1], rh.hash64_32(lo, hi,
+                                                        seed ^ 0x5EE71))
+
+
 @pytest.mark.parametrize("size", [1, 4, 1023, 53_200, 2**31 + 11, 2**32 - 1])
 def test_hash_range(lanes, size):
     lo, hi = lanes

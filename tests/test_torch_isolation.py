@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no ``repro``, no quiet CPU fallback.
 
 * an AST scan of every module under ``src/repro_torch/``, of
-  ``chip_smoke.py``, of ``tools/{fnm,step,ludo}_probe.py``, of the on-card
+  ``chip_smoke.py``, of ``tools/{fnm,step,ludo,store}_probe.py``, of the on-card
   tests (``tests/test_torch_cuda.py``, which must run on the GPU machine)
   and of ``tests/test_torch_ludo_plan.py`` finds no import of ``jax`` or
   of ``repro``;
@@ -27,6 +27,8 @@ from repro_torch.api import StoreSpec, open_store
 from repro_torch.cache import CuckooPageTable, LudoPageTable
 from repro_torch.configs import get_config
 from repro_torch.core import outback
+from repro_torch.core.cn_cache import CNKeyCache
+from repro_torch.core.store import OutbackStore
 from repro_torch.core.hashing import splitmix64
 from repro_torch.kernels import build
 from repro_torch.models.lm import LM, init_params, params_from_reference
@@ -37,7 +39,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "test_torch_ludo_plan.py",
     ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py",
-    ROOT / "tools" / "ludo_probe.py"]
+    ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -130,6 +132,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert open_store(StoreSpec("outback"), keys, keys,
                       device="cpu").engine.device.type == "cpu"
     assert LudoPageTable(64, device="cpu").device.type == "cpu"
+
+
+def test_cached_and_directory_entry_points_raise_without_cuda(monkeypatch):
+    """The CN cache, the directory store and ``open_store`` with either run
+    on CUDA unless given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = splitmix64(np.arange(1, 300, dtype=np.uint64))
+    for spec in (StoreSpec("outback", cache_budget_bytes=1 << 14),
+                 StoreSpec("outback-dir"),
+                 StoreSpec("outback-dir", cache_budget_bytes=1 << 14)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            open_store(spec, keys, keys)
+        st = open_store(spec, keys, keys, device="cpu")
+        assert st.engine.device.type == "cpu"
+        assert st.get_batch(keys).found.all()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        OutbackStore(keys, keys)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CNKeyCache(1 << 14)
+    store = OutbackStore(keys, keys, device="cpu", cn_cache_budget_bytes=4096)
+    assert store.cn_cache.device.type == "cpu"
+    assert {t.device.type for t in store.tables} == {"cpu"}
 
 
 def test_model_entry_points_raise_without_cuda(monkeypatch):
