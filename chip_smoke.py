@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py   # 2^24 keys, the paged path, llama3.2-1b, the
-                            # cached directory store; one card
+                            # cached directory store, the four baselines
+                            # and the transport model; one card
 
 Phases; any failure exits non-zero:
 
@@ -101,7 +102,35 @@ Phases; any failure exits non-zero:
    (those routed to the frozen table come back ``"frozen"``), ``build()``
    (timed), ``finish()``, 2^16 Gets after and a read-back of every insert;
    every cached entry must equal the oracle and no negative entry may hold
-   a live key.
+   a live key;
+9. the comparison baselines and the transport model (``repro_torch.net``):
+   (a) for each of ``race``, ``mica``, ``cluster`` and ``dummy`` a 2^14-key
+   store at load factor 0.5 on the card and one on the CPU, each with its
+   own ``Transport``, through ``open_store(..., batch=BatchPolicy(window=
+   1024))``, take the same stream of Gets, updates, inserts and deletes:
+   every answer, ``meter_totals().snapshot()``, the traces (doorbell marks
+   included) as tuples, the final host images, the device arrays copied
+   back and ``simulate(trace, clients=8)`` must be equal; (b) each baseline
+   at 2^24 keys (phase 3's keys and values) at the reference's default load
+   factors (RACE at 0.69: at 0.7 its build cannot place these keys), one
+   store at a time: YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
+   (2^18 ops, half updates) at window 1024, then 2^12 deletes and Gets of
+   the deleted keys, every answer checked (for dummy, which verifies no
+   key, against the value at index ``key % n``), printing the build's host
+   seconds, Gets/s, window p50/p99, YCSB-A ops/s, the device busy share over
+   32 profiled windows, ``max_memory_allocated`` and the meter; (c) each
+   scheme's MN step at B = 2^16 over its full-size store, by CUDA events and
+   ``torch.profiler`` device time, in µs per op: ``mn_get_batch`` for
+   ``mica``, ``cluster`` and ``dummy``, the CN's selection
+   (``RaceKVS.cn_select``) for ``race``, and for ``outback`` the MN decode
+   (slot gather, ``slot_unpack``, heap gather) over phase 3's store, timed
+   before that store is freed; (d) the five kinds at 2^20 keys, each
+   recording 2^16 YCSB-C Gets through a window of 1024, replayed with
+   ``simulate`` on ``CX6`` at 1, 8 and 64 clients and one MN thread:
+   p50/p99 and Mops printed, the replay checked to be deterministic and to
+   hold every Get.  The launch counters are zeroed just before this phase
+   and read just after; the index kernels must launch once a window of the
+   Outback trace.
 
 The line before the last is the kernels' JSON record (all five kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -302,6 +331,22 @@ DIR_SPLIT_GETS_LOG2 = 16
 DIR_SPLIT_INSERTS_LOG2 = 12
 DIR_AGREE_KEYS_LOG2 = 14
 DIR_AGREE_CACHE = 64 << 10
+# Phase 9: the four baselines at the reference's default load factors (MICA
+# 0.7, Cluster 0.8) over phase 3's keys, but RACE at 0.69: at its default
+# 0.7 the reference's 2-choice build cannot place these 2^24 keys ("RACE
+# table full"), and 0.69 is the largest hundredth at which it can; a
+# 2^14-key agreement store at load factor 0.5 (the stream's inserts stay
+# below MICA's displacement bound); the MN step timed at B = 2^16; the
+# modelled comparison at 2^20 keys and 2^16 recorded Gets.
+BASELINE_KINDS = ("race", "mica", "cluster", "dummy")
+BASE_LOAD_FACTOR = {"race": 0.69}
+BASE_AGREE_KEYS_LOG2 = 14
+BASE_AGREE_LOAD = 0.5
+BASE_DELETES_LOG2 = 12
+MN_BATCH = 1 << 16
+SIM_KEYS_LOG2 = 20
+SIM_GETS_LOG2 = 16
+SIM_CLIENTS = (1, 8, 64)
 
 
 def log(*a) -> None:
@@ -1834,6 +1879,379 @@ def serve_directory(keys, vals, rng) -> dict:
     return res
 
 
+
+# ------------------------------------------------------------ phase 9
+def _trace_tuples(trace) -> list:
+    return [(type(e).__name__, dataclasses.astuple(e)) for e in trace]
+
+
+def _sim_fields(res) -> dict:
+    """A ``SimResult``'s fields, arrays as lists (compared with ``==``)."""
+    out = {}
+    for f in dataclasses.fields(res):
+        v = getattr(res, f.name)
+        out[f.name] = v.tolist() if isinstance(v, np.ndarray) else v
+    return out
+
+
+def baseline_agreement_check(seed: int, devices=("cuda", "cpu")) -> dict:
+    """Each baseline, a 2^14-key store on the card and the same on the CPU
+    (each with its own transport), takes the same stream of Gets, updates,
+    inserts and deletes: answers, meter totals, traces (doorbell marks
+    included), the final host images, the device arrays copied back and
+    the replay of both traces must be equal."""
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core.hashing import splitmix64
+    from repro_torch.net import Transport, simulate
+    n = 1 << BASE_AGREE_KEYS_LOG2
+    keys = splitmix64(np.arange(n, dtype=np.uint64) + np.uint64(13 << 40))
+    vals = splitmix64(keys)
+    fresh = splitmix64(np.arange(n, n + 2048, dtype=np.uint64)
+                       + np.uint64(13 << 40))
+    rng = np.random.default_rng(seed)
+    stream = []
+    for t, (kind, r) in enumerate(zip(
+            rng.choice(4, 8192, p=[0.5, 0.25, 0.15, 0.1]),
+            zipf_ranks(rng, n, 8192))):
+        op = ("get", "update", "insert", "delete")[kind]
+        k = int(fresh[t % 2048]) if op == "insert" else int(keys[r])
+        stream.append((op, k, t if op in ("update", "insert") else None))
+    out = {}
+    for kind in BASELINE_KINDS:
+        spec = StoreSpec(kind, load_factor=BASE_AGREE_LOAD, rng_seed=seed,
+                         batch=BatchPolicy(window=WINDOW))
+        runs = []
+        for device in devices:
+            tr = Transport()
+            st = open_store(spec, keys, vals, device=device, transport=tr)
+            answers = _drive(st, stream)
+            probe = st.get_batch(np.concatenate([keys, fresh]))
+            eng = st.engine
+            check(eng.device.type == device, f"{kind}: not on {device}")
+            runs.append(dict(
+                answers=answers,
+                probe=(probe.values.tolist(), probe.found.tolist()),
+                meter=st.meter_totals().snapshot(),
+                trace=_trace_tuples(tr.trace), host=eng.host_image(),
+                device=eng.device_image(),
+                sim=_sim_fields(simulate(tr.trace, clients=8))))
+        for field in runs[0]:
+            check(_same(runs[0][field], runs[1][field]), f"{kind}: the store "
+                  f"on {devices[0]} differs from {devices[1]} in {field}")
+        check(_same(runs[0]["host"], runs[0]["device"]),
+              f"{kind}: the device arrays differ from the host image")
+        out[kind] = dict(trace_items=len(runs[0]["trace"]),
+                         ops=runs[0]["meter"]["ops"],
+                         p50_us=float(np.percentile(
+                             runs[0]["sim"]["latencies_us"], 50)))
+    log(f"baseline agreement: {n}-key race, mica, cluster and dummy stores "
+        f"on {devices[0]} answer {len(stream)} mixed ops (window {WINDOW}) "
+        f"and meter, trace, hold their arrays and replay exactly as on "
+        f"{devices[1]}: {json.dumps(out)}")
+    return out
+
+
+def mn_timing(fn, sets, check_fn) -> dict:
+    """One MN-side step at B = ``MN_BATCH``: its answers checked, then
+    timed over ``sets`` (cycled, so the gathers find a cold L2) by CUDA
+    events and by ``torch.profiler`` device time; µs per op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    check_fn(fn(*sets[0]))
+    step = cycling(fn, sets)
+    ms = time_ms(step, 4 * len(sets))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2 * len(sets)):
+            step()
+        torch.cuda.synchronize()
+    busy, spans = device_busy_us(prof)
+    return dict(events_us_per_op=ms * 1e3 / MN_BATCH,
+                device_us_per_op=(busy / (2 * len(sets)) / MN_BATCH
+                                  if spans else None),
+                device_ops_per_call=spans / (2 * len(sets)))
+
+
+def outback_mn_timing(eng, keys, rng) -> dict:
+    """The Outback MN decode of ``benchmarks/paper_figs.py``'s ``mn_fn``
+    (slot gather, ``slot_unpack``, heap gather) over the phase-3 store."""
+    from repro_torch.core.hashing import lanes, split_u64
+    from repro_torch.kernels import ops
+    sets = []
+    for _ in range(COLD_SETS):
+        q = keys[rng.integers(0, keys.size, MN_BATCH)]
+        lo, hi = (lanes(x, eng.device) for x in split_u64(q))
+        b, s = eng.cn.locate(lo, hi)
+        sets.append((b.long() * 4 + s.long(), lo, hi))
+
+    def mn(flat, lo, hi):
+        _, _, _, addr = ops.slot_unpack(eng.slots_lo.view(-1)[flat],
+                                        eng.slots_hi.view(-1)[flat])
+        a = addr.long()
+        return eng.heap_klo[a], eng.heap_khi[a], eng.heap_vlo[a], \
+            eng.heap_vhi[a]
+
+    def ok(out):
+        lo, hi = sets[0][1:]
+        hit = ((out[0] == lo) & (out[1] == hi)).float().mean().item()
+        check(hit > 0.99, f"the Outback MN decode found {hit} of its keys")
+
+    return mn_timing(mn, sets, ok)
+
+
+def batch_visible(eng, kind: str, keys, idx) -> np.ndarray:
+    """Which build keys ``keys[idx]`` a batched Get finds: a plain numpy
+    model of the reference's batch rules over the engine's host image (a
+    build key's heap address is its index).  RACE tries the first 3
+    fingerprint candidates of its two groups, MICA the first 3 of its
+    4-bucket window, Cluster the first fingerprint hit of each of its first
+    ``MAX_CHAIN`` chain buckets; dummy verifies nothing."""
+    from repro_torch.core.hashing import hash64_32_np, split_u64
+    if kind == "dummy":
+        return np.ones(idx.size, bool)
+    addr, fp = eng.addr, eng.fp
+    S = addr.shape[1]
+    flat = addr.ravel()
+    live = np.nonzero(flat >= 0)[0]
+    where = np.full(eng.h_klo.shape[0], -1, np.int64)
+    where[flat[live]] = live
+    pos = where[idx]
+    row, lane = pos // S, pos % S
+    lo, hi = split_u64(keys[idx])
+    if kind == "cluster":
+        f = hash64_32_np(lo, hi, 0x0F14E) & 0x3FFF
+        chain = [(hash64_32_np(lo, hi, 0xC1C1) % eng.nb).astype(np.int64)]
+        for _ in range(eng.MAX_CHAIN - 1):
+            g = chain[-1]
+            chain.append(np.where(g >= 0, eng.nxt[np.maximum(g, 0)], -1))
+        on_chain = (np.stack(chain, 1) == row[:, None]).any(1)
+        ahead = (fp[row] == f[:, None]) & (addr[row] >= 0) \
+            & (np.arange(S)[None, :] < lane[:, None])
+        return (pos >= 0) & on_chain & ~ahead.any(1)
+    f = hash64_32_np(lo, hi, 0x0F0F8) & 0xFF
+    if kind == "race":
+        bucks = np.stack([hash64_32_np(lo, hi, 0xACE0) % eng.ng,
+                          hash64_32_np(lo, hi, 0xACE1) % eng.ng], 1)
+        own = np.where(bucks[:, 0] == row, lane, S + lane)
+        inside = pos >= 0
+    else:
+        home = hash64_32_np(lo, hi, 0x111CA) % eng.nb
+        bucks = (home[:, None].astype(np.int64)
+                 + np.arange(eng.SCAN_BUCKETS)) % eng.nb
+        d = (row - home) % eng.nb
+        own = d * S + lane
+        inside = (pos >= 0) & (d < eng.SCAN_BUCKETS)
+    cand = ((fp[bucks] == f[:, None, None]) & (addr[bucks] >= 0)) \
+        .reshape(idx.size, -1)
+    before = np.cumsum(cand, 1)[np.arange(idx.size),
+                                np.minimum(own, cand.shape[1] - 1)] - 1
+    return inside & (before < 3)
+
+
+def serve_baseline(kind: str, keys, vals, rng) -> dict:
+    """Phase 9 at full size, one baseline: build it through ``open_store``
+    at the reference's default load factor, serve YCSB-C and YCSB-A at
+    window 1024, then deletes and Gets of the deleted keys, every answer
+    checked against the oracle (for dummy, which verifies no key, the value
+    at index ``key % n``); then time its MN step at B = ``MN_BATCH``."""
+    import torch
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    n = keys.size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = open_store(StoreSpec(kind, load_factor=BASE_LOAD_FACTOR.get(kind),
+                                 rng_seed=SEED,
+                                 batch=BatchPolicy(window=WINDOW)),
+                       keys, vals)
+    torch.cuda.synchronize()
+    eng = store.engine
+    res = dict(kind=kind, build_seconds=time.perf_counter() - t0,
+               index_bytes=eng.index_bytes())
+    check(all(x.is_cuda for x in eng.mn_arrays()),
+          f"{kind}: the store is not on the card")
+    verify = store.verifies_keys
+    latest = vals.copy()
+    perm = rng.permutation(n)
+
+    def expect(idx):
+        """The oracle: found where the batch rules reach the key, with its
+        latest value (dummy: the value at index ``key % n``)."""
+        seen = batch_visible(eng, kind, keys, idx)
+        if verify:
+            return seen, np.where(seen, latest[idx], np.uint64(0))
+        return seen, vals[(keys[idx] % np.uint64(n)).astype(np.int64)]
+
+    def get_windows(idx):
+        """The Gets of ``idx``, a window at a time; returns each window's
+        host ms and the answers, checked later (outside the timing)."""
+        lat, hs = [], []
+        for w0 in range(0, idx.size, WINDOW):
+            t0 = time.perf_counter()
+            hs.append(store.submit("get", keys[idx[w0:w0 + WINDOW]]))
+            if not hs[-1].done:
+                store.flush()
+            lat.append(time.perf_counter() - t0)
+        return np.asarray(lat) * 1e3, hs
+
+    def check_gets(idx, hs) -> int:
+        seen, want = expect(idx)
+        check(np.array_equal(np.concatenate([h.result().found for h in hs]),
+                             seen),
+              f"{kind}: a Get found a key the batch rules miss, or missed "
+              f"one they reach")
+        check(np.array_equal(np.concatenate([h.result().values for h in hs]),
+                             want), f"{kind}: a Get returned a wrong value")
+        return int((~seen).sum())
+
+    ops_0 = store.meter_totals().ops
+    idx_c = perm[zipf_ranks(rng, n, 1 << N_GETS_LOG2)]
+    t0 = time.perf_counter()
+    lat, hs = get_windows(idx_c)
+    sec = time.perf_counter() - t0
+    res.update(gets_per_s=idx_c.size / sec, p50_ms=float(np.percentile(
+        lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+        batch_misses=check_gets(idx_c, hs),
+        unreachable_keys=int((~batch_visible(eng, kind, keys,
+                                             np.arange(n))).sum()))
+    check(store.meter_totals().ops - ops_0 == idx_c.size,
+          f"{kind}: the meter missed Gets")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, hs = get_windows(idx_c[:32 * WINDOW])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check_gets(idx_c[:32 * WINDOW], hs)
+    busy, spans = device_busy_us(prof)
+    res.update(device_busy_share=busy / wall_us if spans else None,
+               device_ops_per_window=spans / 32)
+
+    # ---- YCSB-A: zipf, half reads, half updates, submission order ----
+    n_a = 1 << N_YCSB_A_LOG2
+    idx_a = perm[zipf_ranks(rng, n, n_a)]
+    is_upd = rng.random(n_a) < 0.5
+    new_v = rng.integers(0, 2**64 - 1, n_a, dtype=np.uint64, endpoint=True)
+    reads, upds, want = [], [], []
+    t0 = time.perf_counter()
+    for t in range(n_a):
+        i = int(idx_a[t])
+        if is_upd[t]:
+            upds.append(store.submit("update", int(keys[i]), int(new_v[t])))
+            if verify:
+                latest[i] = new_v[t]
+        else:
+            reads.append(store.submit("get", int(keys[i])))
+            want.append(latest[i])  # at its place in the stream
+    store.flush()
+    res["ycsb_a_ops_per_s"] = n_a / (time.perf_counter() - t0)
+    check(all(bool(h.result().found[0]) for h in upds),
+          f"YCSB-A on {kind}: an update of a present key failed")
+    seen, dummy_v = expect(idx_a[~is_upd])
+    want = np.where(seen, np.asarray(want, np.uint64), np.uint64(0)) \
+        if verify else dummy_v
+    check(np.array_equal(np.asarray([h.result().found[0] for h in reads]),
+                         seen)
+          and np.array_equal(np.asarray([h.result().values[0]
+                                         for h in reads], np.uint64), want),
+          f"YCSB-A on {kind}: a read did not see the latest value")
+
+    # ---- deletes, then Gets of the deleted keys ----
+    gone = rng.choice(n, 1 << BASE_DELETES_LOG2, replace=False)
+    h = store.submit("delete", keys[gone])
+    store.flush()
+    check(h.result().found.all(), f"{kind}: a delete of a present key "
+          f"failed")
+    r = store.get_batch(keys[gone])
+    if verify:
+        check(not r.found.any(), f"{kind}: a deleted key is still found")
+    else:
+        check(r.found.all() and np.array_equal(r.values, expect(gone)[1]),
+              f"{kind}: a Get after a delete did not read index key % n")
+
+    # ---- the MN step at B = MN_BATCH (RACE: the CN's selection) ----
+    q_idx = [rng.integers(0, n, MN_BATCH) for _ in range(COLD_SETS)]
+    sets = [eng.query(keys[i]) for i in q_idx]
+    arrays = eng.mn_arrays()
+    step = eng.cn_select if kind == "race" else eng.mn_get_batch
+
+    def ok(out):
+        v_lo, v_hi, found = (x.cpu().numpy() for x in out)
+        got = (v_hi.view(np.uint32).astype(np.uint64) << np.uint64(32)) \
+            | v_lo.view(np.uint32)
+        seen, want = expect(q_idx[0])
+        check(np.array_equal(found, seen)
+              and np.array_equal(got[seen], want[seen]),
+              f"{kind}: the MN step's answers disagree with the oracle")
+
+    res["mn"] = mn_timing(lambda *q: step(*q, arrays), sets, ok)
+    res.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+               meter=store.meter_totals().snapshot())
+    log(f"{kind}: build {res['build_seconds']:.3f} s (host), index "
+        f"{res['index_bytes']} B; {res['unreachable_keys']} keys past the "
+        f"batch rules ({res['batch_misses']} of the Gets); YCSB-C "
+        f"{res['gets_per_s']:.1f} Gets/s, "
+        f"window p50 {res['p50_ms']:.4f} ms, p99 {res['p99_ms']:.4f} ms; "
+        f"YCSB-A {res['ycsb_a_ops_per_s']:.1f} ops/s; device busy "
+        f"{res['device_busy_share']} over 32 windows; MN step "
+        f"{json.dumps(res['mn'])}; max_memory_allocated "
+        f"{res['max_memory_allocated']} B; meter {json.dumps(res['meter'])}")
+    return res
+
+
+def modelled_comparison(seed: int) -> dict:
+    """The five kinds at 2^20 keys, each recording 2^16 YCSB-C Gets through
+    a window of 1024, replayed on CX6 with 1, 8 and 64 clients and one MN
+    thread.  Checks that every Get is in the trace and that the replay is
+    deterministic; the orderings are printed, not asserted."""
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core.hashing import splitmix64
+    from repro_torch.net import CX6, Transport, simulate
+    n = 1 << SIM_KEYS_LOG2
+    keys = splitmix64(np.arange(n, dtype=np.uint64) + np.uint64(17 << 40))
+    vals = splitmix64(keys)
+    rng = np.random.default_rng(seed)
+    q_idx = rng.permutation(n)[zipf_ranks(rng, n, 1 << SIM_GETS_LOG2)]
+    q = keys[q_idx]
+    out = {}
+    for kind in ("outback",) + BASELINE_KINDS:
+        tr = Transport()
+        st = open_store(StoreSpec(kind, rng_seed=seed,
+                                  batch=BatchPolicy(window=WINDOW)),
+                        keys, vals, transport=tr)
+        hs = [st.submit("get", q[w0:w0 + WINDOW])
+              for w0 in range(0, q.size, WINDOW)]
+        st.flush()
+        found = np.concatenate([h.result().found for h in hs])
+        check(np.array_equal(found, np.ones(q.size, bool) if kind == "outback"
+                             else batch_visible(st.engine, kind, keys, q_idx)),
+              f"{kind}: a recorded Get's answer disagrees with the oracle")
+        check(len(tr) == q.size, f"{kind}: {len(tr)} ops in the trace for "
+              f"{q.size} Gets")
+        runs, t0 = {}, time.perf_counter()
+        for c in SIM_CLIENTS:
+            r = simulate(tr.trace, clients=c, mn_threads=1, service=CX6)
+            check(r.n_ops == q.size, f"{kind}: the replay lost ops")
+            runs[c] = r
+        again = simulate(tr.trace, clients=SIM_CLIENTS[1], mn_threads=1,
+                         service=CX6)
+        check(_same(_sim_fields(again), _sim_fields(runs[SIM_CLIENTS[1]])),
+              f"{kind}: the replay is not deterministic")
+        out[kind] = {str(c): dict(p50_us=r.percentile_us(50),
+                                  p99_us=r.percentile_us(99),
+                                  mops=r.tput_mops)
+                     for c, r in runs.items()}
+        out[kind]["replay_seconds"] = time.perf_counter() - t0
+        del st, tr
+        gc.collect()
+    for c in SIM_CLIENTS:
+        log(f"modelled (CX6, {c} clients, 1 MN thread): " + ", ".join(
+            f"{k} p50 {v[str(c)]['p50_us']:.4f} us p99 "
+            f"{v[str(c)]['p99_us']:.4f} us {v[str(c)]['mops']:.4f} Mops"
+            for k, v in out.items()))
+    return out
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -1917,6 +2335,9 @@ def main() -> int:
         f"{1 << N_YCSB_A_LOG2} ops")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
     log(f"meter: {store.meter_totals().snapshot()}")
+    # phase 9's Outback row: the MN decode over this store, B = MN_BATCH
+    outback_mn = outback_mn_timing(eng, keys, rng)
+    log(f"Outback MN decode at B={MN_BATCH}: {json.dumps(outback_mn)}")
     del store, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1990,6 +2411,33 @@ def main() -> int:
               f"cached directory store's path")
     log(f"launches on the cached directory store's path: {dres['launches']}")
     log(f"directory store path: {json.dumps(dres)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the comparison baselines and the transport model ----
+    t9 = time.perf_counter()
+    ops.reset_launch_counts()
+    baseline_agreement_check(SEED)
+    bres = {}
+    for kind in BASELINE_KINDS:  # one full-size store at a time
+        bres[kind] = serve_baseline(kind, keys, vals, rng)
+        gc.collect()
+        torch.cuda.empty_cache()
+    bres["outback"] = dict(mn=outback_mn)
+    model = modelled_comparison(SEED)
+    blaunch = dict(ops.LAUNCHES)
+    for name, k in kernels.items():
+        k["launches_baselines_path"] = blaunch[name]
+    for name in ("ludo_lookup", "slot_unpack"):
+        check(blaunch[name] >= (1 << SIM_GETS_LOG2) // WINDOW,
+              f"{name}: fewer launches than the Outback trace's windows")
+    log(f"launches on the baselines' path: {blaunch}")
+    log("MN step at B=%d, us per op (events / device): %s" % (
+        MN_BATCH, ", ".join(
+            f"{k} {v['mn']['events_us_per_op']:.6f} / "
+            f"{v['mn']['device_us_per_op']}" for k, v in bres.items())))
+    log(f"baselines path: {json.dumps(dict(serve=bres, modelled=model))}")
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

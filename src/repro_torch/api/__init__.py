@@ -1,6 +1,7 @@
 """``repro_torch.api`` — one KVStore protocol, a CN stack, a registry.
 
-The port of ``repro.api`` for kinds ``outback`` and ``outback-dir``:
+The port of ``repro.api`` for kinds ``outback``, ``outback-dir``, ``race``,
+``mica``, ``cluster`` and ``dummy``:
 
 * :mod:`repro_torch.api.protocol` — :class:`KVStore`,
   :class:`PipelinedKVStore` and the :class:`OpResult` every op returns;
@@ -12,8 +13,10 @@ The port of ``repro.api`` for kinds ``outback`` and ``outback-dir``:
   JSON) and :func:`open_store`.
 """
 
-from repro_torch.api.adapters import (OutbackShardAdapter,
-                                      OutbackStoreAdapter, StoreAdapter)
+from repro_torch.api.adapters import (BaselineAdapter, DummyAdapter,
+                                      OutbackShardAdapter,
+                                      OutbackStoreAdapter, RaceAdapter,
+                                      StoreAdapter)
 from repro_torch.api.pipeline import (BatchPolicy, OpHandle, PipelineLayer,
                                       PipelineStats)
 from repro_torch.api.protocol import (OP_KINDS, KVStore, OpResult,
@@ -26,9 +29,11 @@ from repro_torch.api.stack import (CNCacheLayer, CNStack, MeterLayer,
                                    StoreLayer, TransportBinding)
 
 __all__ = [
+    "BaselineAdapter",
     "BatchPolicy",
     "CNCacheLayer",
     "CNStack",
+    "DummyAdapter",
     "KVStore",
     "MeterLayer",
     "OP_KINDS",
@@ -39,6 +44,7 @@ __all__ = [
     "PipelineLayer",
     "PipelineStats",
     "PipelinedKVStore",
+    "RaceAdapter",
     "SpecError",
     "StoreAdapter",
     "StoreLayer",

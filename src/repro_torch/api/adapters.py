@@ -1,21 +1,24 @@
 """Engine adapters: ``repro_torch.core`` stores behind the uniform ``KVStore``.
 
-The port of ``repro.api.adapters``, kinds ``outback`` and ``outback-dir``
-(the baselines' and the sharded host's adapters are not ported yet).  An
-adapter owns
-no policy: it translates the engine's native call surface (device tensors,
+The port of ``repro.api.adapters``: kinds ``outback``, ``outback-dir``
+and the four baselines (``race``, ``mica``, ``cluster``, ``dummy``); the
+sharded host's adapter is not ported yet.  An adapter owns no policy: it
+translates the engine's native call surface (device tensors,
 ``GetResult``, case strings and bool masks) into the protocol's
 batched-first ``OpResult`` ops, and exposes the raw engine as ``.engine``.
 Batched mutations delegate to the engine's ``*_batch`` paths, exact
-vectorisations of its scalar walks.
+vectorisations of its scalar walks.  Each kind declares what one
+locally-answered read saves on its own wire (``cache_hit_savings``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.api.protocol import OpResult, pack_result, status_result
-from repro_torch.core.meter import CommMeter
+from repro_torch.core.baselines import RaceKVS
+from repro_torch.core.meter import MSG_BYTES, CommMeter
 from repro_torch.core.outback import CACHE_HIT_SAVINGS, CACHE_NEG_SAVINGS
 
 _OK = "ok"
@@ -143,3 +146,34 @@ class OutbackStoreAdapter(OutbackShardAdapter):
 
     def bind_cache(self, cache) -> None:
         self.engine.bind_coherence_cache(cache)
+
+
+class BaselineAdapter(StoreAdapter):
+    """RPC-MICA / RPC-Cluster / RPC-Dummy: full surface, no makeup
+    concept — their Get resolves in one protocol round, so
+    ``resolve_makeup`` is accepted and ignored.  A cache answer saves their
+    single padded two-sided RPC round, hit or known-absent alike."""
+
+    cache_hit_savings = dict(saved_rts=1, saved_req=MSG_BYTES,
+                             saved_resp=MSG_BYTES)
+    cache_neg_savings = cache_hit_savings
+
+    def _engine_get_batch(self, keys, resolve_makeup):
+        v_lo, v_hi, match = self.engine.get_batch(keys)
+        host = torch.stack([v_lo, v_hi, match.to(torch.int32)]).cpu().numpy()
+        return host[0], host[1], host[2] != 0  # one device->host copy
+
+
+class RaceAdapter(BaselineAdapter):
+    """RACE: a cache answer saves the two dependent one-sided READ trips
+    (raw NIC payloads, no RPC padding) — a miss pays the same route."""
+
+    kind = "race"
+    cache_hit_savings = dict(saved_rts=2, saved_req=32,
+                             saved_resp=2 * RaceKVS.GROUP_BYTES + 32)
+    cache_neg_savings = cache_hit_savings
+
+
+class DummyAdapter(BaselineAdapter):
+    kind = "dummy"
+    verifies_keys = False  # the upper-bound model answers one fixed read

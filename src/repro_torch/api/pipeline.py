@@ -1,8 +1,8 @@
 """The v2 submission/completion plane: ``submit`` → ``poll``/``flush``.
 
 The port of ``repro.api.pipeline``: host logic, identical in its
-batching, ordering and attribution.  The reference's telemetry hooks and
-transport doorbell marks wait for those planes to be ported.
+batching, ordering, attribution and doorbell marks.  The reference's
+telemetry hooks wait for that plane to be ported.
 
 Outback's one-round-trip advantage only materialises when a compute node
 coalesces many WQEs under one doorbell ring (§2, Fig. 2).  The v1
@@ -40,6 +40,11 @@ batch kernels preserve lane order exactly as the scalar stream would
 skips hazard tracking entirely — the model of many independent
 closed-loop clients sharing one doorbell, where intra-window order
 carries no meaning (what every multi-client benchmark wants).
+
+Each flush of a ``window > 1`` policy drops a
+:class:`repro_torch.net.DoorbellMark` into the bound transport's trace, so
+``repro_torch.net.simulate(window="policy")`` replays the recorded op
+stream with exactly the outstanding-ops window the policy produced.
 
 Attribution.  When a flush coalesces several submissions of one kind
 into a single batch call, the meter stage stamps *that call's* deltas
@@ -288,10 +293,12 @@ class PipelineLayer(StoreLayer):
     pre-pipeline stack, meters, traces and cache state included.
     """
 
-    def __init__(self, inner, policy: BatchPolicy | None = None):
+    def __init__(self, inner, policy: BatchPolicy | None = None,
+                 transport=None):
         super().__init__(inner)
         self.policy = (policy or BatchPolicy.sync()).validate()
         self.stats = PipelineStats()
+        self._transport = transport
         self._q: dict[str, list[_Pending]] = {k: [] for k in OP_KINDS}
         self._n_pending = 0
         # strict-order hazard state: key -> (pending write kind, value)
@@ -450,7 +457,9 @@ class PipelineLayer(StoreLayer):
         bound-rejections surface as ``RuntimeError``), the failing group's
         handles never complete and the exception propagates, but every
         *later* group stays queued — with the pending-lane count and the
-        strict-order hazard state rebuilt — so the next flush executes it.
+        strict-order hazard state rebuilt — so the next flush executes it,
+        and an open doorbell window is still closed over whatever ops the
+        aborted flush did record.
         """
         if not self._n_pending:
             return
@@ -459,6 +468,12 @@ class PipelineLayer(StoreLayer):
             self.stats.window_flushes += 1
         elif trigger == "hazard":
             self.stats.hazard_flushes += 1
+        # open a doorbell window for the replay engine; its op count is
+        # patched at close to what actually reached the trace (CN-cache
+        # hits are answered locally and never cross the recorded wire)
+        doorbell = (self._transport.begin_doorbell()
+                    if self._transport is not None and self.policy.window > 1
+                    else None)
         if self._writes:
             self._writes.clear()
         try:
@@ -476,6 +491,9 @@ class PipelineLayer(StoreLayer):
             if self.policy.order == "strict":
                 self._rebuild_hazard_state()
             raise
+        finally:
+            if doorbell is not None:
+                self._transport.close_doorbell(doorbell)
 
     def _reconcile_combined(self) -> None:
         """Fix up combined reads whose buffered write failed (satellite of

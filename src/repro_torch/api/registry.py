@@ -2,22 +2,27 @@
 
 The port of ``repro.api.registry``.  :class:`StoreSpec` keeps the
 reference's fields and JSON exactly, so one spec's JSON opens the same
-store in both packages.  ``open_store(spec, keys, values, device=...)``
-builds the engine on ``device`` (CUDA unless the caller passes
-``device="cpu"``; it raises when CUDA is absent) and assembles the CN stack
-``Pipeline → Meter → [CNCache →] adapter`` around it; a spec's
-``cache_budget_bytes`` builds the stack's ``CNKeyCache`` on the same
-device.
+store in both packages.  ``open_store(spec, keys, values, device=...,
+transport=...)`` builds the engine on ``device`` (CUDA unless the caller
+passes ``device="cpu"``; it raises when CUDA is absent) and assembles the
+CN stack ``Pipeline → Meter → [CNCache →] adapter (→ Transport)`` around
+it; a spec's ``cache_budget_bytes`` builds the stack's ``CNKeyCache`` on
+the same device, and a ``repro_torch.net.Transport`` records the store's
+op trace.
 
-Registered kinds in this slice:
+Registered kinds:
 
 =============  ==========================================================
 ``outback``     one Outback DMPH shard (§4.3 protocols)
 ``outback-dir`` extendible-hashing directory of shards + §4.4 resize
+``race``        one-sided RACE baseline (2-RT Get, zero MN compute)
+``mica``        two-sided RPC-MICA baseline (linear probing, MN-heavy)
+``cluster``     two-sided RPC-Cluster baseline (chained buckets)
+``dummy``       RPC-Dummy upper bound (one fixed MN read per op)
 =============  ==========================================================
 
-The reference's other kinds, and the options served by planes not ported
-yet (replication, fault schedules, telemetry, a transport), raise
+The reference's ``sharded`` kind, and the options served by planes not
+ported yet (replication, fault schedules, telemetry), raise
 :class:`SpecError` saying so.
 """
 
@@ -31,7 +36,8 @@ import numpy as np
 
 from repro_torch.api import adapters
 from repro_torch.api.pipeline import BatchPolicy
-from repro_torch.api.stack import CNStack
+from repro_torch.api.stack import CNStack, TransportBinding
+from repro_torch.core.baselines import ClusterKVS, DummyKVS, MicaKVS, RaceKVS
 from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.outback import OutbackShard, resolve_device
 from repro_torch.core.store import OutbackStore
@@ -43,8 +49,7 @@ class SpecError(ValueError):
 
 
 # The reference's kinds that this package does not serve yet.
-_UNPORTED_KINDS = frozenset(("race", "mica", "cluster", "dummy",
-                             "sharded"))
+_UNPORTED_KINDS = frozenset(("sharded",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +158,8 @@ class StoreSpec:
                 ("telemetry (the telemetry plane)",
                  self.telemetry is not None)):
             if unported:
-                raise SpecError(f"{name} is not yet ported to repro_torch")
+                raise SpecError(f"{name} is not yet ported to repro_torch "
+                                f"(kind {self.kind!r})")
         return reg
 
     def merged_params(self) -> dict:
@@ -169,7 +175,7 @@ def _json_of(x):
 @dataclasses.dataclass(frozen=True)
 class _StoreKind:
     name: str
-    factory: typing.Callable  # (spec, keys, values, device) -> adapter
+    factory: typing.Callable  # (spec, keys, values, device, transport)
     params: frozenset  # allowed keys of spec.params
     defaults: dict  # params applied when the spec omits them
     doc: str
@@ -212,21 +218,21 @@ def open_store(spec: StoreSpec, keys, values, *, device=None, transport=None):
     adapter), with the pipeline shaped by ``spec.batch`` (synchronous when
     the spec carries none) and a CN hot-key cache of
     ``spec.cache_budget_bytes`` on the engine's device when that is not 0.
-    ``transport`` (the simulated RDMA transport) is not ported and must be
-    ``None``."""
+    ``transport``, an optional ``repro_torch.net.Transport``, is bound
+    below the engine as the stack's recording stage (every engine meter's
+    sink) and receives the pipeline's doorbell marks."""
     adapter = build_adapter(spec, keys, values, device=device,
                             transport=transport)
     cache = (CNKeyCache(spec.cache_budget_bytes, device=adapter.engine.device)
              if spec.cache_budget_bytes else None)
-    return CNStack(cache=cache, policy=spec.batch).assemble(adapter)
+    return CNStack(cache=cache,
+                   transport_binding=TransportBinding(transport),
+                   policy=spec.batch).assemble(adapter)
 
 
 def build_adapter(spec: StoreSpec, keys, values, *, device=None,
                   transport=None):
     """Build the spec's engine adapter without the CN stack around it."""
-    if transport is not None:
-        raise SpecError("transport= (the simulated RDMA transport) is not "
-                        "yet ported to repro_torch")
     reg = spec.validate()
     device = resolve_device(device)
     keys = np.asarray(keys, dtype=np.uint64)
@@ -234,7 +240,7 @@ def build_adapter(spec: StoreSpec, keys, values, *, device=None,
     if keys.shape != values.shape:
         raise SpecError(f"keys/values shape mismatch: "
                         f"{keys.shape} vs {values.shape}")
-    return reg.factory(spec, keys, values, device)
+    return reg.factory(spec, keys, values, device, transport)
 
 
 # ---------------------------------------------------------------------------
@@ -249,14 +255,26 @@ def _common_kw(spec: StoreSpec) -> dict:
     return kw
 
 
-def _outback_factory(spec, keys, values, device):
-    eng = OutbackShard(keys, values, device=device, **_common_kw(spec))
+def _outback_factory(spec, keys, values, device, transport):
+    eng = OutbackShard(keys, values, device=device, transport=transport,
+                       **_common_kw(spec))
     return adapters.OutbackShardAdapter(eng, spec)
 
 
-def _outback_dir_factory(spec, keys, values, device):
-    eng = OutbackStore(keys, values, device=device, **_common_kw(spec))
+def _outback_dir_factory(spec, keys, values, device, transport):
+    eng = OutbackStore(keys, values, device=device, transport=transport,
+                       **_common_kw(spec))
     return adapters.OutbackStoreAdapter(eng, spec)
+
+
+def _baseline_factory(cls, adapter_cls, kind):
+    def factory(spec, keys, values, device, transport):
+        eng = cls(keys, values, device=device, transport=transport,
+                  **_common_kw(spec))
+        adp = adapter_cls(eng, spec)
+        adp.kind = kind
+        return adp
+    return factory
 
 
 register_store(
@@ -268,3 +286,16 @@ register_store(
     "outback-dir", _outback_dir_factory,
     params=("initial_depth", "num_compute_nodes"),
     doc="extendible-hashing directory of Outback shards + §4.4 resizing")
+register_store(
+    "race", _baseline_factory(RaceKVS, adapters.RaceAdapter, "race"),
+    doc="one-sided RACE baseline: 2-RT Get, zero MN compute")
+register_store(
+    "mica", _baseline_factory(MicaKVS, adapters.BaselineAdapter, "mica"),
+    doc="two-sided RPC-MICA baseline: linear probing, MN-heavy scans")
+register_store(
+    "cluster",
+    _baseline_factory(ClusterKVS, adapters.BaselineAdapter, "cluster"),
+    doc="two-sided RPC-Cluster baseline: chained associative buckets")
+register_store(
+    "dummy", _baseline_factory(DummyKVS, adapters.DummyAdapter, "dummy"),
+    doc="RPC-Dummy upper bound: one fixed MN read per op")

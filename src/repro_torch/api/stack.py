@@ -1,9 +1,9 @@
-"""The composable CN-side stack: ``Pipeline → Meter → [CNCache →] adapter``.
+"""The CN-side stack: ``Pipeline → Meter → [CNCache →] adapter (→ Transport)``.
 
-The port of ``repro.api.stack``: the meter and CN-cache stages and the
-composition root.  The reference's retry stage, its telemetry hooks and a
-live transport below the engine are not ported yet; ``open_store`` refuses
-specs that need them, and :class:`TransportBinding` holds no transport.
+The port of ``repro.api.stack``: the meter and CN-cache stages, the
+transport binding and the composition root.  The reference's retry stage
+and its telemetry hooks are not ported yet; ``open_store`` refuses specs
+that need them.
 
 * **Meter** (:class:`MeterLayer`) — stamps per-call attribution (round
   trips, wire bytes, Makeup-Get continuations, cache hits) onto every
@@ -14,12 +14,19 @@ specs that need them, and :class:`TransportBinding` holds no transport.
   cache only learns resolved truths), keep coherence on every mutation, and
   join the engine's split-time invalidation via ``adapter.bind_cache``.
 * **Pipeline** (``repro_torch.api.pipeline.PipelineLayer``) — the
-  submission/completion plane, outermost.
+  submission/completion plane, outermost; it opens a doorbell window in
+  the bound transport's trace around each flush of a ``window > 1``
+  policy.
+* **Transport** (innermost, :class:`TransportBinding`) — a
+  ``repro_torch.net.Transport`` plugged into every engine meter's ``sink``
+  at construction (the factories pass it down, so split successors
+  inherit it), so the op stream replays on the simulated RDMA clock.
+  Cache hits never reach the trace.
 
 For Outback kinds the cache layer charges the same ``CACHE_*_SAVINGS``
 into the same engine meter as a store built with an internal cache
 (``cn_cache=`` / ``cn_cache_budget_bytes=``), so the two report identical
-totals.
+totals; each baseline's adapter declares its own protocol's savings.
 
 :class:`StoreLayer` forwards the protocol's members (``spec``,
 ``telemetry``, ``meter``, the ops, the meter accessors) as real attributes
@@ -63,6 +70,12 @@ class StoreLayer:
     @property
     def meter(self):
         return self.inner.meter
+
+    @property
+    def verifies_keys(self) -> bool:
+        """False for a kind whose Gets do not read stored data back
+        (dummy): callers skip answer checks against their oracle."""
+        return self.inner.verifies_keys
 
     @property
     def cache_hit_savings(self) -> dict:
@@ -264,8 +277,11 @@ class MeterLayer(StoreLayer):
 
 @dataclasses.dataclass(frozen=True)
 class TransportBinding:
-    """The innermost stage's place in the stack.  The simulated RDMA
-    transport is not ported yet, so it binds nothing."""
+    """The innermost stage, made explicit: a ``repro_torch.net.Transport``
+    bound to every engine meter's ``sink`` at construction (the factories
+    pass it down, so split successors inherit it), kept as a stack member
+    so the assembled order reads off the object; the pipeline stage marks
+    its doorbell windows in the same transport."""
 
     transport: object | None = None
 
@@ -277,7 +293,7 @@ class CNStack:
     ``None``) inserts the cache stage above the adapter; ``policy`` (a
     ``BatchPolicy``, or ``None`` for the synchronous ``BatchPolicy.sync()``)
     shapes the pipeline stage, so the assembled order reads
-    ``Pipeline → Meter → [CNCache →] adapter``."""
+    ``Pipeline → Meter → [CNCache →] adapter (→ Transport)``."""
 
     cache: CNKeyCache | None = None
     transport_binding: TransportBinding = TransportBinding()
@@ -288,4 +304,5 @@ class CNStack:
         store = adapter
         if self.cache is not None:
             store = CNCacheLayer(store, self.cache)
-        return PipelineLayer(MeterLayer(store), policy=self.policy)
+        return PipelineLayer(MeterLayer(store), policy=self.policy,
+                             transport=self.transport_binding.transport)

@@ -1,9 +1,10 @@
 """The index engine: hashing, the Ludo/Othello build, ``OutbackShard``, the
 CN hot-key cache and the ``OutbackStore`` directory with its §4.4 resize.
 
-The port of ``repro.core``'s exports, less the baselines and the sharded
-mesh engine, which are not ported yet."""
+The port of ``repro.core``'s exports with the four comparison baselines,
+less the sharded mesh engine, which is not ported yet."""
 
+from repro_torch.core.baselines import ClusterKVS, DummyKVS, MicaKVS, RaceKVS
 from repro_torch.core.cn_cache import (CNCacheStats, CNKeyCache,
                                        ShardedCNCache, cache_probe, neg_probe)
 from repro_torch.core.ludo import LudoBuildError, LudoCN, build as ludo_build
@@ -15,9 +16,10 @@ from repro_torch.core.overflow import OverflowCache
 from repro_torch.core.store import OutbackStore, ResizeEvent, make_uniform_keys
 
 __all__ = [
-    "CNCacheStats", "CNKeyCache", "CommMeter", "GetResult", "LudoBuildError",
-    "LudoCN", "MSG_BYTES", "Othello", "OthelloBuildError", "OutbackShard",
-    "OutbackStore", "OverflowCache", "ResizeEvent", "ShardFullError",
+    "CNCacheStats", "CNKeyCache", "ClusterKVS", "CommMeter", "DummyKVS",
+    "GetResult", "LudoBuildError", "LudoCN", "MSG_BYTES", "MicaKVS",
+    "Othello", "OthelloBuildError", "OutbackShard", "OutbackStore",
+    "OverflowCache", "RaceKVS", "ResizeEvent", "ShardFullError",
     "ShardedCNCache", "cache_probe", "ludo_build", "make_uniform_keys",
     "neg_probe", "othello_build",
 ]

@@ -213,7 +213,7 @@ class OutbackShard:
                  overflow_frac: float = 0.08, rng_seed: int = 0,
                  num_buckets: int | None = None, oth_ma: int | None = None,
                  oth_mb: int | None = None, heap_cap: int | None = None,
-                 cn_cache=None, device=None):
+                 cn_cache=None, transport=None, device=None):
         self.device = resolve_device(device)
         keys = np.asarray(keys, dtype=np.uint64)
         values = np.asarray(values, dtype=np.uint64)
@@ -259,30 +259,36 @@ class OutbackShard:
             heap[j].to(dev, copy=True) for j in range(4))
         self.heap_top = n
         self.meter = CommMeter()
+        # optional repro_torch.net.Transport: meter events double as a
+        # timed-op trace
+        self.meter.sink = transport
         self.frozen = False  # resize in progress: inserts/deletes rejected
         self.cn_cache = cn_cache  # optional CN-side hot-key cache
         self.n_keys = n
 
     @classmethod
     def from_reference_arrays(cls, cn: dict, mn_state: dict, *, device,
-                              load_factor: float = 0.95) -> "OutbackShard":
+                              load_factor: float = 0.95,
+                              transport=None) -> "OutbackShard":
         """A shard that answers exactly as a ``repro`` shard does, built from
         that shard's arrays rather than from keys.
 
         ``cn`` holds the reference's CN half as numpy: ``words_a``,
         ``words_b``, ``ma``, ``mb``, ``seed_a``, ``seed_b`` (its Othello),
-        ``seeds`` and ``num_buckets``; ``mn_state`` is its ``mn_state()``."""
+        ``seeds`` and ``num_buckets``; ``mn_state`` is its ``mn_state()``;
+        ``transport`` is bound to the new shard's meter."""
         dev = torch.device(device)
         oth = Othello(lanes(cn["words_a"], dev), lanes(cn["words_b"], dev),
                       int(cn["ma"]), int(cn["mb"]), int(cn["seed_a"]),
                       int(cn["seed_b"]))
         seeds = torch.from_numpy(np.array(cn["seeds"], dtype=np.uint8)).to(dev)
         return cls._from_state(ludo.LudoCN(oth, seeds, int(cn["num_buckets"])),
-                               mn_state, load_factor=load_factor)
+                               mn_state, load_factor=load_factor,
+                               transport=transport)
 
     @classmethod
     def _from_state(cls, cn: ludo.LudoCN, mn_state: dict, *,
-                    load_factor: float) -> "OutbackShard":
+                    load_factor: float, transport=None) -> "OutbackShard":
         """A shard from a CN locator (on its device) and an MN image,
         without the constructor's build and without metering."""
         t = cls.__new__(cls)
@@ -293,6 +299,7 @@ class OutbackShard:
                                  dtype=torch.int32, device=t.device)
         t.overflow = OverflowCache(int(mn_state["overflow"]["cap"]))
         t.meter = CommMeter()
+        t.meter.sink = transport
         t.cn_cache = None
         t.install_mn_state(mn_state)
         return t

@@ -21,8 +21,11 @@ crosses ``s_slow`` the store *splits* it:
 
 Given the same keys, values and op stream, the store gives the reference's
 answers, meter totals, resize events (less their wall-clock
-``rebuild_seconds``), directory and per-table MN images.  Lease guards,
-telemetry sinks and the transport model are not ported yet.
+``rebuild_seconds``), directory and per-table MN images.  A
+``transport=`` (``repro_torch.net.Transport``) is shared by the directory
+meter and every table's, split successors included, and ``begin_split``
+drops its ``mark_resize``, so the trace is the reference's too.  Lease
+guards and telemetry sinks are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,9 +73,11 @@ class OutbackStore:
     def __init__(self, keys: np.ndarray, values: np.ndarray, *,
                  load_factor: float = 0.85, initial_depth: int = 0,
                  num_compute_nodes: int = 2, rng_seed: int = 0,
-                 cn_cache_budget_bytes: int = 0, device=None):
+                 cn_cache_budget_bytes: int = 0, transport=None,
+                 device=None):
         self.device = resolve_device(device)
-        self._setup(load_factor, num_compute_nodes, initial_depth, rng_seed)
+        self._setup(load_factor, num_compute_nodes, initial_depth, rng_seed,
+                    transport)
         # Every compute node gets the same fixed cache budget; the store
         # models one CN's view (tables are shared, so one cache suffices).
         self.cn_cache = (CNKeyCache(cn_cache_budget_bytes, device=self.device)
@@ -85,18 +90,21 @@ class OutbackStore:
             self.tables.append(OutbackShard(keys[m], values[m],
                                             load_factor=load_factor,
                                             rng_seed=rng_seed + e,
+                                            transport=transport,
                                             device=self.device))
             self.local_depth.append(initial_depth)
         # directory[i] -> table index (tables may be shared across entries)
         self.directory = list(range(1 << initial_depth))
 
     def _setup(self, load_factor, num_compute_nodes, global_depth,
-               rng_seed) -> None:
+               rng_seed, transport) -> None:
         self.load_factor = load_factor
         self.num_compute_nodes = num_compute_nodes
         self.global_depth = global_depth
         self.rng_seed = rng_seed
-        self.meter = CommMeter()
+        self.transport = transport  # shared by the directory meter and
+        self.meter = CommMeter()    # every table's
+        self.meter.sink = transport
         self.resize_events: list[ResizeEvent] = []
         self._op_count = 0
         # externally-owned CN caches (the api stack's) that must see the
@@ -112,26 +120,28 @@ class OutbackStore:
     def from_reference(cls, directory, local_depth, global_depth, tables, *,
                        device=None, load_factor: float = 0.85,
                        num_compute_nodes: int = 2, rng_seed: int = 0,
-                       op_count: int = 0, cn_cache: CNKeyCache | None = None
-                       ) -> "OutbackStore":
+                       op_count: int = 0, cn_cache: CNKeyCache | None = None,
+                       transport=None) -> "OutbackStore":
         """A store that continues exactly as a ``repro`` store would, from
         that store's directory, local and global depths and, for each of its
         tables, ``(cn, mn_state)``: the CN half as numpy
         (``OutbackShard.from_reference_arrays``'s dict) and its
         ``mn_state()``.  ``rng_seed`` and ``op_count`` (its ops so far) keep
         later splits' seeds and resize steps in step; ``cn_cache`` is an
-        internal cache to carry across (``CNKeyCache.from_reference_state``).
-        The meters start at zero."""
+        internal cache to carry across (``CNKeyCache.from_reference_state``),
+        ``transport`` a trace recorder for every meter.  The meters start at
+        zero."""
         st = cls.__new__(cls)
         st.device = resolve_device(device)
-        st._setup(load_factor, num_compute_nodes, int(global_depth), rng_seed)
+        st._setup(load_factor, num_compute_nodes, int(global_depth), rng_seed,
+                  transport)
         st.cn_cache = cn_cache
         st._op_count = int(op_count)
         st.directory = [int(t) for t in directory]
         st.local_depth = [int(d) for d in local_depth]
         st.tables = [OutbackShard.from_reference_arrays(
-            cn, mn, device=st.device, load_factor=load_factor)
-            for cn, mn in tables]
+            cn, mn, device=st.device, load_factor=load_factor,
+            transport=transport) for cn, mn in tables]
         return st
 
     # ------------------------------------------------------------- routing
@@ -357,6 +367,10 @@ class OutbackStore:
             self.global_depth += 1
         # PRE_RESIZE broadcast + RC setup with every compute node.
         self.meter.add(self.num_compute_nodes, rts=1, req=MSG_BYTES, resp=8)
+        if self.transport is not None:
+            # the rebuild steals MN CPU share for its duration (§4.4) —
+            # the simulator turns this into a throughput-dip window
+            self.transport.mark_resize(self.tables[t_idx].n_keys)
         self.tables[t_idx].frozen = True
         self._buffer = []
         h = SplitHandle(self, t_idx, depth)
@@ -450,7 +464,8 @@ class OutbackStore:
             self.tables = [
                 OutbackShard._from_state(_clone_cn(st["cn"], self.device),
                                          st["mn"],
-                                         load_factor=st["load_factor"])
+                                         load_factor=st["load_factor"],
+                                         transport=self.transport)
                 for st in state["tables"]]
         self.global_depth = int(state["global_depth"])
         self.local_depth = list(state["local_depth"])
@@ -525,10 +540,12 @@ class SplitHandle:
         self.t_lo = OutbackShard(keys[~side], vals[~side],
                                  load_factor=store.load_factor,
                                  num_buckets=nb, rng_seed=seed,
+                                 transport=store.transport,
                                  device=store.device)
         self.t_hi = OutbackShard(keys[side], vals[side],
                                  load_factor=store.load_factor,
                                  num_buckets=nb, rng_seed=seed + 1,
+                                 transport=store.transport,
                                  device=store.device)
         if store.device.type == "cuda":
             torch.cuda.synchronize(store.device)

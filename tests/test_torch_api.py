@@ -8,8 +8,11 @@ the pipeline's own counters and the final ``CommMeter.snapshot()`` must be
 identical.  So is ``outback-dir`` with and without a CN cache, and
 ``outback`` with one (then the cache's whole state too), and a stack's
 cache meters as an engine's internal cache does
-(``tests/test_api_stack.py``).  A spec's JSON is the same in both
-packages, and each option this slice has not ported raises ``SpecError``.
+(``tests/test_api_stack.py``).  The four baselines (``race``, ``mica``,
+``cluster``, ``dummy``) take the same YCSB mixes with and without a CN
+cache, with identical answers, attribution and meters.  A spec's JSON is
+the same in both packages, and each option the port has not ported raises
+``SpecError``.
 """
 
 import dataclasses
@@ -24,10 +27,12 @@ from repro.core.outback import OutbackShard as RShard
 from repro.core.store import OutbackStore as RStore
 from repro.core.store import make_uniform_keys
 from repro_torch import api as t_api
+from repro_torch.core import baselines as T_BASE
 from repro_torch.core.cn_cache import CNKeyCache as TCache
 from repro_torch.core.outback import OutbackShard as TShard
 from repro_torch.core.store import OutbackStore as TStore
 from repro_torch.kernels import ops
+from repro_torch.net import Transport
 
 from _torch_cache_state import assert_same_cache
 
@@ -293,6 +298,52 @@ def test_batched_mutations_through_open_store_match(data):
     assert t.meter_totals().snapshot() == r.meter_totals().snapshot()
 
 
+# the four baselines through open_store, with and without a CN cache
+BASELINE_SPECS = {"race": 0.5, "mica": 0.5, "cluster": 0.5, "dummy": None}
+
+
+@pytest.mark.parametrize("window", [1, 1024])
+@pytest.mark.parametrize("cache", [0, 1 << 15])
+@pytest.mark.parametrize("mix", ["A", "C", "D"])
+@pytest.mark.parametrize("kind", list(BASELINE_SPECS))
+def test_ycsb_baselines_match_reference(data, kind, mix, cache, window):
+    keys, vals = data
+    kw = dict(kind=kind, load_factor=BASELINE_SPECS[kind],
+              cache_budget_bytes=cache)
+    r = r_api.open_store(r_api.StoreSpec(
+        **kw, batch=r_api.BatchPolicy(window=window)), keys, vals)
+    t = t_api.open_store(t_api.StoreSpec(
+        **kw, batch=t_api.BatchPolicy(window=window)), keys, vals,
+        device="cpu")
+    assert t.engine.device.type == "cpu"
+    assert isinstance(t.engine, getattr(T_BASE, type(r.engine).__name__))
+    stream = _ycsb(mix, keys, N_OPS, seed=ord(mix) + 1)
+    for a, b in zip(_drive(r, stream), _drive(t, stream)):
+        assert _result_tuple(a.result()) == _result_tuple(b.result())
+        assert _result_tuple(a.batch) == _result_tuple(b.batch)
+    assert dataclasses.asdict(r.stats) == dataclasses.asdict(t.stats)
+    probe = np.concatenate([keys[:300], np.asarray([k for _, k, _ in stream],
+                                                   np.uint64)])
+    for _ in range(2):  # the second read of a cached stack hits
+        assert _result_tuple(r.get_batch(probe)) == \
+            _result_tuple(t.get_batch(probe))
+    for k in probe[::37]:
+        for op in (lambda s: s.get(int(k)), lambda s: s.delete(int(k)),
+                   lambda s: s.get(int(k)), lambda s: s.insert(int(k), 9),
+                   lambda s: s.update(int(k), 11)):
+            assert _result_tuple(op(r)) == _result_tuple(op(t))
+    assert r.meter_totals().snapshot() == t.meter_totals().snapshot()
+    if cache:
+        assert_same_cache(r.inner.inner.cache, t.cache)
+        assert t.cache.stats.hits > 0
+        assert t.cache_hit_savings == r.inner.inner.cache_hit_savings
+    assert t.verifies_keys == r.verifies_keys == (kind != "dummy")
+    r.reset_meters()
+    t.reset_meters()
+    assert t.meter_totals().snapshot() == r.meter_totals().snapshot()
+    assert not any(ops.LAUNCHES.values())
+
+
 # ------------------------------------------------------------ spec / json
 SPECS = [
     dict(kind="outback"),
@@ -316,12 +367,12 @@ def test_spec_json_is_identical_in_both_packages(kw, batch):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kind="mica"), "mica"),
+    (dict(kind="mica", replicas=2), "mica"),
     (dict(kind="outback", replicas=2), "replicas"),
     (dict(kind="outback", faults={"events": []}), "faults"),
     (dict(kind="outback", telemetry={"sample": 1.0}), "telemetry"),
-    (dict(kind="cluster"), "cluster"),
-    (dict(kind="race"), "race"),
+    (dict(kind="cluster", faults={"events": []}), "cluster"),
+    (dict(kind="race", telemetry={"sample": 1.0}), "race"),
     (dict(kind="sharded"), "sharded"),
 ])
 def test_unported_options_raise_spec_error(data, kw, what):
@@ -333,9 +384,9 @@ def test_unported_options_raise_spec_error(data, kw, what):
 
 def test_spec_errors_match_reference_validation(data):
     keys, vals = data
-    with pytest.raises(t_api.SpecError, match="transport"):
-        t_api.open_store(t_api.StoreSpec("outback"), keys, vals,
-                         device="cpu", transport=object())
+    with pytest.raises(t_api.SpecError, match="sharded"):
+        t_api.open_store(t_api.StoreSpec("sharded"), keys, vals,
+                         device="cpu", transport=Transport())
     for bad in (dict(kind="nope"), dict(kind="outback", load_factor=1.5),
                 dict(kind="outback", params={"bogus": 1}),
                 dict(kind="outback-dir", params={"heap_slack": 1.5}),
@@ -359,9 +410,10 @@ def test_store_satisfies_the_protocols(data):
     assert isinstance(t.inner.inner, t_api.OutbackShardAdapter)
     assert t.spec == t_api.StoreSpec("outback") and t.telemetry is None
     assert t.engine.device.type == "cpu"
-    assert t_api.registered_kinds() == ("outback", "outback-dir")
-    assert t_api.registry_docs() == {
-        k: r_api.registry_docs()[k] for k in ("outback", "outback-dir")}
+    kinds = ("cluster", "dummy", "mica", "outback", "outback-dir", "race")
+    assert t_api.registered_kinds() == kinds
+    assert t_api.registry_docs() == {k: r_api.registry_docs()[k]
+                                     for k in kinds}
     cached = t_api.open_store(t_api.StoreSpec("outback-dir",
                                               cache_budget_bytes=1 << 14),
                               keys, vals, device="cpu")

@@ -33,14 +33,21 @@ card and skips without one.  It holds:
   batch the cache answers whole launching no index kernel; and a cached
   ``OutbackStore`` driven through a forced §4.4 split (with Gets, inserts
   and deletes inside the window) answering, metering, splitting and
-  caching exactly as on the CPU.
+  caching exactly as on the CPU;
+* the four baselines (``repro_torch.core.baselines``): each engine's
+  ``get_batch`` and ``mn_get_batch`` on the card equal the same engine's on
+  the CPU (hits, misses, a miss's value), a mixed stream of mutations with
+  an insert batch that raises partway leaves the card's arrays equal to
+  the host image and to the CPU engine, ``torch.argmax`` on the card takes
+  the first of tied lanes, and the batch approximations (RACE's three
+  candidates, MICA's window) miss the same keys on the card as on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import outback
+from repro_torch.core import baselines, outback
 from repro_torch.core.hashing import lanes, split_u64, splitmix64
 from repro_torch.core.store import make_uniform_keys
 from repro_torch.kernels import build, ops, ref
@@ -532,3 +539,103 @@ def test_store_forced_split_on_card_matches_cpu(card):
                 np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
     _cache_state_equal(g.cn_cache, c.cn_cache)
     assert g.cn_cache.stats.invalidated > 0
+
+
+# ------------------------------------------------------------------ baselines
+BASELINES = ["RaceKVS", "MicaKVS", "ClusterKVS", "DummyKVS"]
+
+
+def _batch_host(out):
+    return [x.cpu() for x in out]
+
+
+def _absent(n):
+    return splitmix64(np.arange(1, n + 1, dtype=np.uint64)
+                      + np.uint64(1 << 45))
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_gets_on_card_match_cpu(card, name):
+    keys = make_uniform_keys(50_000, 13)
+    vals = splitmix64(keys)
+    g = getattr(baselines, name)(keys, vals, device="cuda")
+    c = getattr(baselines, name)(keys, vals, device="cpu")
+    assert all(x.is_cuda for x in g.mn_arrays())
+    for q in (keys[:1], keys[:1023], np.concatenate([keys, _absent(4096)])):
+        for a, b in zip(_batch_host(g.get_batch(q)), c.get_batch(q)):
+            assert torch.equal(a, b)
+    assert g.meter.snapshot() == c.meter.snapshot()
+    if name in ("MicaKVS", "ClusterKVS"):
+        q = np.concatenate([keys[:65536], _absent(512)])
+        got = g.mn_get_batch(*g.query(q), g.mn_arrays())
+        want = c.mn_get_batch(*c.query(q), c.mn_arrays())
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    if name == "DummyKVS":
+        idx = torch.arange(-5, 5000, dtype=torch.int32)
+        got = g.mn_get_batch(idx.cuda(), g.mn_arrays())
+        want = c.mn_get_batch(idx, c.mn_arrays())
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["RaceKVS", "MicaKVS", "ClusterKVS"])
+def test_baseline_mutations_on_card_keep_the_mirror(card, name):
+    """A mixed stream, then an insert batch that raises partway: the
+    card's arrays equal the host image and the CPU engine's."""
+    keys = make_uniform_keys(2048, 7)
+    vals = splitmix64(keys)
+    g = getattr(baselines, name)(keys, vals, device="cuda")
+    c = getattr(baselines, name)(keys, vals, device="cpu")
+    fresh = splitmix64(np.arange(1, 4001, dtype=np.uint64)
+                       + np.uint64(3 << 44))
+    for kvs in (g, c):
+        kvs.update_batch(keys[:300], keys[:300])
+        kvs.delete_batch(keys[300:400])
+        kvs.insert_batch(fresh[:64], fresh[:64])
+        kvs.update(int(keys[5]), 5)
+        kvs.delete(int(keys[6]))
+    errs = []
+    for kvs in (g, c):
+        with pytest.raises(RuntimeError) as e:
+            kvs.insert_batch(fresh[64:], fresh[64:])
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+    assert g.meter.snapshot() == c.meter.snapshot()
+    host, dev, cpu = g.host_image(), g.device_image(), c.host_image()
+    for k in host:
+        np.testing.assert_array_equal(dev[k], host[k], err_msg=k)
+        np.testing.assert_array_equal(host[k], cpu[k], err_msg=k)
+    assert g.t_klo.shape[0] == g.h_klo.shape[0] > keys.size  # heap grew
+    q = np.concatenate([keys[:500], fresh[:200], _absent(64)])
+    for a, b in zip(_batch_host(g.get_batch(q)), c.get_batch(q)):
+        assert torch.equal(a, b)
+
+
+def test_argmax_takes_the_first_tied_lane_on_card(card):
+    x = torch.zeros((4096, 32), dtype=torch.uint8)
+    rng = np.random.default_rng(1)
+    for r in range(4096):
+        x[r, rng.choice(32, size=int(rng.integers(0, 6)), replace=False)] = 1
+    want = torch.tensor([int(np.argmax(row)) for row in x.numpy()])
+    assert torch.equal(torch.argmax(x.cuda(), 1).cpu(), want)
+    assert torch.equal(torch.argmax(x, 1), want)
+
+
+def test_baseline_batch_approximations_on_card(card):
+    """RACE's three candidates and MICA's four-bucket window miss the same
+    keys on the card as on the CPU (and ``get`` finds them)."""
+    cand = splitmix64(np.arange(1, 1 << 16, dtype=np.uint64)
+                      + np.uint64(3 << 40))
+    race_keys = cand[baselines.RaceKVS._fp(*split_u64(cand)) == 7][:8]
+    cases = [("RaceKVS", race_keys, {}),
+             ("MicaKVS", make_uniform_keys(2048, 7), dict(load_factor=0.95))]
+    for name, keys, kw in cases:
+        vals = splitmix64(keys)
+        g = getattr(baselines, name)(keys, vals, device="cuda", **kw)
+        c = getattr(baselines, name)(keys, vals, device="cpu", **kw)
+        got = _batch_host(g.get_batch(keys))
+        for a, b in zip(got, c.get_batch(keys)):
+            assert torch.equal(a, b)
+        miss = ~got[2].numpy()
+        assert miss.any(), name
+        for i in np.nonzero(miss)[0]:
+            assert g.get(int(keys[i])) == int(vals[i])

@@ -1,13 +1,14 @@
 """The port stands alone: no JAX, no ``repro``, no quiet CPU fallback.
 
 * an AST scan of every module under ``src/repro_torch/``, of
-  ``chip_smoke.py``, of ``tools/{fnm,step,ludo,store}_probe.py``, of the on-card
-  tests (``tests/test_torch_cuda.py``, which must run on the GPU machine)
-  and of ``tests/test_torch_ludo_plan.py`` finds no import of ``jax`` or
-  of ``repro``;
+  ``chip_smoke.py``, of ``tools/{fnm,step,ludo,store,baselines}_probe.py``,
+  of the on-card tests (``tests/test_torch_cuda.py``, which must run on the
+  GPU machine) and of ``tests/test_torch_ludo_plan.py`` finds no import of
+  ``jax`` or of ``repro``;
 * a fresh interpreter that imports ``repro_torch.api`` (and builds a store
-  on the CPU), or ``repro_torch.serve`` (and serves a request on the CPU),
-  has neither ``jax`` nor ``repro`` in ``sys.modules``;
+  on the CPU), ``repro_torch.net`` (and builds and replays a ``race``
+  store's trace on the CPU), or ``repro_torch.serve`` (and serves a request
+  on the CPU), has neither ``jax`` nor ``repro`` in ``sys.modules``;
 * without a card, the entry points raise unless the caller passes
   ``device="cpu"``, and ``chip_smoke.py`` exits non-zero with no result.
 """
@@ -26,7 +27,7 @@ import torch
 from repro_torch.api import StoreSpec, open_store
 from repro_torch.cache import CuckooPageTable, LudoPageTable
 from repro_torch.configs import get_config
-from repro_torch.core import outback
+from repro_torch.core import baselines, outback
 from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.store import OutbackStore
 from repro_torch.core.hashing import splitmix64
@@ -39,7 +40,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "test_torch_ludo_plan.py",
     ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py",
-    ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py"]
+    ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py",
+    ROOT / "tools" / "baselines_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -80,6 +82,45 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_the_net_port_loads_neither_jax_nor_repro():
+    code = (
+        "import sys, json, numpy as np\n"
+        "import repro_torch.net as net\n"
+        "import repro_torch.api as api\n"
+        "from repro_torch.core.hashing import splitmix64\n"
+        "k = splitmix64(np.arange(1, 500, dtype=np.uint64))\n"
+        "tr = net.Transport()\n"
+        "st = api.open_store(api.StoreSpec('race'), k, k, device='cpu',\n"
+        "                    transport=tr)\n"
+        "assert st.get_batch(k).found.all() and len(tr) == k.size\n"
+        "assert net.simulate(tr.trace, clients=8).n_ops == k.size\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_baseline_entry_points_raise_without_cuda(monkeypatch):
+    """The four baselines and ``open_store`` with their kinds run on CUDA
+    unless given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = splitmix64(np.arange(1, 300, dtype=np.uint64))
+    for kind, cls in (("race", baselines.RaceKVS),
+                      ("mica", baselines.MicaKVS),
+                      ("cluster", baselines.ClusterKVS),
+                      ("dummy", baselines.DummyKVS)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            open_store(StoreSpec(kind), keys, keys)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(keys, keys)
+        st = open_store(StoreSpec(kind), keys, keys, device="cpu")
+        assert st.engine.device.type == "cpu"
+        assert all(x.device.type == "cpu" for x in st.engine.mn_arrays())
 
 
 def test_importing_the_serving_port_loads_neither_jax_nor_repro():
