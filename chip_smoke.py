@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py   # 2^24 keys, the paged path, llama3.2-1b, the
-                            # cached directory store, the four baselines
-                            # and the transport model; one card
+                            # cached directory store, the four baselines,
+                            # the transport model and the (1, 1) mesh;
+                            # one card
 
 Phases; any failure exits non-zero:
 
@@ -130,7 +131,31 @@ Phases; any failure exits non-zero:
    p50/p99 and Mops printed, the replay checked to be deterministic and to
    hold every Get.  The launch counters are zeroed just before this phase
    and read just after; the index kernels must launch once a window of the
-   Outback trace.
+   Outback trace;
+10. Outback over the mesh (``repro_torch.core.sharded_kvs``) at (1, 1):
+   one process is a world of one rank whose group serves card tensors with
+   NCCL and CPU ones with gloo.  (a) A 2^14-key ``StoreSpec("sharded",
+   params={"num_shards": 1})`` store on the card and one on the CPU, each
+   with its own transport, take the same stream of Gets, updates, inserts
+   and deletes: answers, meter totals, traces and the re-installed mesh
+   state must be equal; then each state's mesh Get (``make_get_fn``) for
+   both variants, plain and with a warmed one-replica CN cache, each with
+   a transport: every lane, the hit mask, the meter and the trace must be
+   equal.  (b) Phase 3's 2^24 keys and values in one ``sharded`` store
+   (load factor 0.85, one shard) with a transport: YCSB-C (2^20 zipf(0.99)
+   Gets, a window of 1024 a submit) through the adapter, then
+   ``mesh_state()`` -> ``place_state`` -> ``make_get_fn`` for each variant
+   over the same 2^20 Gets in calls of 1024 and 2^16 lanes, plain and with
+   a 128 MiB CN cache warmed on the first 2^18 Gets.  Every answer is
+   checked: a lane misses only where its key is an overflow resident (the
+   mesh runs no Makeup-Get) and no cache hit answered it, no lane is
+   dropped; each call launches ``ludo_lookup`` and ``slot_unpack``; the
+   meter counts every Get (two round trips a miss for ``race``).  Printed
+   a run: Gets/s, call p50/p99 (host clock, each call synced), ms a call
+   by CUDA events, device time, device ops, device busy share and NCCL's
+   share of device time a call (``torch.profiler``), the hit rate; and the
+   build's host seconds and ``max_memory_allocated``.  The launch counters
+   are zeroed just before (b) and read just after.
 
 The line before the last is the kernels' JSON record (all five kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -347,6 +372,19 @@ MN_BATCH = 1 << 16
 SIM_KEYS_LOG2 = 20
 SIM_GETS_LOG2 = 16
 SIM_CLIENTS = (1, 8, 64)
+# Phase 10: the mesh at (1, 1) on the one card.  The agreement store has
+# 2^14 keys; the full-size store takes phase 3's keys at the registry's
+# load factor 0.85.  A mesh call takes the serve window or the MN step's
+# batch of lanes; MESH_PROFILED of its calls are profiled.  The cached
+# runs probe a 128 MiB CN cache (8 bytes a key, phase 8's budget) warmed
+# on the stream's first 2^18 Gets.
+MESH_AGREE_KEYS_LOG2 = 14
+MESH_VARIANTS = ("outback", "race")
+MESH_RTS = {"outback": 1, "race": 2}
+MESH_BATCHES = (WINDOW, MN_BATCH)
+MESH_PROFILED = {WINDOW: 32, MN_BATCH: 4}
+MESH_CACHE_BYTES = 128 << 20
+MESH_WARM_LOG2 = 18
 
 
 def log(*a) -> None:
@@ -2252,6 +2290,345 @@ def modelled_comparison(seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 10
+def init_world(rdv: str) -> None:
+    """A world of this one process, whose group serves CPU tensors with
+    gloo and card tensors with NCCL (``file://`` rendezvous at ``rdv``)."""
+    import torch.distributed as dist
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{rdv}",
+                            rank=0, world_size=1)
+
+
+def warm_cn_cache(cache, keys, vals, present, idx) -> None:
+    """Warm ``cache`` on the Gets ``idx``, a window at a time: each window
+    probed, then observed with the keys' values and presence."""
+    from repro_torch.core.hashing import split_u64
+    for w0 in range(0, idx.size, WINDOW):
+        i = idx[w0:w0 + WINDOW]
+        lo, hi = split_u64(keys[i])
+        v_lo, v_hi = split_u64(vals[i])
+        hit, neg, _, _ = cache.probe_batch(lo, hi)
+        cache.observe_batch(lo, hi, v_lo, v_hi, present[i], hit, neg)
+
+
+def _metered(state, tr):
+    """``state`` with a fresh meter sinking into ``tr``."""
+    from repro_torch.core.meter import CommMeter
+    meter = CommMeter()
+    meter.sink = tr
+    return dataclasses.replace(state, meter=meter)
+
+
+def mesh_agreement_check(seed: int, meshes: dict) -> dict:
+    """A 2^14-key ``sharded`` store (one shard) on the card and the same on
+    the CPU, each with its own transport, take the same stream of Gets,
+    updates, inserts and deletes: answers, meter totals, traces and the
+    re-installed mesh state must be equal.  Then each state's mesh Get
+    (``meshes``: the (1, 1) mesh on each device) for both variants, plain
+    and with a warmed one-replica CN cache, each with a transport: every
+    output lane, the hit mask, the meter and the trace must be equal."""
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core import sharded_kvs as skv
+    from repro_torch.core.cn_cache import CNKeyCache, ShardedCNCache
+    from repro_torch.core.hashing import lanes, split_u64, splitmix64
+    from repro_torch.kernels import ops
+    from repro_torch.net import Transport
+    n = 1 << MESH_AGREE_KEYS_LOG2
+    keys = splitmix64(np.arange(n, dtype=np.uint64) + np.uint64(15 << 40))
+    vals = splitmix64(keys)
+    fresh = splitmix64(np.arange(n, n + 2048, dtype=np.uint64)
+                       + np.uint64(15 << 40))
+    rng = np.random.default_rng(seed)
+    stream = []
+    for t, (kind, r) in enumerate(zip(
+            rng.choice(4, 8192, p=[0.5, 0.25, 0.15, 0.1]),
+            zipf_ranks(rng, n, 8192))):
+        op = ("get", "update", "insert", "delete")[kind]
+        k = int(fresh[t % 2048]) if op == "insert" else int(keys[r])
+        stream.append((op, k, t if op in ("update", "insert") else None))
+    spec = StoreSpec("sharded", rng_seed=seed,
+                     batch=BatchPolicy(window=WINDOW),
+                     params={"num_shards": 1})
+    every = np.concatenate([keys, fresh])
+    runs, states = [], {}
+    for device, mesh in meshes.items():
+        tr = Transport()
+        st = open_store(spec, keys, vals, device=mesh.device, transport=tr)
+        check({sh.device for sh in st.engine.shards} == {mesh.device},
+              f"sharded: the kept shard is not on {mesh.device}")
+        answers = _drive(st, stream)
+        probe = st.get_batch(every)
+        states[device] = st.mesh_state()
+        runs.append(dict(answers=answers,
+                         probe=(probe.values.tolist(), probe.found.tolist()),
+                         meter=st.meter_totals().snapshot(),
+                         trace=_trace_tuples(tr.trace),
+                         state=[a.copy() for a in states[device].arrays()]))
+    for field in runs[0]:
+        check(_same(runs[0][field], runs[1][field]), f"sharded: the store "
+              f"on the card differs from the CPU's in {field}")
+    # the mesh Get over each device's state: zipf lanes over old and new
+    # keys (deleted ones among them) and the all-ones sentinel key
+    latest = np.asarray(runs[0]["probe"][0], np.uint64)
+    present = np.asarray(runs[0]["probe"][1], bool)
+    q_idx = zipf_ranks(rng, every.size, 4 * WINDOW)
+    q = every[q_idx]
+    q[::509] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    out = {}
+    for variant in MESH_VARIANTS:
+        for cached in (False, True):
+            res = []
+            for device, mesh in meshes.items():
+                tr = Transport()
+                st = _metered(states[device], tr)
+                extra, cache = (), None
+                if cached:
+                    c = CNKeyCache(DIR_AGREE_CACHE, device=mesh.device)
+                    warm_cn_cache(c, every, latest, present,
+                                  np.concatenate([q_idx, q_idx]))
+                    cache = ShardedCNCache(c, 1)
+                    extra = skv.place_cache(mesh, cache)
+                fn, _ = skv.make_get_fn(mesh, st, q.size, variant=variant,
+                                        cache=cache)
+                lo, hi = (lanes(x, mesh.device) for x in split_u64(q))
+                l0 = dict(ops.LAUNCHES)
+                o = fn(lo, hi, *extra, *skv.place_state(mesh, st))
+                launched = [ops.LAUNCHES[k] - l0[k]
+                            for k in ("ludo_lookup", "slot_unpack")]
+                if mesh.device.type == "cuda":
+                    check(min(launched) >= 1, f"mesh {variant}: an index "
+                          f"kernel did not launch on the card")
+                res.append(dict(lanes=[x.cpu().numpy() for x in o],
+                                meter=st.meter.snapshot(),
+                                trace=_trace_tuples(tr.trace)))
+            name = variant + ("+cache" if cached else "")
+            for field in res[0]:
+                check(_same(res[0][field], res[1][field]), f"mesh {name}: "
+                      f"the card differs from the CPU in {field}")
+            lanes_ = res[0]["lanes"]
+            out[name] = dict(matched=int(lanes_[2].sum()),
+                             hits=int(lanes_[3].sum()) if cached else 0,
+                             trace_ops=len(res[0]["trace"]))
+    log(f"mesh agreement: a {n}-key sharded store on the card answers "
+        f"{len(stream)} mixed ops, meters, traces and re-installs its mesh "
+        f"state exactly as on the CPU; the (1, 1) mesh Get of {q.size} "
+        f"lanes agrees lane for lane, with meters and traces: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def mesh_profile(step, calls: int) -> dict:
+    """``calls`` calls of ``step`` under ``torch.profiler``: device time
+    and device operations a call, the device's busy share of the wall
+    time, and the share of device time in NCCL's kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, spans = device_busy_us(prof)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in dev)
+    nccl = sum(e.time_range.elapsed_us() for e in dev
+               if "nccl" in e.name.lower())
+    if not spans:
+        return dict(device_ms_per_call=None, device_ops_per_call=None,
+                    device_busy_share=None, collective_share=None)
+    return dict(device_ms_per_call=total / calls / 1e3,
+                device_ops_per_call=spans / calls,
+                device_busy_share=busy / wall_us,
+                collective_share=nccl / total)
+
+
+def serve_mesh(keys, vals, rng, mesh) -> dict:
+    """Phase 10 at full size: one ``sharded`` store (one shard) over phase
+    3's keys with a transport; YCSB-C through the adapter at window 1024;
+    then its mesh state placed on the (1, 1) mesh and 2^20 zipf Gets
+    through ``make_get_fn`` for each variant in calls of 1024 and 2^16
+    lanes, plain and with a 128 MiB CN cache warmed on the stream's first
+    2^18 Gets.  Every answer is checked: a lane misses only where its key
+    is an overflow resident (the mesh runs no Makeup-Get) and no cache hit
+    answered it; no lane is dropped."""
+    import torch
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core import sharded_kvs as skv
+    from repro_torch.core.cn_cache import CNKeyCache, ShardedCNCache
+    from repro_torch.core.hashing import join_u64, lanes, split_u64
+    from repro_torch.kernels import ops
+    from repro_torch.net import Transport
+    n = keys.size
+    tr = Transport()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = open_store(StoreSpec("sharded", rng_seed=SEED,
+                                 batch=BatchPolicy(window=WINDOW),
+                                 params={"num_shards": 1,
+                                         "data_parallel": 1}),
+                       keys, vals, device=mesh.device, transport=tr)
+    torch.cuda.synchronize()
+    res = dict(build_seconds=time.perf_counter() - t0)
+    shard = store.engine.shards[0]
+    check(shard.device == mesh.device == shard.slots_lo.device,
+          f"sharded: the kept shard is not on {mesh.device}")
+    o_lo, o_hi, _ = shard.overflow.items()
+    over = np.isin(keys, join_u64(o_lo, o_hi))
+    res["overflow_keys"] = int(over.sum())
+    idx = rng.permutation(n)[zipf_ranks(rng, n, 1 << N_GETS_LOG2)]
+
+    # ---- YCSB-C through the adapter, a window a submit ----
+    lat, hs = [], []
+    t0 = time.perf_counter()
+    for w0 in range(0, idx.size, WINDOW):
+        t1 = time.perf_counter()
+        hs.append(store.submit("get", keys[idx[w0:w0 + WINDOW]]))
+        if not hs[-1].done:
+            store.flush()
+        lat.append(time.perf_counter() - t1)
+    sec = time.perf_counter() - t0
+    check(np.concatenate([h.result().found for h in hs]).all(),
+          "sharded: a present key missed through the adapter")
+    check(np.array_equal(np.concatenate([h.result().values for h in hs]),
+                         vals[idx]), "sharded: a wrong value through the "
+          "adapter")
+    check(len(tr) == idx.size, "sharded: the trace missed Gets")
+    lat = np.asarray(lat) * 1e3
+    res["ycsb_c"] = dict(gets_per_s=idx.size / sec,
+                         p50_ms=float(np.percentile(lat, 50)),
+                         p99_ms=float(np.percentile(lat, 99)))
+    log(f"sharded YCSB-C through the adapter: {json.dumps(res)}")
+
+    # ---- the mesh ----
+    t0 = time.perf_counter()
+    state = store.mesh_state()
+    blocks = skv.place_state(mesh, state)
+    torch.cuda.synchronize()
+    res["place_seconds"] = time.perf_counter() - t0
+    lo_all, hi_all = (lanes(x, mesh.device) for x in split_u64(keys[idx]))
+    want_v = vals[idx]
+    stored = ~over[idx]
+    t0 = time.perf_counter()
+    cache = CNKeyCache(MESH_CACHE_BYTES, device=mesh.device)
+    warm_cn_cache(cache, keys, vals, np.ones(n, bool),
+                  idx[:1 << MESH_WARM_LOG2])
+    scache = ShardedCNCache(cache, 1)
+    cache_blocks = skv.place_cache(mesh, scache)
+    torch.cuda.synchronize()
+    res["cache_warm_seconds"] = time.perf_counter() - t0
+    res["cache_bytes"] = cache.memory_bytes()
+    runs = []
+    for cached in (False, True):
+        for variant in MESH_VARIANTS:
+            for bpd in MESH_BATCHES:
+                runs.append(mesh_run(
+                    mesh, state, tr, blocks, lo_all, hi_all, want_v, stored,
+                    variant, bpd, scache if cached else None,
+                    cache_blocks if cached else ()))
+                gc.collect()
+    res["runs"] = runs
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del store, state, blocks, cache_blocks, cache, scache
+    return res
+
+
+def mesh_run(mesh, state, tr, blocks, lo_all, hi_all, want_v, stored,
+             variant: str, bpd: int, cache, cache_blocks) -> dict:
+    """One variant at ``bpd`` lanes a call over the whole stream: each call
+    synced and timed by the host clock, every answer checked against the
+    oracle, the meter and trace checked; then CUDA events over back-to-back
+    calls and ``torch.profiler`` over ``MESH_PROFILED[bpd]`` calls."""
+    import torch
+    from repro_torch.core import sharded_kvs as skv
+    from repro_torch.core.hashing import join_u64
+    from repro_torch.kernels import ops
+    state.meter.reset()
+    tr.reset()
+    fn, caps = skv.make_get_fn(mesh, state, bpd, variant=variant,
+                               cache=cache)
+    calls = lo_all.numel() // bpd
+    args = [(lo_all[c * bpd:(c + 1) * bpd], hi_all[c * bpd:(c + 1) * bpd],
+             *cache_blocks, *blocks) for c in range(calls)]
+    l0 = dict(ops.LAUNCHES)
+    outs, lat = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in args:
+        t1 = time.perf_counter()
+        outs.append(fn(*a))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t1)
+    sec = time.perf_counter() - t0
+    launched = {k: ops.LAUNCHES[k] - l0[k]
+                for k in ("ludo_lookup", "slot_unpack")}
+    name = f"mesh {variant}{'+cache' if cache else ''} at {bpd}"
+    for k, v in launched.items():
+        check(v >= calls, f"{name}: {k} launched {v} times in {calls} calls")
+    host = torch.stack([torch.cat([o[j] for o in outs]).to(torch.int32)
+                        for j in range(len(outs[0]))]).cpu().numpy()
+    got_v = join_u64(host[0].view(np.uint32), host[1].view(np.uint32))
+    match = host[2] != 0
+    hit = host[3] != 0 if cache else np.zeros(match.size, bool)
+    check(np.array_equal(match, stored | hit), f"{name}: a lane missed "
+          f"that is no overflow resident (a dropped lane), or an overflow "
+          f"resident matched")
+    check(np.array_equal(got_v[match], want_v[match]),
+          f"{name}: a wrong value")
+    n_get, n_hit = match.size, int(hit.sum())
+    m = state.meter
+    check(m.ops == n_get and m.cache_hits == n_hit
+          and m.round_trips == MESH_RTS[variant] * (n_get - n_hit)
+          and len(tr) == n_get - n_hit, f"{name}: the meter or the trace "
+          f"missed Gets")
+    cyc = itertools.cycle(args)
+    step = lambda: fn(*next(cyc))  # noqa: E731
+    lat = np.asarray(lat) * 1e3
+    out = dict(variant=variant, cached=cache is not None, batch=bpd,
+               calls=calls, caps=list(caps), gets_per_s=n_get / sec,
+               call_p50_ms=float(np.percentile(lat, 50)),
+               call_p99_ms=float(np.percentile(lat, 99)),
+               events_ms_per_call=time_ms(step, min(calls, 64)),
+               hit_rate=n_hit / n_get,
+               overflow_misses=int((~match).sum()), launches=launched)
+    out.update(mesh_profile(step, MESH_PROFILED[bpd]))
+    log(f"{name}: {json.dumps(out)}")
+    return out
+
+
+def serve_on_mesh(keys, vals, rng) -> tuple:
+    """Phase 10: a world of this one process, the (1, 1) mesh on the card
+    and on the CPU, :func:`mesh_agreement_check`, then
+    :func:`serve_mesh` on the card with the launch counters zeroed just
+    before it and read just after.  The group is destroyed at the end."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import sharded_kvs as skv
+    from repro_torch.kernels import ops
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(str(Path(tmp) / "rdv"))
+        try:
+            meshes = {d: skv.make_mesh((1, 1), device=d)
+                      for d in ("cuda", "cpu")}
+            mesh_agreement_check(SEED, meshes)
+            gc.collect()
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+            res = serve_mesh(keys, vals, rng, meshes["cuda"])
+            launches = dict(ops.LAUNCHES)
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -2438,6 +2815,17 @@ def main() -> int:
             f"{v['mn']['device_us_per_op']}" for k, v in bres.items())))
     log(f"baselines path: {json.dumps(dict(serve=bres, modelled=model))}")
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
+    # ---- phase 10: Outback over the mesh ----
+    t10 = time.perf_counter()
+    meshres, mlaunch = serve_on_mesh(keys, vals, rng)
+    for name, k in kernels.items():
+        k["launches_sharded_path"] = mlaunch[name]
+    for name in ("ludo_lookup", "slot_unpack"):
+        check(mlaunch[name] > 0, f"{name} never launched on the mesh path")
+    log(f"launches on the mesh path: {mlaunch}")
+    log(f"mesh path: {json.dumps(meshres)}")
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """``repro_torch.api`` — one KVStore protocol, a CN stack, a registry.
 
-The port of ``repro.api`` for kinds ``outback``, ``outback-dir``, ``race``,
-``mica``, ``cluster`` and ``dummy``:
+The port of ``repro.api`` for every kind of the reference: ``outback``,
+``outback-dir``, ``race``, ``mica``, ``cluster``, ``dummy`` and
+``sharded``:
 
 * :mod:`repro_torch.api.protocol` — :class:`KVStore`,
   :class:`PipelinedKVStore` and the :class:`OpResult` every op returns;
@@ -16,7 +17,7 @@ The port of ``repro.api`` for kinds ``outback``, ``outback-dir``, ``race``,
 from repro_torch.api.adapters import (BaselineAdapter, DummyAdapter,
                                       OutbackShardAdapter,
                                       OutbackStoreAdapter, RaceAdapter,
-                                      StoreAdapter)
+                                      ShardedAdapter, StoreAdapter)
 from repro_torch.api.pipeline import (BatchPolicy, OpHandle, PipelineLayer,
                                       PipelineStats)
 from repro_torch.api.protocol import (OP_KINDS, KVStore, OpResult,
@@ -45,6 +46,7 @@ __all__ = [
     "PipelineStats",
     "PipelinedKVStore",
     "RaceAdapter",
+    "ShardedAdapter",
     "SpecError",
     "StoreAdapter",
     "StoreLayer",

@@ -19,11 +19,13 @@ Registered kinds:
 ``mica``        two-sided RPC-MICA baseline (linear probing, MN-heavy)
 ``cluster``     two-sided RPC-Cluster baseline (chained buckets)
 ``dummy``       RPC-Dummy upper bound (one fixed MN read per op)
+``sharded``     Outback sharded over a mesh of ranks (host adapter + the
+                mesh state of ``repro_torch.core.sharded_kvs``)
 =============  ==========================================================
 
-The reference's ``sharded`` kind, and the options served by planes not
-ported yet (replication, fault schedules, telemetry), raise
-:class:`SpecError` saying so.
+Every kind of the reference is served.  The options served by planes not
+ported yet (replication, fault schedules, placement ``'hrw'``, telemetry)
+raise :class:`SpecError` saying so.
 """
 
 from __future__ import annotations
@@ -40,16 +42,13 @@ from repro_torch.api.stack import CNStack, TransportBinding
 from repro_torch.core.baselines import ClusterKVS, DummyKVS, MicaKVS, RaceKVS
 from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.outback import OutbackShard, resolve_device
+from repro_torch.core.sharded_kvs import build_sharded
 from repro_torch.core.store import OutbackStore
 
 
 class SpecError(ValueError):
     """A StoreSpec that cannot be built: unknown kind / param / value, or
     an option this package has not ported yet."""
-
-
-# The reference's kinds that this package does not serve yet.
-_UNPORTED_KINDS = frozenset(("sharded",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +116,6 @@ class StoreSpec:
         """Check against the registry; returns the kind's registration."""
         reg = _REGISTRY.get(self.kind)
         if reg is None:
-            if self.kind in _UNPORTED_KINDS:
-                raise SpecError(f"store kind {self.kind!r} is not yet ported "
-                                f"to repro_torch")
             raise SpecError(
                 f"unknown store kind {self.kind!r}; registered kinds: "
                 f"{', '.join(registered_kinds())}")
@@ -221,9 +217,10 @@ def open_store(spec: StoreSpec, keys, values, *, device=None, transport=None):
     ``transport``, an optional ``repro_torch.net.Transport``, is bound
     below the engine as the stack's recording stage (every engine meter's
     sink) and receives the pipeline's doorbell marks."""
+    device = resolve_device(device)
     adapter = build_adapter(spec, keys, values, device=device,
                             transport=transport)
-    cache = (CNKeyCache(spec.cache_budget_bytes, device=adapter.engine.device)
+    cache = (CNKeyCache(spec.cache_budget_bytes, device=device)
              if spec.cache_budget_bytes else None)
     return CNStack(cache=cache,
                    transport_binding=TransportBinding(transport),
@@ -277,6 +274,15 @@ def _baseline_factory(cls, adapter_cls, kind):
     return factory
 
 
+def _sharded_factory(spec, keys, values, device, transport):
+    kw = _common_kw(spec)
+    D = int(kw.pop("data_parallel"))
+    st = build_sharded(keys, values, data_parallel=D, transport=transport,
+                       keep_shards=True, device=device, **kw)
+    return adapters.ShardedAdapter(st, spec, shards=st.shards,
+                                   data_parallel=D)
+
+
 register_store(
     "outback", _outback_factory,
     params=("heap_slack", "overflow_frac", "num_buckets", "oth_ma", "oth_mb",
@@ -299,3 +305,8 @@ register_store(
 register_store(
     "dummy", _baseline_factory(DummyKVS, adapters.DummyAdapter, "dummy"),
     doc="RPC-Dummy upper bound: one fixed MN read per op")
+register_store(
+    "sharded", _sharded_factory,
+    params=("num_shards", "data_parallel", "heap_slack"),
+    defaults={"num_shards": 2, "data_parallel": 1},
+    doc="Outback sharded over a device mesh (host adapter + mesh state)")

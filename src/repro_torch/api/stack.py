@@ -29,7 +29,8 @@ into the same engine meter as a store built with an internal cache
 totals; each baseline's adapter declares its own protocol's savings.
 
 :class:`StoreLayer` forwards the protocol's members (``spec``,
-``telemetry``, ``meter``, the ops, the meter accessors) as real attributes
+``telemetry``, ``meter``, the ops, the meter accessors and the
+``sharded`` kind's ``mesh_state``) as real attributes
 and methods, not through ``__getattr__``, so a layer satisfies the
 runtime-checkable ``KVStore`` protocol under Python 3.12's static member
 lookup.
@@ -115,6 +116,12 @@ class StoreLayer:
 
     def reset_meters(self) -> None:
         self.inner.reset_meters()
+
+    def mesh_state(self):
+        """The ``sharded`` kind's stacked state with every mutated shard
+        re-installed (``ShardedAdapter.mesh_state``); other kinds have
+        none and raise ``AttributeError``."""
+        return self.inner.mesh_state()
 
 
 class CNCacheLayer(StoreLayer):

@@ -633,8 +633,8 @@ class ShardedCNCache:
     """Per-device replicas of a ``CNKeyCache`` for the sharded Get path.
 
     Every device of the mesh is a compute node holding its own copy of the
-    host-maintained cache arrays; placing them on a mesh waits for the port
-    of ``repro.core.sharded_kvs``."""
+    host-maintained cache arrays: ``repro_torch.core.sharded_kvs.
+    place_cache`` copies one replica onto each rank's device."""
 
     def __init__(self, cache: CNKeyCache, ndev: int):
         self.cache = cache

@@ -10,9 +10,11 @@ identical.  So is ``outback-dir`` with and without a CN cache, and
 cache meters as an engine's internal cache does
 (``tests/test_api_stack.py``).  The four baselines (``race``, ``mica``,
 ``cluster``, ``dummy``) take the same YCSB mixes with and without a CN
-cache, with identical answers, attribution and meters.  A spec's JSON is
-the same in both packages, and each option the port has not ported raises
-``SpecError``.
+cache, with identical answers, attribution and meters; so does the
+mesh-sharded host (``sharded``, 2 and 3 shards) with and without a cache,
+with the same traces, and the same stacked mesh state after the stream and
+after batched and scalar mutations.  A spec's JSON is the same in both
+packages, and each option the port has not ported raises ``SpecError``.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+import repro.net as rnet
 from repro import api as r_api
 from repro.core.cn_cache import CNKeyCache as RCache
 from repro.core.hashing import splitmix64
@@ -30,6 +33,7 @@ from repro_torch import api as t_api
 from repro_torch.core import baselines as T_BASE
 from repro_torch.core.cn_cache import CNKeyCache as TCache
 from repro_torch.core.outback import OutbackShard as TShard
+from repro_torch.core.sharded_kvs import ShardedKVSState
 from repro_torch.core.store import OutbackStore as TStore
 from repro_torch.kernels import ops
 from repro_torch.net import Transport
@@ -344,6 +348,106 @@ def test_ycsb_baselines_match_reference(data, kind, mix, cache, window):
     assert not any(ops.LAUNCHES.values())
 
 
+# the mesh-sharded host through open_store: answers, meters, traces and
+# the re-installed mesh state after the stream
+@pytest.mark.parametrize("window", [1, 1024])
+@pytest.mark.parametrize("cache", [0, 1 << 15])
+@pytest.mark.parametrize("mix", ["A", "C", "D"])
+@pytest.mark.parametrize("params", [{"num_shards": 2},
+                                    {"num_shards": 3, "data_parallel": 2}],
+                         ids=["2x1", "3x2"])
+def test_ycsb_sharded_matches_reference(data, params, mix, cache, window):
+    keys, vals = data
+    kw = dict(kind="sharded", cache_budget_bytes=cache, params=params)
+    r_tr, t_tr = rnet.Transport(), Transport()
+    r = r_api.open_store(r_api.StoreSpec(
+        **kw, batch=r_api.BatchPolicy(window=window)), keys, vals,
+        transport=r_tr)
+    t = t_api.open_store(t_api.StoreSpec(
+        **kw, batch=t_api.BatchPolicy(window=window)), keys, vals,
+        device="cpu", transport=t_tr)
+    assert isinstance(t.engine, ShardedKVSState)
+    assert len(t.engine.shards) == params["num_shards"]
+    assert {sh.device.type for sh in t.engine.shards} == {"cpu"}
+    stream = _ycsb(mix, keys, N_OPS, seed=ord(mix) + 2)
+    for a, b in zip(_drive(r, stream), _drive(t, stream)):
+        assert _result_tuple(a.result()) == _result_tuple(b.result())
+        assert _result_tuple(a.batch) == _result_tuple(b.batch)
+    assert dataclasses.asdict(r.stats) == dataclasses.asdict(t.stats)
+    probe = np.concatenate([keys[:300], np.asarray([k for _, k, _ in stream],
+                                                   np.uint64)])
+    for _ in range(2):  # the second read of a cached stack hits
+        assert _result_tuple(r.get_batch(probe)) == \
+            _result_tuple(t.get_batch(probe))
+    for k in probe[::37]:
+        for op in (lambda s: s.get(int(k)), lambda s: s.delete(int(k)),
+                   lambda s: s.get(int(k)), lambda s: s.insert(int(k), 9),
+                   lambda s: s.update(int(k), 11)):
+            assert _result_tuple(op(r)) == _result_tuple(op(t))
+    assert r.meter_totals().snapshot() == t.meter_totals().snapshot()
+    assert _trace_tuples(r_tr.trace) == _trace_tuples(t_tr.trace)
+    if cache:
+        assert_same_cache(r.inner.inner.cache, t.cache)
+        assert t.cache.stats.hits > 0
+    _assert_same_mesh_state(r, t)
+    r.reset_meters()
+    t.reset_meters()
+    assert t.meter_totals().snapshot() == r.meter_totals().snapshot()
+    assert not any(ops.LAUNCHES.values())
+
+
+def _trace_tuples(trace) -> list:
+    return [(type(e).__name__, dataclasses.astuple(e)) for e in trace]
+
+
+def _assert_same_mesh_state(r, t):
+    rs, ts = r.mesh_state(), t.mesh_state()
+    assert rs is r.engine and ts is t.engine
+    for a, b in zip(rs.arrays(), ts.arrays()):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert (rs.num_buckets, rs.heap_cap, rs.ma, rs.mb) == \
+        (ts.num_buckets, ts.heap_cap, ts.ma, ts.mb)
+
+
+def test_sharded_batched_and_scalar_mutations_match_reference():
+    """``test_write_batch_parity.py::test_api_sharded_batched_mutations``
+    on both packages: scalar inserts, batched updates, Gets and deletes,
+    then the mesh state each re-installs."""
+    keys = make_uniform_keys(4096, 6)
+    vals = splitmix64(keys)
+    spec = dict(kind="sharded", params={"num_shards": 2})
+    r = r_api.open_store(r_api.StoreSpec(**spec), keys, vals)
+    t = t_api.open_store(t_api.StoreSpec(**spec), keys, vals, device="cpu")
+    new = []
+    for k in splitmix64(np.arange(1, 200, dtype=np.uint64)
+                        + np.uint64(1 << 43)):
+        a, b = r.insert(int(k), 1), t.insert(int(k), 1)
+        assert _result_tuple(a) == _result_tuple(b)
+        if bool(b.found[0]):
+            new.append(int(k))
+    new = np.asarray(new, np.uint64)
+    _assert_same_mesh_state(r, t)
+    for call in (lambda s: s.update_batch(new, np.full(new.size, 7,
+                                                       np.uint64)),
+                 lambda s: s.get_batch(new),
+                 lambda s: s.delete_batch(new[:16]),
+                 lambda s: s.get_batch(new[:16]),
+                 lambda s: s.insert_batch(new[:16], new[:16]),
+                 lambda s: s.delete_batch(keys[:64]),
+                 lambda s: s.get_batch(keys, resolve_makeup=False),
+                 lambda s: s.get_batch(np.concatenate([keys, new]))):
+        assert _result_tuple(call(r)) == _result_tuple(call(t))
+        _assert_same_mesh_state(r, t)
+    assert r.meter_totals().snapshot() == t.meter_totals().snapshot()
+    got = t.get_batch(new)
+    assert got.found.all()
+    assert set(got.values[16:].tolist()) == {7}
+    with pytest.raises(AttributeError):
+        t_api.open_store(t_api.StoreSpec("outback"), keys, vals,
+                         device="cpu").mesh_state()
+
+
 # ------------------------------------------------------------ spec / json
 SPECS = [
     dict(kind="outback"),
@@ -373,7 +477,7 @@ def test_spec_json_is_identical_in_both_packages(kw, batch):
     (dict(kind="outback", telemetry={"sample": 1.0}), "telemetry"),
     (dict(kind="cluster", faults={"events": []}), "cluster"),
     (dict(kind="race", telemetry={"sample": 1.0}), "race"),
-    (dict(kind="sharded"), "sharded"),
+    (dict(kind="sharded", replicas=2), "replicas"),
 ])
 def test_unported_options_raise_spec_error(data, kw, what):
     keys, vals = data
@@ -385,9 +489,10 @@ def test_unported_options_raise_spec_error(data, kw, what):
 def test_spec_errors_match_reference_validation(data):
     keys, vals = data
     with pytest.raises(t_api.SpecError, match="sharded"):
-        t_api.open_store(t_api.StoreSpec("sharded"), keys, vals,
-                         device="cpu", transport=Transport())
-    for bad in (dict(kind="nope"), dict(kind="outback", load_factor=1.5),
+        t_api.open_store(t_api.StoreSpec("sharded", params={"replicas": 2}),
+                         keys, vals, device="cpu", transport=Transport())
+    for bad in (dict(kind="nope"), dict(kind="sharded", params={"bogus": 1}),
+                dict(kind="outback", load_factor=1.5),
                 dict(kind="outback", params={"bogus": 1}),
                 dict(kind="outback-dir", params={"heap_slack": 1.5}),
                 dict(kind="outback", cache_budget_bytes=100),
@@ -410,7 +515,8 @@ def test_store_satisfies_the_protocols(data):
     assert isinstance(t.inner.inner, t_api.OutbackShardAdapter)
     assert t.spec == t_api.StoreSpec("outback") and t.telemetry is None
     assert t.engine.device.type == "cpu"
-    kinds = ("cluster", "dummy", "mica", "outback", "outback-dir", "race")
+    kinds = ("cluster", "dummy", "mica", "outback", "outback-dir", "race",
+             "sharded")
     assert t_api.registered_kinds() == kinds
     assert t_api.registry_docs() == {k: r_api.registry_docs()[k]
                                      for k in kinds}

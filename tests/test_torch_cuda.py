@@ -40,7 +40,13 @@ card and skips without one.  It holds:
   an insert batch that raises partway leaves the card's arrays equal to
   the host image and to the CPU engine, ``torch.argmax`` on the card takes
   the first of tied lanes, and the batch approximations (RACE's three
-  candidates, MICA's window) miss the same keys on the card as on the CPU.
+  candidates, MICA's window) miss the same keys on the card as on the CPU;
+* the mesh (``repro_torch.core.sharded_kvs``) at (1, 1) in a world whose
+  group serves card tensors with NCCL: both variants, with and without a
+  CN-cache replica, answer every lane, meter and trace as the gloo mesh
+  on the CPU, launching ``ludo_lookup`` and ``slot_unpack`` once a call;
+  ``open_store(StoreSpec("sharded"))`` on the card answers, meters and
+  re-installs its mesh state as on the CPU.
 """
 
 import numpy as np
@@ -639,3 +645,98 @@ def test_baseline_batch_approximations_on_card(card):
         assert miss.any(), name
         for i in np.nonzero(miss)[0]:
             assert g.get(int(keys[i])) == int(vals[i])
+
+
+# ------------------------------------------------------- the mesh, (1, 1)
+@pytest.fixture
+def nccl_world(card, tmp_path):
+    """A one-rank world whose group serves CPU tensors with gloo and card
+    tensors with NCCL, destroyed after the test."""
+    import torch.distributed as dist
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp_path}/rdv", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_run(device, variant, cached, keys, vals, q):
+    """One (1, 1) mesh Get of ``q`` on ``device`` with a transport (and a
+    warmed CN-cache replica): outputs, meter, trace, index launches."""
+    import dataclasses
+    from _torch_mesh_rank import warm_cache
+    from repro_torch.core import sharded_kvs as skv
+    from repro_torch.core.cn_cache import CNKeyCache, ShardedCNCache
+    from repro_torch.net import Transport
+    mesh = skv.make_mesh((1, 1), device=device)
+    tr = Transport()
+    st = skv.build_sharded(keys, vals, num_shards=1, data_parallel=1,
+                           transport=tr)
+    extra, cache = (), None
+    if cached:
+        warm = keys[np.random.default_rng(2).zipf(1.5, 4096) % keys.size]
+        host = warm_cache(CNKeyCache(1 << 16, device=device), warm,
+                          splitmix64(warm))
+        cache = ShardedCNCache(host, 1)
+        extra = skv.place_cache(mesh, cache)
+    blocks = skv.place_state(mesh, st)
+    assert all(b.device.type == device for b in blocks + extra)
+    fn, _ = skv.make_get_fn(mesh, st, q.size, variant=variant, cache=cache)
+    lo, hi = (lanes(x, mesh.device) for x in split_u64(q))
+    ops.reset_launch_counts()
+    out = fn(lo, hi, *extra, *blocks)
+    launches = dict(ops.LAUNCHES)
+    return ([x.cpu() for x in out], st.meter.snapshot(),
+            [(type(e).__name__, dataclasses.astuple(e)) for e in tr.trace],
+            launches)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+@pytest.mark.parametrize("variant", ["outback", "race"])
+def test_mesh_get_on_card_matches_cpu(nccl_world, variant, cached):
+    """The (1, 1) NCCL mesh on the card answers every lane (hits, misses,
+    sentinel and absent keys), meters and traces as the gloo mesh on the
+    CPU, through the ``ludo_lookup`` and ``slot_unpack`` kernels."""
+    keys = make_uniform_keys(20_000, 4)
+    vals = splitmix64(keys)
+    q = keys[np.random.default_rng(6).zipf(1.3, 4096) % keys.size]
+    q[5:9] = splitmix64(np.arange(4, dtype=np.uint64) + np.uint64(77 << 40))
+    q[0] = q[-1] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    card_run = _mesh_run("cuda", variant, cached, keys, vals, q)
+    cpu_run = _mesh_run("cpu", variant, cached, keys, vals, q)
+    for a, b in zip(card_run[0], cpu_run[0]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert card_run[1:3] == cpu_run[1:3]
+    assert card_run[3]["ludo_lookup"] == card_run[3]["slot_unpack"] == 1
+    assert not any(cpu_run[3].values())
+    match = card_run[0][2].numpy()
+    assert match[9:-1].all() and not match[5:9].any()
+    if cached:
+        assert card_run[0][3].sum() > 0
+
+
+def test_sharded_store_on_card_matches_cpu(card):
+    """``open_store(StoreSpec("sharded"))`` on the card: answers, meters and
+    the re-installed mesh state equal the CPU's after mutations."""
+    from repro_torch.api import StoreSpec, open_store
+    keys = make_uniform_keys(4096, 8)
+    vals = splitmix64(keys)
+    fresh = splitmix64(np.arange(1, 300, dtype=np.uint64)
+                       + np.uint64(5 << 42))
+    runs = []
+    for device in ("cuda", "cpu"):
+        st = open_store(StoreSpec("sharded", params={"num_shards": 2}),
+                        keys, vals, device=device)
+        assert {sh.device.type for sh in st.engine.shards} == {device}
+        out = [st.insert_batch(fresh, fresh), st.update_batch(keys[:99],
+                                                              keys[:99]),
+               st.delete_batch(keys[99:150]), st.insert(int(keys[99]), 3),
+               st.get_batch(np.concatenate([keys, fresh]))]
+        runs.append(([(r.values.tolist(), r.found.tolist(), r.statuses)
+                      for r in out], st.meter_totals().snapshot(),
+                     [a.copy() for a in st.mesh_state().arrays()]))
+    assert runs[0][:2] == runs[1][:2]
+    for a, b in zip(runs[0][2], runs[1][2]):
+        np.testing.assert_array_equal(a, b)

@@ -1,14 +1,18 @@
 """The port stands alone: no JAX, no ``repro``, no quiet CPU fallback.
 
 * an AST scan of every module under ``src/repro_torch/``, of
-  ``chip_smoke.py``, of ``tools/{fnm,step,ludo,store,baselines}_probe.py``,
-  of the on-card tests (``tests/test_torch_cuda.py``, which must run on the
-  GPU machine) and of ``tests/test_torch_ludo_plan.py`` finds no import of
-  ``jax`` or of ``repro``;
+  ``chip_smoke.py``, of
+  ``tools/{fnm,step,ludo,store,baselines,mesh}_probe.py``, of the on-card
+  tests (``tests/test_torch_cuda.py``, which must run on the
+  GPU machine), of ``tests/test_torch_ludo_plan.py`` and of the spawned
+  mesh rank (``tests/_torch_mesh_rank.py``) finds no import of ``jax`` or
+  of ``repro``;
 * a fresh interpreter that imports ``repro_torch.api`` (and builds a store
   on the CPU), ``repro_torch.net`` (and builds and replays a ``race``
-  store's trace on the CPU), or ``repro_torch.serve`` (and serves a request
-  on the CPU), has neither ``jax`` nor ``repro`` in ``sys.modules``;
+  store's trace on the CPU), ``repro_torch.serve`` (and serves a request
+  on the CPU), or ``repro_torch.core.sharded_kvs`` (and runs a Get on a
+  one-rank CPU mesh), has neither ``jax`` nor ``repro`` in
+  ``sys.modules``;
 * without a card, the entry points raise unless the caller passes
   ``device="cpu"``, and ``chip_smoke.py`` exits non-zero with no result.
 """
@@ -27,7 +31,7 @@ import torch
 from repro_torch.api import StoreSpec, open_store
 from repro_torch.cache import CuckooPageTable, LudoPageTable
 from repro_torch.configs import get_config
-from repro_torch.core import baselines, outback
+from repro_torch.core import baselines, outback, sharded_kvs
 from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.store import OutbackStore
 from repro_torch.core.hashing import splitmix64
@@ -39,9 +43,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "test_torch_ludo_plan.py",
+    ROOT / "tests" / "_torch_mesh_rank.py",
     ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py",
     ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py",
-    ROOT / "tools" / "baselines_probe.py"]
+    ROOT / "tools" / "baselines_probe.py", ROOT / "tools" / "mesh_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -103,6 +108,50 @@ def test_importing_the_net_port_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_the_mesh_port_loads_neither_jax_nor_repro(tmp_path):
+    code = (
+        "import sys, json, numpy as np, torch\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.core import sharded_kvs as skv\n"
+        "from repro_torch.core.hashing import splitmix64, split_u64\n"
+        f"dist.init_process_group('gloo', init_method='file://{tmp_path}/r',"
+        " rank=0, world_size=1)\n"
+        "mesh = skv.make_mesh((1, 1), device='cpu')\n"
+        "k = splitmix64(np.arange(1, 500, dtype=np.uint64))\n"
+        "st = skv.build_sharded(k, k, num_shards=1, data_parallel=1)\n"
+        "fn, _ = skv.make_get_fn(mesh, st, k.size)\n"
+        "lo, hi = (torch.from_numpy(x.view(np.int32)) for x in split_u64(k))\n"
+        "v_lo, v_hi, match = fn(lo, hi, *skv.place_state(mesh, st))\n"
+        "assert bool(match.all())\n"
+        "dist.destroy_process_group()\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_mesh_entry_points_raise_without_cuda(monkeypatch):
+    """``make_mesh`` and ``open_store`` with kind ``sharded`` run on CUDA
+    unless given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = splitmix64(np.arange(1, 300, dtype=np.uint64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        open_store(StoreSpec("sharded"), keys, keys)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sharded_kvs.make_mesh((1, 1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sharded_kvs.build_sharded(keys, keys, num_shards=1, data_parallel=1,
+                                  keep_shards=True)
+    st = open_store(StoreSpec("sharded"), keys, keys, device="cpu")
+    assert {sh.device.type for sh in st.engine.shards} == {"cpu"}
+    assert st.get_batch(keys).found.all()
+    with pytest.raises(RuntimeError, match="initialized default process"):
+        sharded_kvs.make_mesh((1, 1), device="cpu")
 
 
 def test_baseline_entry_points_raise_without_cuda(monkeypatch):

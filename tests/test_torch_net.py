@@ -5,8 +5,9 @@ each ``OpEvent``, ``Segment`` and mark), and every ``SimResult`` field of
 ``simulate`` / ``simulate_open`` / ``simulate_cluster`` with ``==`` on
 floats (the replay keeps the reference's expressions in its order).
 
-* the cases of ``tests/test_net_sim.py`` on the port (less the sharded
-  mesh and the session store, whose modules are not ported): determinism,
+* the cases of ``tests/test_net_sim.py`` on the port (less the session
+  store, whose module is not ported; the sharded mesh's case is in
+  ``tests/test_torch_sharded_kvs.py``): determinism,
   the latency and throughput orderings, doorbell batching, resize-dip
   windows, Makeup-Get continuations, meter-to-trace rules;
 * each kind's trace from the same keys and queries equals the reference's,
