@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py   # 2^24 keys, the paged path, llama3.2-1b, the
                             # cached directory store, the four baselines,
-                            # the transport model and the (1, 1) mesh;
-                            # one card
+                            # the transport model, the (1, 1) mesh and
+                            # the replicated store through a crash; one
+                            # card
 
 Phases; any failure exits non-zero:
 
@@ -155,7 +156,44 @@ Phases; any failure exits non-zero:
    by CUDA events, device time, device ops, device busy share and NCCL's
    share of device time a call (``torch.profiler``), the hit rate; and the
    build's host seconds and ``max_memory_allocated``.  The launch counters
-   are zeroed just before (b) and read just after.
+   are zeroed just before (b) and read just after;
+11. replication, the fault plane and the retry stage
+   (``repro_torch.api.replication``, ``repro_torch.net.faults``,
+   ``RetryLayer``).  (a) 2^14-key stores on the card and on the CPU, each
+   with its own transport, take one stream of 4096 Gets, updates, inserts
+   and deletes (window 1024) through five specs: K=2 with a crash of the
+   primary (leases at 128), K=1 under the same crash, a generated
+   schedule (crash, delay, drop), a partition of CN 0 and MN 1, and
+   ``outback-dir`` with ``replicas=3``, ``placement="hrw"``,
+   ``placement_k=2`` and a crash of MN 1 before its inserts split tables:
+   answers, statuses, each OpResult's attribution, meter snapshots, the
+   pipeline's stats, traces, the plane's state and every replica's final
+   MN image must be equal.  (b) ``StoreSpec("outback", load_factor=0.85,
+   replicas=2)`` over phase 3's 2^24 keys, its primary crashing at op
+   3 * 2^17 for 2^17 ops of the op clock (leases at 4096): 2^18 zipf(0.99)
+   Gets, then YCSB-A (2^19 ops, half updates) with 2^14 inserts of fresh
+   keys spread through it and the crash inside it, then 2^18 recovery
+   Gets, all at window 1024 in submission order.  Every Get is checked
+   against the latest acknowledged value, every acknowledged update and
+   insert is read back after recovery (0 lost), both replicas' MN arrays
+   are compared on the card, and the failovers, resyncs, retries and
+   backoffs must each be at least 1.  Printed: the two replicas' build
+   seconds, Gets/s and window p50/p99/p999 before and after the window,
+   YCSB-A ops/s and its chunks of 1024 ops before, through and after the
+   window, each resync's seconds and bytes, the recovery counters and
+   ``fault_wait_us``, the device busy share over 32 profiled windows and
+   ``max_memory_allocated``.  The launch counters are zeroed just before
+   (b)'s traffic and read just after.  (c) The reference ``faults``
+   suite's stream shape (10 warm Get calls of 64, 40 rounds of 8 inserts
+   and a Get, a crash at op 800 for 400 ops, a recovery tail) over 2^20
+   keys with a transport, replayed with ``simulate(trace, clients=4,
+   replicas=2)``: p50/p99/p999 and the availability curve's fault windows
+   (the reference's model of the fabric, not a measurement of the card).
+   (d) The same crash at K=1 over 2^20 keys: lanes degrade to
+   ``"unavailable"`` with ``found=False``, and after the window every key
+   is served.  (e) ``replicas=1`` with the dormant
+   ``FaultSchedule(lease_term_ops=0)`` meters and traces byte for byte as
+   the plain spec.
 
 The line before the last is the kernels' JSON record (all five kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -385,6 +423,27 @@ MESH_BATCHES = (WINDOW, MN_BATCH)
 MESH_PROFILED = {WINDOW: 32, MN_BATCH: 4}
 MESH_CACHE_BYTES = 128 << 20
 MESH_WARM_LOG2 = 18
+# phase 11: the failure plane.  The agreement runs 2^14 keys through five
+# specs; the full-size run is the reference faults suite's setting (load
+# factor 0.85, benchmarks/faults_bench.py:113) over phase 3's keys at K=2,
+# a crash of the primary inside a YCSB-A stream on the op clock; (c)-(e)
+# take 2^20 keys and the suite's own stream shape (faults_bench.py:53-58)
+FAULT_AGREE_KEYS_LOG2 = 14
+FAULT_AGREE_OPS_LOG2 = 12
+FAULT_LOAD_FACTOR = 0.85
+FAULT_N_GETS_LOG2 = 18
+FAULT_N_A_LOG2 = 19
+FAULT_N_INS_LOG2 = 14
+FAULT_CRASH_AT = 3 << 17
+FAULT_CRASH_OPS = 1 << 17
+FAULT_LEASE_OPS = 4096
+FAULT_SMALL_KEYS_LOG2 = 20
+FAULT_WARM_CALLS = 10
+FAULT_GET_LANES = 64
+FAULT_ROUNDS = 40
+FAULT_ROUND_LANES = 8
+FAULT_TAIL_AT = 800
+FAULT_TAIL_OPS = 400
 
 
 def log(*a) -> None:
@@ -2629,6 +2688,561 @@ def serve_on_mesh(keys, vals, rng) -> tuple:
     return res, launches
 
 
+# ------------------------------------------------------------ phase 11
+def _replica_set(store):
+    """The ``ReplicaSetAdapter`` under a store's stack."""
+    from repro_torch.api import ReplicaSetAdapter
+    adapter = store
+    while not isinstance(adapter, ReplicaSetAdapter):
+        adapter = adapter.inner
+    return adapter
+
+
+def _mn_only(state):
+    """An ``mn_state`` image without a directory store's shipped CN
+    locators (each replica rebuilds its own)."""
+    if isinstance(state, dict):
+        return {k: _mn_only(v) for k, v in state.items() if k != "cn"}
+    if isinstance(state, list):
+        return [_mn_only(v) for v in state]
+    return state
+
+
+def _attributed(res) -> tuple:
+    return (res.values.tolist(), res.found.tolist(), res.statuses,
+            res.round_trips, res.req_bytes, res.resp_bytes, res.makeups,
+            res.cache_hits, res.cache_neg_hits, res.retries, res.backoffs,
+            res.failovers)
+
+
+def fault_specs(n_ops: int) -> dict:
+    """Phase 11 (a)'s five specs, their windows sized to a stream of
+    ``n_ops`` op-clock lanes."""
+    from repro_torch.api import StoreSpec
+    from repro_torch.net import FaultEvent, FaultSchedule
+    at, dur = n_ops // 4, n_ops // 4
+    crash = FaultSchedule.single_crash(at_op=at, duration_ops=dur,
+                                       lease_term_ops=128)
+    lf = FAULT_LOAD_FACTOR
+    return {
+        "k2_crash": StoreSpec("outback", load_factor=lf, replicas=2,
+                              faults=crash),
+        "k1_crash": StoreSpec("outback", load_factor=lf, faults=crash),
+        "generated": StoreSpec("outback", load_factor=lf, replicas=2,
+                               faults=FaultSchedule.generate(
+                                   SEED + 11, n_ops, replicas=2)),
+        "partition": StoreSpec("outback", load_factor=lf, replicas=2,
+                               faults=FaultSchedule(
+                                   events=(FaultEvent("partition", at, dur,
+                                                      mn=1, cn=0,
+                                                      down_s=150e-6),),
+                                   lease_term_ops=128)),
+        # the crash ends before the inserts split a table: a split inside
+        # the window diverges the replicas' table numbering, which the
+        # per-shard resync refuses (as the reference does)
+        "dir_hrw": StoreSpec("outback-dir", load_factor=lf, replicas=3,
+                             placement="hrw", placement_k=2,
+                             faults=FaultSchedule.single_crash(
+                                 at_op=n_ops // 16, duration_ops=n_ops // 16,
+                                 mn=1, lease_term_ops=128),
+                             params={"initial_depth": 1}),
+    }
+
+
+def fault_agreement_check(seed: int, devices=("cuda", "cpu")) -> dict:
+    """Phase 11 (a): one stream (Gets, updates, inserts, deletes, through a
+    window of 1024) with a transport through each of :func:`fault_specs`
+    on the card and on the CPU; answers, statuses, each OpResult's
+    attribution, meter snapshots, traces and every replica's final MN
+    image must agree."""
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core.hashing import splitmix64
+    from repro_torch.net import Transport
+    n = 1 << FAULT_AGREE_KEYS_LOG2
+    keys = splitmix64(np.arange(n, dtype=np.uint64) + np.uint64(13 << 40))
+    vals = splitmix64(keys)
+    fresh = splitmix64(np.arange(n, 2 * n, dtype=np.uint64)
+                       + np.uint64(13 << 40))
+    rng = np.random.default_rng(seed)
+    n_ops = 1 << FAULT_AGREE_OPS_LOG2
+    ranks = zipf_ranks(rng, n, n_ops)
+    stream, ins = [], 0
+    for t, kind in enumerate(rng.choice(4, n_ops, p=[0.4, 0.2, 0.3, 0.1])):
+        k = int(keys[ranks[t]])
+        if kind == 2:
+            k, ins = int(fresh[ins]), ins + 1
+        stream.append([("get", k, None), ("update", k, t), ("insert", k, t),
+                       ("delete", k, None)][kind])
+    probe = np.concatenate([keys, fresh[:ins]])
+    out = {}
+    for name, spec in fault_specs(n_ops).items():
+        spec = StoreSpec.from_json_dict({
+            **spec.to_json_dict(), "rng_seed": seed,
+            "batch": BatchPolicy(window=WINDOW).to_json_dict()})
+        runs = []
+        for device in devices:
+            tr = Transport()
+            st = open_store(spec, keys, vals, device=device, transport=tr)
+            hs = [st.submit(op, k) if v is None else st.submit(op, k, v)
+                  for op, k, v in stream]
+            st.flush()
+            got = [(_attributed(h.result()), _attributed(h.batch))
+                   for h in hs]
+            got.append(_attributed(st.get_batch(probe)))
+            rs = _replica_set(st)
+            runs.append(dict(
+                answers=got, meter=st.meter_totals().snapshot(),
+                stats=dataclasses.asdict(st.stats),
+                trace=_trace_tuples(tr.trace),
+                images=[_mn_only(r.engine.mn_state())
+                        for r in rs.replicas],
+                plane=(rs.primary, sorted(rs._needs_resync),
+                       rs.plane.clock)))
+            if spec.kind == "outback-dir":
+                runs[-1]["tables"] = [len(r.engine.tables)
+                                      for r in rs.replicas]
+        check(_same(runs[0], runs[1]), f"{name}: the replicated store on "
+              f"{devices[0]} disagrees with the same store on {devices[1]}")
+        m = runs[0]["meter"]
+        out[name] = {k: m[k] for k in ("retries", "backoffs", "drops",
+                                        "failovers", "lease_renewals",
+                                        "resyncs", "fault_wait_us")}
+        out[name]["unavailable_lanes"] = runs[0]["stats"]["unavailable_lanes"]
+        if "tables" in runs[0]:
+            out[name]["tables"] = runs[0]["tables"]
+    check(out["k2_crash"]["failovers"] >= 1
+          and out["k2_crash"]["resyncs"] >= 1, "agreement: the K=2 crash "
+          "drove no failover or no resync")
+    check(out["partition"]["resyncs"] >= 1, "agreement: the partitioned "
+          "replica never resynced")
+    check(max(out["dir_hrw"]["tables"]) > 2, "agreement: no split in the "
+          "hrw directory store")
+    log(f"fault agreement: {n}-key stores on {devices[0]} answer {n_ops} "
+        f"mixed ops (window {WINDOW}) through each spec, and meter, trace "
+        f"and hold every replica's MN image exactly as on {devices[1]}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _lat_stats(ms) -> dict:
+    ms = np.asarray(ms, dtype=np.float64)
+    return dict(p50_ms=float(np.percentile(ms, 50)),
+                p99_ms=float(np.percentile(ms, 99)),
+                p999_ms=float(np.percentile(ms, 99.9)),
+                max_ms=float(ms.max()))
+
+
+def _replicas_equal_on_device(rs) -> bool:
+    """Every replica's MN arrays equal replica 0's, compared on the card;
+    the small host parts (heap top, overflow cache, flags) on the host."""
+    import torch
+    a = rs.replicas[0].engine
+    for r in rs.replicas[1:]:
+        b = r.engine
+        for name in ("slots_lo", "slots_hi", "seeds_mn", "heap_klo",
+                     "heap_khi", "heap_vlo", "heap_vhi"):
+            if not torch.equal(getattr(a, name), getattr(b, name)):
+                return False
+        if (a.heap_top, a.n_keys, a.frozen) != (b.heap_top, b.n_keys,
+                                                b.frozen):
+            return False
+        if not _same(a.overflow.state(), b.overflow.state()):
+            return False
+    return True
+
+
+def serve_replicated(keys, vals, rng) -> dict:
+    """Phase 11 (b): a K=2 store over phase 3's keys whose primary crashes
+    inside a YCSB-A stream: zipf Gets, then YCSB-A with fresh inserts
+    through the window, then recovery Gets; every answer checked, every
+    acknowledged write read back, both replicas' MN arrays compared on the
+    card.  The launch counters are zeroed just before the traffic and read
+    just after."""
+    import torch
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core.hashing import splitmix64
+    from repro_torch.kernels import ops
+    from repro_torch.net import FaultSchedule
+    n = keys.size
+    crash_at, crash_ops = FAULT_CRASH_AT, FAULT_CRASH_OPS
+    sched = FaultSchedule.single_crash(at_op=crash_at, duration_ops=crash_ops,
+                                       mn=0, down_s=200e-6,
+                                       lease_term_ops=FAULT_LEASE_OPS)
+    spec = StoreSpec("outback", load_factor=FAULT_LOAD_FACTOR, rng_seed=SEED,
+                     replicas=2, faults=sched,
+                     batch=BatchPolicy(window=WINDOW))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = open_store(spec, keys, vals)
+    torch.cuda.synchronize()
+    res = dict(build_seconds=time.perf_counter() - t0, replicas=2, keys=n)
+    rs = _replica_set(store)
+    check(all(r.engine.slots_lo.is_cuda for r in rs.replicas),
+          "a replica is not on the card")
+    res["mn_state_bytes"] = rs.replicas[0].engine.mn_state_bytes()
+    log(f"replicated store build: {res['build_seconds']:.3f} s for 2 "
+        f"replicas of {n} keys (host Ludo build twice, then the arrays to "
+        f"the card); MN image {res['mn_state_bytes']} B a replica")
+
+    resyncs, failovers = [], []
+    resync, failover = rs._resync, rs.failover
+
+    def timed_resync(i):
+        b0 = rs.replicas[i].meter.resp_bytes
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = resync(i)
+        torch.cuda.synchronize()
+        resyncs.append(dict(mn=i, clock=rs.plane.clock, ok=bool(ok),
+                            seconds=time.perf_counter() - t,
+                            bytes=rs.replicas[i].meter.resp_bytes - b0))
+        return ok
+
+    def noted_failover():
+        ok = failover()
+        failovers.append(dict(clock=rs.plane.clock, to=rs.primary, ok=ok))
+        return ok
+
+    rs._resync, rs.failover = timed_resync, noted_failover
+    latest = vals.copy()
+    perm = rng.permutation(n)
+
+    def get_windows(idx):
+        lat = []
+        got_v, got_f = [], []
+        for w0 in range(0, idx.size, WINDOW):
+            ks = keys[idx[w0:w0 + WINDOW]]
+            t0 = time.perf_counter()
+            hs = [store.submit("get", int(k)) for k in ks]
+            if not hs[-1].done:
+                store.flush()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(hs[0].batch is hs[-1].batch, "a window split its batch")
+            got_v.append(hs[-1].batch.values)
+            got_f.append(hs[-1].batch.found)
+            check(hs[-1].batch.statuses is None, "a Get window degraded")
+        check(np.concatenate(got_f).all(), "a present key missed")
+        check(np.array_equal(np.concatenate(got_v), latest[idx]),
+              "a Get read a stale or wrong value")
+        return lat
+
+    ops.reset_launch_counts()
+    # ---- before: zipf Gets ----
+    idx = perm[zipf_ranks(rng, n, 1 << FAULT_N_GETS_LOG2)]
+    t0 = time.perf_counter()
+    lat = get_windows(idx)
+    sec = time.perf_counter() - t0
+    res["before"] = dict(gets=idx.size, seconds=sec,
+                         gets_per_s=idx.size / sec, clock=rs.plane.clock,
+                         **_lat_stats(lat))
+    check(rs.plane.clock < crash_at, "the crash opened before YCSB-A")
+
+    # ---- YCSB-A with fresh inserts, through the crash window ----
+    n_a, n_ins = 1 << FAULT_N_A_LOG2, 1 << FAULT_N_INS_LOG2
+    idx_a = perm[zipf_ranks(rng, n, n_a)]
+    is_upd = rng.random(n_a) < 0.5
+    new_v = rng.integers(0, 2**64 - 1, n_a, dtype=np.uint64, endpoint=True)
+    fresh = splitmix64(np.arange(n, n + n_ins, dtype=np.uint64)
+                       + np.uint64(_KEY_OFFSET))
+    fresh_v = rng.integers(0, 2**64 - 1, n_ins, dtype=np.uint64,
+                           endpoint=True)
+    every = n_a // n_ins
+    subs = []  # (op, key index or fresh index, value, handle)
+    chunks = []  # (first clock, last clock, ops, ms) a chunk of 1024 ops
+    t_a = time.perf_counter()
+    c0, t_c, k_c = rs.plane.clock, time.perf_counter(), 0
+    for t in range(n_a):
+        i = int(idx_a[t])
+        if is_upd[t]:
+            subs.append(("update", i, new_v[t],
+                         store.submit("update", int(keys[i]),
+                                      int(new_v[t]))))
+        else:
+            subs.append(("get", i, None, store.submit("get", int(keys[i]))))
+        if t % every == every - 1:
+            j = t // every
+            subs.append(("insert", j, fresh_v[j],
+                         store.submit("insert", int(fresh[j]),
+                                      int(fresh_v[j]))))
+        k_c += 1
+        if k_c == WINDOW:
+            now = time.perf_counter()
+            chunks.append((c0, rs.plane.clock, k_c, (now - t_c) * 1e3))
+            c0, t_c, k_c = rs.plane.clock, now, 0
+    store.flush()
+    now = time.perf_counter()
+    if k_c:
+        chunks.append((c0, rs.plane.clock, k_c, (now - t_c) * 1e3))
+    sec_a = now - t_a
+    res["ycsb_a"] = dict(ops=n_a + n_ins, seconds=sec_a,
+                         ops_per_s=(n_a + n_ins) / sec_a,
+                         clock=rs.plane.clock)
+    crash_end = crash_at + crash_ops
+    for seg, sel in (("before", lambda a, b: b < crash_at),
+                     ("through", lambda a, b: b >= crash_at
+                      and a < crash_end),
+                     ("after", lambda a, b: a >= crash_end)):
+        cs = [c for c in chunks if sel(c[0], c[1])]
+        if cs:
+            ms = [c[3] for c in cs]
+            res["ycsb_a"][seg] = dict(
+                chunks=len(cs), ops_per_s=sum(c[2] for c in cs)
+                / (sum(ms) / 1e3), **_lat_stats(ms))
+    check("through" in res["ycsb_a"] and "after" in res["ycsb_a"],
+          "the crash window does not sit inside the YCSB-A stream")
+
+    # the oracle: writes acknowledged in submission order
+    acked_ins, unavailable, stale = [], 0, 0
+    ins_ok = np.zeros(n_ins, bool)
+    for op, i, v, h in subs:
+        r = h.result()
+        st = None if r.statuses is None else r.statuses[0]
+        if st in ("backoff", "unavailable"):
+            unavailable += 1
+            continue
+        if op == "update":
+            check(bool(r.found[0]), "an update of a present key failed")
+            latest[i] = v
+        elif op == "insert":
+            check(st in ("slot", "reseed", "overflow"),
+                  f"an insert of a new key came back {st!r}")
+            ins_ok[i] = True
+        else:
+            check(bool(r.found[0]), "a YCSB-A Get of a present key missed")
+            stale += int(r.values[0] != latest[i])
+    check(stale == 0, f"{stale} YCSB-A Gets did not see the latest "
+          f"acknowledged value")
+    res["ycsb_a"]["unavailable_ops"] = unavailable
+
+    # ---- after: recovery Gets ----
+    idx = perm[zipf_ranks(rng, n, 1 << FAULT_N_GETS_LOG2)]
+    t0 = time.perf_counter()
+    lat = get_windows(idx)
+    sec = time.perf_counter() - t0
+    res["after"] = dict(gets=idx.size, seconds=sec,
+                        gets_per_s=idx.size / sec, **_lat_stats(lat))
+
+    def profiled():
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            get_windows(idx[:32 * WINDOW])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, spans = device_busy_us(prof)
+        return dict(device_busy_share=busy / wall_us if spans else None,
+                    device_ops_per_window=spans / 32)
+
+    res["after"].update(profiled())
+    res["launches"] = dict(ops.LAUNCHES)
+
+    # ---- every acknowledged write reads back; the replicas agree ----
+    upd_idx = np.unique(idx_a[is_upd])
+    probe = np.concatenate([keys[upd_idx], fresh[ins_ok]])
+    want = np.concatenate([latest[upd_idx], fresh_v[ins_ok]])
+    g = store.get_batch(probe)
+    lost = int((~g.found).sum()) + int((g.values != want)[g.found].sum())
+    res["acked_writes"] = dict(updated_keys=int(upd_idx.size),
+                               inserts=int(ins_ok.sum()), lost=lost)
+    check(lost == 0, f"{lost} acknowledged writes lost through the crash")
+    check(_replicas_equal_on_device(rs), "the replicas' MN arrays differ "
+          "after recovery")
+    m = store.meter_totals()
+    res["recovery"] = {k: getattr(m, k) for k in (
+        "retries", "backoffs", "drops", "failovers", "lease_renewals",
+        "resyncs", "fault_wait_us")}
+    res["resyncs"], res["failovers"] = resyncs, failovers
+    res["primary"] = rs.primary
+    res["unavailable_lanes"] = store.stats.unavailable_lanes
+    for k in ("failovers", "resyncs", "retries", "backoffs"):
+        check(res["recovery"][k] >= 1, f"the crash drove no {k}")
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    for seg in ("before", "after"):
+        s = res[seg]
+        log(f"replicated {seg} the window: {s['gets_per_s']:.1f} Gets/s "
+            f"over {s['gets']} Gets; window p50 {s['p50_ms']:.4f} ms, p99 "
+            f"{s['p99_ms']:.4f} ms, p999 {s['p999_ms']:.4f} ms")
+    a = res["ycsb_a"]
+    log(f"replicated YCSB-A: {a['ops_per_s']:.1f} ops/s over {a['ops']} ops "
+        f"({n_ins} inserts); by chunk of {WINDOW} ops: " + "; ".join(
+            f"{seg} {a[seg]['chunks']} chunks {a[seg]['ops_per_s']:.1f} "
+            f"ops/s p50 {a[seg]['p50_ms']:.4f} p99 {a[seg]['p99_ms']:.4f} "
+            f"p999 {a[seg]['p999_ms']:.4f} ms"
+            for seg in ("before", "through", "after") if seg in a))
+    log(f"resyncs: {json.dumps(resyncs)}; failovers: {json.dumps(failovers)}")
+    log(f"recovery counters: {json.dumps(res['recovery'])}; acknowledged "
+        f"writes {json.dumps(res['acked_writes'])}; both replicas' MN arrays "
+        f"equal on the card; device busy share "
+        f"{res['after']['device_busy_share']}; max_memory_allocated "
+        f"{res['max_memory_allocated']} B")
+    return res
+
+
+def _fault_keys(n: int, spare: int):
+    from repro_torch.core.hashing import splitmix64
+    keys = splitmix64(np.arange(n + spare, dtype=np.uint64)
+                      + np.uint64(19 << 40))
+    vals = splitmix64(keys)
+    return keys[:n], vals[:n], keys[n:], vals[n:]
+
+
+def modelled_tail(seed: int) -> dict:
+    """Phase 11 (c): the reference ``faults`` suite's stream (its warm Get
+    calls, insert + Get rounds through a crash at op 800 for 400 ops, a
+    recovery tail) over 2^20 keys with a transport, replayed with
+    ``simulate(trace, clients=4, replicas=2)``: the reference's model of
+    the fabric, not a measurement of the card."""
+    from repro_torch.api import StoreSpec, open_store
+    from repro_torch.net import FaultSchedule, Transport, simulate
+    n = 1 << FAULT_SMALL_KEYS_LOG2
+    bk, bv, wk, wv = _fault_keys(n, FAULT_ROUNDS * FAULT_ROUND_LANES)
+    sched = FaultSchedule.single_crash(at_op=FAULT_TAIL_AT,
+                                       duration_ops=FAULT_TAIL_OPS,
+                                       down_s=200e-6, lease_term_ops=256)
+    tr = Transport()
+    st = open_store(StoreSpec("outback", load_factor=FAULT_LOAD_FACTOR,
+                              rng_seed=seed, replicas=2, faults=sched),
+                    bk, bv, transport=tr)
+    rng = np.random.default_rng(seed)
+    q = bk[rng.integers(0, n, FAULT_GET_LANES * FAULT_WARM_CALLS)]
+    for i in range(FAULT_WARM_CALLS):
+        st.get_batch(q[i * FAULT_GET_LANES:(i + 1) * FAULT_GET_LANES])
+    acked = []
+    for i in range(FAULT_ROUNDS):
+        sl = slice(i * FAULT_ROUND_LANES, (i + 1) * FAULT_ROUND_LANES)
+        r = st.insert_batch(wk[sl], wv[sl])
+        stats = r.statuses or ("ok",) * FAULT_ROUND_LANES
+        acked += [(int(k), int(v)) for k, v, ok, c in
+                  zip(wk[sl], wv[sl], r.found, stats)
+                  if ok and c not in ("backoff", "unavailable")]
+        off = (i % FAULT_WARM_CALLS) * FAULT_GET_LANES
+        st.get_batch(q[off:off + FAULT_GET_LANES // 2])
+    for i in range(FAULT_WARM_CALLS):
+        st.get_batch(q[i * FAULT_GET_LANES:(i + 1) * FAULT_GET_LANES])
+    g = st.get_batch(np.asarray([k for k, _ in acked], np.uint64))
+    want = np.asarray([v for _, v in acked], np.uint64)
+    lost = int((~g.found).sum()) + int((g.values != want)[g.found].sum())
+    check(lost == 0, f"modelled tail: {lost} acknowledged writes lost")
+    m = st.meter_totals()
+    check(m.failovers >= 1 and m.resyncs >= 1, "modelled tail: no failover "
+          "or no resync")
+    sim = simulate(tr.trace, clients=4, replicas=2)
+    again = simulate(tr.trace, clients=4, replicas=2)
+    check(_same(_sim_fields(sim), _sim_fields(again)),
+          "modelled tail: the replay is not deterministic")
+    av = sim.availability()
+    out = dict(keys=n, acked=len(acked), ops=sim.n_ops,
+               **sim.percentiles(), tput_mops=sim.tput_mops,
+               fault_windows=[list(w) for w in sim.fault_windows],
+               availability_fault_windows=av["fault_windows"],
+               availability_min=float(min(av["availability"])),
+               failovers=m.failovers, resyncs=m.resyncs,
+               fault_wait_us=m.fault_wait_us)
+    log(f"modelled tail (the reference's model of the fabric, simulate("
+        f"clients=4, replicas=2), not a card measurement): p50 "
+        f"{out['p50_us']:.4f} us, p99 {out['p99_us']:.4f} us, p999 "
+        f"{out['p999_us']:.4f} us; fault windows {out['fault_windows']}; "
+        f"availability windows {out['availability_fault_windows']}, min "
+        f"{out['availability_min']:.4f}")
+    return out
+
+
+def k1_degraded(seed: int) -> dict:
+    """Phase 11 (d): the same crash at K=1 over 2^20 keys: lanes degrade to
+    ``"unavailable"`` with ``found=False``, never an exception, and after
+    the window the store serves every key again."""
+    from repro_torch.api import StoreSpec, open_store
+    from repro_torch.net import FaultSchedule
+    n = 1 << FAULT_SMALL_KEYS_LOG2
+    bk, bv, _, _ = _fault_keys(n, 0)
+    sched = FaultSchedule.single_crash(at_op=FAULT_TAIL_AT,
+                                       duration_ops=FAULT_TAIL_OPS,
+                                       down_s=200e-6, max_retries=2,
+                                       lease_term_ops=0)
+    st = open_store(StoreSpec("outback", load_factor=FAULT_LOAD_FACTOR,
+                              rng_seed=seed, faults=sched), bk, bv)
+    rng = np.random.default_rng(seed)
+    calls = 3 * FAULT_WARM_CALLS
+    q = rng.integers(0, n, FAULT_GET_LANES * calls)
+    unavailable = served = 0
+    for i in range(calls):
+        sl = q[i * FAULT_GET_LANES:(i + 1) * FAULT_GET_LANES]
+        r = st.get_batch(bk[sl])
+        if r.statuses is not None:
+            check(set(r.statuses) == {"unavailable"} and not r.found.any(),
+                  "a degraded lane answered found=True")
+            unavailable += r.statuses.count("unavailable")
+        else:
+            check(r.found.all() and np.array_equal(r.values, bv[sl]),
+                  "K=1: a served Get was wrong")
+            served += len(r)
+    check(unavailable > 0, "K=1: the crash degraded no lane")
+    post = st.get_batch(bk)
+    check(post.statuses is None and post.found.all()
+          and np.array_equal(post.values, bv),
+          "K=1: the store did not serve every key after the window")
+    out = dict(keys=n, unavailable_lanes=unavailable, served_lanes=served,
+               recovered_keys=int(post.found.sum()))
+    log(f"K=1 crash: {unavailable} lanes answered 'unavailable' "
+        f"(found=False), {served} served; after the window all {n} keys "
+        f"served")
+    return out
+
+
+def dormant_identity(seed: int) -> dict:
+    """Phase 11 (e): ``replicas=1`` with the dormant schedule
+    (``FaultSchedule(lease_term_ops=0)``) meters and traces byte for byte
+    as the plain spec, over 2^20 keys."""
+    from repro_torch.api import StoreSpec, open_store
+    from repro_torch.net import FaultSchedule, Transport
+    n = 1 << FAULT_SMALL_KEYS_LOG2
+    bk, bv, sk, sv = _fault_keys(n, 64)
+    q = bk[np.random.default_rng(seed).integers(0, n, 512)]
+    snaps, traces = [], []
+    for spec in (StoreSpec("outback", load_factor=FAULT_LOAD_FACTOR,
+                           rng_seed=seed),
+                 StoreSpec("outback", load_factor=FAULT_LOAD_FACTOR,
+                           rng_seed=seed,
+                           faults=FaultSchedule(lease_term_ops=0))):
+        tr = Transport()
+        st = open_store(spec, bk, bv, transport=tr)
+        st.get_batch(q)
+        st.insert_batch(sk, sv)
+        st.update_batch(bk[:64], bv[:64])
+        st.delete_batch(bk[64:96])
+        snaps.append(st.meter_totals().snapshot())
+        traces.append(_trace_tuples(tr.trace))
+    check(snaps[0] == snaps[1] and traces[0] == traces[1],
+          "the dormant plane drifted from the plain store")
+    check(_replica_set(st).plane.schedule.lease_term_ops == 0,
+          "dormant: the plane is not the dormant one")
+    log(f"dormant plane: meter snapshot and trace ({len(traces[0])} items) "
+        f"byte-identical to the plain spec")
+    return dict(ops=snaps[0]["ops"], trace_items=len(traces[0]))
+
+
+def serve_faults(keys, vals, rng) -> tuple:
+    """Phase 11: (a) the agreement, (b) :func:`serve_replicated` with the
+    launch counters zeroed just before its traffic and read just after,
+    (c) the modelled tail, (d) K=1, (e) the dormant plane."""
+    import torch
+    from repro_torch.kernels import ops
+    res = dict(agreement=fault_agreement_check(SEED))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["replicated"] = serve_replicated(keys, vals, rng)
+    launches = res["replicated"].pop("launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    res["modelled_tail"] = modelled_tail(SEED)
+    res["k1"] = k1_degraded(SEED)
+    res["dormant"] = dormant_identity(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -2826,6 +3440,18 @@ def main() -> int:
     log(f"launches on the mesh path: {mlaunch}")
     log(f"mesh path: {json.dumps(meshres)}")
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+
+    # ---- phase 11: replication, the fault plane and the retry stage ----
+    t11 = time.perf_counter()
+    fres, flaunch = serve_faults(keys, vals, rng)
+    for name, k in kernels.items():
+        k["launches_replicated_path"] = flaunch[name]
+    for name in ("ludo_lookup", "slot_unpack"):
+        check(flaunch[name] > 0, f"{name} never launched on the replicated "
+              f"path")
+    log(f"launches on the replicated path: {flaunch}")
+    log(f"replicated path: {json.dumps(fres)}")
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

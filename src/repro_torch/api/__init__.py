@@ -9,7 +9,12 @@ The port of ``repro.api`` for every kind of the reference: ``outback``,
 * :mod:`repro_torch.api.pipeline` — :class:`BatchPolicy`, ``submit`` /
   ``poll`` / ``flush`` and :class:`OpHandle`;
 * :mod:`repro_torch.api.stack` — ``Pipeline → Meter → [CNCache →]
-  adapter``;
+  [Retry →] adapter``, with :class:`RetryLayer` (timeout, seeded jittered
+  backoff, failover, degraded ``"unavailable"`` answers);
+* :mod:`repro_torch.api.replication` — :class:`ReplicaSetAdapter` (K-way
+  replication of the memory-heavy MN half, CN-driven failover, resync,
+  leases through :class:`ShardLease`), driven by a
+  :class:`repro_torch.net.FaultSchedule` carried on the spec;
 * :mod:`repro_torch.api.registry` — :class:`StoreSpec` (the reference's
   JSON) and :func:`open_store`.
 """
@@ -23,11 +28,12 @@ from repro_torch.api.pipeline import (BatchPolicy, OpHandle, PipelineLayer,
 from repro_torch.api.protocol import (OP_KINDS, KVStore, OpResult,
                                       PipelinedKVStore, UnsupportedOperation,
                                       pack_result)
+from repro_torch.api.replication import ReplicaSetAdapter, ShardLease
 from repro_torch.api.registry import (SpecError, StoreSpec, build_adapter,
                                       open_store, register_store,
                                       registered_kinds, registry_docs)
 from repro_torch.api.stack import (CNCacheLayer, CNStack, MeterLayer,
-                                   StoreLayer, TransportBinding)
+                                   RetryLayer, StoreLayer, TransportBinding)
 
 __all__ = [
     "BaselineAdapter",
@@ -46,6 +52,9 @@ __all__ = [
     "PipelineStats",
     "PipelinedKVStore",
     "RaceAdapter",
+    "ReplicaSetAdapter",
+    "RetryLayer",
+    "ShardLease",
     "ShardedAdapter",
     "SpecError",
     "StoreAdapter",

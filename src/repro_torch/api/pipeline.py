@@ -19,11 +19,12 @@ all).  This module moves the window into the store itself:
   placeholder for one submission's lanes, resolved when the op completes
   (at a flush, or immediately for write-combined reads).
 * :class:`PipelineLayer` — the outermost stage of the CN stack
-  (``Pipeline → Meter → adapter``).  ``submit`` enqueues;
-  pending ops auto-coalesce into the engines' native ``*_batch`` kernels
-  when a flush trigger fires: **window-full** (pending lanes reach
-  ``policy.window``), **explicit** (:meth:`PipelineLayer.flush`), or a
-  **read-after-write hazard** on a pending key (strict order).
+  (``Pipeline → Meter → [CNCache →] [Retry →] adapter``).  ``submit``
+  enqueues; pending ops auto-coalesce into the engines' native
+  ``*_batch`` kernels when a flush trigger fires: **window-full**
+  (pending lanes reach ``policy.window``), **explicit**
+  (:meth:`PipelineLayer.flush`), or a **read-after-write hazard** on a
+  pending key (strict order).
 
 Ordering semantics.  A flush executes pending ops grouped per op kind in
 the canonical order ``get → update → insert → delete`` (exactly the
@@ -284,13 +285,14 @@ def _gather(entries: list[_Pending], values: bool) -> np.ndarray:
 class PipelineLayer(StoreLayer):
     """Outermost stack stage: the asynchronous submission/completion plane.
 
-    Wraps the attributed sync stack (``Meter → adapter``) and
-    adds ``submit``/``poll``/``flush``.  The v1 sync surface remains as
-    conveniences: batched ops are ``submit`` + ``flush`` (single-group
-    pass-through keeps their attribution byte-identical), scalar ops
-    flush pending work and take the engine's documented scalar protocol
-    walk — so a default (``window=1``) store behaves exactly like the
-    pre-pipeline stack, meters, traces and cache state included.
+    Wraps the attributed sync stack (``Meter → [CNCache →] [Retry →]
+    adapter``) and adds ``submit``/``poll``/``flush``.  The v1 sync
+    surface remains as conveniences: batched ops are ``submit`` +
+    ``flush`` (single-group pass-through keeps their attribution
+    byte-identical), scalar ops flush pending work and take the engine's
+    documented scalar protocol walk — so a default (``window=1``) store
+    behaves exactly like the pre-pipeline stack, meters, traces and cache
+    state included.
     """
 
     def __init__(self, inner, policy: BatchPolicy | None = None,

@@ -5,10 +5,13 @@ reference's fields and JSON exactly, so one spec's JSON opens the same
 store in both packages.  ``open_store(spec, keys, values, device=...,
 transport=...)`` builds the engine on ``device`` (CUDA unless the caller
 passes ``device="cpu"``; it raises when CUDA is absent) and assembles the
-CN stack ``Pipeline → Meter → [CNCache →] adapter (→ Transport)`` around
-it; a spec's ``cache_budget_bytes`` builds the stack's ``CNKeyCache`` on
-the same device, and a ``repro_torch.net.Transport`` records the store's
-op trace.
+CN stack ``Pipeline → Meter → [CNCache →] [Retry →] adapter (→
+Transport)`` around it; a spec's ``cache_budget_bytes`` builds the stack's
+``CNKeyCache`` on the same device, ``replicas > 1`` or a ``faults``
+schedule builds K replicas behind a
+``repro_torch.api.replication.ReplicaSetAdapter`` with the retry stage
+above it, and a ``repro_torch.net.Transport`` records the store's op
+trace.
 
 Registered kinds:
 
@@ -23,9 +26,10 @@ Registered kinds:
                 mesh state of ``repro_torch.core.sharded_kvs``)
 =============  ==========================================================
 
-Every kind of the reference is served.  The options served by planes not
-ported yet (replication, fault schedules, placement ``'hrw'``, telemetry)
-raise :class:`SpecError` saying so.
+Every kind of the reference is served, and so is its failure plane
+(replication, fault schedules, placement ``'hrw'``) with the reference's
+checks.  The telemetry plane is not ported yet: a spec that asks for it
+raises :class:`SpecError` saying so.
 """
 
 from __future__ import annotations
@@ -38,17 +42,25 @@ import numpy as np
 
 from repro_torch.api import adapters
 from repro_torch.api.pipeline import BatchPolicy
+from repro_torch.api.replication import ReplicaPlacement, ReplicaSetAdapter
 from repro_torch.api.stack import CNStack, TransportBinding
 from repro_torch.core.baselines import ClusterKVS, DummyKVS, MicaKVS, RaceKVS
 from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.outback import OutbackShard, resolve_device
 from repro_torch.core.sharded_kvs import build_sharded
 from repro_torch.core.store import OutbackStore
+from repro_torch.net.faults import CN_TARGET_KINDS, FaultPlane, FaultSchedule
 
 
 class SpecError(ValueError):
     """A StoreSpec that cannot be built: unknown kind / param / value, or
     an option this package has not ported yet."""
+
+
+# Kinds whose engines export the mn_state()/install_mn_state() replication
+# surface (the memory-heavy MN half is shippable); replicas > 1 and fault
+# schedules are restricted to these.
+_REPLICABLE_KINDS = frozenset(("outback", "outback-dir"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +76,16 @@ class StoreSpec:
     # None -> the synchronous behaviour (window=1)
     batch: BatchPolicy | None = None
     params: dict = dataclasses.field(default_factory=dict)  # kind-specific
-    # failure plane (not ported): K-way MN replication and a fault
-    # schedule, kept as given so the JSON round-trips
+    # failure plane (repro_torch.net.faults / repro_torch.api.replication):
+    # K-way replication of the MN half, and a deterministic fault schedule
+    # (a FaultSchedule or its JSON dict); the defaults (1, None) build the
+    # plain store
     replicas: int = 1
-    faults: typing.Any = None
+    faults: FaultSchedule | None = None
+    # replica placement: "twins" mirrors the whole MN image onto every
+    # replica (the default); "hrw" places each directory shard on
+    # ``placement_k`` of the ``replicas`` MNs by seeded rendezvous hashing
+    # (outback-dir only)
     placement: str = "twins"
     placement_k: int = 1
     # telemetry plane (not ported): kept as given so the JSON round-trips
@@ -80,6 +98,12 @@ class StoreSpec:
                                    BatchPolicy.from_json_dict(self.batch))
             except ValueError as e:
                 raise SpecError(str(e)) from e
+        if isinstance(self.faults, dict):
+            try:
+                object.__setattr__(self, "faults",
+                                   FaultSchedule.from_json_dict(self.faults))
+            except ValueError as e:
+                raise SpecError(str(e)) from e
 
     # ------------------------------------------------------------- json
     def to_json_dict(self) -> dict:
@@ -90,7 +114,8 @@ class StoreSpec:
                           else self.batch.to_json_dict()),
                 "params": dict(self.params),
                 "replicas": self.replicas,
-                "faults": _json_of(self.faults),
+                "faults": (None if self.faults is None
+                           else self.faults.to_json_dict()),
                 "placement": self.placement,
                 "placement_k": self.placement_k,
                 "telemetry": _json_of(self.telemetry)}
@@ -141,21 +166,45 @@ class StoreSpec:
         if not isinstance(self.replicas, int) or self.replicas < 1:
             raise SpecError(f"replicas must be an int >= 1, "
                             f"got {self.replicas!r}")
+        if ((self.replicas > 1 or self.faults is not None)
+                and self.kind not in _REPLICABLE_KINDS):
+            raise SpecError(
+                f"replication/faults need a kind exporting mn_state "
+                f"(one of {sorted(_REPLICABLE_KINDS)}), got {self.kind!r}")
+        if self.faults is not None:
+            if not isinstance(self.faults, FaultSchedule):
+                raise SpecError(f"faults must be a FaultSchedule (or its "
+                                f"JSON dict), got "
+                                f"{type(self.faults).__name__}")
+            try:
+                self.faults.validate()
+            except ValueError as e:
+                raise SpecError(str(e)) from e
+            for ev in self.faults.events:
+                # CN-targeting kinds name a compute node, not an MN
+                # replica; open_store (one CN) validates those instead
+                if ev.kind not in ("cn_crash", "cn_delay", "cn_drop") \
+                        and ev.mn >= self.replicas:
+                    raise SpecError(
+                        f"{ev.kind} fault event targets MN {ev.mn} but "
+                        f"the spec deploys {self.replicas} replica(s)")
         if self.placement not in ("twins", "hrw"):
             raise SpecError(f"placement must be 'twins' or 'hrw', "
                             f"got {self.placement!r}")
         if not isinstance(self.placement_k, int) or self.placement_k < 1:
             raise SpecError(f"placement_k must be an int >= 1, "
                             f"got {self.placement_k!r}")
-        for name, unported in (
-                ("replicas > 1 (MN replication)", self.replicas > 1),
-                ("faults (the failure plane)", self.faults is not None),
-                ("placement='hrw'", self.placement == "hrw"),
-                ("telemetry (the telemetry plane)",
-                 self.telemetry is not None)):
-            if unported:
-                raise SpecError(f"{name} is not yet ported to repro_torch "
-                                f"(kind {self.kind!r})")
+        if self.placement == "hrw":
+            if self.kind != "outback-dir":
+                raise SpecError("placement='hrw' is a per-directory-shard "
+                                "policy; it needs kind='outback-dir'")
+            if self.placement_k > self.replicas:
+                raise SpecError(
+                    f"placement_k={self.placement_k} exceeds the "
+                    f"{self.replicas} deployed replica(s)")
+        if self.telemetry is not None:
+            raise SpecError(f"telemetry (the telemetry plane) is not yet "
+                            f"ported to repro_torch (kind {self.kind!r})")
         return reg
 
     def merged_params(self) -> dict:
@@ -211,25 +260,46 @@ def open_store(spec: StoreSpec, keys, values, *, device=None, transport=None):
     ``device=None`` means CUDA and raises when no card is present: the
     port runs on the CPU only when the caller passes ``device="cpu"``.
     Returns a ``PipelinedKVStore`` (Pipeline → Meter → [CNCache →]
-    adapter), with the pipeline shaped by ``spec.batch`` (synchronous when
-    the spec carries none) and a CN hot-key cache of
+    [Retry →] adapter), with the pipeline shaped by ``spec.batch``
+    (synchronous when the spec carries none) and a CN hot-key cache of
     ``spec.cache_budget_bytes`` on the engine's device when that is not 0.
     ``transport``, an optional ``repro_torch.net.Transport``, is bound
     below the engine as the stack's recording stage (every engine meter's
-    sink) and receives the pipeline's doorbell marks."""
+    sink) and receives the pipeline's doorbell marks.
+
+    When the spec carries ``replicas > 1`` or a ``faults`` schedule, the
+    factory is invoked once per replica (same spec + seed ⇒ identical
+    twins, each on ``device``) and the set is wrapped in a
+    :class:`ReplicaSetAdapter` driven by one
+    :class:`repro_torch.net.faults.FaultPlane`; the stack then inserts its
+    ``RetryLayer`` above it.  A replicas-only spec (no schedule) gets a
+    dormant plane with leasing off, so its meter totals match the
+    unreplicated store byte for byte.  The store models one CN (CN 0):
+    events that target another CN raise."""
+    if spec.faults is not None:
+        for ev in spec.faults.events:
+            if ev.kind in CN_TARGET_KINDS and ev.cn >= 1:
+                raise SpecError(
+                    f"{ev.kind} fault event targets CN {ev.cn} but "
+                    f"open_store deploys a single CN (CN 0)")
     device = resolve_device(device)
-    adapter = build_adapter(spec, keys, values, device=device,
-                            transport=transport)
+    adapter, retry = build_adapter(spec, keys, values, device=device,
+                                   transport=transport)
     cache = (CNKeyCache(spec.cache_budget_bytes, device=device)
              if spec.cache_budget_bytes else None)
     return CNStack(cache=cache,
                    transport_binding=TransportBinding(transport),
-                   policy=spec.batch).assemble(adapter)
+                   policy=spec.batch, retry=retry).assemble(adapter)
 
 
 def build_adapter(spec: StoreSpec, keys, values, *, device=None,
                   transport=None):
-    """Build the spec's engine adapter without the CN stack around it."""
+    """Build the spec's engine adapter without the CN stack around it.
+
+    Returns ``(adapter, retry_plane)``: the engine adapter (wrapped in a
+    :class:`ReplicaSetAdapter` when the spec carries replication or a fault
+    schedule) and the :class:`FaultPlane` the stack's retry stage must
+    consult (``None`` when no plane is installed)."""
     reg = spec.validate()
     device = resolve_device(device)
     keys = np.asarray(keys, dtype=np.uint64)
@@ -237,7 +307,25 @@ def build_adapter(spec: StoreSpec, keys, values, *, device=None,
     if keys.shape != values.shape:
         raise SpecError(f"keys/values shape mismatch: "
                         f"{keys.shape} vs {values.shape}")
-    return reg.factory(spec, keys, values, device, transport)
+    adapter = reg.factory(spec, keys, values, device, transport)
+    retry = None
+    if spec.replicas > 1 or spec.faults is not None:
+        group = [adapter] + [reg.factory(spec, keys, values, device,
+                                         transport)
+                             for _ in range(spec.replicas - 1)]
+        plane = FaultPlane(spec.faults if spec.faults is not None
+                           else FaultSchedule(lease_term_ops=0))
+        placement = None
+        if spec.placement == "hrw" and spec.replicas > 1:
+            # one replica makes placement the identity map; skip it so the
+            # serve path (and its metering) stays the plain one
+            placement = ReplicaPlacement(len(adapter.engine.tables),
+                                         spec.replicas, spec.placement_k,
+                                         seed=spec.rng_seed)
+        adapter = ReplicaSetAdapter(group, spec, plane, transport=transport,
+                                    placement=placement)
+        retry = plane
+    return adapter, retry
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,31 @@
-"""The CN-side stack: ``Pipeline → Meter → [CNCache →] adapter (→ Transport)``.
+"""The CN-side stack: ``Pipeline → Meter → [CNCache →] [Retry →]
+adapter (→ Transport)``.
 
-The port of ``repro.api.stack``: the meter and CN-cache stages, the
-transport binding and the composition root.  The reference's retry stage
-and its telemetry hooks are not ported yet; ``open_store`` refuses specs
-that need them.
+The port of ``repro.api.stack``: the meter, CN-cache and retry stages, the
+transport binding and the composition root.  The reference's telemetry
+hooks wait for that plane to be ported; ``open_store`` refuses specs that
+need them.
 
 * **Meter** (:class:`MeterLayer`) — stamps per-call attribution (round
-  trips, wire bytes, Makeup-Get continuations, cache hits) onto every
-  ``OpResult`` from the store's merged meter deltas.
+  trips, wire bytes, Makeup-Get continuations, cache hits, retries,
+  backoffs, failovers) onto every ``OpResult`` from the store's merged
+  meter deltas.
 * **CNCache** (:class:`CNCacheLayer`) — the hot-key front
   (``repro_torch.core.cn_cache``): probe on the device before the wire,
   answer hits locally, forward misses with full Makeup-Get resolution (the
-  cache only learns resolved truths), keep coherence on every mutation, and
-  join the engine's split-time invalidation via ``adapter.bind_cache``.
+  cache only learns resolved truths, never a degraded answer), keep
+  coherence on every mutation, and join the engine's split-time
+  invalidation via ``adapter.bind_cache``.
+* **Retry** (:class:`RetryLayer`) — the recovery stage above a
+  ``repro_torch.api.replication.ReplicaSetAdapter``: it absorbs the
+  ``"backoff"`` answers the set gives while an MN replica is down or a
+  request was dropped (timeout + seeded jittered backoff), fails over
+  after ``failover_after`` dead-primary rounds, and answers
+  ``"unavailable"`` once the retry budget is spent (answer, never block).
 * **Pipeline** (``repro_torch.api.pipeline.PipelineLayer``) — the
   submission/completion plane, outermost; it opens a doorbell window in
   the bound transport's trace around each flush of a ``window > 1``
-  policy.
+  policy.  In-flight ``OpHandle``s resolve *through* a failover.
 * **Transport** (innermost, :class:`TransportBinding`) — a
   ``repro_torch.net.Transport`` plugged into every engine meter's ``sink``
   at construction (the factories pass it down, so split successors
@@ -29,9 +38,9 @@ into the same engine meter as a store built with an internal cache
 totals; each baseline's adapter declares its own protocol's savings.
 
 :class:`StoreLayer` forwards the protocol's members (``spec``,
-``telemetry``, ``meter``, the ops, the meter accessors and the
-``sharded`` kind's ``mesh_state``) as real attributes
-and methods, not through ``__getattr__``, so a layer satisfies the
+``telemetry``, ``meter``, the ops, the meter accessors, ``bind_cache``
+and the ``sharded`` kind's ``mesh_state``) as real attributes and
+methods, not through ``__getattr__``, so a layer satisfies the
 runtime-checkable ``KVStore`` protocol under Python 3.12's static member
 lookup.
 """
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.protocol import OpResult
+from repro_torch.api.replication import UNAVAILABLE, is_backoff
 from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.hashing import split_u64
 
@@ -117,11 +127,90 @@ class StoreLayer:
     def reset_meters(self) -> None:
         self.inner.reset_meters()
 
+    def bind_cache(self, cache) -> None:
+        """Join the engine's split-time cache invalidation (a
+        ``CNCacheLayer`` above this one calls it)."""
+        self.inner.bind_cache(cache)
+
     def mesh_state(self):
         """The ``sharded`` kind's stacked state with every mutated shard
         re-installed (``ShardedAdapter.mesh_state``); other kinds have
         none and raise ``AttributeError``."""
         return self.inner.mesh_state()
+
+
+class RetryLayer(StoreLayer):
+    """BACKOFF/retry stage: the recovery protocol above a replica set.
+
+    Wraps every protocol op in a retry loop: a ``"backoff"`` answer (the
+    serving MN is crashed, or the request was dropped on the wire) costs
+    one completion timeout plus a seeded jittered backoff
+    (``FaultPlane.backoff_us`` — deterministic, replayable), charged to
+    the meter as ``fault_wait_us`` and to the trace as a posting stall on
+    the retried op.  After ``failover_after`` rounds against a *crashed*
+    primary the layer drives ``inner.failover()``; once ``max_retries``
+    rounds are spent it answers degraded — ``"unavailable"`` statuses,
+    ``found=False``, no exception, no state change — so callers (and
+    pipelined ``OpHandle``s) always resolve.  On the no-fault path the
+    wrap is a pure pass-through: no meter event, no trace event.
+    """
+
+    def __init__(self, inner, plane, transport=None):
+        super().__init__(inner)
+        self.plane = plane
+        self.transport = transport
+
+    def _with_retry(self, n: int, call) -> OpResult:
+        res = call()
+        if not is_backoff(res):
+            return res
+        sched = self.plane.schedule
+        meter = self.inner.meter
+        for attempt in range(sched.max_retries):
+            wait_us = sched.timeout_us + self.plane.backoff_us(attempt)
+            meter.fault_wait_us += int(round(wait_us))
+            if self.transport is not None:
+                self.transport.add_wait(wait_us * 1e-6)
+            if (attempt + 1 >= sched.failover_after
+                    and self.plane.crash_open(self.inner.primary)
+                    and self.inner.can_failover()):
+                self.inner.failover()
+            meter.retries += n
+            res = call()
+            if not is_backoff(res):
+                return res
+        return OpResult(values=np.zeros(n, np.uint64),
+                        found=np.zeros(n, bool),
+                        statuses=(UNAVAILABLE,) * n)
+
+    def get(self, key: int) -> OpResult:
+        return self._with_retry(1, lambda: self.inner.get(key))
+
+    def get_batch(self, keys, *,
+                  resolve_makeup: bool | None = None) -> OpResult:
+        return self._with_retry(len(keys), lambda: self.inner.get_batch(
+            keys, resolve_makeup=resolve_makeup))
+
+    def insert(self, key: int, value: int) -> OpResult:
+        return self._with_retry(1, lambda: self.inner.insert(key, value))
+
+    def update(self, key: int, value: int) -> OpResult:
+        return self._with_retry(1, lambda: self.inner.update(key, value))
+
+    def delete(self, key: int) -> OpResult:
+        return self._with_retry(1, lambda: self.inner.delete(key))
+
+    def insert_batch(self, keys, values) -> OpResult:
+        return self._with_retry(
+            len(keys), lambda: self.inner.insert_batch(keys, values))
+
+    def update_batch(self, keys, values) -> OpResult:
+        return self._with_retry(
+            len(keys), lambda: self.inner.update_batch(keys, values))
+
+    def delete_batch(self, keys) -> OpResult:
+        return self._with_retry(
+            len(keys), lambda: self.inner.delete_batch(keys))
 
 
 class CNCacheLayer(StoreLayer):
@@ -152,7 +241,8 @@ class CNCacheLayer(StoreLayer):
             return OpResult(values=np.zeros(1, np.uint64),
                             found=np.asarray([False]))
         res = self.inner.get(key)
-        self.cache.fill(int(key), res.value)
+        if res.statuses is None:  # degraded answers teach the cache nothing
+            self.cache.fill(int(key), res.value)
         return res
 
     def get_batch(self, keys, *,
@@ -184,6 +274,23 @@ class CNCacheLayer(StoreLayer):
                                        resolve_makeup=resolve_makeup)
             values[miss] = sub.values
             found[miss] = sub.found
+            if sub.statuses is not None:
+                # a degraded whole-call answer from the retry stage: those
+                # lanes resolved nothing, and observing them would poison
+                # the cache with false negatives, so only the lanes the
+                # cache answered itself are observed again, and the lane
+                # statuses surface to the caller
+                mi = iter(sub.statuses)
+                statuses = tuple(next(mi) if m else "ok" for m in miss)
+                learned = hit | neg
+                if learned.any():
+                    self.cache.observe_batch(
+                        lo[learned], hi[learned],
+                        (values[learned] & _M32).astype(np.uint32),
+                        (values[learned] >> np.uint64(32)).astype(np.uint32),
+                        found[learned], hit[learned], neg[learned])
+                return OpResult(values=values, found=found,
+                                statuses=statuses)
         self.cache.observe_batch(
             lo, hi, (values & _M32).astype(np.uint32),
             (values >> np.uint64(32)).astype(np.uint32), found, hit, neg)
@@ -297,18 +404,25 @@ class TransportBinding:
 class CNStack:
     """Composition root for the CN-side stack; ``open_store`` builds one
     per store.  ``cache`` (a ``CNKeyCache`` on the engine's device, or
-    ``None``) inserts the cache stage above the adapter; ``policy`` (a
+    ``None``) inserts the cache stage; ``retry`` (a
+    ``repro_torch.net.faults.FaultPlane``, set by the registry whenever the
+    spec carries a ``FaultSchedule`` or ``replicas > 1``) inserts the
+    recovery stage directly above the (replica-set) adapter; ``policy`` (a
     ``BatchPolicy``, or ``None`` for the synchronous ``BatchPolicy.sync()``)
-    shapes the pipeline stage, so the assembled order reads
-    ``Pipeline → Meter → [CNCache →] adapter (→ Transport)``."""
+    shapes the pipeline stage, so the assembled order reads ``Pipeline →
+    Meter → [CNCache →] [Retry →] adapter (→ Transport)``."""
 
     cache: CNKeyCache | None = None
     transport_binding: TransportBinding = TransportBinding()
     policy: object | None = None  # BatchPolicy; None -> sync()
+    retry: object | None = None   # FaultPlane; None -> no retry stage
 
     def assemble(self, adapter):
         from repro_torch.api.pipeline import PipelineLayer  # import cycle
         store = adapter
+        if self.retry is not None:
+            store = RetryLayer(store, self.retry,
+                               transport=self.transport_binding.transport)
         if self.cache is not None:
             store = CNCacheLayer(store, self.cache)
         return PipelineLayer(MeterLayer(store), policy=self.policy,

@@ -264,6 +264,11 @@ class OutbackShard:
         self.meter.sink = transport
         self.frozen = False  # resize in progress: inserts/deletes rejected
         self.cn_cache = cn_cache  # optional CN-side hot-key cache
+        # optional lease guard (repro_torch.api.replication.ShardLease):
+        # consulted before a Makeup-Get refreshes CN-cached seeds from MN
+        # state, which the CN may trust only under a live lease; None (the
+        # default) leaves every path byte-identical
+        self.lease = None
         self.n_keys = n
 
     @classmethod
@@ -301,6 +306,7 @@ class OutbackShard:
         t.meter = CommMeter()
         t.meter.sink = transport
         t.cn_cache = None
+        t.lease = None
         t.install_mn_state(mn_state)
         return t
 
@@ -384,7 +390,10 @@ class OutbackShard:
                 continue
             self.meter.add(0, mn_cmp=1, mn_reads=2, attach=True)
             if v.holds(t, lo, hi):
-                # seed changed MN-side; the CN refreshes its copy (§4.3.1)
+                # seed changed MN-side; the CN refreshes its copy (§4.3.1),
+                # trusted only under a live MN lease
+                if self.lease is not None:
+                    self.lease.on_seed_refresh(self)
                 self.cn.seeds[bucket] = self.seeds_mn[bucket]
                 return GetResult(v.value(t), 2, True)
         return GetResult(None, 2, True)
@@ -814,7 +823,10 @@ class OutbackShard:
                 for _ in range(int(n_exam[t])):
                     self.meter.add(0, mn_cmp=1, mn_reads=2, attach=True)
         if any_s.any():
-            # seed changed MN-side; the CN refreshes its copy (§4.3.1)
+            # seed changed MN-side; the CN refreshes its copy (§4.3.1),
+            # trusted only under a live MN lease
+            if self.lease is not None:
+                self.lease.on_seed_refresh(self)
             bb = b[torch.from_numpy(any_s).to(self.device)]
             self.cn.seeds[bb] = self.seeds_mn[bb]
         o_hit_t = torch.from_numpy(o_hit).to(self.device)

@@ -115,6 +115,7 @@ class OutbackStore:
         self.directory: list[int] = []
         self._buffer: list = []
         self._open_split = None
+        self._lease = None  # optional lease guard, pushed to every table
 
     @classmethod
     def from_reference(cls, directory, local_depth, global_depth, tables, *,
@@ -387,7 +388,8 @@ class OutbackStore:
         self.meter.add(self.num_compute_nodes, rts=3, req=16, resp=per_cn,
                        one_sided=True)
 
-        # swap directory pointers
+        # swap directory pointers (the successors inherit the lease guard)
+        h.t_lo.lease = h.t_hi.lease = self._lease
         self.tables.append(h.t_hi)
         hi_idx = len(self.tables) - 1
         self.tables[t_idx] = h.t_lo
@@ -431,6 +433,18 @@ class OutbackStore:
         the middleware owns probe/fill, the store owns the sync point."""
         self._coherence_caches.append(cache)
 
+    # --------------------------------------------------------- replication
+    def set_lease(self, lease) -> None:
+        """Install a lease guard on every table, present and future.
+
+        The guard's ``on_seed_refresh`` fires before any Makeup-Get seed
+        refresh (``repro_torch.core.outback``); split successors inherit it
+        in ``_finish_split``, and tables rebuilt by
+        :meth:`install_mn_state` get it too.  ``None`` detaches."""
+        self._lease = lease
+        for t in self.tables:
+            t.lease = lease
+
     # ------------------------------------------------------------ MN image
     def mn_state(self) -> dict:
         """Host image of the whole directory store's MN half: per-table
@@ -450,7 +464,7 @@ class OutbackStore:
 
         Matching table layouts install in place; a layout mismatch rebuilds
         the tables list from the shipped images.  Coherence-cache
-        registrations survive either way."""
+        registrations and the lease guard survive either way."""
         same_layout = (
             len(state["tables"]) == len(self.tables)
             and state["global_depth"] == self.global_depth
@@ -467,6 +481,8 @@ class OutbackStore:
                                          load_factor=st["load_factor"],
                                          transport=self.transport)
                 for st in state["tables"]]
+            for t in self.tables:
+                t.lease = self._lease
         self.global_depth = int(state["global_depth"])
         self.local_depth = list(state["local_depth"])
         self.directory = list(state["directory"])

@@ -39,8 +39,10 @@ delay/backoff/lease paths).  ``mark_fault`` drops a :class:`FaultMark`
 the replay engine turns into a paused-replica or NIC-saturation window.
 All three default to inert values, so a store without faults or
 replication produces byte-identical traces to earlier revisions.  The
-port has no fault plane yet: nothing in it calls ``mark_fault`` or
-``add_wait``, and ``Segment.mn`` / ``wait_s`` / ``cn_dst`` stay inert.
+port's callers are ``repro_torch.api.replication.ReplicaSetAdapter``
+(``mark_fault``, ``add_wait``, ``current_mn``) and
+``repro_torch.api.stack.RetryLayer`` (``add_wait``); ``cn_dst`` stays
+inert until the cluster plane is ported.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ class ResizeMark:
 
 @dataclasses.dataclass(frozen=True)
 class FaultMark:
-    """A host-plane fault window opened here (the fault plane).
+    """A host-plane fault window opened here (``repro_torch.net.faults``).
 
     ``kind`` is ``"mn_crash"`` (pause replica ``mn``'s CPU+NIC servers
     for ``down_s`` of sim time), ``"nic_saturation"`` (stretch that

@@ -13,8 +13,13 @@ cache meters as an engine's internal cache does
 cache, with identical answers, attribution and meters; so does the
 mesh-sharded host (``sharded``, 2 and 3 shards) with and without a cache,
 with the same traces, and the same stacked mesh state after the stream and
-after batched and scalar mutations.  A spec's JSON is the same in both
-packages, and each option the port has not ported raises ``SpecError``.
+after batched and scalar mutations.  The pipeline's ``combine_reads``
+(with and without a CN cache, on ``outback``, ``outback-dir`` and
+``race``) and ``coalesce`` subsets give the same answers, stats, meters and
+traces.  A spec's JSON is the same in both packages; the telemetry option
+raises ``SpecError`` ("not yet ported"), replication and faults raise the
+reference's own ``SpecError`` on kinds without ``mn_state`` and open and
+serve on ``outback`` (the whole failure plane: ``tests/test_torch_faults.py``).
 """
 
 import dataclasses
@@ -264,6 +269,77 @@ def test_store_stack_matches_internal_cache_through_resize(data):
     assert_same_cache(r_legacy.cn_cache, legacy.cn_cache)
 
 
+# combine_reads with and without a CN cache across kinds, and coalesce
+# subsets: both packages give the same answers, stats, meters and traces
+POLICY_CASES = {
+    "outback+cache/combine": (dict(kind="outback", load_factor=0.85,
+                                   cache_budget_bytes=1 << 15),
+                              dict(window=64, combine_reads=True)),
+    "outback-dir/combine": (dict(kind="outback-dir", load_factor=0.85,
+                                 params={"initial_depth": 1}),
+                            dict(window=64, combine_reads=True)),
+    "outback-dir+cache/combine7": (dict(kind="outback-dir",
+                                        load_factor=0.85,
+                                        cache_budget_bytes=1 << 15,
+                                        params={"initial_depth": 1}),
+                                   dict(window=7, combine_reads=True)),
+    "race/combine": (dict(kind="race", load_factor=0.5),
+                     dict(window=64, combine_reads=True)),
+    "race+cache/combine": (dict(kind="race", load_factor=0.5,
+                                cache_budget_bytes=1 << 15),
+                           dict(window=64, combine_reads=True)),
+    "outback/coalesce-get": (dict(kind="outback", load_factor=0.85),
+                             dict(window=64, coalesce=("get",))),
+    "outback+cache/coalesce-writes": (dict(kind="outback", load_factor=0.85,
+                                           cache_budget_bytes=1 << 15),
+                                      dict(window=64,
+                                           coalesce=("update", "insert",
+                                                     "delete"))),
+    "outback-dir/coalesce-get-update": (dict(kind="outback-dir",
+                                             load_factor=0.85,
+                                             params={"initial_depth": 1}),
+                                        dict(window=32,
+                                             coalesce=("get", "update"),
+                                             combine_reads=True)),
+    "race/coalesce-relaxed": (dict(kind="race", load_factor=0.5),
+                              dict(window=64, order="relaxed",
+                                   coalesce=("get", "delete"))),
+}
+
+
+@pytest.mark.parametrize("case", list(POLICY_CASES))
+def test_policies_across_kinds_match_reference(data, case):
+    keys, vals = data
+    kw, policy = POLICY_CASES[case]
+    r_tr, t_tr = rnet.Transport(), Transport()
+    r = r_api.open_store(r_api.StoreSpec(**kw,
+                                         batch=r_api.BatchPolicy(**policy)),
+                         keys, vals, transport=r_tr)
+    t = t_api.open_store(t_api.StoreSpec(**kw,
+                                         batch=t_api.BatchPolicy(**policy)),
+                         keys, vals, device="cpu", transport=t_tr)
+    absent = splitmix64(np.arange(1, 41, dtype=np.uint64) + np.uint64(9 << 40))
+    stream = (_ycsb("A", keys, N_OPS, seed=5)
+              + _ycsb("D", keys, N_OPS // 2, seed=6)
+              + [("delete", int(k), None) for k in keys[:40]]
+              + [("get", int(k), None) for k in keys[:60]]
+              + [("update", int(k), 3) for k in absent[:20]]
+              + [("get", int(k), None) for k in absent]
+              + [("insert", int(k), 4) for k in absent[::2]]
+              + [("get", int(k), None) for k in absent])
+    for a, b in zip(_drive(r, stream), _drive(t, stream)):
+        assert _result_tuple(a.result()) == _result_tuple(b.result())
+        assert (a.batch is None) == (b.batch is None)  # None: combined
+        if a.batch is not None:
+            assert _result_tuple(a.batch) == _result_tuple(b.batch)
+    assert dataclasses.asdict(r.stats) == dataclasses.asdict(t.stats)
+    assert r.meter_totals().snapshot() == t.meter_totals().snapshot()
+    assert [(type(e).__name__, dataclasses.astuple(e)) for e in t_tr.trace] \
+        == [(type(e).__name__, dataclasses.astuple(e)) for e in r_tr.trace]
+    if policy.get("combine_reads"):
+        assert t.stats.combined_reads > 0
+
+
 @pytest.mark.parametrize("policy", [dict(window=256, order="relaxed"),
                                     dict(window=128, combine_reads=True)])
 def test_pipeline_policies_match_reference(data, policy):
@@ -472,18 +548,47 @@ def test_spec_json_is_identical_in_both_packages(kw, batch):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(kind="mica", replicas=2), "mica"),
-    (dict(kind="outback", replicas=2), "replicas"),
-    (dict(kind="outback", faults={"events": []}), "faults"),
     (dict(kind="outback", telemetry={"sample": 1.0}), "telemetry"),
     (dict(kind="cluster", faults={"events": []}), "cluster"),
     (dict(kind="race", telemetry={"sample": 1.0}), "race"),
-    (dict(kind="sharded", replicas=2), "replicas"),
+    (dict(kind="sharded", replicas=2), "sharded"),
 ])
 def test_unported_options_raise_spec_error(data, kw, what):
+    """The telemetry plane is not ported: a spec that asks for it raises
+    "not yet ported".  Replication and faults on a kind without
+    ``mn_state`` raise the reference's own ``SpecError``."""
     keys, vals = data
-    with pytest.raises(t_api.SpecError, match="not yet ported") as e:
+    with pytest.raises(t_api.SpecError) as e:
         t_api.open_store(t_api.StoreSpec(**kw), keys, vals, device="cpu")
     assert what in str(e.value)
+    if "telemetry" in kw:
+        assert "not yet ported" in str(e.value)
+    else:
+        with pytest.raises(r_api.SpecError) as e_r:
+            r_api.open_store(r_api.StoreSpec(**kw), keys, vals)
+        assert str(e.value) == str(e_r.value)
+        assert "mn_state" in str(e.value)
+
+
+@pytest.mark.parametrize("kw", [dict(kind="outback", replicas=2),
+                                dict(kind="outback", faults={"events": []})])
+def test_replicated_and_faulted_specs_open_and_serve(data, kw):
+    """The two failure-plane options the port refused before: they open
+    and serve as the reference's do, meters and answers alike."""
+    keys, vals = data
+    r = r_api.open_store(r_api.StoreSpec(**kw, load_factor=0.85), keys, vals)
+    t = t_api.open_store(t_api.StoreSpec(**kw, load_factor=0.85), keys, vals,
+                         device="cpu")
+    fresh = splitmix64(np.arange(1, 65, dtype=np.uint64) + np.uint64(7 << 41))
+    for call in (lambda s: s.insert_batch(fresh, fresh),
+                 lambda s: s.update_batch(keys[:64], fresh),
+                 lambda s: s.delete_batch(keys[64:96]),
+                 lambda s: s.get_batch(np.concatenate([keys[:128], fresh])),
+                 lambda s: s.get(int(keys[70]))):
+        assert _result_tuple(call(r)) == _result_tuple(call(t))
+    assert r.meter_totals().snapshot() == t.meter_totals().snapshot()
+    assert isinstance(t.inner.inner, t_api.RetryLayer)
+    assert isinstance(t.inner.inner.inner, t_api.ReplicaSetAdapter)
 
 
 def test_spec_errors_match_reference_validation(data):

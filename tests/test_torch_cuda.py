@@ -46,7 +46,14 @@ card and skips without one.  It holds:
   CN-cache replica, answer every lane, meter and trace as the gloo mesh
   on the CPU, launching ``ludo_lookup`` and ``slot_unpack`` once a call;
   ``open_store(StoreSpec("sharded"))`` on the card answers, meters and
-  re-installs its mesh state as on the CPU.
+  re-installs its mesh state as on the CPU;
+* the failure plane: every spec of ``tests/_torch_fault_specs.py`` (K=2
+  and K=1 crashes, a generated schedule, a partition, ``cn_delay``,
+  ``cn_drop``, a cached K=2 store answering degraded, ``outback-dir``
+  twins and HRW placement through splits) takes the same stream on the
+  card as on the CPU, with the same answers, attribution, meters, traces,
+  replica images and plane state; ``ludo_lookup`` and ``slot_unpack``
+  launch on the replicated path.
 """
 
 import numpy as np
@@ -740,3 +747,44 @@ def test_sharded_store_on_card_matches_cpu(card):
     assert runs[0][:2] == runs[1][:2]
     for a, b in zip(runs[0][2], runs[1][2]):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ failure plane
+@pytest.mark.parametrize("name", ["k2_crash", "k1_crash", "generated",
+                                  "partition", "cn_delay", "cn_drop",
+                                  "k2_cache", "dir_twins", "dir_late",
+                                  "dir_hrw"])
+def test_failure_plane_on_card_matches_cpu(card, name):
+    """One seeded stream through a replicated, faulted store on the card
+    and on the CPU: every answer, attribution, meter, trace, replica image
+    and the plane's state equal; the index kernels launch on the card."""
+    import dataclasses
+
+    from _torch_fault_specs import (SPECS, drive, fault_data, fault_stream,
+                                    replica_set, state_sig)
+    from repro_torch.api import open_store
+    from repro_torch.net import Transport
+    spec, shape = SPECS[name]
+    data = fault_data()
+    calls = fault_stream(data, shape)
+    runs = []
+    for device in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        tr = Transport()
+        st = open_store(spec, data[0], data[1], device=device, transport=tr)
+        out = drive(st, calls, False)
+        launches = dict(ops.LAUNCHES)
+        rs = replica_set(st)
+        assert {r.engine.device.type for r in rs.replicas} == {device}
+        runs.append((out, st.meter_totals().snapshot(),
+                     [(type(e).__name__, dataclasses.astuple(e))
+                      for e in tr.trace],
+                     [state_sig(r.engine.mn_state()) for r in rs.replicas],
+                     (rs.primary, sorted(rs._needs_resync), rs.plane.clock)))
+        if device == "cuda":
+            assert launches["ludo_lookup"] > 0 and launches["slot_unpack"] > 0
+        else:
+            assert not any(launches.values())
+    for a, b in zip(runs[0], runs[1]):
+        assert a == b
+

@@ -2,14 +2,17 @@
 
 * an AST scan of every module under ``src/repro_torch/``, of
   ``chip_smoke.py``, of
-  ``tools/{fnm,step,ludo,store,baselines,mesh}_probe.py``, of the on-card
-  tests (``tests/test_torch_cuda.py``, which must run on the
-  GPU machine), of ``tests/test_torch_ludo_plan.py`` and of the spawned
-  mesh rank (``tests/_torch_mesh_rank.py``) finds no import of ``jax`` or
+  ``tools/{fnm,step,ludo,store,baselines,mesh,faults}_probe.py``, of the
+  on-card tests (``tests/test_torch_cuda.py``, which must run on the GPU
+  machine, and its fault specs, ``tests/_torch_fault_specs.py``), of
+  ``tests/test_torch_ludo_plan.py`` and of the spawned mesh rank
+  (``tests/_torch_mesh_rank.py``) finds no import of ``jax`` or
   of ``repro``;
 * a fresh interpreter that imports ``repro_torch.api`` (and builds a store
   on the CPU), ``repro_torch.net`` (and builds and replays a ``race``
-  store's trace on the CPU), ``repro_torch.serve`` (and serves a request
+  store's trace on the CPU), the fault plane (``repro_torch.net.faults``
+  and ``repro_torch.api.replication``, and serves a replicated store
+  through a crash on the CPU), ``repro_torch.serve`` (and serves a request
   on the CPU), or ``repro_torch.core.sharded_kvs`` (and runs a Get on a
   one-rank CPU mesh), has neither ``jax`` nor ``repro`` in
   ``sys.modules``;
@@ -44,9 +47,11 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "test_torch_ludo_plan.py",
     ROOT / "tests" / "_torch_mesh_rank.py",
+    ROOT / "tests" / "_torch_fault_specs.py",
     ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py",
     ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py",
-    ROOT / "tools" / "baselines_probe.py", ROOT / "tools" / "mesh_probe.py"]
+    ROOT / "tools" / "baselines_probe.py", ROOT / "tools" / "mesh_probe.py",
+    ROOT / "tools" / "faults_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -108,6 +113,49 @@ def test_importing_the_net_port_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_the_fault_plane_loads_neither_jax_nor_repro():
+    """``repro_torch.net.faults`` and ``repro_torch.api.replication``: a
+    replicated store through a crash window, in a fresh interpreter."""
+    code = (
+        "import sys, json, numpy as np\n"
+        "from repro_torch.api import replication\n"
+        "from repro_torch.net import faults\n"
+        "import repro_torch.api as api\n"
+        "from repro_torch.core.hashing import splitmix64\n"
+        "k = splitmix64(np.arange(1, 500, dtype=np.uint64))\n"
+        "sched = faults.FaultSchedule.single_crash(8, 64, lease_term_ops=16)\n"
+        "st = api.open_store(api.StoreSpec('outback', replicas=2,\n"
+        "                    faults=sched), k, k, device='cpu')\n"
+        "for i in range(8):\n"
+        "    assert st.get_batch(k[i * 32:(i + 1) * 32]).found.all()\n"
+        "assert st.meter_totals().failovers == 1\n"
+        "assert isinstance(st.inner.inner.inner,\n"
+        "                  replication.ReplicaSetAdapter)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_replicated_entry_points_raise_without_cuda(monkeypatch):
+    """A replicated, faulted store runs on CUDA unless given
+    ``device="cpu"``; every replica is on the caller's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = splitmix64(np.arange(1, 300, dtype=np.uint64))
+    spec = StoreSpec("outback-dir", replicas=3, placement="hrw",
+                     placement_k=2, faults={"events": []})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        open_store(spec, keys, keys)
+    st = open_store(spec, keys, keys, device="cpu")
+    reps = st.inner.inner.inner.replicas
+    assert len(reps) == 3
+    assert {t.device.type for r in reps for t in r.engine.tables} == {"cpu"}
+    assert st.get_batch(keys).found.all()
 
 
 def test_importing_the_mesh_port_loads_neither_jax_nor_repro(tmp_path):
