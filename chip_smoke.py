@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py   # 2^24 keys, the paged path, llama3.2-1b, the
                             # cached directory store, the four baselines,
-                            # the transport model, the (1, 1) mesh and
-                            # the replicated store through a crash; one
-                            # card
+                            # the transport model, the (1, 1) mesh, the
+                            # replicated store through a crash, the
+                            # telemetry plane, a 4-CN cluster and chaos;
+                            # one card
 
 Phases; any failure exits non-zero:
 
@@ -193,7 +194,39 @@ Phases; any failure exits non-zero:
    ``"unavailable"`` with ``found=False``, and after the window every key
    is served.  (e) ``replicas=1`` with the dormant
    ``FaultSchedule(lease_term_ops=0)`` meters and traces byte for byte as
-   the plain spec.
+   the plain spec;
+12. the telemetry plane (``repro_torch.obs``), the multi-CN cluster
+   (``repro_torch.cluster``) and the chaos harness
+   (``repro_torch.net.chaos``).  (a) At 2^14 keys, four telemetry-on
+   stores (``outback``, a cached ``outback-dir``, ``sharded`` and a K=2
+   ``outback`` through a crash) take one stream on the card and on the
+   CPU: ``telemetry_rows`` must be equal JSON for JSON, and the same specs
+   without telemetry on the card must give the same answers, meters,
+   traces, MN images and launch counts; an N=1 ``cluster_of`` must answer,
+   meter, trace and end in the MN state of ``open_store``; ``run_chaos``
+   at its defaults for seeds 1-3 must pass with the CPU's report.  (b)
+   The reference ``obs`` suite's overhead procedure over the first 2^23
+   of phase 3's keys: one engine, a stack with
+   ``TelemetryHub(TelemetryConfig(window_ops=4096))`` and one without, a
+   warm-up rep each, 5 interleaved reps of 2^18 zipf(0.99) Gets (one
+   ``submit`` each) with GC outside the clock, the minimum a side:
+   Gets/s on and off, ``overhead_frac`` (the suite's criterion < 0.05,
+   printed, not gated), ``ops{op=get}`` checked exact, each side's device
+   busy share.  (c) ``cluster_of`` the ``cluster`` suite's spec
+   (``outback-dir``, load factor 0.85, a 256 KiB cache a CN, initial
+   depth 3, telemetry on) over phase 3's 2^24 keys, 4 CNs over a 4-MN
+   pool: CNs 0-2 start, CN 3 joins at op 2^18, every live CN drives
+   zipf(0.9) Gets in batches of 256 (2^19 lanes), each CN updates 2^14/4
+   keys other CNs own, CN 1 leaves, and every acknowledged update reads
+   back through the survivors (0 lost); every answer checked.  Printed:
+   Gets/s in all and per CN, batch p50/p99, hit rates, forward RPCs,
+   fenced writes, each handoff's shards and bytes, each CN hub's
+   counters, busy share, build seconds, peak memory and
+   ``simulate_cluster``'s modelled Mops and p50/p99 (a model, not the
+   card).  The launch counters are zeroed just before (c)'s traffic and
+   read just after, and both index kernels must have launched.  (d)
+   ``run_chaos(seed=3, n_keys=2^16, n_ops=2^18, batch=256,
+   telemetry=True)`` on the card must pass.
 
 The line before the last is the kernels' JSON record (all five kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -444,6 +477,40 @@ FAULT_ROUNDS = 40
 FAULT_ROUND_LANES = 8
 FAULT_TAIL_AT = 800
 FAULT_TAIL_OPS = 400
+# phase 12: the telemetry plane, the multi-CN cluster and the chaos
+# harness.  The agreement runs 2^14 keys; the telemetry cost is the
+# reference obs suite's procedure (benchmarks/obs_bench.py:66-131: its
+# spec, TelemetryConfig(window_ops=4096), a warm-up rep a side, 5
+# interleaved reps, GC outside the clock, the minimum a side) over phase
+# 3's first 2^23 keys (cut from 2^24: the build is most of the part's
+# time, and the Gets' host path is the same); the cluster is the cluster
+# suite's spec (benchmarks/cluster_bench.py:63-65: outback-dir, load
+# factor 0.85, a 256 KiB cache a CN, initial depth 3) with its zipf(0.9)
+# skew and batch of 256 over phase 3's keys, 4 CNs over a 4-MN pool, CN
+# 3 joining and CN 1 leaving, 2^19 Get lanes (cut from 2^20 to keep the
+# whole run well inside its limit); the large chaos run is run_chaos's
+# own harness at 2^16 keys
+OBS_AGREE_KEYS_LOG2 = 14
+OBS_AGREE_OPS_LOG2 = 12
+OBS_KEYS_LOG2 = 23
+OBS_WINDOW_OPS = 4096
+OBS_GETS_LOG2 = 18
+OBS_REPS = 5
+OBS_PROFILED_WINDOWS = 32
+CLUSTER_CNS = 4
+CLUSTER_MNS = 4
+CLUSTER_CACHE_BYTES = 256 << 10
+CLUSTER_DEPTH = 3
+CLUSTER_THETA = 0.9
+CLUSTER_BATCH = 256
+CLUSTER_LANES_LOG2 = 19
+CLUSTER_JOIN_AT = 1 << 18
+CLUSTER_BURST = 1 << 14
+CLUSTER_PROFILED_CALLS = 64
+CLUSTER_SIM = dict(clients_per_cn=2, window=8, mn_threads=4)
+CHAOS_SEEDS = (1, 2, 3)
+CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 18, batch=256,
+                   telemetry=True)
 
 
 def log(*a) -> None:
@@ -3243,6 +3310,540 @@ def serve_faults(keys, vals, rng) -> tuple:
     return res, launches
 
 
+# ------------------------------------------------------------ phase 12
+def _adapter_of(store):
+    """The engine adapter at the bottom of a store's stack."""
+    while hasattr(store, "inner"):
+        store = store.inner
+    return store
+
+
+def _mn_images(store) -> list:
+    """Every MN image under a store: each replica's, each shard's of a
+    ``sharded`` host, or the one engine's."""
+    adapter = _adapter_of(store)
+    if hasattr(adapter, "replicas"):
+        return [r.engine.mn_state() for r in adapter.replicas]
+    if getattr(adapter, "shards", None) is not None:
+        return [sh.mn_state() for sh in adapter.shards]
+    return [adapter.engine.mn_state()]
+
+
+def obs_specs(n_ops: int) -> dict:
+    """Phase 12 (a)'s four telemetry-on specs."""
+    from repro_torch.api import BatchPolicy, StoreSpec, TelemetryConfig
+    from repro_torch.net import FaultSchedule
+    kw = dict(load_factor=FAULT_LOAD_FACTOR, rng_seed=SEED,
+              batch=BatchPolicy(window=WINDOW),
+              telemetry=TelemetryConfig(window_ops=256))
+    return {
+        "outback": StoreSpec("outback", **kw),
+        "outback_dir_cached": StoreSpec(
+            "outback-dir", cache_budget_bytes=DIR_AGREE_CACHE,
+            params={"initial_depth": 1}, **kw),
+        "sharded": StoreSpec("sharded", params={"num_shards": 2}, **kw),
+        "k2_crash": StoreSpec("outback", replicas=2,
+                              faults=FaultSchedule.single_crash(
+                                  at_op=n_ops // 4, duration_ops=n_ops // 4,
+                                  lease_term_ops=128), **kw),
+    }
+
+
+def obs_agreement_check(seed: int, devices=("cuda", "cpu")) -> dict:
+    """Phase 12 (a): (1) each of :func:`obs_specs` with a transport on the
+    card and on the CPU takes one stream of Gets, updates, inserts and
+    deletes: ``telemetry_rows(hub)`` must be equal JSON for JSON; on the
+    card the same spec without telemetry must leave the meters, the trace,
+    every MN image and the launch counts as the telemetry-on run did.
+    (2) An N=1 ``cluster_of`` against ``open_store`` on the card: answers,
+    meters, trace and MN image identical.  (3) ``run_chaos(seed)`` at its
+    defaults for each of ``CHAOS_SEEDS`` on the card and on the CPU: each
+    passes, and the two reports' ``to_json_dict()`` are equal."""
+    import pickle
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.cluster import cluster_of
+    from repro_torch.core.hashing import splitmix64
+    from repro_torch.kernels import ops
+    from repro_torch.net import Transport
+    from repro_torch.net.chaos import run_chaos, state_signature
+    from repro_torch.obs import telemetry_rows, validate_telemetry_rows
+    n = 1 << OBS_AGREE_KEYS_LOG2
+    keys = splitmix64(np.arange(n, dtype=np.uint64) + np.uint64(17 << 40))
+    vals = splitmix64(keys)
+    fresh = splitmix64(np.arange(n, 2 * n, dtype=np.uint64)
+                       + np.uint64(17 << 40))
+    rng = np.random.default_rng(seed)
+    n_ops = 1 << OBS_AGREE_OPS_LOG2
+    ranks = zipf_ranks(rng, n, n_ops)
+    stream, ins = [], 0
+    for t, kind in enumerate(rng.choice(4, n_ops, p=[0.5, 0.2, 0.2, 0.1])):
+        k = int(keys[ranks[t]])
+        if kind == 2:
+            k, ins = int(fresh[ins]), ins + 1
+        stream.append([("get", k, None), ("update", k, t), ("insert", k, t),
+                       ("delete", k, None)][kind])
+    out = {}
+    for name, spec in obs_specs(n_ops).items():
+        runs = {}
+        for device, tele in ((devices[0], True), (devices[1], True),
+                             (devices[0], False)):
+            sp = spec if tele else StoreSpec.from_json_dict(
+                {**spec.to_json_dict(), "telemetry": None})
+            tr = Transport()
+            ops.reset_launch_counts()
+            st = open_store(sp, keys, vals, device=device, transport=tr)
+            answers = _drive(st, stream)
+            answers.append(_attributed(st.get_batch(keys[:WINDOW])))
+            hub = st.telemetry
+            check((hub is not None) == tele, f"{name}: the store's "
+                  f"telemetry is {hub!r}")
+            rows = None
+            if tele:
+                rows = telemetry_rows(hub)
+                validate_telemetry_rows(rows)
+                rows = json.dumps(rows, sort_keys=True)
+            runs[(device, tele)] = dict(
+                answers=answers, meter=st.meter_totals().snapshot(),
+                trace=_trace_tuples(tr.trace),
+                images=pickle.dumps(_mn_images(st)),
+                launches=dict(ops.LAUNCHES), rows=rows,
+                counters=None if hub is None else dict(hub.counters))
+        on, cpu, off = (runs[(devices[0], True)], runs[(devices[1], True)],
+                        runs[(devices[0], False)])
+        check(on["rows"] == cpu["rows"], f"{name}: telemetry_rows on "
+              f"{devices[0]} differ from {devices[1]}")
+        check(_same(on["answers"], cpu["answers"])
+              and on["meter"] == cpu["meter"] and on["trace"] == cpu["trace"]
+              and on["images"] == cpu["images"], f"{name}: the store on "
+              f"{devices[0]} disagrees with {devices[1]}")
+        for k in ("answers", "meter", "trace", "images", "launches"):
+            check(_same(on[k], off[k]), f"{name}: the hub changed the "
+                  f"store's {k} on {devices[0]}")
+        check(on["launches"]["ludo_lookup"] > 0 or name == "sharded",
+              f"{name}: ludo_lookup never launched on {devices[0]}")
+        out[name] = dict(rows_bytes=len(on["rows"]),
+                         ops_get=on["counters"].get("ops{op=get}", 0),
+                         launches=on["launches"])
+        log(f"obs agreement {name}: telemetry_rows equal on {devices[0]} "
+            f"and {devices[1]} ({out[name]['rows_bytes']} B of JSON); hub "
+            f"off on {devices[0]}: the same answers, meters, trace, MN "
+            f"images and launches {json.dumps(on['launches'])}")
+
+    # (2) the dormant cluster: N=1 against open_store, on the card
+    cspec = StoreSpec("outback-dir", load_factor=FAULT_LOAD_FACTOR,
+                      rng_seed=SEED, cache_budget_bytes=DIR_AGREE_CACHE,
+                      batch=BatchPolicy(window=WINDOW))
+    t_ref = Transport()
+    ref = open_store(cspec, keys, vals, device=devices[0], transport=t_ref)
+    cl = cluster_of(cspec, keys, vals, n_cns=1, device=devices[0])
+    got = []
+    for st in (ref, cl.cns[0]):
+        got.append(_drive(st, stream))
+    check(_same(got[0], got[1]), "N=1 cluster: answers differ from "
+          "open_store")
+    check(ref.meter_totals().snapshot() == cl.meter_totals().snapshot(),
+          "N=1 cluster: meters differ from open_store")
+    check(_trace_tuples(t_ref.trace) == _trace_tuples(cl.transports[0].trace),
+          "N=1 cluster: trace differs from open_store")
+    check(state_signature(ref.engine.mn_state())
+          == state_signature(cl.mn_state()), "N=1 cluster: MN state differs "
+          "from open_store")
+    check(cl.stats.forward_rpcs == 0 and cl.stats.handoffs == 0,
+          "N=1 cluster: a cluster-only mechanism fired")
+    out["dormant_cluster"] = dict(ops=len(stream),
+                                  trace_events=len(t_ref.trace),
+                                  tables=len(cl.engine.tables))
+    log(f"N=1 cluster on {devices[0]}: answers, meters, trace and MN state "
+        f"identical to open_store over {len(stream)} ops "
+        f"({len(t_ref.trace)} trace events, {len(cl.engine.tables)} tables)")
+
+    # (3) the chaos harness at its defaults, card against CPU
+    out["chaos"] = {}
+    for cseed in CHAOS_SEEDS:
+        reps = {}
+        for device in devices:
+            t0 = time.perf_counter()
+            rep = run_chaos(cseed, device=device)
+            reps[device] = (rep.to_json_dict(), time.perf_counter() - t0)
+            check(rep.passed, f"chaos seed {cseed} on {device}: "
+                  f"{rep.failures}")
+        check(reps[devices[0]][0] == reps[devices[1]][0], f"chaos seed "
+              f"{cseed}: the report on {devices[0]} differs from "
+              f"{devices[1]}")
+        d = reps[devices[0]][0]
+        out["chaos"][cseed] = dict(
+            lanes=d["lanes"], acked_writes=d["acked_writes"],
+            degraded_lanes=d["degraded_lanes"],
+            availability=d["availability"], kinds=d["kinds"],
+            state_sig=d["state_sig"],
+            seconds={dv: reps[dv][1] for dv in devices})
+    log(f"chaos at the defaults, seeds {CHAOS_SEEDS}: every report passes "
+        f"and equals the CPU's: {json.dumps(out['chaos'])}")
+    return out
+
+
+def telemetry_cost(keys, vals, rng) -> dict:
+    """Phase 12 (b): the obs suite's overhead procedure over the first
+    2^``OBS_KEYS_LOG2`` of phase 3's keys.  One engine is built (a pure Get stream never changes it) and two
+    stacks are assembled over it, as ``open_store`` assembles them: one
+    with a ``TelemetryHub(TelemetryConfig(window_ops=4096))`` (its wire
+    sink on the engine's meter only during that side's reps), one without.
+    A warm-up rep a side, then ``OBS_REPS`` interleaved reps of 2^18
+    zipf(0.99) Gets (one ``submit`` each), GC outside the clock, the
+    minimum a side; ``ops{op=get}`` must count every Get."""
+    import torch
+    from repro_torch.api import (BatchPolicy, CNStack, StoreSpec,
+                                 TelemetryConfig, TelemetryHub, build_adapter)
+    from repro_torch.api.registry import _bind_hub_sinks
+    spec = StoreSpec("outback", load_factor=FAULT_LOAD_FACTOR, rng_seed=SEED,
+                     batch=BatchPolicy(window=WINDOW, order="relaxed"))
+    n = 1 << OBS_KEYS_LOG2
+    keys, vals = keys[:n], vals[:n]
+    t0 = time.perf_counter()
+    adapter, _ = build_adapter(spec, keys, vals)
+    torch.cuda.synchronize()
+    res = dict(build_seconds=time.perf_counter() - t0, keys=n,
+               spec=spec.to_json_dict(), window_ops=OBS_WINDOW_OPS)
+    meter = adapter.engine.meter
+    off_sinks = list(meter.sinks)
+    hub = TelemetryHub(TelemetryConfig(window_ops=OBS_WINDOW_OPS))
+    _bind_hub_sinks(adapter, hub)
+    on_sinks = list(meter.sinks)
+    st_off = CNStack(policy=spec.batch).assemble(adapter)
+    st_on = CNStack(policy=spec.batch, hub=hub).assemble(adapter)
+    check(st_on.telemetry is hub and st_off.hub is None, "the two stacks")
+    n_ops = 1 << OBS_GETS_LOG2
+    idx = rng.permutation(n)[zipf_ranks(rng, n, n_ops)]
+    want = vals[idx]
+
+    def drive(st, sl=slice(None)):
+        meter.sinks = list(on_sinks if st is st_on else off_sinks)
+        submit = st.submit
+        hs = [submit("get", k) for k in keys[idx[sl]]]
+        st.flush()
+        return hs
+
+    def timed(st):
+        gc.collect()
+        gc.disable()
+        try:
+            t = time.perf_counter()
+            hs = drive(st)
+            return time.perf_counter() - t, hs
+        finally:
+            gc.enable()
+
+    for st in (st_off, st_on):  # warm-up rep each, answers checked
+        _, hs = timed(st)
+        got = np.concatenate([h.batch.values for h in hs[WINDOW - 1::WINDOW]]
+                             + ([hs[-1].batch.values]
+                                if n_ops % WINDOW else []))
+        check(np.array_equal(got, want), "a telemetry-cost Get read a "
+              "wrong value")
+    t_off = t_on = float("inf")
+    for rep in range(OBS_REPS):
+        first, second = (st_off, st_on) if rep % 2 == 0 else (st_on, st_off)
+        a, _ = timed(first)
+        b, _ = timed(second)
+        if first is st_off:
+            t_off, t_on = min(t_off, a), min(t_on, b)
+        else:
+            t_off, t_on = min(t_off, b), min(t_on, a)
+    got = hub.counters.get("ops{op=get}", 0)
+    check(got == n_ops * (OBS_REPS + 1), f"telemetry miscounted the run: "
+          f"ops{{op=get}}={got}, drove {n_ops} x {OBS_REPS + 1} reps")
+
+    def busy(st):
+        from torch.profiler import ProfilerActivity, profile
+        sl = slice(0, OBS_PROFILED_WINDOWS * WINDOW)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            drive(st, sl)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        b_us, spans = device_busy_us(prof)
+        return dict(device_busy_share=b_us / wall_us if spans else None,
+                    device_ops_per_window=spans / OBS_PROFILED_WINDOWS)
+
+    res.update(ops=n_ops, reps=OBS_REPS, wall_off_s=t_off, wall_on_s=t_on,
+               gets_per_s_off=n_ops / t_off, gets_per_s_on=n_ops / t_on,
+               overhead_frac=(t_on - t_off) / max(t_off, 1e-9),
+               criterion="< 0.05", ops_get=got,
+               off=busy(st_off), on=busy(st_on))
+    meter.sinks = off_sinks
+    log(f"telemetry cost at {n} keys: {res['gets_per_s_off']:.1f} Gets/s "
+        f"off, {res['gets_per_s_on']:.1f} on (min of {OBS_REPS} interleaved "
+        f"reps of {n_ops} Gets); overhead_frac {res['overhead_frac']:.6f} "
+        f"(the suite's criterion < 0.05, not gated); ops{{op=get}} {got}; "
+        f"device busy share off {res['off']['device_busy_share']}, on "
+        f"{res['on']['device_busy_share']}; build {res['build_seconds']:.3f} "
+        f"s")
+    return res
+
+
+def serve_cluster(keys, vals, rng) -> dict:
+    """Phase 12 (c): ``cluster_of`` the cluster suite's spec with telemetry
+    on, ``CLUSTER_CNS`` CNs over a ``CLUSTER_MNS``-wide pool, over phase
+    3's keys.  CNs (0, 1, 2) start; CN 3 joins at op ``CLUSTER_JOIN_AT``
+    (``MembershipSchedule.single_join``) and CN 1 leaves right after a
+    burst of updates from non-owners (``single_leave``).  Every live CN
+    drives zipf(0.9) Gets in batches of ``CLUSTER_BATCH``,
+    2^``CLUSTER_LANES_LOG2`` lanes in all, every answer checked against a host oracle; every acknowledged
+    update is read back through the survivors after the leave (0 lost).
+    The launch counters are zeroed just before the traffic and read just
+    after."""
+    import torch
+    from repro_torch.api import StoreSpec, TelemetryConfig
+    from repro_torch.cluster import (MembershipSchedule, OwnershipTable,
+                                     cluster_of)
+    from repro_torch.kernels import ops
+    from repro_torch.net import simulate_cluster
+
+    def _moves(table) -> bool:
+        return bool(table.rebalance(range(CLUSTER_CNS))) and bool(
+            table.rebalance([c for c in range(CLUSTER_CNS) if c != 1]))
+
+    n = keys.size
+    lanes = 1 << CLUSTER_LANES_LOG2
+    leave_at = lanes + CLUSTER_BURST
+    # the first seed from SEED on whose rendezvous hash gives the joiner
+    # and the leaver shards to move (as tests/test_cluster.py picks its
+    # forwarding seed), so both handoffs move bytes
+    seed = next(s for s in itertools.count(SEED) if _moves(
+        OwnershipTable(1 << CLUSTER_DEPTH, range(CLUSTER_CNS - 1), seed=s)))
+    join = MembershipSchedule.single_join(CLUSTER_JOIN_AT, CLUSTER_CNS - 1,
+                                          initial=tuple(range(
+                                              CLUSTER_CNS - 1)), seed=seed)
+    leave = MembershipSchedule.single_leave(leave_at, 1, seed=seed)
+    sched = MembershipSchedule(events=join.events + leave.events, seed=seed,
+                               initial=join.initial)
+    spec = StoreSpec("outback-dir", load_factor=FAULT_LOAD_FACTOR,
+                     rng_seed=SEED, cache_budget_bytes=CLUSTER_CACHE_BYTES,
+                     params={"initial_depth": CLUSTER_DEPTH},
+                     telemetry=TelemetryConfig())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cl = cluster_of(spec, keys, vals, n_cns=CLUSTER_CNS, n_mns=CLUSTER_MNS,
+                    membership=sched)
+    torch.cuda.synchronize()
+    res = dict(build_seconds=time.perf_counter() - t0, keys=n,
+               n_cns=CLUSTER_CNS, n_mns=CLUSTER_MNS,
+               tables=len(cl.engine.tables), spec=spec.to_json_dict(),
+               membership=sched.to_json_dict())
+    check(all(t.slots_lo.is_cuda for t in cl.engine.tables)
+          and all(c.device.type == "cuda" for c in cl.caches),
+          "the cluster's pool or a CN cache is not on the card")
+    log(f"cluster build: {res['build_seconds']:.3f} s for {n} keys in "
+        f"{res['tables']} tables, {CLUSTER_CNS} CN caches of "
+        f"{CLUSTER_CACHE_BYTES} B; owners {cl.ownership.owners}")
+    latest = vals.copy()
+    perm = rng.permutation(n)
+    ranks = perm[zipf_ranks(rng, n, lanes, theta=CLUSTER_THETA)]
+    lat, per_cn_s, per_cn_lanes = [], {}, {}
+
+    def get(cn, idx, record=True):
+        t = time.perf_counter()
+        r = cl.cns[cn].get_batch(keys[idx])
+        dt = time.perf_counter() - t
+        if record:
+            lat.append(dt * 1e3)
+            per_cn_s[cn] = per_cn_s.get(cn, 0.0) + dt
+            per_cn_lanes[cn] = per_cn_lanes.get(cn, 0) + idx.size
+        check(r.statuses is None and r.found.all(), f"CN {cn}: a Get of a "
+              f"present key missed or degraded")
+        check(np.array_equal(r.values, latest[idx]), f"CN {cn}: a Get read "
+              f"a stale or wrong value")
+
+    ops.reset_launch_counts()
+    t_all = time.perf_counter()
+    off, calls = 0, 0
+    joined_at = None
+    while off < lanes:
+        for cn in sorted(cl.live):
+            if off >= lanes:
+                break
+            get(cn, ranks[off:off + CLUSTER_BATCH])
+            off += CLUSTER_BATCH
+            calls += 1
+            if joined_at is None and CLUSTER_CNS - 1 in cl.live:
+                joined_at = cl.clock
+    wall = time.perf_counter() - t_all
+    check(joined_at is not None, "CN 3 never joined")
+
+    def profiled():
+        from torch.profiler import ProfilerActivity, profile
+        idx = ranks[:CLUSTER_PROFILED_CALLS * CLUSTER_BATCH]
+        live = sorted(cl.live)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for i in range(CLUSTER_PROFILED_CALLS):
+                get(live[i % len(live)],
+                    idx[i * CLUSTER_BATCH:(i + 1) * CLUSTER_BATCH],
+                    record=False)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        b_us, spans = device_busy_us(prof)
+        return dict(device_busy_share=b_us / wall_us if spans else None,
+                    device_ops_per_call=spans / CLUSTER_PROFILED_CALLS)
+
+    res["gets"] = dict(lanes=lanes, calls=calls, seconds=wall,
+                       gets_per_s=lanes / wall, joined_at_op=joined_at,
+                       per_cn={cn: dict(lanes=per_cn_lanes[cn],
+                                        gets_per_s=per_cn_lanes[cn]
+                                        / per_cn_s[cn])
+                               for cn in sorted(per_cn_lanes)},
+                       **_lat_stats(lat))
+    res["gets"].update(profiled())
+
+    # a burst of updates, each CN writing keys that other CNs own
+    live = sorted(cl.live)
+    owners = cl.ownership.owners_for(cl.shards_of(keys))
+    per = CLUSTER_BURST // len(live)
+    upd = []
+    for cn in live:
+        pool = np.flatnonzero(owners != cn)
+        idx = rng.choice(pool, size=per, replace=False)
+        new_v = rng.integers(1, 2**63, per, dtype=np.uint64)
+        for b0 in range(0, per, CLUSTER_BATCH):
+            sl = slice(b0, b0 + CLUSTER_BATCH)
+            w = cl.cns[cn].update_batch(keys[idx[sl]], new_v[sl])
+            check(w.statuses is None or not any(
+                s in ("backoff", "unavailable") for s in w.statuses),
+                f"CN {cn}: an update degraded")
+            check(w.found.all(), f"CN {cn}: an update of a present key "
+                  f"failed")
+            latest[idx[sl]] = new_v[sl]
+            upd.append(idx[sl])
+    upd = np.unique(np.concatenate(upd))
+    fwd_w = cl.stats.forwarded_write_lanes
+    check(fwd_w >= per * len(live), "the non-owners' updates did not "
+          "forward")
+
+    # the leave, then every acknowledged update through each survivor
+    lost = 0
+    for b0 in range(0, upd.size, CLUSTER_BATCH):
+        idx = upd[b0:b0 + CLUSTER_BATCH]
+        r = cl.cns[0].get_batch(keys[idx])
+        lost += int((~r.found).sum()) + int(
+            (r.values != latest[idx])[r.found].sum())
+    check(1 not in cl.live, "CN 1 never left")
+    dead = cl.cns[1].get_batch(keys[:8])
+    check(set(dead.statuses) == {"unavailable"}, "the departed CN served")
+    for cn in sorted(cl.live):
+        r = cl.cns[cn].get_batch(keys[upd[:CLUSTER_BATCH]])
+        lost += int((r.values != latest[upd[:CLUSTER_BATCH]]).sum())
+    check(lost == 0, f"{lost} acknowledged writes lost through the leave")
+    res["launches"] = dict(ops.LAUNCHES)
+    res["updates"] = dict(lanes=per * len(live), keys=int(upd.size),
+                          forwarded_write_lanes=fwd_w, lost=lost)
+    stats = cl.stats.snapshot()
+    res["stats"] = stats
+    res["handoffs"] = [dict(reason=h.reason, cn=h.cn, at_op=h.at_op,
+                            shards=len(h.moved), bytes=h.bytes_moved)
+                       for h in cl.handoffs]
+    check([h["reason"] for h in res["handoffs"]] == ["join", "leave"]
+          and all(h["shards"] > 0 for h in res["handoffs"]),
+          f"handoffs {res['handoffs']}")
+    res["hit_rate"], res["counters"] = {}, {}
+    for cn, hub in enumerate(cl.hubs):
+        c = hub.counters
+        h, ng, m = (c.get("cache.hits", 0), c.get("cache.neg_hits", 0),
+                    c.get("cache.misses", 0))
+        res["hit_rate"][cn] = h / max(h + ng + m, 1)
+        res["counters"][cn] = c
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res["meter"] = cl.meter_totals().snapshot()
+
+    # the reference's model of the fabric over the four CNs' traces
+    t = time.perf_counter()
+    sim = simulate_cluster([tr.trace for tr in cl.transports],
+                           replicas=CLUSTER_MNS, **CLUSTER_SIM)
+    res["modelled"] = dict(
+        replay_seconds=time.perf_counter() - t, replayed_ops=sim.n_ops,
+        lane_mops=(lanes + per * len(live)) / max(sim.seconds, 1e-12) / 1e6,
+        wire_mops=sim.n_ops / max(sim.seconds, 1e-12) / 1e6,
+        p50_us=sim.percentile_us(50), p99_us=sim.percentile_us(99),
+        **CLUSTER_SIM, replicas=CLUSTER_MNS)
+    g = res["gets"]
+    log(f"cluster Gets: {g['gets_per_s']:.1f} Gets/s over {lanes} lanes in "
+        f"{calls} batches of {CLUSTER_BATCH} (zipf({CLUSTER_THETA})); "
+        f"batch p50 {g['p50_ms']:.4f} ms, p99 {g['p99_ms']:.4f} ms; per CN "
+        + ", ".join(f"{cn} {v['gets_per_s']:.1f}" for cn, v
+                    in g["per_cn"].items())
+        + f"; hit rate per CN {json.dumps(res['hit_rate'])}; device busy "
+        f"share {g['device_busy_share']}, {g['device_ops_per_call']} device "
+        f"ops a batch")
+    log(f"cluster stats: {json.dumps(stats)}; handoffs "
+        f"{json.dumps(res['handoffs'])}; {res['updates']['lanes']} updates "
+        f"from non-owners, 0 of {upd.size} updated keys lost through the "
+        f"leave")
+    for cn in range(CLUSTER_CNS):
+        log(f"cluster hub cn={cn}: "
+            f"{json.dumps(res['counters'][cn], sort_keys=True)}")
+    m = res["modelled"]
+    log(f"cluster modelled (the reference's model of the fabric, not the "
+        f"card): {m['lane_mops']:.4f} lane Mops, {m['wire_mops']:.4f} wire "
+        f"Mops, p50 {m['p50_us']:.3f} us, p99 {m['p99_us']:.3f} us over "
+        f"{m['replayed_ops']} replayed ops ({m['replay_seconds']:.1f} s of "
+        f"replay); peak {res['max_memory_allocated']} B")
+    return res
+
+
+def large_chaos() -> dict:
+    """Phase 12 (d): one larger chaos run on the card."""
+    from repro_torch.net.chaos import run_chaos
+    t0 = time.perf_counter()
+    rep = run_chaos(**CHAOS_LARGE)
+    sec = time.perf_counter() - t0
+    d = rep.to_json_dict()
+    check(rep.passed, f"large chaos run: {rep.failures}")
+    check(d["lost_acked_writes"] == 0, "large chaos run lost writes")
+    check(all(t.slots_lo.is_cuda for t in rep.cluster.engine.tables),
+          "the chaos cluster's pool is not on the card")
+    out = {k: d[k] for k in ("seed", "n_cns", "replicas", "placement_k",
+                             "kinds", "lanes", "acked_writes",
+                             "degraded_lanes", "availability", "heal_checks",
+                             "lost_acked_writes", "split_brain_acked_writes",
+                             "linearizability_violations",
+                             "fenced_write_lanes", "partition_arbitrations",
+                             "view_syncs", "state_sig", "telemetry_sig")}
+    out.update(seconds=sec, **{k: CHAOS_LARGE[k] for k in ("n_keys", "n_ops",
+                                                            "batch")})
+    log(f"large chaos run: {json.dumps(out)}")
+    return out
+
+
+def serve_cluster_phase(keys, vals, rng) -> tuple:
+    """Phase 12: (a) the agreement, (b) the telemetry plane's cost, (c)
+    :func:`serve_cluster`, whose traffic is this phase's main path (its
+    launch counts), (d) the large chaos run."""
+    import torch
+    t = time.perf_counter()
+    res = dict(agreement=obs_agreement_check(SEED))
+    res["agreement"]["seconds"] = time.perf_counter() - t
+    log(f"phase 12 (a): {res['agreement']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res["telemetry_cost"] = telemetry_cost(keys, vals, rng)
+    res["telemetry_cost"]["seconds"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res["cluster"] = serve_cluster(keys, vals, rng)
+    res["cluster"]["seconds"] = time.perf_counter() - t
+    launches = res["cluster"].pop("launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["chaos"] = large_chaos()
+    log(f"phase 12 (b) {res['telemetry_cost']['seconds']:.1f} s, (c) "
+        f"{res['cluster']['seconds']:.1f} s, (d) "
+        f"{res['chaos']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -3452,6 +4053,18 @@ def main() -> int:
     log(f"launches on the replicated path: {flaunch}")
     log(f"replicated path: {json.dumps(fres)}")
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+    # ---- phase 12: the telemetry plane, the cluster and the chaos harness
+    t12 = time.perf_counter()
+    cres, claunch = serve_cluster_phase(keys, vals, rng)
+    for name, k in kernels.items():
+        k["launches_cluster_path"] = claunch[name]
+    for name in ("ludo_lookup", "slot_unpack"):
+        check(claunch[name] > 0, f"{name} never launched on the cluster's "
+              f"path")
+    log(f"launches on the cluster's path: {claunch}")
+    log(f"cluster path: {json.dumps(cres)}")
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@ The port of ``repro.api`` for every kind of the reference: ``outback``,
   :class:`repro_torch.net.FaultSchedule` carried on the spec;
 * :mod:`repro_torch.api.registry` — :class:`StoreSpec` (the reference's
   JSON) and :func:`open_store`.
+
+A spec may also carry a :class:`repro_torch.obs.TelemetryConfig`:
+``open_store`` then threads a :class:`repro_torch.obs.TelemetryHub`
+through the stack (the store's ``telemetry``).
 """
 
 from repro_torch.api.adapters import (BaselineAdapter, DummyAdapter,
@@ -34,6 +38,7 @@ from repro_torch.api.registry import (SpecError, StoreSpec, build_adapter,
                                       registered_kinds, registry_docs)
 from repro_torch.api.stack import (CNCacheLayer, CNStack, MeterLayer,
                                    RetryLayer, StoreLayer, TransportBinding)
+from repro_torch.obs import TelemetryConfig, TelemetryHub
 
 __all__ = [
     "BaselineAdapter",
@@ -60,6 +65,8 @@ __all__ = [
     "StoreAdapter",
     "StoreLayer",
     "StoreSpec",
+    "TelemetryConfig",
+    "TelemetryHub",
     "TransportBinding",
     "UnsupportedOperation",
     "build_adapter",

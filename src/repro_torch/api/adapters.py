@@ -38,7 +38,12 @@ class StoreAdapter:
     # of the Get it avoids
     cache_hit_savings = CACHE_HIT_SAVINGS
     cache_neg_savings = CACHE_NEG_SAVINGS
-    telemetry = None
+    hub = None  # the stack's TelemetryHub (CNStack.assemble sets it)
+
+    @property
+    def telemetry(self):
+        """The stack's ``repro_torch.obs.TelemetryHub``, or ``None``."""
+        return self.hub
 
     def __init__(self, engine, spec):
         self.engine = engine

@@ -1,8 +1,8 @@
 """The v2 submission/completion plane: ``submit`` → ``poll``/``flush``.
 
 The port of ``repro.api.pipeline``: host logic, identical in its
-batching, ordering, attribution and doorbell marks.  The reference's
-telemetry hooks wait for that plane to be ported.
+batching, ordering, attribution, doorbell marks and telemetry (the hub's
+op clock, flush/direct/scalar spans and queue-wait histograms).
 
 Outback's one-round-trip advantage only materialises when a compute node
 coalesces many WQEs under one doorbell ring (§2, Fig. 2).  The v1
@@ -263,13 +263,14 @@ class _Pending:
     ``submit`` received (a raw int for scalar submissions — cheap to
     enqueue, materialised into one array per kind at flush time)."""
 
-    __slots__ = ("handle", "keys", "values", "n")
+    __slots__ = ("handle", "keys", "values", "n", "clock")
 
-    def __init__(self, handle, keys, values, n):
+    def __init__(self, handle, keys, values, n, clock=0):
         self.handle = handle
         self.keys = keys
         self.values = values
         self.n = n
+        self.clock = clock  # op-clock at enqueue (queue-wait telemetry)
 
 
 def _gather(entries: list[_Pending], values: bool) -> np.ndarray:
@@ -296,8 +297,12 @@ class PipelineLayer(StoreLayer):
     """
 
     def __init__(self, inner, policy: BatchPolicy | None = None,
-                 transport=None):
+                 transport=None, hub=None):
         super().__init__(inner)
+        self.hub = hub  # a repro_torch.obs.TelemetryHub, or None (dormant)
+        # lanes driven through the convenience/bypass paths that skip
+        # submit(); the hub's op clock is stats.submitted + this extra
+        self._hub_extra = 0
         self.policy = (policy or BatchPolicy.sync()).validate()
         self.stats = PipelineStats()
         self._transport = transport
@@ -312,6 +317,18 @@ class PipelineLayer(StoreLayer):
         self._wc_keys: set[int] = set()
         self._wc_outcome: dict[int, bool] = {}
         self._done: collections.deque[OpHandle] = collections.deque()
+
+    @property
+    def telemetry(self):
+        """The attached ``repro_torch.obs.TelemetryHub`` (``None`` when the
+        telemetry plane is dormant).  The pipeline drives its op clock:
+        every submitted lane ticks it once, synced lazily at flush
+        boundaries from ``PipelineStats.submitted`` so the submit hot
+        path carries no telemetry work."""
+        hub = self.hub
+        if hub is not None:  # expose an up-to-date clock to callers
+            hub.tick_to(self.stats.submitted + self._hub_extra)
+        return hub
 
     # ------------------------------------------------------------- submit
     def submit(self, op: str, keys, values=None) -> OpHandle:
@@ -346,8 +363,18 @@ class PipelineLayer(StoreLayer):
         handle = OpHandle(self, op, n)
         if op not in self.policy.coalesce:
             self._flush(trigger="explicit")
-            handle._adopt(self._execute(op, _as_array(keys),
-                                        _as_array(values)))
+            hub = self.hub
+            span = None
+            if hub is not None:
+                hub.tick_to(self.stats.submitted + self._hub_extra)
+                span = hub.begin_span("direct", op, n, "direct")
+                hub.current_span = span
+            try:
+                handle._adopt(self._execute(op, _as_array(keys),
+                                            _as_array(values)))
+            finally:
+                if span is not None:
+                    hub.current_span = None
             return handle
 
         if self.policy.order == "strict":
@@ -378,7 +405,10 @@ class PipelineLayer(StoreLayer):
                         for k, v in zip(keys, values):
                             w[int(k)] = (op, int(v))
 
-        self._q[op].append(_Pending(handle, keys, values, n))
+        # the enqueue clock is the always-on lane count (not hub.clock),
+        # so the dormant and instrumented submit paths are the same code
+        self._q[op].append(_Pending(handle, keys, values, n,
+                                    self.stats.submitted))
         self._n_pending += n
         if self._n_pending >= self.policy.window:
             self._flush(trigger="window")
@@ -470,6 +500,14 @@ class PipelineLayer(StoreLayer):
             self.stats.window_flushes += 1
         elif trigger == "hazard":
             self.stats.hazard_flushes += 1
+        hub = self.hub
+        if hub is not None:
+            # sync the op clock first: snapshots for any window boundary
+            # crossed since the last flush capture the counters as they
+            # stood then (nothing mutates them between flushes)
+            hub.tick_to(self.stats.submitted + self._hub_extra)
+            hub.count("pipe.flushes", trigger=trigger)
+            hub.gauge("pipe.pending_lanes_at_flush", self._n_pending)
         # open a doorbell window for the replay engine; its op count is
         # patched at close to what actually reached the trace (CN-cache
         # hits are answered locally and never cross the recorded wire)
@@ -484,7 +522,7 @@ class PipelineLayer(StoreLayer):
                 if not entries:
                     continue
                 self._q[kind] = []
-                self._run_group(kind, entries)
+                self._run_group(kind, entries, trigger)
             self._n_pending = 0
             if self._wc_records:
                 self._reconcile_combined()
@@ -554,21 +592,58 @@ class PipelineLayer(StoreLayer):
                     for k, v in zip(e.keys, e.values):
                         self._writes[int(k)] = (kind, int(v))
 
-    def _run_group(self, kind: str, entries: list[_Pending]) -> None:
+    def _run_group(self, kind: str, entries: list[_Pending],
+                   trigger: str = "explicit") -> None:
         self.stats.batch_calls += 1
-        if len(entries) == 1 and entries[0].handle._pre is None:
-            e = entries[0]
-            e.handle._adopt(self._execute(kind, _as_array(e.keys),
-                                          _as_array(e.values)))
-            return
-        keys = _gather(entries, values=False)
-        values = (_gather(entries, values=True)
-                  if kind in ("insert", "update") else None)
-        res = self._execute(kind, keys, values)
-        off = 0
-        for e in entries:
-            e.handle._complete(res, slice(off, off + e.n))
-            off += e.n
+        hub = self.hub
+        span = None
+        if hub is not None:
+            # queue wait (op-clock ticks enqueue → flush): enqueue clocks
+            # are post-increment lane counts, so consecutive clock gaps
+            # bound the lane counts from above — a clock span of m-1 with
+            # a scalar first entry proves every entry is one lane and the
+            # waits are exactly one consecutive integer range
+            m = len(entries)
+            first_c = entries[0].clock
+            if (entries[-1].clock - first_c == m - 1
+                    and entries[0].n == 1):
+                # dense scalar run: O(buckets), no per-entry array build
+                total = m
+                w_lo = hub.clock - entries[-1].clock
+                w_hi = hub.clock - first_c
+                qsum = (w_lo + w_hi) * m // 2
+                hub.hist("pipe.queue_wait_ops", op=kind).record_range(
+                    w_lo, w_hi + 1)
+            else:
+                clocks = np.fromiter((e.clock for e in entries),
+                                     dtype=np.int64, count=m)
+                lanes = np.fromiter((e.n for e in entries),
+                                    dtype=np.int64, count=m)
+                waits = hub.clock - clocks
+                total = int(lanes.sum())
+                qsum = int((waits * lanes).sum())
+                hub.hist("pipe.queue_wait_ops", op=kind).record_many(
+                    waits, weights=lanes)
+            span = hub.begin_span("flush", kind, total, trigger)
+            span.annotate(coalesced=m, queue_wait_ops=qsum)
+            hub.current_span = span
+        try:
+            if len(entries) == 1 and entries[0].handle._pre is None:
+                e = entries[0]
+                e.handle._adopt(self._execute(kind, _as_array(e.keys),
+                                              _as_array(e.values)))
+                return
+            keys = _gather(entries, values=False)
+            values = (_gather(entries, values=True)
+                      if kind in ("insert", "update") else None)
+            res = self._execute(kind, keys, values)
+            off = 0
+            for e in entries:
+                e.handle._complete(res, slice(off, off + e.n))
+                off += e.n
+        finally:
+            if span is not None:
+                hub.current_span = None
 
     def _execute(self, kind: str, keys, values) -> OpResult:
         if kind == "get":
@@ -599,6 +674,22 @@ class PipelineLayer(StoreLayer):
     # scalar protocol walk.  New callers should submit/poll/flush; see
     # README §Async API for the migration table and deprecation policy.
 
+    def _traced_direct(self, op: str, n: int, call, kind: str = "scalar"):
+        """Run a convenience call that bypasses submit() under its own
+        span, ticking the op clock by its lanes (dormant plane: just the
+        call)."""
+        hub = self.hub
+        if hub is None:
+            return call()
+        self._hub_extra += n
+        hub.tick_to(self.stats.submitted + self._hub_extra)
+        span = hub.begin_span(kind, op, n, kind)
+        hub.current_span = span
+        try:
+            return call()
+        finally:
+            hub.current_span = None
+
     def _sync(self, handle: OpHandle) -> OpResult:
         """Resolve a convenience submission and unqueue it from ``poll``
         (its result is returned right here; everything else completed by
@@ -618,7 +709,11 @@ class PipelineLayer(StoreLayer):
             # explicit-resolution calls bypass coalescing (the pipeline does
             # not own resolution); ordering is still preserved
             self._flush(trigger="explicit")
-            return self.inner.get_batch(keys, resolve_makeup=resolve_makeup)
+            return self._traced_direct(
+                "get", len(keys),
+                lambda: self.inner.get_batch(keys,
+                                             resolve_makeup=resolve_makeup),
+                kind="direct")
         return self._sync(self.submit("get", keys))
 
     def insert_batch(self, keys, values) -> OpResult:
@@ -632,19 +727,22 @@ class PipelineLayer(StoreLayer):
 
     def get(self, key: int) -> OpResult:
         self._flush(trigger="explicit")
-        return self.inner.get(key)
+        return self._traced_direct("get", 1, lambda: self.inner.get(key))
 
     def insert(self, key: int, value: int) -> OpResult:
         self._flush(trigger="explicit")
-        return self.inner.insert(key, value)
+        return self._traced_direct("insert", 1,
+                                   lambda: self.inner.insert(key, value))
 
     def update(self, key: int, value: int) -> OpResult:
         self._flush(trigger="explicit")
-        return self.inner.update(key, value)
+        return self._traced_direct("update", 1,
+                                   lambda: self.inner.update(key, value))
 
     def delete(self, key: int) -> OpResult:
         self._flush(trigger="explicit")
-        return self.inner.delete(key)
+        return self._traced_direct("delete", 1,
+                                   lambda: self.inner.delete(key))
 
     # ----------------------------------------------------------- metering
     def meter_totals(self):

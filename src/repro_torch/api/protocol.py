@@ -164,8 +164,8 @@ class PipelinedKVStore(KVStore, typing.Protocol):
     drains.  See ``repro_torch.api.pipeline`` for the ordering semantics.
     """
 
-    # the store's telemetry hub; None (the dormant plane) until the
-    # telemetry plane is ported
+    # the store's TelemetryHub when the spec carried a TelemetryConfig,
+    # else None (the dormant plane); see repro_torch.obs
     telemetry: typing.Any
 
     def submit(self, op: str, keys, values=None) -> "OpHandle": ...  # noqa: F821

@@ -26,10 +26,10 @@ Registered kinds:
                 mesh state of ``repro_torch.core.sharded_kvs``)
 =============  ==========================================================
 
-Every kind of the reference is served, and so is its failure plane
-(replication, fault schedules, placement ``'hrw'``) with the reference's
-checks.  The telemetry plane is not ported yet: a spec that asks for it
-raises :class:`SpecError` saying so.
+Every kind of the reference is served, and so are its failure plane
+(replication, fault schedules, placement ``'hrw'``) and its telemetry
+plane (``telemetry``, a :class:`repro_torch.obs.TelemetryConfig`), with
+the reference's checks.
 """
 
 from __future__ import annotations
@@ -50,11 +50,11 @@ from repro_torch.core.outback import OutbackShard, resolve_device
 from repro_torch.core.sharded_kvs import build_sharded
 from repro_torch.core.store import OutbackStore
 from repro_torch.net.faults import CN_TARGET_KINDS, FaultPlane, FaultSchedule
+from repro_torch.obs import TelemetryConfig, TelemetryHub
 
 
 class SpecError(ValueError):
-    """A StoreSpec that cannot be built: unknown kind / param / value, or
-    an option this package has not ported yet."""
+    """A StoreSpec that cannot be built: unknown kind / param / value."""
 
 
 # Kinds whose engines export the mn_state()/install_mn_state() replication
@@ -88,8 +88,11 @@ class StoreSpec:
     # (outback-dir only)
     placement: str = "twins"
     placement_k: int = 1
-    # telemetry plane (not ported): kept as given so the JSON round-trips
-    telemetry: typing.Any = None
+    # telemetry plane (repro_torch.obs): a TelemetryConfig (or its JSON
+    # dict) makes open_store assemble an instrumented stack with a
+    # TelemetryHub; None (the default) keeps the plane dormant — meters,
+    # traces and final store state stay byte-identical
+    telemetry: TelemetryConfig | None = None
 
     def __post_init__(self):
         if isinstance(self.batch, dict):  # JSON round-trip normalisation
@@ -102,6 +105,13 @@ class StoreSpec:
             try:
                 object.__setattr__(self, "faults",
                                    FaultSchedule.from_json_dict(self.faults))
+            except ValueError as e:
+                raise SpecError(str(e)) from e
+        if isinstance(self.telemetry, dict):
+            try:
+                object.__setattr__(
+                    self, "telemetry",
+                    TelemetryConfig.from_json_dict(self.telemetry))
             except ValueError as e:
                 raise SpecError(str(e)) from e
 
@@ -118,7 +128,8 @@ class StoreSpec:
                            else self.faults.to_json_dict()),
                 "placement": self.placement,
                 "placement_k": self.placement_k,
-                "telemetry": _json_of(self.telemetry)}
+                "telemetry": (None if self.telemetry is None
+                              else self.telemetry.to_json_dict())}
 
     def to_json(self) -> str:
         return json.dumps(self.to_json_dict(), sort_keys=True)
@@ -203,18 +214,20 @@ class StoreSpec:
                     f"placement_k={self.placement_k} exceeds the "
                     f"{self.replicas} deployed replica(s)")
         if self.telemetry is not None:
-            raise SpecError(f"telemetry (the telemetry plane) is not yet "
-                            f"ported to repro_torch (kind {self.kind!r})")
+            if not isinstance(self.telemetry, TelemetryConfig):
+                raise SpecError(f"telemetry must be a TelemetryConfig (or "
+                                f"its JSON dict), got "
+                                f"{type(self.telemetry).__name__}")
+            try:
+                self.telemetry.validate()
+            except ValueError as e:
+                raise SpecError(str(e)) from e
         return reg
 
     def merged_params(self) -> dict:
         """Kind defaults overlaid with the spec's explicit params."""
         reg = self.validate()
         return {**reg.defaults, **self.params}
-
-
-def _json_of(x):
-    return x.to_json_dict() if hasattr(x, "to_json_dict") else x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,21 +288,65 @@ def open_store(spec: StoreSpec, keys, values, *, device=None, transport=None):
     ``RetryLayer`` above it.  A replicas-only spec (no schedule) gets a
     dormant plane with leasing off, so its meter totals match the
     unreplicated store byte for byte.  The store models one CN (CN 0):
-    events that target another CN raise."""
+    events that target another CN raise.
+
+    When the spec carries a ``telemetry`` config, a
+    :class:`repro_torch.obs.TelemetryHub` is built and threaded through
+    every stack layer (the returned store's ``telemetry``), with
+    dim-tagged wire sinks fanned out to each replica's and each shard's
+    meter.  The hub only observes: meters, traces and final store state
+    stay byte-identical to a telemetry-off build, and it adds no device
+    op."""
     if spec.faults is not None:
         for ev in spec.faults.events:
             if ev.kind in CN_TARGET_KINDS and ev.cn >= 1:
                 raise SpecError(
                     f"{ev.kind} fault event targets CN {ev.cn} but "
-                    f"open_store deploys a single CN (CN 0)")
+                    f"open_store deploys a single CN (CN 0); use "
+                    f"repro_torch.cluster for multi-CN deployments")
     device = resolve_device(device)
     adapter, retry = build_adapter(spec, keys, values, device=device,
                                    transport=transport)
+    hub = None
+    if spec.telemetry is not None:
+        hub = TelemetryHub(spec.telemetry)
+        _bind_hub_sinks(adapter, hub)
     cache = (CNKeyCache(spec.cache_budget_bytes, device=device)
              if spec.cache_budget_bytes else None)
     return CNStack(cache=cache,
                    transport_binding=TransportBinding(transport),
-                   policy=spec.batch, retry=retry).assemble(adapter)
+                   policy=spec.batch, retry=retry, hub=hub).assemble(adapter)
+
+
+def _bind_hub_sinks(adapter, hub) -> None:
+    """Fan dim-tagged hub wire sinks out to every meter under ``adapter``.
+
+    Replica sets get an ``mn=<i>`` dim per replica (plus a CN-ledger
+    sink for failover/lease wire); sharded hosts get ``shard=<i>`` per
+    shard; directory stores get ``shard=dir`` for the directory meter and
+    a per-table factory that survives §4.4 splits and resyncs."""
+    if isinstance(adapter, ReplicaSetAdapter):
+        adapter._meter.add_sink(hub.wire_sink(mn="cn"))
+        for i, rep in enumerate(adapter.replicas):
+            _bind_engine_sinks(rep, hub, {"mn": i})
+        return
+    _bind_engine_sinks(adapter, hub, {})
+
+
+def _bind_engine_sinks(adp, hub, dims: dict) -> None:
+    shards = getattr(adp, "shards", None)
+    if shards is not None:  # sharded host adapter: per-shard dims
+        adp._meter.add_sink(hub.wire_sink(**dims, shard="host"))
+        for i, sh in enumerate(shards):
+            sh.meter.add_sink(hub.wire_sink(**dims, shard=i))
+        return
+    eng = adp.engine
+    if hasattr(eng, "bind_table_sinks"):  # outback-dir: per-table dims
+        eng.meter.add_sink(hub.wire_sink(**dims, shard="dir"))
+        eng.bind_table_sinks(
+            lambda i, d=dict(dims): hub.wire_sink(**d, shard=i))
+        return
+    eng.meter.add_sink(hub.wire_sink(**dims))
 
 
 def build_adapter(spec: StoreSpec, keys, values, *, device=None,

@@ -41,8 +41,9 @@ meters, so the trace stays clean) behind the ordinary ``KVStore`` surface:
 Determinism: every decision comes from the :class:`repro_torch.net.faults`
 oracle (op-clock windows + seeded draws); meter identity on the no-fault
 path is byte-for-byte because a dormant plane never fires and all
-failure-plane meter fields default to zero.  The reference's telemetry
-hooks (its ``hub``) wait for that plane to be ported.
+failure-plane meter fields default to zero.  A telemetry hub (``hub``,
+set by ``CNStack.assemble``) counts fault windows, fault waits, resyncs,
+failovers and per-replica write lanes, as the reference's does.
 """
 
 from __future__ import annotations
@@ -160,8 +161,6 @@ class ReplicaSetAdapter:
     actually issuing the call.
     """
 
-    telemetry = None  # the telemetry plane is not ported: always dormant
-
     def __init__(self, replicas: list, spec, plane: FaultPlane,
                  transport=None, placement: ReplicaPlacement | None = None):
         if not replicas:
@@ -173,6 +172,9 @@ class ReplicaSetAdapter:
         self.placement = placement
         self.cn_source = None   # callable () -> calling CN id; None -> 0
         self.primary = 0
+        # telemetry hub (pure observer); CNStack.assemble assigns it when
+        # the spec carries a TelemetryConfig — every use below is guarded.
+        self.hub = None
         self._meter = CommMeter()  # CN-side ledger (fault attribution)
         self._needs_resync: set[int] = set()
         self._install_leases()
@@ -201,6 +203,11 @@ class ReplicaSetAdapter:
     @property
     def engine(self):
         return self.replicas[self.primary].engine
+
+    @property
+    def telemetry(self):
+        """The stack's ``repro_torch.obs.TelemetryHub``, or ``None``."""
+        return self.hub
 
     @property
     def meter(self) -> CommMeter:
@@ -272,6 +279,9 @@ class ReplicaSetAdapter:
                                               mn=ev.mn % len(self.replicas),
                                               down_s=ev.down_s,
                                               factor=ev.factor)
+        if self.hub is not None:
+            for ev in self.plane.new_window_events():
+                self.hub.count("faults", kind=ev.kind)
         for i in range(len(self.replicas)):
             if self.plane.crash_open(i):
                 self._needs_resync.add(i)
@@ -297,6 +307,9 @@ class ReplicaSetAdapter:
         self._meter.fault_wait_us += int(round(wait_us))
         if self.transport is not None:
             self.transport.add_wait(wait_us * 1e-6)
+        if self.hub is not None:
+            self.hub.hist("replica.fault_wait_us").record(wait_us)
+            self.hub.annotate(fault_wait_us=wait_us)
 
     def _resync(self, i: int) -> bool:
         """Re-install replica ``i``'s MN half from a live replica.
@@ -351,6 +364,10 @@ class ReplicaSetAdapter:
         if self.transport is not None:
             self.transport.current_mn = 0
         self._meter.resyncs += 1
+        if self.hub is not None:
+            self.hub.count("replica.resyncs", mn=i)
+            self.hub.count("replica.resync_bytes", state_bytes, mn=i)
+            self.hub.annotate(resyncs=1, resync_bytes=state_bytes)
         return True
 
     def _lease_check(self, i: int) -> None:
@@ -389,6 +406,9 @@ class ReplicaSetAdapter:
         self.plane.lease_revoked(self.primary)
         self.primary = nxt
         self._meter.failovers += 1
+        if self.hub is not None:
+            self.hub.count("replica.failovers")
+            self.hub.annotate(failovers=1, failover_to=f"mn{nxt}")
         return True
 
     # ------------------------------------------------------------ internals
@@ -438,6 +458,10 @@ class ReplicaSetAdapter:
             if i not in reach:
                 self._needs_resync.add(i)   # cut link: missed this write
         self._lease_check(reach[0])
+        if self.hub is not None:
+            for i in reach:
+                self.hub.count("replica.write_lanes", n, mn=i)
+            self.hub.annotate(write_replicas=len(reach))
         res = None
         try:
             for i in reach:
@@ -588,6 +612,10 @@ class ReplicaSetAdapter:
         try:
             for idx, _ms, reach in plans:
                 self._lease_check(reach[0])
+                if self.hub is not None:
+                    for m in reach:
+                        self.hub.count("replica.write_lanes", len(idx),
+                                       mn=m)
                 sub = None
                 for m in reach:
                     if self.transport is not None:

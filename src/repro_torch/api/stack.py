@@ -2,9 +2,10 @@
 adapter (→ Transport)``.
 
 The port of ``repro.api.stack``: the meter, CN-cache and retry stages, the
-transport binding and the composition root.  The reference's telemetry
-hooks wait for that plane to be ported; ``open_store`` refuses specs that
-need them.
+transport binding and the composition root, each with the reference's
+telemetry hooks (a ``repro_torch.obs.TelemetryHub`` passed as ``hub``;
+``None`` keeps the plane dormant).  The hooks read only what a stage
+already holds on the host: they add no device op and no host-device copy.
 
 * **Meter** (:class:`MeterLayer`) — stamps per-call attribution (round
   trips, wire bytes, Makeup-Get continuations, cache hits, retries,
@@ -65,7 +66,7 @@ class StoreLayer:
     """Base middleware: wraps an inner KVStore and forwards each protocol
     member to it explicitly; subclasses override the ops they change."""
 
-    telemetry = None  # the telemetry plane is not ported: always dormant
+    hub = None  # the stack's TelemetryHub, on the layers that carry one
 
     def __init__(self, inner):
         self.inner = inner
@@ -74,6 +75,12 @@ class StoreLayer:
         self.cache = getattr(inner, "cache", None)
 
     # ------------------------------------------------ forwarded attributes
+    @property
+    def telemetry(self):
+        """The stack's ``repro_torch.obs.TelemetryHub``, or ``None`` (the
+        dormant plane)."""
+        return self.hub if self.hub is not None else self.inner.telemetry
+
     @property
     def engine(self):
         return self.inner.engine
@@ -155,10 +162,11 @@ class RetryLayer(StoreLayer):
     wrap is a pure pass-through: no meter event, no trace event.
     """
 
-    def __init__(self, inner, plane, transport=None):
+    def __init__(self, inner, plane, transport=None, hub=None):
         super().__init__(inner)
         self.plane = plane
         self.transport = transport
+        self.hub = hub
 
     def _with_retry(self, n: int, call) -> OpResult:
         res = call()
@@ -166,11 +174,17 @@ class RetryLayer(StoreLayer):
             return res
         sched = self.plane.schedule
         meter = self.inner.meter
+        hub = self.hub
         for attempt in range(sched.max_retries):
             wait_us = sched.timeout_us + self.plane.backoff_us(attempt)
             meter.fault_wait_us += int(round(wait_us))
             if self.transport is not None:
                 self.transport.add_wait(wait_us * 1e-6)
+            if hub is not None:
+                hub.count("retry.backoff_rounds")
+                hub.hist("retry.backoff_wait_us").record(int(round(wait_us)))
+                hub.annotate(backoff_rounds=1,
+                             backoff_wait_us=int(round(wait_us)))
             if (attempt + 1 >= sched.failover_after
                     and self.plane.crash_open(self.inner.primary)
                     and self.inner.can_failover()):
@@ -179,6 +193,9 @@ class RetryLayer(StoreLayer):
             res = call()
             if not is_backoff(res):
                 return res
+        if hub is not None:
+            hub.count("retry.unavailable_lanes", n)
+            hub.annotate(unavailable_lanes=n)
         return OpResult(values=np.zeros(n, np.uint64),
                         found=np.zeros(n, bool),
                         statuses=(UNAVAILABLE,) * n)
@@ -221,11 +238,13 @@ class CNCacheLayer(StoreLayer):
     stack-built store and one with an internal cache report identical
     totals, and ``saved_*`` attribution stays next to the wire counters it
     offsets.  The probe runs on the cache's device; the answers come to the
-    host as an ``OpResult``."""
+    host as an ``OpResult``, and the hub's hit/miss counts come from that
+    host copy."""
 
-    def __init__(self, inner, cache: CNKeyCache):
+    def __init__(self, inner, cache: CNKeyCache, hub=None):
         super().__init__(inner)
         self.cache = cache
+        self.hub = hub
         inner.bind_cache(cache)  # engine-side sync points (resize)
 
     # ---------------------------------------------------------------- gets
@@ -234,12 +253,20 @@ class CNCacheLayer(StoreLayer):
         state, val = self.cache.lookup(int(key))
         if state == "hit":
             meter.add_cache_hit(1, **self.inner.cache_hit_savings)
+            if self.hub is not None:
+                self.hub.on_cache(1, 0, 0)
+                self.hub.annotate(cache_hits=1)
             return OpResult(values=np.asarray([val], np.uint64),
                             found=np.asarray([True]))
         if state == "neg":
             meter.add_cache_hit(1, neg=True, **self.inner.cache_neg_savings)
+            if self.hub is not None:
+                self.hub.on_cache(0, 1, 0)
+                self.hub.annotate(cache_neg_hits=1)
             return OpResult(values=np.zeros(1, np.uint64),
                             found=np.asarray([False]))
+        if self.hub is not None:
+            self.hub.on_cache(0, 0, 1)
         res = self.inner.get(key)
         if res.statuses is None:  # degraded answers teach the cache nothing
             self.cache.fill(int(key), res.value)
@@ -259,6 +286,12 @@ class CNCacheLayer(StoreLayer):
         meter.add_cache_hit(int(hit.sum()), **self.inner.cache_hit_savings)
         meter.add_cache_hit(int(neg.sum()), neg=True,
                             **self.inner.cache_neg_savings)
+        if self.hub is not None:
+            n_hit, n_neg = int(hit.sum()), int(neg.sum())
+            n_miss = len(keys) - n_hit - n_neg
+            self.hub.on_cache(n_hit, n_neg, n_miss)
+            self.hub.annotate(cache_hits=n_hit, cache_neg_hits=n_neg,
+                              cache_misses=n_miss)
         c_v = host[2:].view(np.uint32).astype(np.uint64)
         values = (c_v[1] << np.uint64(32)) | c_v[0]
         found = hit.copy()
@@ -339,9 +372,18 @@ class CNCacheLayer(StoreLayer):
 
 
 class MeterLayer(StoreLayer):
-    """Stamps per-call meter deltas onto each OpResult."""
+    """Stamps per-call meter deltas onto each OpResult.
 
-    def _attributed(self, n: int, call) -> OpResult:
+    With a telemetry hub attached it also forwards each call's
+    attribution to ``hub.on_op`` under its op kind and annotates the
+    active span, reading only the deltas it already computed, so metered
+    results are byte-identical with the hub on or off."""
+
+    def __init__(self, inner, hub=None):
+        super().__init__(inner)
+        self.hub = hub
+
+    def _attributed(self, n: int, call, op: str = "get") -> OpResult:
         before = self.inner.meter_totals()
         res = call()
         after = self.inner.meter_totals()
@@ -357,36 +399,49 @@ class MeterLayer(StoreLayer):
         res.retries = after.retries - before.retries
         res.backoffs = after.backoffs - before.backoffs
         res.failovers = after.failovers - before.failovers
+        hub = self.hub
+        if hub is not None:
+            hub.on_op(op, n, round_trips=res.round_trips,
+                      req_bytes=res.req_bytes, resp_bytes=res.resp_bytes,
+                      makeups=res.makeups, retries=res.retries,
+                      backoffs=res.backoffs, failovers=res.failovers)
+            hub.annotate(round_trips=res.round_trips,
+                         req_bytes=res.req_bytes, resp_bytes=res.resp_bytes,
+                         makeups=res.makeups)
         return res
 
     def get(self, key: int) -> OpResult:
-        return self._attributed(1, lambda: self.inner.get(key))
+        return self._attributed(1, lambda: self.inner.get(key), "get")
 
     def get_batch(self, keys, *,
                   resolve_makeup: bool | None = None) -> OpResult:
         return self._attributed(len(keys), lambda: self.inner.get_batch(
-            keys, resolve_makeup=resolve_makeup))
+            keys, resolve_makeup=resolve_makeup), "get")
 
     def insert(self, key: int, value: int) -> OpResult:
-        return self._attributed(1, lambda: self.inner.insert(key, value))
+        return self._attributed(1, lambda: self.inner.insert(key, value),
+                                "insert")
 
     def update(self, key: int, value: int) -> OpResult:
-        return self._attributed(1, lambda: self.inner.update(key, value))
+        return self._attributed(1, lambda: self.inner.update(key, value),
+                                "update")
 
     def delete(self, key: int) -> OpResult:
-        return self._attributed(1, lambda: self.inner.delete(key))
+        return self._attributed(1, lambda: self.inner.delete(key), "delete")
 
     def insert_batch(self, keys, values) -> OpResult:
-        return self._attributed(len(keys),
-                                lambda: self.inner.insert_batch(keys, values))
+        return self._attributed(
+            len(keys), lambda: self.inner.insert_batch(keys, values),
+            "insert")
 
     def update_batch(self, keys, values) -> OpResult:
-        return self._attributed(len(keys),
-                                lambda: self.inner.update_batch(keys, values))
+        return self._attributed(
+            len(keys), lambda: self.inner.update_batch(keys, values),
+            "update")
 
     def delete_batch(self, keys) -> OpResult:
-        return self._attributed(len(keys),
-                                lambda: self.inner.delete_batch(keys))
+        return self._attributed(
+            len(keys), lambda: self.inner.delete_batch(keys), "delete")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -410,20 +465,28 @@ class CNStack:
     recovery stage directly above the (replica-set) adapter; ``policy`` (a
     ``BatchPolicy``, or ``None`` for the synchronous ``BatchPolicy.sync()``)
     shapes the pipeline stage, so the assembled order reads ``Pipeline →
-    Meter → [CNCache →] [Retry →] adapter (→ Transport)``."""
+    Meter → [CNCache →] [Retry →] adapter (→ Transport)``; ``hub`` (a
+    ``repro_torch.obs.TelemetryHub``, or ``None``) is handed to every stage
+    and to the adapter."""
 
     cache: CNKeyCache | None = None
     transport_binding: TransportBinding = TransportBinding()
     policy: object | None = None  # BatchPolicy; None -> sync()
     retry: object | None = None   # FaultPlane; None -> no retry stage
+    hub: object | None = None     # a TelemetryHub; None -> dormant plane
 
     def assemble(self, adapter):
         from repro_torch.api.pipeline import PipelineLayer  # import cycle
         store = adapter
+        if self.hub is not None:
+            adapter.hub = self.hub  # the replica set's annotations
         if self.retry is not None:
             store = RetryLayer(store, self.retry,
-                               transport=self.transport_binding.transport)
+                               transport=self.transport_binding.transport,
+                               hub=self.hub)
         if self.cache is not None:
-            store = CNCacheLayer(store, self.cache)
-        return PipelineLayer(MeterLayer(store), policy=self.policy,
-                             transport=self.transport_binding.transport)
+            store = CNCacheLayer(store, self.cache, hub=self.hub)
+        return PipelineLayer(MeterLayer(store, hub=self.hub),
+                             policy=self.policy,
+                             transport=self.transport_binding.transport,
+                             hub=self.hub)

@@ -48,9 +48,10 @@ class LudoCN:
     othello: othello_mod.Othello
     seeds: torch.Tensor  # uint8[num_buckets]
     num_buckets: int
-    # (othello, num_buckets, meta) of the last meta made: see ``meta``
-    _meta: tuple | None = dataclasses.field(default=None, init=False,
-                                            repr=False, compare=False)
+    # (othello, num_buckets, meta) of the last meta made: see ``meta``.  A
+    # class default, not a field: an instance holds it only once a meta was
+    # made, so ``vars()`` of a locator image is the reference's
+    _meta = None
 
     @property
     def meta(self) -> types.MappingProxyType:

@@ -24,8 +24,10 @@ answers, meter totals, resize events (less their wall-clock
 ``rebuild_seconds``), directory and per-table MN images.  A
 ``transport=`` (``repro_torch.net.Transport``) is shared by the directory
 meter and every table's, split successors included, and ``begin_split``
-drops its ``mark_resize``, so the trace is the reference's too.  Lease
-guards and telemetry sinks are not ported yet.
+drops its ``mark_resize``, so the trace is the reference's too.  A lease
+guard (:meth:`set_lease`) and a telemetry wire-sink factory
+(:meth:`bind_table_sinks`) reach every table, split successors and tables
+rebuilt by a resync included.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ludo
+from repro_torch.core import othello as othello_mod
 from repro_torch.core.cn_cache import CNKeyCache
 from repro_torch.core.hashing import hash64_32, split_u64, splitmix64
 from repro_torch.core.meter import MSG_BYTES, CommMeter
@@ -116,6 +119,10 @@ class OutbackStore:
         self._buffer: list = []
         self._open_split = None
         self._lease = None  # optional lease guard, pushed to every table
+        # optional telemetry wire-sink factory (repro_torch.obs): index ->
+        # sink, re-applied to split successors and resynced tables so
+        # per-table wire stats survive §4.4 splits and replica re-installs
+        self._sink_factory = None
 
     @classmethod
     def from_reference(cls, directory, local_depth, global_depth, tables, *,
@@ -388,11 +395,16 @@ class OutbackStore:
         self.meter.add(self.num_compute_nodes, rts=3, req=16, resp=per_cn,
                        one_sided=True)
 
-        # swap directory pointers (the successors inherit the lease guard)
+        # swap directory pointers (the successors inherit the lease guard
+        # and, when telemetry is on, per-table wire sinks at their new
+        # directory indices)
         h.t_lo.lease = h.t_hi.lease = self._lease
         self.tables.append(h.t_hi)
         hi_idx = len(self.tables) - 1
         self.tables[t_idx] = h.t_lo
+        if self._sink_factory is not None:
+            h.t_lo.meter.add_sink(self._sink_factory(t_idx))
+            h.t_hi.meter.add_sink(self._sink_factory(hi_idx))
         self.local_depth[t_idx] = depth + 1
         self.local_depth.append(depth + 1)
         for e in range(len(self.directory)):
@@ -445,16 +457,39 @@ class OutbackStore:
         for t in self.tables:
             t.lease = lease
 
+    # ----------------------------------------------------------- telemetry
+    def bind_table_sinks(self, factory) -> None:
+        """Attach a per-table telemetry wire sink, present and future.
+
+        ``factory(table_index)`` must return an object implementing the
+        meter-sink protocol (``on_meter_add``); it is applied to every
+        current table's meter and — like :meth:`set_lease` — re-applied
+        to §4.4 split successors (at the directory index they take) and
+        to tables rebuilt by a replica resync.  Sinks are observers: the
+        meters' accounting and the transport trace are byte-identical
+        with or without them."""
+        self._sink_factory = factory
+        if factory is None:
+            return
+        seen = set()
+        for i, t in enumerate(self.tables):
+            if id(t) not in seen:  # a table may sit at several indices
+                seen.add(id(t))
+                t.meter.add_sink(factory(i))
+
     # ------------------------------------------------------------ MN image
     def mn_state(self) -> dict:
         """Host image of the whole directory store's MN half: per-table
-        ``OutbackShard.mn_state`` images plus the directory, and a private
-        locator copy per table so a replica that slept through a §4.4 split
-        can re-materialise the successor tables it never built."""
+        ``OutbackShard.mn_state`` images plus the directory, and a host copy
+        of each table's locator so a replica that slept through a §4.4 split
+        can re-materialise the successor tables it never built.  Every
+        array is numpy and every scalar a Python ``int``, in the reference's
+        layout and dtypes, so the image hashes as the reference's does
+        (``repro_torch.net.chaos.state_signature``)."""
         return {"global_depth": self.global_depth,
                 "local_depth": list(self.local_depth),
                 "directory": list(self.directory),
-                "tables": [{"cn": _clone_cn(t.cn),
+                "tables": [{"cn": _host_cn(t.cn),
                             "mn": t.mn_state(),
                             "load_factor": t.load_factor}
                            for t in self.tables]}
@@ -463,8 +498,9 @@ class OutbackStore:
         """Overwrite this store with another's :meth:`mn_state`.
 
         Matching table layouts install in place; a layout mismatch rebuilds
-        the tables list from the shipped images.  Coherence-cache
-        registrations and the lease guard survive either way."""
+        the tables list from the shipped images (this package's or the
+        reference's).  Coherence-cache registrations, the lease guard and
+        the telemetry sink factory survive either way."""
         same_layout = (
             len(state["tables"]) == len(self.tables)
             and state["global_depth"] == self.global_depth
@@ -476,13 +512,15 @@ class OutbackStore:
                 t.install_mn_state(st["mn"])
         else:
             self.tables = [
-                OutbackShard._from_state(_clone_cn(st["cn"], self.device),
+                OutbackShard._from_state(_device_cn(st["cn"], self.device),
                                          st["mn"],
                                          load_factor=st["load_factor"],
                                          transport=self.transport)
                 for st in state["tables"]]
-            for t in self.tables:
+            for i, t in enumerate(self.tables):
                 t.lease = self._lease
+                if self._sink_factory is not None:
+                    t.meter.add_sink(self._sink_factory(i))
         self.global_depth = int(state["global_depth"])
         self.local_depth = list(state["local_depth"])
         self.directory = list(state["directory"])
@@ -521,13 +559,36 @@ class OutbackStore:
         return m
 
 
-def _clone_cn(cn: ludo.LudoCN, device=None) -> ludo.LudoCN:
-    """A private copy of a CN locator (on ``device``, default its own)."""
-    dev = cn.device if device is None else torch.device(device)
-    oth = dataclasses.replace(cn.othello,
-                              words_a=cn.othello.words_a.to(dev, copy=True),
-                              words_b=cn.othello.words_b.to(dev, copy=True))
-    return ludo.LudoCN(oth, cn.seeds.to(dev, copy=True), cn.num_buckets)
+def _host_cn(cn: ludo.LudoCN) -> ludo.LudoCN:
+    """A host image of a CN locator in the reference's layout: uint32
+    Othello words and uint8 seeds as numpy arrays, sizes and seeds as
+    Python ints."""
+    oth = cn.othello
+
+    def words(w):
+        return w.cpu().numpy().view(np.uint32).copy()
+
+    host = othello_mod.Othello(words(oth.words_a), words(oth.words_b),
+                               int(oth.ma), int(oth.mb), int(oth.seed_a),
+                               int(oth.seed_b))
+    return ludo.LudoCN(host, cn.seeds.cpu().numpy().copy(),
+                       int(cn.num_buckets))
+
+
+def _device_cn(image, device) -> ludo.LudoCN:
+    """A locator on ``device`` from a host image (:func:`_host_cn`'s, or
+    the reference's, which has the same fields)."""
+    oth = image.othello
+
+    def words(w):
+        a = np.array(w, dtype=np.uint32)
+        return torch.from_numpy(a.view(np.int32)).to(device)
+
+    dev_oth = othello_mod.Othello(words(oth.words_a), words(oth.words_b),
+                                  int(oth.ma), int(oth.mb), int(oth.seed_a),
+                                  int(oth.seed_b))
+    seeds = torch.from_numpy(np.array(image.seeds, dtype=np.uint8))
+    return ludo.LudoCN(dev_oth, seeds.to(device), int(image.num_buckets))
 
 
 class SplitHandle:

@@ -1,7 +1,8 @@
 """``repro_torch.net`` — the discrete-event RDMA transport simulator.
 
-The port of ``repro.net`` with its fault plane (``faults``) and without
-its chaos harness (``chaos``): host Python and numpy, no device work.
+The port of ``repro.net`` with its fault plane (``faults``) and its chaos
+harness (``chaos``): host Python and numpy, no device work of its own
+(the chaos harness drives a cluster whose MN pool is on the device).
 Turns the per-op counters every KVS feeds its
 :class:`repro_torch.core.meter.CommMeter` into *time*: per-op latency
 distributions, closed-loop throughput versus client count,
@@ -28,6 +29,7 @@ Given the same trace, every result equals the reference's exactly (no
 wall clock and no RNG in any event path).
 """
 
+from repro_torch.net.chaos import ChaosReport, generate_chaos, run_chaos
 from repro_torch.net.faults import FaultEvent, FaultPlane, FaultSchedule
 from repro_torch.net.replay import (SimResult, simulate, simulate_cluster,
                                     simulate_open)
@@ -36,7 +38,8 @@ from repro_torch.net.sim import Server, Simulator
 from repro_torch.net.transport import (DoorbellMark, FaultMark, OpEvent,
                                        ResizeMark, Segment, Transport)
 
-__all__ = ["CX3", "CX6", "DoorbellMark", "FaultEvent", "FaultMark",
-           "FaultPlane", "FaultSchedule", "OpEvent", "ResizeMark", "Segment",
-           "Server", "ServiceModel", "SimResult", "Simulator", "Transport",
+__all__ = ["CX3", "CX6", "ChaosReport", "DoorbellMark", "FaultEvent",
+           "FaultMark", "FaultPlane", "FaultSchedule", "OpEvent",
+           "ResizeMark", "Segment", "Server", "ServiceModel", "SimResult",
+           "Simulator", "Transport", "generate_chaos", "run_chaos",
            "simulate", "simulate_cluster", "simulate_open"]

@@ -89,10 +89,10 @@ class FaultEvent:
       by ``factor`` for ``down_s`` of sim time (incast window).
     * ``"cn_crash"`` — compute node ``cn`` is dead for the window.  The
       node is the *client* side, so no MN server pauses: the cluster
-      plane (the reference's ``repro.cluster``, not ported yet) answers
-      its calls ``"unavailable"`` locally and hands its shards to the
-      survivors (ownership failover); the mark is recorded for sim-plane
-      reporting only.
+      plane (``repro_torch.cluster``) answers its calls
+      ``"unavailable"`` locally and hands its shards to the survivors
+      (ownership failover); the mark is recorded for sim-plane reporting
+      only.
     * ``"partition"`` — the network link between compute node ``cn`` and
       MN replica ``mn`` is cut for the window (``mn=-1`` cuts every link
       from that CN).  Both endpoints stay alive: the CN's calls that

@@ -16,10 +16,11 @@ with the same traces, and the same stacked mesh state after the stream and
 after batched and scalar mutations.  The pipeline's ``combine_reads``
 (with and without a CN cache, on ``outback``, ``outback-dir`` and
 ``race``) and ``coalesce`` subsets give the same answers, stats, meters and
-traces.  A spec's JSON is the same in both packages; the telemetry option
-raises ``SpecError`` ("not yet ported"), replication and faults raise the
-reference's own ``SpecError`` on kinds without ``mn_state`` and open and
-serve on ``outback`` (the whole failure plane: ``tests/test_torch_faults.py``).
+traces.  A spec's JSON is the same in both packages; a malformed telemetry
+config, and replication and faults on kinds without ``mn_state``, raise the
+reference's own ``SpecError`` (the telemetry plane:
+``tests/test_torch_obs.py``); replication and faults open and serve on
+``outback`` (the whole failure plane: ``tests/test_torch_faults.py``).
 """
 
 import dataclasses
@@ -554,19 +555,21 @@ def test_spec_json_is_identical_in_both_packages(kw, batch):
     (dict(kind="sharded", replicas=2), "sharded"),
 ])
 def test_unported_options_raise_spec_error(data, kw, what):
-    """The telemetry plane is not ported: a spec that asks for it raises
-    "not yet ported".  Replication and faults on a kind without
-    ``mn_state`` raise the reference's own ``SpecError``."""
+    """Specs the reference refuses raise the reference's own
+    ``SpecError`` with its message: a malformed ``telemetry`` config (an
+    unknown field), and replication or faults on a kind without
+    ``mn_state``."""
     keys, vals = data
     with pytest.raises(t_api.SpecError) as e:
         t_api.open_store(t_api.StoreSpec(**kw), keys, vals, device="cpu")
-    assert what in str(e.value)
+    with pytest.raises(r_api.SpecError) as e_r:
+        r_api.open_store(r_api.StoreSpec(**kw), keys, vals)
+    assert type(e.value).__name__ == type(e_r.value).__name__
+    assert str(e.value) == str(e_r.value)
     if "telemetry" in kw:
-        assert "not yet ported" in str(e.value)
+        assert str(e.value) == "unknown telemetry config fields: ['sample']"
     else:
-        with pytest.raises(r_api.SpecError) as e_r:
-            r_api.open_store(r_api.StoreSpec(**kw), keys, vals)
-        assert str(e.value) == str(e_r.value)
+        assert what in str(e.value)
         assert "mn_state" in str(e.value)
 
 

@@ -53,7 +53,13 @@ card and skips without one.  It holds:
   twins and HRW placement through splits) takes the same stream on the
   card as on the CPU, with the same answers, attribution, meters, traces,
   replica images and plane state; ``ludo_lookup`` and ``slot_unpack``
-  launch on the replicated path.
+  launch on the replicated path;
+* the telemetry plane and the cluster: a telemetry-on store on the card
+  exports the CPU's ``telemetry_rows`` and, against the same store without
+  telemetry, the same meters, trace, MN images and launch counts; an N=1
+  cluster on the card is identical to ``open_store``; a two-CN cluster
+  through a live §4.4 split answers, meters, traces and ends in the CPU's
+  state; ``run_chaos(1)`` on the card gives the CPU's report.
 """
 
 import numpy as np
@@ -788,3 +794,152 @@ def test_failure_plane_on_card_matches_cpu(card, name):
     for a, b in zip(runs[0], runs[1]):
         assert a == b
 
+
+
+# ------------------------------------------------- telemetry plane, cluster
+def _tuples(trace):
+    import dataclasses
+    return [(type(e).__name__, dataclasses.astuple(e)) for e in trace]
+
+
+def _obs_run(spec, keys, vals, device, stream):
+    import json
+    import pickle
+
+    from repro_torch.api import open_store
+    from repro_torch.net import Transport
+    from repro_torch.obs import telemetry_rows
+    ops.reset_launch_counts()
+    tr = Transport()
+    st = open_store(spec, keys, vals, device=device, transport=tr)
+    out = []
+    for op, ks, vs in stream:
+        r = (st.get_batch(ks) if op == "get" else
+             st.update_batch(ks, vs) if op == "update" else
+             st.insert_batch(ks, vs) if op == "insert" else
+             st.delete_batch(ks))
+        out.append((r.values.tolist(), r.found.tolist(), r.statuses))
+    st.flush()
+    adapter = st
+    while hasattr(adapter, "inner"):
+        adapter = adapter.inner
+    engines = ([r.engine for r in adapter.replicas]
+               if hasattr(adapter, "replicas") else [adapter.engine])
+    rows = (None if st.telemetry is None
+            else [json.dumps(r, sort_keys=True)
+                  for r in telemetry_rows(st.telemetry)])
+    return dict(out=out, meter=st.meter_totals().snapshot(),
+                trace=_tuples(tr.trace), launches=dict(ops.LAUNCHES),
+                images=pickle.dumps([e.mn_state() for e in engines]),
+                rows=rows)
+
+
+@pytest.mark.parametrize("kind", ["outback", "outback-dir", "k2_crash"])
+def test_telemetry_hub_on_card_is_a_pure_observer(card, kind):
+    """A telemetry-on store on the card exports the CPU's rows, and the
+    hub leaves its answers, meters, trace, MN images and launch counts as
+    a telemetry-off store on the card has them."""
+    from repro_torch.api import BatchPolicy, StoreSpec, TelemetryConfig
+    from repro_torch.net import FaultSchedule
+    keys = make_uniform_keys(4096, 5)
+    vals = splitmix64(keys)
+    # enough inserts to split the directory store; a plain shard's
+    # overflow cache takes a few
+    fresh = make_uniform_keys(5120, 6)[:512 if kind == "outback-dir" else 32]
+    kw = dict(load_factor=0.85, batch=BatchPolicy(window=64),
+              telemetry=TelemetryConfig(window_ops=128))
+    if kind == "k2_crash":
+        kw.update(replicas=2, faults=FaultSchedule.single_crash(
+            at_op=512, duration_ops=512, lease_term_ops=64))
+    if kind == "outback-dir":
+        kw.update(cache_budget_bytes=16 << 10, params={"initial_depth": 1})
+    spec = StoreSpec("outback" if kind == "k2_crash" else kind, **kw)
+    off = StoreSpec.from_json_dict({**spec.to_json_dict(),
+                                    "telemetry": None})
+    rng = np.random.default_rng(3)
+    stream = [("get", keys[rng.integers(0, 4096, 128)], None)
+              for _ in range(12)]
+    stream += [("update", keys[:64], keys[:64]),
+               ("insert", fresh, fresh), ("delete", keys[64:96], None),
+               ("get", keys[:256], None)]
+    on = _obs_run(spec, keys, vals, "cuda", stream)
+    cpu = _obs_run(spec, keys, vals, "cpu", stream)
+    dormant = _obs_run(off, keys, vals, "cuda", stream)
+    assert on["rows"] == cpu["rows"]
+    for k in ("out", "meter", "trace", "images"):
+        assert on[k] == cpu[k] == dormant[k], k
+    assert on["launches"] == dormant["launches"]
+    assert on["launches"]["ludo_lookup"] > 0
+    assert not any(cpu["launches"].values())
+
+
+def test_single_cn_cluster_on_card_matches_open_store(card):
+    from repro_torch.api import StoreSpec, open_store
+    from repro_torch.cluster import cluster_of
+    from repro_torch.net import Transport
+    from repro_torch.net.chaos import state_signature
+    keys = make_uniform_keys(4096, 9)
+    vals = splitmix64(keys)
+    spec = StoreSpec("outback-dir", cache_budget_bytes=16 << 10)
+    t_ref = Transport()
+    ref = open_store(spec, keys, vals, device="cuda", transport=t_ref)
+    cl = cluster_of(spec, keys, vals, n_cns=1, device="cuda")
+    rng = np.random.default_rng(0)
+    for step in range(6):
+        idx = rng.integers(0, 4096, 256)
+        a, b = ref.get_batch(keys[idx]), cl.cns[0].get_batch(keys[idx])
+        assert a.values.tolist() == b.values.tolist()
+        if step % 2:
+            nv = rng.integers(1, 1 << 32, 64).astype(np.uint64)
+            ref.update_batch(keys[idx[:64]], nv)
+            cl.cns[0].update_batch(keys[idx[:64]], nv)
+    assert ref.meter_totals().snapshot() == cl.meter_totals().snapshot()
+    assert t_ref.trace == cl.transports[0].trace
+    assert state_signature(ref.engine.mn_state()) == \
+        state_signature(cl.mn_state())
+    assert cl.stats.forward_rpcs == 0 and cl.stats.handoffs == 0
+
+
+def test_two_cn_cluster_through_a_split_on_card_matches_cpu(card):
+    """Two CNs interleave reads and writes through a live §4.4 split: the
+    card's answers, meters, traces, stats and final MN state are the
+    CPU's, and the shared pool's Gets launch the index kernels."""
+    from repro_torch.api import StoreSpec
+    from repro_torch.cluster import cluster_of
+    from repro_torch.net.chaos import state_signature
+    rng0 = np.random.default_rng(9)
+    keys = np.unique(rng0.integers(1, 1 << 62, 4608, dtype=np.uint64))
+    base, extra = keys[:2048], keys[2048:4096]
+    runs = []
+    for device in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        cl = cluster_of(StoreSpec("outback-dir", load_factor=0.85,
+                                  cache_budget_bytes=32 << 10),
+                        base, base, n_cns=2, device=device)
+        rng = np.random.default_rng(42)
+        out = []
+        for step in range(24):
+            w, r = cl.cns[step % 2], cl.cns[(step + 1) % 2]
+            idx = rng.integers(0, 2048, 96)
+            out.append(r.get_batch(base[idx]).values.tolist())
+            nv = rng.integers(1, 1 << 32, 32).astype(np.uint64)
+            out.append(w.update_batch(base[idx[:32]], nv).found.tolist())
+            out.append(w.insert_batch(extra[step * 64:(step + 1) * 64],
+                                      extra[step * 64:(step + 1) * 64]
+                                      ).found.tolist())
+            out.append(r.get_batch(base[idx]).values.tolist())
+        launches = dict(ops.LAUNCHES)
+        assert len(cl.engine.tables) > 1, "the run must split a table"
+        runs.append((out, cl.meter_totals().snapshot(),
+                     [_tuples(t.trace) for t in cl.transports],
+                     cl.stats.snapshot(), state_signature(cl.mn_state())))
+        if device == "cuda":
+            assert launches["ludo_lookup"] > 0 and launches["slot_unpack"] > 0
+    assert runs[0] == runs[1]
+
+
+def test_chaos_on_card_matches_cpu(card):
+    from repro_torch.net.chaos import run_chaos
+    a = run_chaos(1, telemetry=True, device="cuda")
+    b = run_chaos(1, telemetry=True, device="cpu")
+    assert a.passed and a.to_json_dict() == b.to_json_dict()

@@ -2,7 +2,8 @@
 
 * an AST scan of every module under ``src/repro_torch/``, of
   ``chip_smoke.py``, of
-  ``tools/{fnm,step,ludo,store,baselines,mesh,faults}_probe.py``, of the
+  ``tools/{fnm,step,ludo,store,baselines,mesh,faults,cluster}_probe.py``,
+  of the
   on-card tests (``tests/test_torch_cuda.py``, which must run on the GPU
   machine, and its fault specs, ``tests/_torch_fault_specs.py``), of
   ``tests/test_torch_ludo_plan.py`` and of the spawned mesh rank
@@ -12,7 +13,9 @@
   on the CPU), ``repro_torch.net`` (and builds and replays a ``race``
   store's trace on the CPU), the fault plane (``repro_torch.net.faults``
   and ``repro_torch.api.replication``, and serves a replicated store
-  through a crash on the CPU), ``repro_torch.serve`` (and serves a request
+  through a crash on the CPU), the telemetry and cluster planes
+  (``repro_torch.obs``, ``repro_torch.cluster``, ``repro_torch.net.chaos``,
+  and runs a chaos run with telemetry on the CPU), ``repro_torch.serve`` (and serves a request
   on the CPU), or ``repro_torch.core.sharded_kvs`` (and runs a Get on a
   one-rank CPU mesh), has neither ``jax`` nor ``repro`` in
   ``sys.modules``;
@@ -51,7 +54,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py",
     ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py",
     ROOT / "tools" / "baselines_probe.py", ROOT / "tools" / "mesh_probe.py",
-    ROOT / "tools" / "faults_probe.py"]
+    ROOT / "tools" / "faults_probe.py",
+    ROOT / "tools" / "cluster_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -140,6 +144,46 @@ def test_importing_the_fault_plane_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.cluster",
+                                    "repro_torch.net.chaos"])
+def test_importing_the_telemetry_and_cluster_planes_loads_neither_jax_nor_repro(
+        module):
+    """``repro_torch.obs``, ``repro_torch.cluster`` and
+    ``repro_torch.net.chaos``, each imported alone in a fresh interpreter
+    that then runs a small telemetry-on chaos run on the CPU."""
+    code = (
+        "import sys, json, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "from repro_torch.net.chaos import run_chaos\n"
+        "rep = run_chaos(1, n_keys=300, n_ops=600, telemetry=True,\n"
+        "                device='cpu')\n"
+        "assert rep.passed and rep.telemetry_sig is not None\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_cluster_entry_points_raise_without_cuda(monkeypatch):
+    """A cluster (and a chaos run) builds its MN pool and CN caches on CUDA
+    unless given ``device="cpu"``."""
+    from repro_torch.cluster import cluster_of
+    from repro_torch.net.chaos import run_chaos
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = splitmix64(np.arange(1, 300, dtype=np.uint64))
+    spec = StoreSpec("outback-dir", cache_budget_bytes=4096)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cluster_of(spec, keys, keys, n_cns=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_chaos(1, n_keys=64, n_ops=64)
+    cl = cluster_of(spec, keys, keys, n_cns=2, device="cpu")
+    assert {t.device.type for t in cl.engine.tables} == {"cpu"}
+    assert cl.cns[1].get_batch(keys).found.all()
 
 
 def test_replicated_entry_points_raise_without_cuda(monkeypatch):
