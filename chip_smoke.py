@@ -5,7 +5,8 @@
                             # cached directory store, the four baselines,
                             # the transport model, the (1, 1) mesh, the
                             # replicated store through a crash, the
-                            # telemetry plane, a 4-CN cluster and chaos;
+                            # telemetry plane, a 4-CN cluster, chaos, the
+                            # front door, session parking and rwkv6;
                             # one card
 
 Phases; any failure exits non-zero:
@@ -92,15 +93,15 @@ Phases; any failure exits non-zero:
    resize events (less their wall-clock seconds), directory, depths, every
    table's MN image and the cache's whole state must agree exactly.  Then
    ``open_store(StoreSpec("outback-dir", load_factor=0.85,
-   cache_budget_bytes=8 * 2^24, params={"initial_depth": 1}))`` over the
-   2^24 keys of phase 3 serves YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
-   (2^18 ops) through ``submit``/``flush`` at window 1024, every answer
+   cache_budget_bytes=8 * 2^22, params={"initial_depth": 1}))`` over the
+   first 2^22 keys of phase 3 serves YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
+   (2^17 ops) through ``submit``/``flush`` at window 1024, every answer
    checked against the host oracle, printing the hit and negative-hit
    rates, Gets/s, window p50/p99, the host µs of the cache's
    ``probe_batch`` and ``observe_batch`` a window and its
    ``memory_bytes()``; both index kernels must launch in every window with
    a cache miss or a write (counters zeroed just before, read just after).
-   Then table 0 (about 2^23 live keys) splits: 2^16 Gets before,
+   Then table 0 (about 2^21 live keys) splits: 2^16 Gets before,
    ``begin_split``, 2^16 Gets and 2^12 inserts of new keys in the window
    (those routed to the frozen table come back ``"frozen"``), ``build()``
    (timed), ``finish()``, 2^16 Gets after and a read-back of every insert;
@@ -114,10 +115,10 @@ Phases; any failure exits non-zero:
    every answer, ``meter_totals().snapshot()``, the traces (doorbell marks
    included) as tuples, the final host images, the device arrays copied
    back and ``simulate(trace, clients=8)`` must be equal; (b) each baseline
-   at 2^24 keys (phase 3's keys and values) at the reference's default load
-   factors (RACE at 0.69: at 0.7 its build cannot place these keys), one
+   over the first 2^23 of phase 3's keys at the reference's default load
+   factors (RACE at 0.69: at 0.7 its build cannot place 2^24 keys), one
    store at a time: YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
-   (2^18 ops, half updates) at window 1024, then 2^12 deletes and Gets of
+   (2^17 ops, half updates) at window 1024, then 2^12 deletes and Gets of
    the deleted keys, every answer checked (for dummy, which verifies no
    key, against the value at index ``key % n``), printing the build's host
    seconds, Gets/s, window p50/p99, YCSB-A ops/s, the device busy share over
@@ -143,7 +144,7 @@ Phases; any failure exits non-zero:
    state must be equal; then each state's mesh Get (``make_get_fn``) for
    both variants, plain and with a warmed one-replica CN cache, each with
    a transport: every lane, the hit mask, the meter and the trace must be
-   equal.  (b) Phase 3's 2^24 keys and values in one ``sharded`` store
+   equal.  (b) The first 2^22 of phase 3's keys in one ``sharded`` store
    (load factor 0.85, one shard) with a transport: YCSB-C (2^20 zipf(0.99)
    Gets, a window of 1024 a submit) through the adapter, then
    ``mesh_state()`` -> ``place_state`` -> ``make_get_fn`` for each variant
@@ -170,9 +171,10 @@ Phases; any failure exits non-zero:
    answers, statuses, each OpResult's attribution, meter snapshots, the
    pipeline's stats, traces, the plane's state and every replica's final
    MN image must be equal.  (b) ``StoreSpec("outback", load_factor=0.85,
-   replicas=2)`` over phase 3's 2^24 keys, its primary crashing at op
-   3 * 2^17 for 2^17 ops of the op clock (leases at 4096): 2^18 zipf(0.99)
-   Gets, then YCSB-A (2^19 ops, half updates) with 2^14 inserts of fresh
+   replicas=2)`` over the first 2^22 of phase 3's keys, its primary
+   crashing at op
+   9 * 2^15 for 2^15 ops of the op clock (leases at 4096): 2^18 zipf(0.99)
+   Gets, then YCSB-A (2^17 ops, half updates) with 2^14 inserts of fresh
    keys spread through it and the crash inside it, then 2^18 recovery
    Gets, all at window 1024 in submission order.  Every Get is checked
    against the latest acknowledged value, every acknowledged update and
@@ -205,7 +207,7 @@ Phases; any failure exits non-zero:
    traces, MN images and launch counts; an N=1 ``cluster_of`` must answer,
    meter, trace and end in the MN state of ``open_store``; ``run_chaos``
    at its defaults for seeds 1-3 must pass with the CPU's report.  (b)
-   The reference ``obs`` suite's overhead procedure over the first 2^23
+   The reference ``obs`` suite's overhead procedure over the first 2^22
    of phase 3's keys: one engine, a stack with
    ``TelemetryHub(TelemetryConfig(window_ops=4096))`` and one without, a
    warm-up rep each, 5 interleaved reps of 2^18 zipf(0.99) Gets (one
@@ -214,7 +216,8 @@ Phases; any failure exits non-zero:
    printed, not gated), ``ops{op=get}`` checked exact, each side's device
    busy share.  (c) ``cluster_of`` the ``cluster`` suite's spec
    (``outback-dir``, load factor 0.85, a 256 KiB cache a CN, initial
-   depth 3, telemetry on) over phase 3's 2^24 keys, 4 CNs over a 4-MN
+   depth 3, telemetry on) over the first 2^22 of phase 3's keys, 4 CNs over
+   a 4-MN
    pool: CNs 0-2 start, CN 3 joins at op 2^18, every live CN drives
    zipf(0.9) Gets in batches of 256 (2^19 lanes), each CN updates 2^14/4
    keys other CNs own, CN 1 leaves, and every acknowledged update reads
@@ -225,8 +228,40 @@ Phases; any failure exits non-zero:
    ``simulate_cluster``'s modelled Mops and p50/p99 (a model, not the
    card).  The launch counters are zeroed just before (c)'s traffic and
    read just after, and both index kernels must have launched.  (d)
-   ``run_chaos(seed=3, n_keys=2^16, n_ops=2^18, batch=256,
-   telemetry=True)`` on the card must pass.
+   ``run_chaos(seed=3, n_keys=2^16, n_ops=2^17, batch=256,
+   telemetry=True)`` on the card must pass;
+13. the serving plane (``repro_torch.serve``): (a) card against CPU: one
+   generated two-tenant schedule through four front-door policies (the dormant
+   pass-through, singleflight, admission with a token bucket and telemetry, a
+   K=1 crash that degrades lanes) over an 8000-key store with a transport:
+   records, stats, lane arrivals, meters, traces, MN images, hub counters and
+   the ``simulate_open`` replay must be equal, and direct submits on the card
+   must meter, trace and leave the MN images as the pass-through door did; a
+   ``KVSessionStore`` park/get/shrink/delete stream: answers, meters, MN images
+   and the cache's state equal; the reduced rwkv6 in float32: 6 decode steps
+   and a prefill within 1e-5.  (b) The slo suite's timing store (``outback``,
+   load factor 0.85, window 512, a transport) over the first 2^22 of phase 3's
+   keys: the knee from the suite's capacity probe, then 2^19 offers of its
+   singleflight, isolation and acked-writes streams through ``FrontDoor.run``:
+   every answer held against a host oracle of the latest acknowledged values,
+   every acknowledged write read back (0 lost), no refused update applied;
+   printed: offers/s (host clock), outcome counts, the share of Gets
+   singleflight saved, windows, device ops a window and busy share over a
+   profiled stretch, and the modelled answered Mops and p50/p99/p999 from
+   ``simulate_open`` (the reference's model of the fabric, not the card).  The
+   launch counters are zeroed just before the three streams and read just
+   after.  (c) llama3.2-1b at its published widths with random bf16 weights in
+   ``Engine(lanes=4, max_seq=32,
+   session_store=KVSessionStore(cn_cache_budget_bytes=256 KiB))``: a few steps,
+   then a lane parks, resumes, parks and resumes again (each timed), its state
+   equal bit for bit to the parked state each time, its length kept, CN cache
+   hits rising on the second resume; every request finishes and the blob is
+   reclaimed; printed: park and resume ms, chunk keys a park, §4.4 splits,
+   launches (counters zeroed before the steps).  (d) rwkv6-1.6b at its
+   published widths with random bf16 weights: 8 requests through
+   ``Engine(lanes=8)`` with a lane parked and resumed in process; tokens/s,
+   engine-step p50/p99, the device busy share over profiled decode steps; a
+   lane's 12,779,524 B blob refused by ``KVSessionStore.put``.
 
 The line before the last is the kernels' JSON record (all five kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -252,6 +287,17 @@ sys.path.insert(0, str(ROOT / "src"))
 # The sizes of the run: 2^24 keys of 8 bytes with 8-byte values, 2^20
 # YCSB-C Gets, 2^18 YCSB-A ops, 2^14 inserts and 2^14 deletes; data from SEED.
 N_KEYS_LOG2 = 24
+# The later phases' full-size stores (8, 10, 11 (b), 12 (b), 12 (c) and
+# 13 (b); phase 9 takes BASE_KEYS_LOG2) take the first 2^LATER_KEYS_LOG2 of
+# these keys, to keep the whole run inside its 1200 s on a slow host: on
+# one H100 (NVIDIA H100 80GB HBM3, 700 W) each of them spent 40-125 s in
+# its host build at 2^24 keys, and the same tree at 2^23 took 990.0 s on
+# one host and 1306.7 s on another (the host's Python, not the card, sets
+# the time).
+LATER_KEYS_LOG2 = 22
+# and the later stores' YCSB-A streams are half of phase 3's: at 4700-18000
+# ops/s a 2^18-op stream took 15-56 s a store on that machine's host
+LATER_YCSB_A_LOG2 = 17
 N_GETS_LOG2 = 20
 N_YCSB_A_LOG2 = 18
 N_WRITES_LOG2 = 14
@@ -414,10 +460,11 @@ TWIN_TOL = 1e-3
 # Phase 8: the cached, resizable store.  StoreSpec("outback-dir") over the
 # phase-3 keys with the reference's own settings: load factor 0.85 (its
 # fig17_resize, benchmarks/paper_figs.py) and a CN cache of 8 bytes a key
-# (its zipf_cache): 2^27 bytes for 2^24 keys, in two tables
-# (initial_depth 1).  YCSB-C 2^20 zipf(0.99) Gets and YCSB-A 2^18 ops at
-# window 1024, then a split of table 0 (about 2^23 live keys) with
-# 2^DIR_SPLIT_GETS_LOG2 Gets and 2^DIR_SPLIT_INSERTS_LOG2 inserts of new
+# (its zipf_cache): 2^25 bytes for the first 2^22 keys (LATER_KEYS_LOG2),
+# in two tables (initial_depth 1).  YCSB-C 2^20 zipf(0.99) Gets and YCSB-A
+# 2^LATER_YCSB_A_LOG2 ops at window 1024, then a split of table 0 (about
+# 2^21 live keys)
+# with 2^DIR_SPLIT_GETS_LOG2 Gets and 2^DIR_SPLIT_INSERTS_LOG2 inserts of new
 # keys inside its window, and as many Gets before and after it.  The
 # agreement step runs a 2^14-key store with a 64 KiB cache on the card and
 # on the CPU.
@@ -428,13 +475,16 @@ DIR_SPLIT_INSERTS_LOG2 = 12
 DIR_AGREE_KEYS_LOG2 = 14
 DIR_AGREE_CACHE = 64 << 10
 # Phase 9: the four baselines at the reference's default load factors (MICA
-# 0.7, Cluster 0.8) over phase 3's keys, but RACE at 0.69: at its default
-# 0.7 the reference's 2-choice build cannot place these 2^24 keys ("RACE
-# table full"), and 0.69 is the largest hundredth at which it can; a
+# 0.7, Cluster 0.8) over the first 2^BASE_KEYS_LOG2 of phase 3's keys, but
+# RACE at 0.69: at its default 0.7 the reference's 2-choice build cannot
+# place phase 3's 2^24 keys ("RACE table full"), and 0.69 is the largest
+# hundredth at which it can, at 2^24 and 2^23 keys but not at 2^22 (so
+# this phase keeps 2^23, where the other later stores take 2^22); a
 # 2^14-key agreement store at load factor 0.5 (the stream's inserts stay
 # below MICA's displacement bound); the MN step timed at B = 2^16; the
 # modelled comparison at 2^20 keys and 2^16 recorded Gets.
 BASELINE_KINDS = ("race", "mica", "cluster", "dummy")
+BASE_KEYS_LOG2 = 23
 BASE_LOAD_FACTOR = {"race": 0.69}
 BASE_AGREE_KEYS_LOG2 = 14
 BASE_AGREE_LOAD = 0.5
@@ -443,11 +493,11 @@ MN_BATCH = 1 << 16
 SIM_KEYS_LOG2 = 20
 SIM_GETS_LOG2 = 16
 SIM_CLIENTS = (1, 8, 64)
-# Phase 10: the mesh at (1, 1) on the one card.  The agreement store has
-# 2^14 keys; the full-size store takes phase 3's keys at the registry's
-# load factor 0.85.  A mesh call takes the serve window or the MN step's
-# batch of lanes; MESH_PROFILED of its calls are profiled.  The cached
-# runs probe a 128 MiB CN cache (8 bytes a key, phase 8's budget) warmed
+# Phase 10: the mesh at (1, 1) on the one card.  The agreement store has 2^14
+# keys; the full-size store takes the first 2^LATER_KEYS_LOG2 of phase 3's keys
+# at the registry's load factor 0.85.  A mesh call takes the serve window or
+# the MN step's batch of lanes; MESH_PROFILED of its calls are profiled.  The
+# cached runs probe a 128 MiB CN cache (8 bytes a key, phase 8's budget) warmed
 # on the stream's first 2^18 Gets.
 MESH_AGREE_KEYS_LOG2 = 14
 MESH_VARIANTS = ("outback", "race")
@@ -459,16 +509,19 @@ MESH_WARM_LOG2 = 18
 # phase 11: the failure plane.  The agreement runs 2^14 keys through five
 # specs; the full-size run is the reference faults suite's setting (load
 # factor 0.85, benchmarks/faults_bench.py:113) over phase 3's keys at K=2,
-# a crash of the primary inside a YCSB-A stream on the op clock; (c)-(e)
-# take 2^20 keys and the suite's own stream shape (faults_bench.py:53-58)
+# a crash of the primary a quarter into a YCSB-A stream on the op clock
+# (2^17 ops, cut from 2^19 to keep the run inside its limit: it ran at
+# 6000-9000 ops/s), over the first 2^LATER_KEYS_LOG2 of phase 3's keys;
+# (c)-(e) take 2^20 keys and the suite's own stream shape
+# (faults_bench.py:53-58)
 FAULT_AGREE_KEYS_LOG2 = 14
 FAULT_AGREE_OPS_LOG2 = 12
 FAULT_LOAD_FACTOR = 0.85
 FAULT_N_GETS_LOG2 = 18
-FAULT_N_A_LOG2 = 19
+FAULT_N_A_LOG2 = 17
 FAULT_N_INS_LOG2 = 14
-FAULT_CRASH_AT = 3 << 17
-FAULT_CRASH_OPS = 1 << 17
+FAULT_CRASH_AT = 9 << 15
+FAULT_CRASH_OPS = 1 << 15
 FAULT_LEASE_OPS = 4096
 FAULT_SMALL_KEYS_LOG2 = 20
 FAULT_WARM_CALLS = 10
@@ -482,17 +535,18 @@ FAULT_TAIL_OPS = 400
 # reference obs suite's procedure (benchmarks/obs_bench.py:66-131: its
 # spec, TelemetryConfig(window_ops=4096), a warm-up rep a side, 5
 # interleaved reps, GC outside the clock, the minimum a side) over phase
-# 3's first 2^23 keys (cut from 2^24: the build is most of the part's
-# time, and the Gets' host path is the same); the cluster is the cluster
+# 3's first 2^LATER_KEYS_LOG2 keys (cut from 2^24: the build is most of the
+# part's time, and the Gets' host path is the same); the cluster is the cluster
 # suite's spec (benchmarks/cluster_bench.py:63-65: outback-dir, load
 # factor 0.85, a 256 KiB cache a CN, initial depth 3) with its zipf(0.9)
-# skew and batch of 256 over phase 3's keys, 4 CNs over a 4-MN pool, CN
+# skew and batch of 256 over the first 2^LATER_KEYS_LOG2 of phase 3's
+# keys, 4 CNs over a 4-MN pool, CN
 # 3 joining and CN 1 leaving, 2^19 Get lanes (cut from 2^20 to keep the
 # whole run well inside its limit); the large chaos run is run_chaos's
-# own harness at 2^16 keys
+# own harness at 2^16 keys and 2^17 ops (cut from 2^18 for the limit)
 OBS_AGREE_KEYS_LOG2 = 14
 OBS_AGREE_OPS_LOG2 = 12
-OBS_KEYS_LOG2 = 23
+OBS_KEYS_LOG2 = LATER_KEYS_LOG2
 OBS_WINDOW_OPS = 4096
 OBS_GETS_LOG2 = 18
 OBS_REPS = 5
@@ -509,8 +563,49 @@ CLUSTER_BURST = 1 << 14
 CLUSTER_PROFILED_CALLS = 64
 CLUSTER_SIM = dict(clients_per_cn=2, window=8, mn_threads=4)
 CHAOS_SEEDS = (1, 2, 3)
-CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 18, batch=256,
+CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 17, batch=256,
                    telemetry=True)
+# phase 13: the serving ingress, session parking through the KVS and the rwkv6
+# family.  The agreement runs the front door's policies over an 8000-key store
+# (tests/test_frontdoor.py's size), a session-store stream and the reduced
+# rwkv6 in float32, card against CPU.  The front door at scale is the slo
+# suite's timing store (benchmarks/slo_bench.py:56-58: outback, load factor
+# 0.85, a window of 512, no CN cache, a transport) over the first
+# 2^LATER_KEYS_LOG2 of phase 3's keys; its knee is taken at FD_KNEE_FRAC of the
+# suite's capacity probe (slo_bench.py:136-147: 4000 zipf Gets posted at t=0
+# over 8 QPs), with the knee's p999 from a pass-through run there (the suite
+# sweeps ten loads for it); then 2^19 offers from the suite's singleflight,
+# isolation (the contended arm) and acked-writes specs and policies
+# (slo_bench.py:205-214, 259-370).  Session parking runs llama3.2-1b at its
+# published widths through KVSessionStore(cn_cache_budget_bytes=256 KiB)
+# (tests/test_train_serve.py: 160-162) with max_seq cut from 128 to 32: a
+# first park of the 128-token lane (524,290 chunk keys) took 120.5 s on one
+# H100 (tools/session_probe.py --sizing), of the 64-token lane 52.8-72.3 s,
+# of the 32-token lane (1,048,580 B, 131,074 chunk keys) 28.2 s.  rwkv6-1.6b at its published widths serves 8 requests in process; its
+# 12,779,524 B lane is over the session store's limit, as in the reference.
+FD_AGREE_KEYS = 8000
+FD_WINDOW = 512
+FD_QPS = 8
+FD_C = 8
+FD_OFFERS = {"singleflight": 1 << 18, "isolation": 1 << 17,
+             "acked_writes": 1 << 17}
+FD_PROBE_GETS = 4000
+FD_KNEE_FRAC = 0.85
+FD_PROFILED_OFFERS = 1 << 14
+SESSION_LANES = 4
+SESSION_MAX_SEQ = 32
+SESSION_CACHE_BYTES = 256 << 10
+SESSION_PROMPT = 8
+SESSION_NEW = 24
+SESSION_STEPS = 3
+RWKV_LANES = 8
+RWKV_REQUESTS = 8
+RWKV_PROMPT = 8
+RWKV_NEW = 16
+RWKV_MAX_SEQ = 64
+RWKV_PROFILED_STEPS = 8
+# tests/test_torch_models.py's float32 tolerance (rtol and atol)
+RWKV_TOL = 1e-5
 
 
 def log(*a) -> None:
@@ -1834,11 +1929,13 @@ def serve_directory(keys, vals, rng) -> dict:
     YCSB-A through submit/flush, then splits table 0 with traffic in the
     window; every answer and, after the split, every cached entry is held
     against the host oracle.  The index kernels must launch in every window
-    with a cache miss or a write."""
+    with a cache miss or a write.  It takes the first
+    2^``LATER_KEYS_LOG2`` of the keys."""
     import torch
     from repro_torch.api import BatchPolicy, StoreSpec, open_store
     from repro_torch.core.hashing import splitmix64
     from repro_torch.kernels import ops
+    keys, vals = keys[:1 << LATER_KEYS_LOG2], vals[:1 << LATER_KEYS_LOG2]
     n = keys.size
     spec = StoreSpec("outback-dir", load_factor=DIR_LOAD_FACTOR,
                      rng_seed=SEED,
@@ -1929,7 +2026,7 @@ def serve_directory(keys, vals, rng) -> dict:
     # ---- YCSB-C ----
     gets("dir_ycsb_c", perm[zipf_ranks(rng, n, 1 << N_GETS_LOG2)])
     # ---- YCSB-A: half reads, half updates, in submission order ----
-    n_a = 1 << N_YCSB_A_LOG2
+    n_a = 1 << LATER_YCSB_A_LOG2
     idx_a = perm[zipf_ranks(rng, n, n_a)]
     is_upd = rng.random(n_a) < 0.5
     new_v = rng.integers(0, 2**64 - 1, n_a, dtype=np.uint64, endpoint=True)
@@ -2217,9 +2314,11 @@ def serve_baseline(kind: str, keys, vals, rng) -> dict:
     at the reference's default load factor, serve YCSB-C and YCSB-A at
     window 1024, then deletes and Gets of the deleted keys, every answer
     checked against the oracle (for dummy, which verifies no key, the value
-    at index ``key % n``); then time its MN step at B = ``MN_BATCH``."""
+    at index ``key % n``); then time its MN step at B = ``MN_BATCH``.  It
+    takes the first 2^``BASE_KEYS_LOG2`` of the keys."""
     import torch
     from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    keys, vals = keys[:1 << BASE_KEYS_LOG2], vals[:1 << BASE_KEYS_LOG2]
     n = keys.size
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2292,7 +2391,7 @@ def serve_baseline(kind: str, keys, vals, rng) -> dict:
                device_ops_per_window=spans / 32)
 
     # ---- YCSB-A: zipf, half reads, half updates, submission order ----
-    n_a = 1 << N_YCSB_A_LOG2
+    n_a = 1 << LATER_YCSB_A_LOG2
     idx_a = perm[zipf_ranks(rng, n, n_a)]
     is_upd = rng.random(n_a) < 0.5
     new_v = rng.integers(0, 2**64 - 1, n_a, dtype=np.uint64, endpoint=True)
@@ -2730,7 +2829,8 @@ def serve_on_mesh(keys, vals, rng) -> tuple:
     """Phase 10: a world of this one process, the (1, 1) mesh on the card
     and on the CPU, :func:`mesh_agreement_check`, then
     :func:`serve_mesh` on the card with the launch counters zeroed just
-    before it and read just after.  The group is destroyed at the end."""
+    before it and read just after, over the first 2^``LATER_KEYS_LOG2``
+    of the keys.  The group is destroyed at the end."""
     import tempfile
 
     import torch
@@ -2746,7 +2846,8 @@ def serve_on_mesh(keys, vals, rng) -> tuple:
             gc.collect()
             torch.cuda.empty_cache()
             ops.reset_launch_counts()
-            res = serve_mesh(keys, vals, rng, meshes["cuda"])
+            n = 1 << LATER_KEYS_LOG2
+            res = serve_mesh(keys[:n], vals[:n], rng, meshes["cuda"])
             launches = dict(ops.LAUNCHES)
         finally:
             dist.destroy_process_group()
@@ -3297,7 +3398,8 @@ def serve_faults(keys, vals, rng) -> tuple:
     res = dict(agreement=fault_agreement_check(SEED))
     gc.collect()
     torch.cuda.empty_cache()
-    res["replicated"] = serve_replicated(keys, vals, rng)
+    n = 1 << LATER_KEYS_LOG2
+    res["replicated"] = serve_replicated(keys[:n], vals[:n], rng)
     launches = res["replicated"].pop("launches")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3583,8 +3685,9 @@ def telemetry_cost(keys, vals, rng) -> dict:
 
 def serve_cluster(keys, vals, rng) -> dict:
     """Phase 12 (c): ``cluster_of`` the cluster suite's spec with telemetry
-    on, ``CLUSTER_CNS`` CNs over a ``CLUSTER_MNS``-wide pool, over phase
-    3's keys.  CNs (0, 1, 2) start; CN 3 joins at op ``CLUSTER_JOIN_AT``
+    on, ``CLUSTER_CNS`` CNs over a ``CLUSTER_MNS``-wide pool, over the
+    first 2^``LATER_KEYS_LOG2`` of phase 3's keys.  CNs (0, 1, 2) start;
+    CN 3 joins at op ``CLUSTER_JOIN_AT``
     (``MembershipSchedule.single_join``) and CN 1 leaves right after a
     burst of updates from non-owners (``single_leave``).  Every live CN
     drives zipf(0.9) Gets in batches of ``CLUSTER_BATCH``,
@@ -3603,6 +3706,7 @@ def serve_cluster(keys, vals, rng) -> dict:
         return bool(table.rebalance(range(CLUSTER_CNS))) and bool(
             table.rebalance([c for c in range(CLUSTER_CNS) if c != 1]))
 
+    keys, vals = keys[:1 << LATER_KEYS_LOG2], vals[:1 << LATER_KEYS_LOG2]
     n = keys.size
     lanes = 1 << CLUSTER_LANES_LOG2
     leave_at = lanes + CLUSTER_BURST
@@ -3844,6 +3948,679 @@ def serve_cluster_phase(keys, vals, rng) -> tuple:
     return res, launches
 
 
+# ------------------------------------------------------------ phase 13
+def _fd_artifacts(fd, st, tr, sig, replay: bool = True) -> dict:
+    """What a front-door run leaves behind, in plain values; ``replay``
+    adds the ``simulate_open`` replay of its lanes."""
+    from repro_torch.net.replay import simulate_open
+    sim = (simulate_open(tr.trace, np.asarray(fd.lane_arrivals()))
+           if replay else None)
+    hub = getattr(st, "hub", None)
+    return dict(records=[dataclasses.astuple(r) for r in fd.records],
+                stats=fd.stats(), arrivals=fd.lane_arrivals(),
+                meter=st.meter_totals().snapshot(),
+                trace=_trace_tuples(tr.trace), state=sig(st),
+                counters=None if hub is None else dict(hub.counters),
+                sim=None if sim is None else (
+                    np.asarray(sim.lat_by_op_us).tolist(),
+                    np.asarray(sim.completions_by_op_s).tolist(),
+                    sim.seconds, sim.n_ops))
+
+
+def frontdoor_agreement_check(seed: int, devices=("cuda", "cpu")) -> dict:
+    """Phase 13 (a), the front door: one generated two-tenant schedule of
+    Gets, updates and inserts through four policies (the dormant
+    pass-through, singleflight, admission with a token bucket and
+    telemetry on, singleflight over a store whose one MN crashes with one
+    retry a lane, so lanes degrade), each over a fresh
+    ``FD_AGREE_KEYS``-key store with a transport on each device: records,
+    stats, lane arrivals, meters, traces, MN images, hub counters and the
+    ``simulate_open`` replay must be equal; and on the card the same
+    submits made directly must meter, trace and leave the MN images as the
+    pass-through door did."""
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.core.hashing import splitmix64
+    from repro_torch.core.store import make_uniform_keys
+    from repro_torch.kernels import ops
+    from repro_torch.net import FaultSchedule, Transport
+    from repro_torch.net.chaos import state_signature
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.serve import (FrontDoor, FrontDoorConfig, TenantLimit,
+                                   TenantSpec, TrafficSpec, generate)
+    keys = make_uniform_keys(FD_AGREE_KEYS, seed + 3)
+    vals = splitmix64(keys)
+    offered = generate(TrafficSpec(tenants=(
+        TenantSpec("a", 3e5, read_frac=0.7, insert_frac=0.05, keyspace=256),
+        TenantSpec("b", 2e5, read_frac=0.5, zipf_theta=0.9, hot_salt=2)),
+        duration_s=0.004, seed=seed + 7), keys)
+    crash = FaultSchedule.single_crash(at_op=2, duration_ops=4096,
+                                       max_retries=1, lease_term_ops=0)
+    cases = {
+        "passthrough": ({}, FrontDoorConfig()),
+        "singleflight": ({}, FrontDoorConfig(singleflight=True, window=64)),
+        "admission": (dict(telemetry=TelemetryConfig(window_ops=1024)),
+                      FrontDoorConfig(max_inflight=4, queue_depth=8,
+                                      service_us=16.0, singleflight=True,
+                                      window=128, limits=(
+                                          TenantLimit("b", 5e4, burst=4.0),))),
+        "k1_crash": (dict(faults=crash),
+                     FrontDoorConfig(singleflight=True, window=32)),
+    }
+
+    def sig(st):
+        inner = st
+        while not hasattr(inner, "replicas") and hasattr(inner, "inner"):
+            inner = inner.inner
+        engines = ([r.engine for r in inner.replicas]
+                   if hasattr(inner, "replicas") else [st.engine])
+        return [state_signature(e.mn_state()) for e in engines]
+
+    out = {}
+    for name, (spec_kw, cfg) in cases.items():
+        runs = []
+        for device in devices:
+            ops.reset_launch_counts()
+            tr = Transport()
+            st = open_store(StoreSpec("outback", load_factor=0.85,
+                                      batch=BatchPolicy(window=256),
+                                      **spec_kw),
+                            keys, vals, device=device, transport=tr)
+            fd = FrontDoor(st, cfg)
+            fd.run(offered)
+            # a faulted store's retried lanes do not map one to one onto
+            # trace ops, so that case is not replayed
+            runs.append(_fd_artifacts(fd, st, tr, sig,
+                                      replay="faults" not in spec_kw))
+            if device == "cuda":
+                launches = dict(ops.LAUNCHES)
+        check(all(r == runs[0] for r in runs[1:]),
+              f"front door {name}: the card's run differs from the CPU's")
+        if name == "passthrough":
+            passthrough = runs
+        # the crash window covers the faulted case's whole stream: its
+        # lanes are answered degraded without reaching the index
+        check(launches["ludo_lookup"] > 0 or "faults" in spec_kw,
+              f"front door {name}: no ludo_lookup launch on the card")
+        out[name] = dict(stats=runs[0]["stats"],
+                         lanes=len(runs[0]["arrivals"]))
+    # the dormant contract on the card: the same submits made directly
+    # meter, trace and leave the MN state as the pass-through door did
+    tr = Transport()
+    st = open_store(StoreSpec("outback", load_factor=0.85,
+                              batch=BatchPolicy(window=256)),
+                    keys, vals, device=devices[0], transport=tr)
+    for o in offered:
+        st.submit(o.op, o.key, o.value)
+    st.flush()
+    door = passthrough[0]
+    check((st.meter_totals().snapshot(), _trace_tuples(tr.trace), sig(st))
+          == (door["meter"], door["trace"], door["state"]),
+          "front door: the dormant door is not byte-invisible on the card")
+    outcomes = {o for c in out.values() for o, n in c["stats"].items()
+                if n and o not in ("offered", "lanes")}
+    check(outcomes >= {"ok", "collapsed", "shed", "ratelimited",
+                       "unavailable"}, f"front door agreement: outcomes "
+          f"{sorted(outcomes)}")
+    log(f"front door on the card against the CPU, {FD_AGREE_KEYS} keys, "
+        f"{len(offered)} offers: equal in {sorted(out)}: "
+        f"{json.dumps({k: v['stats'] for k, v in out.items()})}")
+    return out
+
+
+def session_agreement_check(seed: int, devices=("cuda", "cpu")) -> dict:
+    """Phase 13 (a), the session store: puts of blobs from 0 to 2^16 bytes,
+    two gets of each (the second through the CN cache), a shrinking re-put,
+    a delete, gets of a deleted and an unknown session, on each device:
+    answers, meters, MN images and the cache's whole state must be
+    equal."""
+    from repro_torch.net.chaos import state_signature
+    from repro_torch.serve import KVSessionStore
+    rng = np.random.default_rng(seed + 4)
+    blobs = {rid: rng.bytes(n) for rid, n in
+             enumerate((0, 7, 8, 4093, 1 << 16, 3 * (1 << 14) + 5))}
+    runs = []
+    for device in devices:
+        ss = KVSessionStore(cn_cache_budget_bytes=64 << 10, device=device)
+        out = [ss.put(rid, blob) for rid, blob in blobs.items()]
+        out += [ss.get(rid) == blob for rid, blob in blobs.items()]
+        out += [ss.get(rid) == blob for rid, blob in blobs.items()]
+        out += [ss.put(4, b"short"), ss.get(4), ss.delete(2), ss.get(2),
+                ss.get(99), ss.delete(2)]
+        state = ss.store.cache.state()
+        runs.append(dict(
+            answers=out, meter=ss.meter_total().snapshot(),
+            state=state_signature(ss.store.engine.mn_state()),
+            cache={k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                   for k, v in state.items()},
+            tables=len(ss.store.engine.tables)))
+        if device == "cuda":
+            check(all(t.slots_lo.is_cuda for t in ss.store.engine.tables),
+                  "the session store is not on the card")
+    check(all(r == runs[0] for r in runs[1:]),
+          "session store: the card's run differs from the CPU's")
+    check(all(runs[0]["answers"][len(blobs):3 * len(blobs)]),
+          "session store: a blob came back wrong")
+    res = dict(blobs=len(blobs), tables=runs[0]["tables"],
+               hits=runs[0]["cache"]["stats"]["hits"])
+    log(f"session store on the card against the CPU: equal "
+        f"({json.dumps(res)})")
+    return res
+
+
+def rwkv_agreement_check(seed: int) -> dict:
+    """Phase 13 (a), rwkv6: the reduced config in float32 from the same
+    weights, 6 decode steps of 3 rows (logits and every cache leaf) and a
+    32-token prefill, card against CPU, within RWKV_TOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import sorted_leaves, tree_map
+    from repro_torch.models.lm import LM, init_params
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+                              dtype="float32")
+    params = {"cpu": init_params(cfg, seed, device="cpu",
+                                 dtype=torch.float32)}
+    params["cuda"] = tree_map(lambda t: t.to("cuda"), params["cpu"])
+    models = {d: LM(cfg, device=d) for d in params}
+    caches = {d: m.init_cache(3, 16) for d, m in models.items()}
+    rng = np.random.default_rng(seed + 1)
+    err = 0.0
+
+    def close(a, b, what):
+        nonlocal err
+        a, b = a.cpu().double(), b.double()
+        e = float((a - b).abs().max())
+        err = max(err, e)
+        check(bool(((a - b).abs() <= RWKV_TOL + RWKV_TOL * b.abs()).all()),
+              f"rwkv6 {what}: card against CPU off by {e}")
+
+    for i in range(6):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))
+                               .astype(np.int32))
+        logits = {}
+        for d, m in models.items():
+            logits[d], caches[d] = m.decode_step(params[d], tok.to(d),
+                                                 caches[d])
+        close(logits["cuda"], logits["cpu"], f"decode step {i}")
+    for (p, g), (_, w) in zip(sorted_leaves(caches["cuda"]),
+                              sorted_leaves(caches["cpu"])):
+        close(g, w, f"cache leaf {p}")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                            .astype(np.int32))
+    close(models["cuda"].prefill(params["cuda"], {"tokens": toks.cuda()}),
+          models["cpu"].prefill(params["cpu"], {"tokens": toks}), "prefill")
+    log(f"rwkv6 (reduced, float32) on the card against the CPU: 6 decode "
+        f"steps and a 32-token prefill within {RWKV_TOL}, max abs err {err}")
+    return dict(max_abs_err=err, tol=RWKV_TOL)
+
+
+def _fd_specs(knee: dict) -> dict:
+    """The slo suite's singleflight, isolation (contended) and acked-writes
+    traffic and front-door policies (benchmarks/slo_bench.py:205-214,
+    259-370) at ``FD_OFFERS`` offers each."""
+    from repro_torch.serve import (FrontDoorConfig, TenantLimit, TenantSpec,
+                                   TrafficSpec)
+
+    def admission(**kw):
+        admit = 0.9 * knee["rate_ops_per_s"]
+        depth = max(4, int(1.5 * knee["p999_us"] * 1e-6 * admit))
+        return FrontDoorConfig(max_inflight=FD_C, queue_depth=depth,
+                               service_us=FD_C / admit * 1e6,
+                               window=FD_WINDOW, **kw)
+
+    k = knee["rate_ops_per_s"]
+    sf_rate = 8 * 100_000.0
+    a_limit = 0.15 * k
+    rw = 1.2 * k
+    return {
+        "singleflight": (TrafficSpec(tenants=tuple(
+            TenantSpec(name=f"t{i}", rate_ops_per_s=sf_rate / 8,
+                       zipf_theta=0.99, keyspace=4096, hot_salt=0)
+            for i in range(8)), duration_s=FD_OFFERS["singleflight"]
+            / sf_rate, seed=400),
+            FrontDoorConfig(singleflight=True, window=FD_WINDOW)),
+        "isolation": (TrafficSpec(tenants=(
+            TenantSpec(name="compliant", rate_ops_per_s=0.3 * k,
+                       zipf_theta=0.99, hot_salt=1),
+            TenantSpec(name="abuser", rate_ops_per_s=8.0 * a_limit,
+                       zipf_theta=0.99, hot_salt=2)),
+            duration_s=FD_OFFERS["isolation"] / (0.3 * k + 8.0 * a_limit),
+            seed=500),
+            admission(limits=(TenantLimit("abuser", a_limit, burst=16.0),))),
+        "acked_writes": (TrafficSpec(tenants=(
+            TenantSpec(name="rw0", rate_ops_per_s=rw * 0.4, read_frac=0.5,
+                       zipf_theta=0.9, hot_salt=3),
+            TenantSpec(name="rw1", rate_ops_per_s=rw * 0.4, read_frac=0.5,
+                       zipf_theta=0.9, hot_salt=4),
+            TenantSpec(name="greedy", rate_ops_per_s=rw * 0.2, read_frac=0.5,
+                       zipf_theta=0.9, hot_salt=5)),
+            duration_s=FD_OFFERS["acked_writes"] / rw, seed=600),
+            admission(singleflight=True, limits=(
+                TenantLimit("greedy", rw * 0.05, burst=8.0),))),
+    }
+
+
+def _modelled(recs, sim, duration_s: float) -> dict:
+    """The open-loop replay's view of a run (the reference's model of the
+    fabric, not the card): answered requests' latency from arrival to their
+    lane's completion (a collapsed follower clamped at zero) and the
+    answered requests over the schedule's duration."""
+    done = np.asarray(sim.completions_by_op_s)
+    lat = np.asarray([max(done[r.lane] - r.t_s, 0.0) * 1e6 for r in recs
+                      if r.outcome in ("ok", "collapsed")])
+    return dict(answered_mops=lat.size / duration_s / 1e6,
+                p50_us=float(np.percentile(lat, 50)),
+                p99_us=float(np.percentile(lat, 99)),
+                p999_us=float(np.percentile(lat, 99.9)),
+                replay_seconds=sim.seconds)
+
+
+def serve_frontdoor(keys, vals, rng) -> dict:
+    """Phase 13 (b): the slo suite's timing store over the first
+    2^``LATER_KEYS_LOG2`` of phase 3's keys; the
+    knee as the suite's capacity probe measures it; then the singleflight,
+    isolation and acked-writes streams through ``FrontDoor.run``, every
+    answer held against a host oracle of the latest acknowledged values,
+    every update read back after (0 lost acknowledged writes, no refused
+    update applied); then a profiled stretch of the singleflight stream.
+    The launch counters are zeroed just before the three streams and read
+    just after."""
+    import torch
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.kernels import ops
+    from repro_torch.net import Transport
+    from repro_torch.net.replay import simulate_open
+    from repro_torch.serve import FrontDoor, FrontDoorConfig, generate
+    spec = StoreSpec("outback", load_factor=0.85, rng_seed=SEED,
+                     batch=BatchPolicy(window=FD_WINDOW))
+    keys, vals = keys[:1 << LATER_KEYS_LOG2], vals[:1 << LATER_KEYS_LOG2]
+    tr = Transport()
+    t0 = time.perf_counter()
+    st = open_store(spec, keys, vals, transport=tr)
+    torch.cuda.synchronize()
+    res = dict(build_seconds=time.perf_counter() - t0, keys=int(keys.size),
+               spec=spec.to_json_dict())
+    check(st.engine.slots_lo.is_cuda, "the front door's store is not on "
+          "the card")
+    order = np.argsort(keys)
+    sorted_keys = keys[order]
+
+    def build_value(ks):
+        return vals[order[np.searchsorted(sorted_keys, ks)]]
+
+    def since(mark):
+        return tr.trace[mark:]
+
+    # the knee: the suite's capacity probe, then a pass-through run at
+    # FD_KNEE_FRAC of its rate for the knee's p999
+    idx = zipf_ranks(rng, keys.size, FD_PROBE_GETS)
+    mark = len(tr.trace)
+    for i in idx:
+        st.submit("get", int(keys[i]))
+    st.flush()
+    probe = simulate_open(since(mark), np.zeros(FD_PROBE_GETS), qps=FD_QPS)
+    probe_rate = FD_PROBE_GETS / float(np.max(probe.completions_by_op_s))
+    from repro_torch.serve import TenantSpec, TrafficSpec
+    knee_rate = FD_KNEE_FRAC * probe_rate
+    kspec = TrafficSpec(tenants=(TenantSpec("curve", knee_rate,
+                                            zipf_theta=0.99),),
+                        duration_s=FD_PROBE_GETS * 4 / knee_rate, seed=100)
+    mark = len(tr.trace)
+    fd = FrontDoor(st, FrontDoorConfig())
+    recs = fd.run(generate(kspec, keys))
+    km = _modelled(recs, simulate_open(since(mark),
+                                       np.asarray(fd.lane_arrivals()),
+                                       qps=FD_QPS), kspec.duration_s)
+    knee = dict(rate_ops_per_s=knee_rate, p999_us=km["p999_us"],
+                probe_rate_ops_per_s=probe_rate)
+    res["knee"] = knee
+    log(f"front door store: build {res['build_seconds']:.3f} s at "
+        f"{keys.size} keys; knee (modelled) {json.dumps(knee)}")
+
+    overrides = {}  # key -> last acknowledged value
+    refused = []  # (key, value) of updates shed or rate-limited
+    runs = {}
+    ops.reset_launch_counts()
+    for name, (tspec, cfg) in _fd_specs(knee).items():
+        t = time.perf_counter()
+        offered = generate(tspec, keys)
+        gen_s = time.perf_counter() - t
+        mark = len(tr.trace)
+        fd = FrontDoor(st, cfg)
+        flushes0 = st.stats.flushes
+        m0 = st.meter_totals().snapshot()
+        gc.collect()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = fd.run(offered)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t
+        stats = fd.stats()
+        # the oracle, in offer order: a Get sees the latest acknowledged
+        # write before it (the door's hazard flushes keep program order)
+        want, got, build_keys = [], [], []
+        for r in recs:
+            if r.op == "get" and r.outcome in ("ok", "collapsed"):
+                got.append((r.found, r.result))
+                if r.key in overrides:
+                    want.append((True, overrides[r.key]))
+                else:
+                    want.append(None)
+                    build_keys.append(r.key)
+            elif r.op in ("update", "insert"):
+                if r.outcome == "ok":
+                    check(r.found, f"{name}: an admitted {r.op} failed")
+                    overrides[r.key] = r.value
+                elif r.outcome in ("shed", "ratelimited"):
+                    refused.append((r.key, r.value))
+        bv = iter(build_value(np.asarray(build_keys, dtype=np.uint64))
+                  .tolist())
+        want = [(True, next(bv)) if w is None else w for w in want]
+        bad = sum(g != w for g, w in zip(got, want))
+        check(bad == 0, f"{name}: {bad} answers differ from the oracle")
+        check(stats["unavailable"] == 0, f"{name}: unavailable lanes")
+        meter = st.meter_totals()
+        sf = meter.sf_hits - m0["sf_hits"]
+        check(sf == stats["collapsed"], f"{name}: singleflight meter "
+              f"{sf} against {stats['collapsed']} collapsed")
+        sim = simulate_open(since(mark), np.asarray(fd.lane_arrivals()),
+                            qps=FD_QPS)
+        check(sim.n_ops == stats["lanes"], f"{name}: lanes and trace ops")
+        gets = sum(1 for r in recs if r.op == "get")
+        runs[name] = dict(
+            offered=len(recs), generate_seconds=gen_s, host_seconds=host_s,
+            offers_per_s=len(recs) / host_s, stats=stats,
+            singleflight_saved_share=stats["collapsed"] / max(gets, 1),
+            windows=st.stats.flushes - flushes0,
+            answers_checked=len(got),
+            modelled=_modelled(recs, sim, tspec.duration_s),
+            policy=cfg.to_json_dict())
+        log(f"front door {name}: {len(recs)} offers in {host_s:.3f} s "
+            f"({runs[name]['offers_per_s']:.1f} offers/s, host clock; "
+            f"generate {gen_s:.3f} s); {json.dumps(stats)}; singleflight "
+            f"saved {runs[name]['singleflight_saved_share']:.4f} of Gets; "
+            f"{runs[name]['windows']} windows; modelled (the reference's "
+            f"model of the fabric, not the card) "
+            f"{json.dumps(runs[name]['modelled'])}")
+    launches = dict(ops.LAUNCHES)
+    # every acknowledged write reads back; no refused update landed
+    ks = np.asarray(sorted(overrides), dtype=np.uint64)
+    back = st.get_batch(ks)
+    check(bool(back.found.all()) and back.values.tolist()
+          == [overrides[k] for k in ks.tolist()],
+          "front door: an acknowledged write was lost")
+    landed = [(k, v) for k, v in refused
+              if k not in overrides or overrides[k] != v]
+    rk = np.asarray([k for k, _ in landed], dtype=np.uint64)
+    if rk.size:
+        now = st.get_batch(rk).values
+        applied = sum(int(a) == v for a, (_, v) in zip(now, landed))
+        check(applied == 0, f"front door: {applied} refused updates landed")
+    res["acked_writes"] = dict(acked_keys=int(ks.size),
+                               refused_updates=len(refused), lost=0)
+    log(f"front door writes: {ks.size} acknowledged keys read back, 0 lost; "
+        f"{len(refused)} refused updates, none applied")
+
+    # device ops a window and busy share over a stretch of the
+    # singleflight stream (a Get stream changes no state)
+    from torch.profiler import ProfilerActivity, profile
+    tspec, cfg = _fd_specs(knee)["singleflight"]
+    offered = generate(tspec, keys)[:FD_PROFILED_OFFERS]
+    fd = FrontDoor(st, cfg)
+    flushes0 = st.stats.flushes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fd.run(offered)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    b_us, spans = device_busy_us(prof)
+    windows = st.stats.flushes - flushes0
+    res["profiled"] = dict(offers=len(offered), windows=windows,
+                           device_ops_per_window=spans / max(windows, 1),
+                           device_busy_share=b_us / wall_us if spans
+                           else None)
+    res["runs"] = runs
+    res["launches"] = launches
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"front door profiled: {json.dumps(res['profiled'])}")
+    return res
+
+
+def _lane_state(eng, lane: int):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda c: (c[:, lane] if c.dim() >= 2 else c[lane]
+                               ).clone(), eng.cache)
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    from repro_torch.models.common import sorted_leaves
+    la, lb = sorted_leaves(a), sorted_leaves(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def serve_sessions(seed: int) -> dict:
+    """Phase 13 (c): llama3.2-1b at its published widths (random bf16
+    weights from the seed) in ``Engine(lanes=SESSION_LANES,
+    max_seq=SESSION_MAX_SEQ, session_store=KVSessionStore(
+    cn_cache_budget_bytes=SESSION_CACHE_BYTES))`` on the card: a few steps,
+    then lane 0 parks, resumes, parks and resumes again (each timed, parks
+    with their flush), its state equal bit for bit to the parked state each
+    time, its length kept, CN cache hits rising on the second resume; then
+    every request runs to its end and the parked blob is reclaimed.  The
+    launch counters are zeroed just before the steps and read after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import sorted_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import Engine, KVSessionStore, Request
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    params = model.init(seed)
+    ss = KVSessionStore(cn_cache_budget_bytes=SESSION_CACHE_BYTES)
+    torch.cuda.synchronize()
+    res = dict(init_seconds=time.perf_counter() - t0, lanes=SESSION_LANES,
+               max_seq=SESSION_MAX_SEQ,
+               cache_budget_bytes=SESSION_CACHE_BYTES)
+    check(ss.store.engine.tables[0].slots_lo.is_cuda,
+          "the session store is not on the card")
+    eng = Engine(model, params, lanes=SESSION_LANES, max_seq=SESSION_MAX_SEQ,
+                 session_store=ss)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=100 + i, prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, SESSION_PROMPT)], max_new=SESSION_NEW)
+        for i in range(SESSION_LANES)]
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launch_counts()
+    for _ in range(SESSION_STEPS):
+        eng.step()
+    rid = eng.active[0].rid
+    state = _lane_state(eng, 0)
+    length = int(state["length"])
+    timings, lane = {}, 0
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        timings[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def park():
+        eng.park(lane)
+        ss.flush()
+
+    tables0 = len(ss.store.engine.tables)
+    timed("park1_ms", park)
+    chunk_keys = ss._lengths[rid] + 1
+    splits = len(ss.store.engine.resize_events)
+    lane = timed("resume1_ms", lambda: eng.resume(rid))
+    check(_same_state(_lane_state(eng, lane), state), "the first resume did "
+          "not restore the parked state bit for bit")
+    check(int(eng.cache["length"][lane]) == length, "length not kept")
+    timed("park2_ms", park)
+    h0 = ss.cache_stats.hits
+    lane = timed("resume2_ms", lambda: eng.resume(rid))
+    hits = ss.cache_stats.hits - h0
+    check(_same_state(_lane_state(eng, lane), state), "the second resume did "
+          "not restore the parked state bit for bit")
+    check(hits > 0, "the second resume read nothing through the CN cache")
+    eng.run()
+    check(all(r.done for r in reqs) and eng.stats.finished == len(reqs),
+          "a parked session's request did not finish")
+    check(ss.get(rid) is None, "the finished session's blob was not "
+          "reclaimed")
+    launches = dict(ops.LAUNCHES)
+    res.update(timings, chunk_keys_per_park=chunk_keys,
+               blob_bytes=sum(x.numel() * x.element_size()
+                              for _, x in sorted_leaves(state)),
+               splits=splits, tables_before=tables0,
+               tables_after=len(ss.store.engine.tables),
+               second_resume_cache_hits=hits, length=length,
+               stats=dataclasses.asdict(eng.stats),
+               meter=ss.meter_total().snapshot(), launches=launches)
+    log(f"session parking (llama3.2-1b, max_seq {SESSION_MAX_SEQ}): park "
+        f"{timings['park1_ms']:.1f} ms, resume {timings['resume1_ms']:.1f} "
+        f"ms, re-park {timings['park2_ms']:.1f} ms, resume "
+        f"{timings['resume2_ms']:.1f} ms; {chunk_keys} chunk keys a park "
+        f"({res['blob_bytes']} B); {splits} splits (tables {tables0} -> "
+        f"{res['tables_after']}); {hits} CN cache hits on the second "
+        f"resume; state restored bit for bit twice, length {length} kept; "
+        f"launches {json.dumps(launches)}")
+    return res
+
+
+def serve_rwkv(seed: int) -> dict:
+    """Phase 13 (d): rwkv6-1.6b at its published widths (random bf16
+    weights from the seed): ``RWKV_REQUESTS`` requests through
+    ``Engine(lanes=RWKV_LANES)``, every step synced and timed, one lane
+    parked in process mid-run and resumed with its state bit for bit;
+    then the device busy share over profiled decode steps, and a lane's
+    blob (12,779,524 B) refused by ``KVSessionStore.put``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import Engine, KVSessionStore, Request
+    from repro_torch.serve.engine import _to_bytes
+    from repro_torch.models.common import sorted_leaves
+    cfg = get_config("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    res = dict(init_seconds=time.perf_counter() - t0)
+    eng = Engine(model, params, lanes=RWKV_LANES, max_seq=RWKV_MAX_SEQ)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, RWKV_PROMPT)], max_new=RWKV_NEW)
+        for i in range(RWKV_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+    steps, parked = [], False
+    t_run = time.perf_counter()
+    while any(eng.active) or eng.pending or eng.to_prefill:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        if not parked and eng.stats.decode_steps == 2:
+            state = _lane_state(eng, 0)
+            rid = eng.park(0)
+            lane = eng.resume(rid)
+            check(_same_state(_lane_state(eng, lane), state),
+                  "rwkv6: the in-process resume changed the state")
+            parked = True
+            lane_state = state
+    run_s = time.perf_counter() - t_run
+    toks = [t for r in reqs for t in r.out]
+    check(all(r.done for r in reqs) and parked, "rwkv6: a request did not "
+          "finish")
+    check(all(0 <= t < cfg.vocab_size for t in toks), "rwkv6: a token out "
+          "of range")
+    ms = np.asarray(steps) * 1e3
+    res.update(requests=len(reqs), tokens=len(toks), run_seconds=run_s,
+               tokens_per_s=len(toks) / run_s, engine_steps=len(steps),
+               step_p50_ms=float(np.percentile(ms, 50)),
+               step_p99_ms=float(np.percentile(ms, 99)),
+               stats=dataclasses.asdict(eng.stats))
+    from torch.profiler import ProfilerActivity, profile
+    tok = torch.zeros((RWKV_LANES, 1), dtype=torch.int32,
+                      device=model.device)
+    cache = eng.cache
+    logits, cache = model.decode_step(params, tok, cache)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(RWKV_PROFILED_STEPS):
+            logits, cache = model.decode_step(params, tok, cache)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    b_us, spans = device_busy_us(prof)
+    check(bool(torch.isfinite(logits.float()).all()), "rwkv6: logits not "
+          "finite")
+    res.update(device_busy_share=b_us / wall_us if spans else None,
+               device_ops_per_step=spans / RWKV_PROFILED_STEPS,
+               profiled_step_ms=wall_us / 1e3 / RWKV_PROFILED_STEPS)
+    blob = _to_bytes([x for _, x in sorted_leaves(lane_state)])
+    ss = KVSessionStore()
+    try:
+        ss.put(0, blob)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(len(blob) == 12_779_524 and refused == "session blob too large",
+          f"rwkv6: a {len(blob)} B lane was not refused ({refused})")
+    res.update(lane_bytes=len(blob), put_refusal=refused,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"rwkv6-1.6b: {len(reqs)} requests, {len(toks)} tokens in "
+        f"{run_s:.3f} s ({res['tokens_per_s']:.2f} tokens/s); engine step "
+        f"p50 {res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms "
+        f"over {len(steps)} steps; decode step {res['profiled_step_ms']:.3f} "
+        f"ms profiled, {res['device_ops_per_step']:.1f} device ops, busy "
+        f"share {res['device_busy_share']}; a lane is {len(blob)} B and "
+        f"KVSessionStore.put refuses it: {refused!r}")
+    return res
+
+
+def serve_serving_phase(keys, vals, rng) -> tuple:
+    """Phase 13: (a) the agreements, (b) :func:`serve_frontdoor`, (c)
+    :func:`serve_sessions`, (d) :func:`serve_rwkv`.  Returns the numbers
+    and the launch counts of the front door's and the session path's
+    runs."""
+    import torch
+    res = {}
+    t = time.perf_counter()
+    res["agreement"] = dict(frontdoor=frontdoor_agreement_check(SEED),
+                            sessions=session_agreement_check(SEED),
+                            rwkv=rwkv_agreement_check(SEED))
+    res["agreement"]["seconds"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    for name, fn in (("frontdoor", lambda: serve_frontdoor(keys, vals, rng)),
+                     ("sessions", lambda: serve_sessions(SEED)),
+                     ("rwkv", lambda: serve_rwkv(SEED))):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res[name] = fn()
+        res[name]["seconds"] = time.perf_counter() - t
+        if "launches" in res[name]:
+            launches[name] = res[name].pop("launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("phase 13 (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s, (d) {:.1f} s"
+        .format(res["agreement"]["seconds"], res["frontdoor"]["seconds"],
+                res["sessions"]["seconds"], res["rwkv"]["seconds"]))
+    return res, launches
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -4065,6 +4842,23 @@ def main() -> int:
     log(f"launches on the cluster's path: {claunch}")
     log(f"cluster path: {json.dumps(cres)}")
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+    # ---- phase 13: the front door, session parking, rwkv6 ----
+    t13 = time.perf_counter()
+    sres, slaunch = serve_serving_phase(keys, vals, rng)
+    for name, k in kernels.items():
+        k["launches_frontdoor_path"] = slaunch["frontdoor"][name]
+        k["launches_session_path"] = slaunch["sessions"][name]
+    for name in ("ludo_lookup", "slot_unpack"):
+        check(slaunch["frontdoor"][name] > 0, f"{name} never launched on "
+              f"the front door's path")
+    for name in ("ludo_lookup", "slot_unpack", "fused_norm_matmul"):
+        check(slaunch["sessions"][name] > 0, f"{name} never launched on "
+              f"the session path")
+    log(f"launches on the front door's path: {slaunch['frontdoor']}")
+    log(f"launches on the session path: {slaunch['sessions']}")
+    log(f"serving path: {json.dumps(sres)}")
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

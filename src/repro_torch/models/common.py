@@ -74,6 +74,19 @@ def tree_leaves(tree):
     return [] if tree is None else [tree]
 
 
+def sorted_leaves(tree, path=()):
+    """``[(path, leaf)]`` in the order of the reference's
+    ``jax.tree.flatten``: dict keys sorted, lists in order, None an empty
+    subtree; ``path`` is the keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in sorted_leaves(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in sorted_leaves(v, path + (i,))]
+    return [] if tree is None else [(path, tree)]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and of ``rest``, which share its
     structure), keeping the structure; None stays None."""

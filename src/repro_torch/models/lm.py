@@ -1,5 +1,5 @@
-"""LM assembly: the reference's ``models/lm.py`` in PyTorch, family
-``dense``.
+"""LM assembly: the reference's ``models/lm.py`` in PyTorch, families
+``dense`` and ``ssm`` (rwkv6).
 
 An architecture compiles to a list of **stages**; each stage runs
 ``repeat`` structurally-identical **groups** of layers, with the
@@ -15,11 +15,13 @@ family's program as data:
   rwkv6:                     1 stage x L  [(rwkv, rwkv_cm)]
   whisper:                   decoder stage (causal gqa + cross-attn)
 
-Only the dense family runs here, at ``tp=1``: the others raise
-``NotImplementedError``.  Every layer's RMSNorm -> projection pairs (q, k,
-v and the SwiGLU gate and up) run through ``ops.fused_norm_matmul``.  The
-parameter tree has the reference's names and nesting, so
-``params_from_reference`` carries the reference's weights across.
+Only the dense and ssm families run here, at ``tp=1``: the others raise
+``NotImplementedError``.  Every dense layer's RMSNorm -> projection pairs
+(q, k, v and the SwiGLU gate and up) run through ``ops.fused_norm_matmul``;
+the rwkv mixer norms, then shifts, then projects, so it has no such pair
+(``models/rwkv.py``).  The parameter tree has the reference's names and
+nesting, so ``params_from_reference`` carries the reference's weights
+across.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.outback import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as att
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import normal_init, rms_norm, silu, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -51,8 +54,13 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _require_dense(cfg: ModelConfig, tp: int) -> None:
-    if cfg.family != "dense":
+_PORTED_FAMILIES = ("dense", "ssm")
+# each mixer's cache leaves, in the order of its tuple form
+_MIXER_CACHE = {"gqa": ("k", "v"), "rwkv": ("x", "s")}
+
+
+def _require_ported(cfg: ModelConfig, tp: int) -> None:
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
                                   f"not yet ported")
     if tp != 1:
@@ -95,24 +103,31 @@ def make_program(cfg: ModelConfig):
 
 # ------------------------------------------------------- param templates
 def _mixer_template(kind: str, cfg: ModelConfig):
-    if kind != "gqa":
-        raise NotImplementedError(f"mixer {kind!r} is not yet ported")
     d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
-    sq = 1.0 / float(np.sqrt(d))
-    so = 1.0 / float(np.sqrt(H * hd))
     t = {}
-    for k, s in att.gqa_params_shape(cfg).items():
-        if k in ("wq", "wk", "wv"):
-            t[k] = Leaf(s, scale=sq)
-        elif k == "wo":
-            t[k] = Leaf(s, scale=so)
-        else:
-            t[k] = Leaf(s)
+    if kind == "gqa":
+        sq = 1.0 / float(np.sqrt(d))
+        so = 1.0 / float(np.sqrt(H * hd))
+        for k, s in att.gqa_params_shape(cfg).items():
+            if k in ("wq", "wk", "wv"):
+                t[k] = Leaf(s, scale=sq)
+            elif k == "wo":
+                t[k] = Leaf(s, scale=so)
+            else:
+                t[k] = Leaf(s)
+    elif kind == "rwkv":
+        for k, s in rwkv_mod.rwkv_params_shape(cfg).items():
+            t[k] = Leaf(s, dtype="float32" if k in ("w0", "u")
+                        else "bfloat16")
+    else:
+        raise NotImplementedError(f"mixer {kind!r} is not yet ported")
     t["norm"] = Leaf((d,))
     return t
 
 
 def _ffn_template(kind: str, cfg: ModelConfig):
+    if kind == "rwkv_cm":
+        return {}  # rwkv channel-mix params live in the mixer's dict
     if kind != "mlp":
         raise NotImplementedError(f"ffn {kind!r} is not yet ported")
     d, f = cfg.d_model, cfg.d_ff
@@ -122,7 +137,7 @@ def _ffn_template(kind: str, cfg: ModelConfig):
 
 def param_template(cfg: ModelConfig, tp: int = 1):
     """Full parameter template tree: {embed, stages[...], final_norm, ...}."""
-    _require_dense(cfg, tp)
+    _require_ported(cfg, tp)
     d, V = cfg.d_model, cfg.vocab_size
     t = {"embed": Leaf((V, d), scale=0.02), "final_norm": Leaf((d,))}
     if not cfg.tie_embeddings:
@@ -154,10 +169,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
             return torch.zeros(lf.shape, dtype=dt, device=device)
         # name-dispatched special leaves (independent of the stack axis);
         # the rules of the other families' leaves come with those families
-        if "norm" in name:
+        if "norm" in name or name == "ln_x":
             return torch.ones(lf.shape, dtype=dt, device=device)
         if name.startswith("b"):
             return torch.zeros(lf.shape, dtype=dt, device=device)
+        if name.startswith("mu_"):
+            return torch.full(lf.shape, 0.5, dtype=dt, device=device)
+        if name == "w0":  # rwkv decay base: mild decay
+            return torch.full(lf.shape, -1.0, dtype=dt, device=device)
+        if name == "u":
+            return normal_init(gen, lf.shape, 0.1, dt)
         if len(lf.shape) >= 2:
             fan_in = lf.shape[-2]
             scale = lf.scale if lf.scale is not None else 1.0 / np.sqrt(fan_in)
@@ -201,27 +222,50 @@ def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
 
 # ------------------------------------------------------------- layer apply
 def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache):
+    """-> (x + mixer(x), new mixer cache, the sum unrounded or None).
+
+    rwkv's residual sum also comes back in float32: the reference's
+    compiled layer fuses that add into the channel mix's RMSNorm, which
+    reads the sum before it is rounded to bf16."""
+    if kind == "rwkv":
+        h = rms_norm(x, p["norm"])
+        new_cache = None
+        if mode == "train":
+            out = rwkv_mod.time_mix(p, h, cfg, mode="train")
+        else:
+            out, new_cache = rwkv_mod.time_mix(p, h, cfg, mode=mode,
+                                               cache=cache)
+        return x + out, new_cache, x.float() + out.float()
     if kind != "gqa":
         raise NotImplementedError(f"mixer {kind!r} is not yet ported")
     if mode == "train":
         out = att.gqa_apply(p, x, cfg, gamma=p["norm"], positions=positions,
                             mode="train")
-        return x + out, None
+        return x + out, None, None
     out, new_cache = att.gqa_apply(p, x, cfg, gamma=p["norm"],
                                    positions=positions, mode=mode,
                                    cache=cache)
-    return x + out, new_cache
+    return x + out, new_cache, None
 
 
-def _apply_ffn(kind, p, x):
-    """SwiGLU with both entries through the fused norm -> matmul kernel."""
+def _apply_ffn(kind, p, x, mixer_p, *, mode, cache, x_sum=None):
+    """-> (x, new ffn cache).  SwiGLU with both entries through the fused
+    norm -> matmul kernel; rwkv's channel mix normalises the unrounded
+    residual sum ``x_sum`` with the mixer's ``ln_x`` and carries its
+    token-shift input in the ffn cache."""
+    if kind == "rwkv_cm":
+        h = rms_norm(x_sum, mixer_p["ln_x"]).to(x.dtype)
+        if mode == "train":
+            return x + rwkv_mod.channel_mix(mixer_p, h, mode="train"), None
+        out, new_c = rwkv_mod.channel_mix(mixer_p, h, mode=mode, cache=cache)
+        return x + out, new_c
     if kind != "mlp":
         raise NotImplementedError(f"ffn {kind!r} is not yet ported")
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     g = ops.fused_norm_matmul(x2d, p["norm"], p["w_gate"])
     u = ops.fused_norm_matmul(x2d, p["norm"], p["w_up"])
-    return x + torch.matmul(silu(g) * u, p["w_down"]).view(B, S, d)
+    return x + torch.matmul(silu(g) * u, p["w_down"]).view(B, S, d), cache
 
 
 # --------------------------------------------------------------- the model
@@ -230,7 +274,7 @@ class LM:
     functions of the parameters and the cache, as in the reference."""
 
     def __init__(self, cfg: ModelConfig, tp: int = 1, *, device=None):
-        _require_dense(cfg, tp)
+        _require_ported(cfg, tp)
         self.cfg = cfg
         self.tp = tp
         self.device = resolve_device(device)
@@ -261,32 +305,52 @@ class LM:
                 for li, (mixer, ffn) in enumerate(group):
                     mp = {k: v[i] for k, v in sp[li]["mixer"].items()}
                     fp = {k: v[i] for k, v in sp[li]["ffn"].items()}
-                    c_m = None
+                    c_m = c_f = None
                     if caches is not None:
-                        mc = caches[s_idx][li]["mixer"]
-                        c_m = (mc["k"][i], mc["v"][i], length)
-                    x, nc_m = _apply_mixer(mixer, mp, x, cfg,
-                                           positions=positions, mode=mode,
-                                           cache=c_m)
-                    x = _apply_ffn(ffn, fp, x)
-                    new_layers[li].append(nc_m)
+                        c = caches[s_idx][li]
+                        # the reference's tuple form of the layer's cache
+                        c_m = tuple(c["mixer"][n][i]
+                                    for n in _MIXER_CACHE[mixer])
+                        if mixer == "gqa":
+                            c_m = (*c_m, length)  # per-row write position
+                        c_f = None if c["ffn"] is None else c["ffn"][i]
+                    x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg,
+                                                  positions=positions,
+                                                  mode=mode, cache=c_m)
+                    x, nc_f = _apply_ffn(ffn, fp, x, mp, mode=mode,
+                                         cache=c_f, x_sum=x_sum)
+                    new_layers[li].append((nc_m, nc_f))
             if caches is not None:
                 new_caches.append([
-                    {"mixer": {"k": torch.stack([c[0] for c in layers]),
-                               "v": torch.stack([c[1] for c in layers])},
-                     "ffn": None} for layers in new_layers])
+                    {"mixer": {n: torch.stack([m[j] for m, _ in layers])
+                               for j, n in enumerate(_MIXER_CACHE[mixer])},
+                     "ffn": (None if layers[0][1] is None else
+                             torch.stack([f for _, f in layers]))}
+                    for (mixer, _), layers in zip(group, new_layers)])
         return x, (new_caches if caches is not None else None)
 
     # ---- serving -----------------------------------------------------------
     def cache_template(self, batch: int, max_seq: int):
         """Tree of (shape, dtype) Leafs describing the decode cache."""
         cfg = self.cfg
+
+        def mixer_cache(kind, repeat):
+            if kind == "gqa":
+                kv = Leaf((repeat, batch, max_seq, cfg.num_kv_heads,
+                           cfg.head_dim), dtype=cfg.dtype)
+                return {"k": kv, "v": kv}
+            hs = cfg.rwkv_head_size
+            H = cfg.d_model // hs
+            return {"x": Leaf((repeat, batch, cfg.d_model), dtype=cfg.dtype),
+                    "s": Leaf((repeat, batch, H, hs, hs), dtype="float32")}
+
         stages = []
         for repeat, group in self.program:
-            kv = Leaf((repeat, batch, max_seq, cfg.num_kv_heads, cfg.head_dim),
-                      dtype=cfg.dtype)
-            stages.append([{"mixer": {"k": kv, "v": kv}, "ffn": None}
-                           for _ in group])
+            stages.append([
+                {"mixer": mixer_cache(mixer, repeat),
+                 "ffn": (Leaf((repeat, batch, cfg.d_model), dtype=cfg.dtype)
+                         if ffn == "rwkv_cm" else None)}
+                for mixer, ffn in group])
         return {"stages": stages, "length": Leaf((batch,), dtype="int32")}
 
     def init_cache(self, batch: int, max_seq: int):

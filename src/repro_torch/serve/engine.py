@@ -11,9 +11,17 @@ token is fed twice (once in prefill, once as its first decode token); a
 batched decode step writes every lane's cache and advances every length,
 lanes still prefilling and idle lanes too; a prefill token runs a
 whole-batch step and merges back its own lane; a request finishes at
-``seq_len >= max_seq - 1``.  ``park``/``resume`` keep a lane's state in an
-in-process dict; parking through the KVS (``session_store=``) is not yet
-ported.
+``seq_len >= max_seq - 1``.
+
+Attention-free archs (rwkv6) get **session state parking**: ``park``
+copies a lane's state out of the cache and ``resume`` puts it back into a
+free lane without re-prefilling.  By default the state stays in an
+in-process dict.  With a ``repro_torch.serve.session_store.KVSessionStore``
+as ``session_store`` the state's bytes travel through the Outback KVS, in
+the reference's byte order (the order of ``jax.tree.flatten``, which sorts
+dict keys: ``length`` first, then ``stages``, ``ffn`` before ``mixer``),
+so the same parks give the same chunk values, meters and MN images; the
+per-leaf structure stays on the host.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import sorted_leaves, tree_map
 from repro_torch.models.lm import LM
 
 
@@ -50,9 +58,6 @@ class Engine:
     def __init__(self, model: LM, params, *, lanes: int = 4,
                  max_seq: int = 256, sampler: Callable | None = None,
                  eos_id: int | None = None, session_store=None):
-        if session_store is not None:
-            raise NotImplementedError("session_store= (parking through the "
-                                      "KVS) is not yet ported")
         self.model = model
         self.params = params
         self.lanes = lanes
@@ -65,6 +70,7 @@ class Engine:
         self.to_prefill: list[tuple[int, list[int]]] = []  # (lane, tokens)
         self.stats = EngineStats()
         self.parked_states: dict[int, dict] = {}
+        self.session_store = session_store  # optional KVSessionStore
         self._step = model.decode_step
 
     # ------------------------------------------------------------- intake
@@ -131,6 +137,9 @@ class Engine:
                     req.done = True
                     self.stats.finished += 1
                     self.active[ln] = None
+                    if self.session_store is not None:
+                        # reclaim any parked blob this session left behind
+                        self.session_store.delete(req.rid)
 
     def _decode_lane_token(self, lane: int, tok: int) -> None:
         tokens = np.zeros((self.lanes, 1), np.int32)
@@ -158,30 +167,77 @@ class Engine:
 
     # ------------------------------------------------ session parking
     def park(self, lane: int) -> int:
-        """Copy a lane's state out of the cache into an in-process dict and
-        free the lane."""
+        """Copy a lane's state out of the cache and free the lane.
+
+        With a ``session_store`` the state's bytes go through the Outback
+        KVS (one copy to the host); otherwise the state stays in an
+        in-process dict."""
         req = self.active[lane]
         if req is None:
             raise ValueError(f"lane {lane} holds no request")
         state = tree_map(lambda c: (c[:, lane] if c.dim() >= 2
                                     else c[lane]).clone(), self.cache)
-        self.parked_states[req.rid] = {"state": state, "req": req}
+        if self.session_store is not None:
+            paths, leaves = zip(*sorted_leaves(state))
+            self.session_store.put(req.rid, _to_bytes(leaves))
+            meta = [(tuple(x.shape), x.dtype, x.numel() * x.element_size())
+                    for x in leaves]
+            self.parked_states[req.rid] = {"paths": paths, "meta": meta,
+                                           "req": req}
+        else:
+            self.parked_states[req.rid] = {"state": state, "req": req}
         self.active[lane] = None
         self.stats.parked += 1
         return req.rid
 
     def resume(self, rid: int) -> int:
-        entry = self.parked_states.pop(rid)
+        entry = self.parked_states[rid]
+        if self.session_store is not None:
+            blob = self.session_store.get(rid)
+            if blob is None:  # keep the metadata so a retry can succeed
+                raise KeyError(f"session {rid} lost from the KVS")
+            leaves = _from_bytes(blob, entry["meta"], self.model.device)
+            # The blob stays put: a re-park of this rid overwrites the same
+            # chunk keys in place (insert resolves to update), and repeat
+            # resumes keep hitting the CN cache.  Reclaimed on finish.
+            placed = list(zip(entry["paths"], leaves))
+        else:
+            placed = sorted_leaves(entry["state"])
+        del self.parked_states[rid]
         lane = next(ln for ln in range(self.lanes) if self.active[ln] is None)
         self._reset_lane(lane)
-
-        def put(c, s):
+        for path, s in placed:
+            c = _at(self.cache, path)
             if c.dim() >= 2:
                 c[:, lane] = s
             else:
                 c[lane] = s
-
-        tree_map(put, self.cache, entry["state"])
         self.active[lane] = entry["req"]
         self.stats.resumed += 1
         return lane
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _to_bytes(leaves) -> bytes:
+    """The leaves' bytes back to back (native byte order, as numpy's
+    ``tobytes``), in one copy to the host; a bf16 leaf gives its bits."""
+    flat = torch.cat([x.contiguous().reshape(-1).view(torch.uint8)
+                      for x in leaves])
+    return flat.cpu().numpy().tobytes()
+
+
+def _from_bytes(blob: bytes, meta, device) -> list:
+    """Inverse of :func:`_to_bytes`: the leaves of ``meta``'s shapes and
+    torch dtypes, on ``device`` (one copy from the host)."""
+    buf = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
+    out, off = [], 0
+    for shape, dtype, nbytes in meta:
+        # a clone starts each leaf at offset 0, as ``view(dtype)`` needs
+        out.append(buf[off:off + nbytes].clone().view(dtype).reshape(shape))
+        off += nbytes
+    return out

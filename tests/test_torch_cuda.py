@@ -59,7 +59,15 @@ card and skips without one.  It holds:
   telemetry, the same meters, trace, MN images and launch counts; an N=1
   cluster on the card is identical to ``open_store``; a two-CN cluster
   through a live §4.4 split answers, meters, traces and ends in the CPU's
-  state; ``run_chaos(1)`` on the card gives the CPU's report.
+  state; ``run_chaos(1)`` on the card gives the CPU's report;
+* the serving plane: three front-door policies (the dormant pass-through,
+  singleflight, admission with a token bucket) push one generated
+  two-tenant schedule through a store on the card with the CPU's records,
+  stats, lane arrivals, meters, traces, MN images and ``simulate_open``
+  replay, launching the index kernels; a ``KVSessionStore`` on the card
+  answers a park/resume/shrink/delete stream, meters and ends in the CPU's
+  MN images and cache state; the reduced rwkv6 in float32 decodes and
+  prefills on the card within 1e-5 of the CPU.
 """
 
 import numpy as np
@@ -943,3 +951,115 @@ def test_chaos_on_card_matches_cpu(card):
     a = run_chaos(1, telemetry=True, device="cuda")
     b = run_chaos(1, telemetry=True, device="cpu")
     assert a.passed and a.to_json_dict() == b.to_json_dict()
+
+
+# ------------------------------------------------------------ serving plane
+def _frontdoor_runs(device: str) -> list:
+    """One generated two-tenant schedule through three front-door policies
+    over a fresh 8000-key store each, with a transport; everything a run
+    leaves behind, in plain values."""
+    import dataclasses
+    from repro_torch.api import BatchPolicy, StoreSpec, open_store
+    from repro_torch.net import Transport
+    from repro_torch.net.chaos import state_signature
+    from repro_torch.net.replay import simulate_open
+    from repro_torch.serve import (FrontDoor, FrontDoorConfig, TenantLimit,
+                                   TenantSpec, TrafficSpec, generate)
+    keys = make_uniform_keys(8000, 3)
+    vals = splitmix64(keys)
+    spec = TrafficSpec(tenants=(
+        TenantSpec("a", 3e5, read_frac=0.7, insert_frac=0.05, keyspace=256),
+        TenantSpec("b", 2e5, read_frac=0.5, zipf_theta=0.9, hot_salt=2)),
+        duration_s=0.004, seed=7)
+    offered = generate(spec, keys)
+    out = []
+    for cfg in (FrontDoorConfig(),
+                FrontDoorConfig(singleflight=True, window=64),
+                FrontDoorConfig(max_inflight=4, queue_depth=8, service_us=16.0,
+                                singleflight=True, window=128,
+                                limits=(TenantLimit("b", 5e4, burst=4.0),))):
+        tr = Transport()
+        st = open_store(StoreSpec("outback", load_factor=0.85,
+                                  batch=BatchPolicy(window=256)),
+                        keys, vals, device=device, transport=tr)
+        fd = FrontDoor(st, cfg)
+        recs = fd.run(offered)
+        sim = simulate_open(tr.trace, np.asarray(fd.lane_arrivals()))
+        out.append(([dataclasses.astuple(r) for r in recs], fd.stats(),
+                    fd.lane_arrivals(), st.meter_totals().snapshot(),
+                    _tuples(tr.trace), state_signature(st.engine.mn_state()),
+                    np.asarray(sim.lat_by_op_us).tolist(),
+                    np.asarray(sim.completions_by_op_s).tolist()))
+    return out
+
+
+def test_frontdoor_on_card_matches_cpu(card):
+    ops.reset_launch_counts()
+    on_card = _frontdoor_runs("cuda")
+    launches = dict(ops.LAUNCHES)
+    assert on_card == _frontdoor_runs("cpu")
+    assert launches["ludo_lookup"] > 0 and launches["slot_unpack"] > 0
+    assert {o for run in on_card for o in (r[5] for r in run[0])} >= \
+        {"ok", "collapsed", "shed", "ratelimited"}
+
+
+def test_session_store_round_trip_on_card_matches_cpu(card):
+    from repro_torch.net.chaos import state_signature
+    from repro_torch.serve import KVSessionStore
+    rng = np.random.default_rng(4)
+    blobs = {rid: rng.bytes(n) for rid, n in
+             enumerate((0, 7, 8, 4093, 1 << 16, 3 * (1 << 14) + 5))}
+    runs = []
+    for device in ("cuda", "cpu"):
+        ss = KVSessionStore(cn_cache_budget_bytes=64 << 10, device=device)
+        out = []
+        for rid, blob in blobs.items():
+            out.append(ss.put(rid, blob))
+        out += [ss.get(rid) == blob for rid, blob in blobs.items()]
+        out += [ss.get(rid) == blob for rid, blob in blobs.items()]
+        out += [ss.put(4, b"short"), ss.get(4), ss.delete(2), ss.get(2),
+                ss.get(99), ss.delete(2)]
+        if device == "cuda":
+            assert all(t.slots_lo.is_cuda for t in ss.store.engine.tables)
+        state = ss.store.cache.state()
+        runs.append((out, ss.meter_total().snapshot(),
+                     state_signature(ss.store.engine.mn_state()),
+                     {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                      for k, v in state.items()}))
+    assert runs[0] == runs[1]
+    assert runs[0][3]["stats"]["hits"] > 0
+
+
+def test_rwkv_decode_on_card_matches_cpu(card):
+    """The reduced rwkv6 in float32 from the same weights: 6 decode steps
+    (logits and every cache leaf) and a 32-token prefill, card against
+    CPU, within 1e-5 (both in float32, sums in another order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import sorted_leaves, tree_map
+    from repro_torch.models.lm import LM, init_params
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+                              dtype="float32")
+    p_cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    p_gpu = tree_map(lambda t: t.to("cuda"), p_cpu)
+    models = {"cpu": LM(cfg, device="cpu"), "cuda": LM(cfg, device="cuda")}
+    caches = {d: m.init_cache(3, 16) for d, m in models.items()}
+    params = {"cpu": p_cpu, "cuda": p_gpu}
+    rng = np.random.default_rng(1)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for _ in range(6):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))
+                               .astype(np.int32))
+        logits = {}
+        for d, m in models.items():
+            logits[d], caches[d] = m.decode_step(params[d], tok.to(d),
+                                                 caches[d])
+        torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"], **tol)
+    for (_, g), (_, w) in zip(sorted_leaves(caches["cuda"]),
+                              sorted_leaves(caches["cpu"])):
+        torch.testing.assert_close(g.cpu(), w, **tol)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                            .astype(np.int32))
+    got = models["cuda"].prefill(p_gpu, {"tokens": toks.to("cuda")})
+    want = models["cpu"].prefill(p_cpu, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, **tol)

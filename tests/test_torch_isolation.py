@@ -2,7 +2,7 @@
 
 * an AST scan of every module under ``src/repro_torch/``, of
   ``chip_smoke.py``, of
-  ``tools/{fnm,step,ludo,store,baselines,mesh,faults,cluster}_probe.py``,
+  ``tools/{fnm,step,ludo,store,baselines,mesh,faults,cluster,session}_probe.py``,
   of the
   on-card tests (``tests/test_torch_cuda.py``, which must run on the GPU
   machine, and its fault specs, ``tests/_torch_fault_specs.py``), of
@@ -16,7 +16,9 @@
   through a crash on the CPU), the telemetry and cluster planes
   (``repro_torch.obs``, ``repro_torch.cluster``, ``repro_torch.net.chaos``,
   and runs a chaos run with telemetry on the CPU), ``repro_torch.serve`` (and serves a request
-  on the CPU), or ``repro_torch.core.sharded_kvs`` (and runs a Get on a
+  on the CPU; and its front door, traffic plane and session store, which
+  push a schedule through a front door and park an rwkv6 lane through
+  the KVS on the CPU), or ``repro_torch.core.sharded_kvs`` (and runs a Get on a
   one-rank CPU mesh), has neither ``jax`` nor ``repro`` in
   ``sys.modules``;
 * without a card, the entry points raise unless the caller passes
@@ -55,7 +57,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py",
     ROOT / "tools" / "baselines_probe.py", ROOT / "tools" / "mesh_probe.py",
     ROOT / "tools" / "faults_probe.py",
-    ROOT / "tools" / "cluster_probe.py"]
+    ROOT / "tools" / "cluster_probe.py", ROOT / "tools" / "session_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -167,6 +169,57 @@ def test_importing_the_telemetry_and_cluster_planes_loads_neither_jax_nor_repro(
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serve.frontdoor",
+                                    "repro_torch.serve.traffic",
+                                    "repro_torch.serve.session_store",
+                                    "repro_torch.models.rwkv"])
+def test_importing_the_serving_plane_loads_neither_jax_nor_repro(module):
+    """The front door, the traffic plane, the session store and the rwkv
+    block, each imported alone in a fresh interpreter that then pushes a
+    generated schedule through a front door and parks and resumes a
+    reduced rwkv6 lane through the KVS on the CPU."""
+    code = (
+        "import sys, json, importlib, numpy as np\n"
+        f"importlib.import_module({module!r})\n"
+        "import repro_torch.api as api\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.core.hashing import splitmix64\n"
+        "from repro_torch.models.lm import LM\n"
+        "from repro_torch.serve import (Engine, FrontDoor, FrontDoorConfig,\n"
+        "    KVSessionStore, Request, TenantSpec, TrafficSpec, generate)\n"
+        "k = splitmix64(np.arange(1, 500, dtype=np.uint64))\n"
+        "st = api.open_store(api.StoreSpec('outback'), k, k, device='cpu')\n"
+        "spec = TrafficSpec(tenants=(TenantSpec('a', 1e5),), duration_s=1e-3)\n"
+        "fd = FrontDoor(st, FrontDoorConfig(singleflight=True, window=16))\n"
+        "assert all(r.found for r in fd.run(generate(spec, k)))\n"
+        "m = LM(get_config('rwkv6-1.6b', reduced=True), device='cpu')\n"
+        "eng = Engine(m, m.init(0), lanes=2, max_seq=16,\n"
+        "             session_store=KVSessionStore(device='cpu'))\n"
+        "eng.submit(Request(rid=1, prompt=[3, 4], max_new=4))\n"
+        "eng.step()\n"
+        "eng.resume(eng.park(0))\n"
+        "eng.run()\n"
+        "assert eng.stats.finished == 1 and eng.stats.resumed == 1\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_session_store_raises_without_cuda(monkeypatch):
+    """``KVSessionStore`` opens its store on CUDA unless given
+    ``device="cpu"``."""
+    from repro_torch.serve import KVSessionStore
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        KVSessionStore(bootstrap_keys=64)
+    ss = KVSessionStore(bootstrap_keys=64, device="cpu")
+    assert ss.store.engine.tables[0].device.type == "cpu"
 
 
 def test_cluster_entry_points_raise_without_cuda(monkeypatch):

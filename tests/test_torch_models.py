@@ -1,4 +1,4 @@
-"""Port vs reference: configs, model blocks and the dense LM.
+"""Port vs reference: configs, model blocks and the dense and ssm LMs.
 
 The same inputs (made from a seed with numpy) and the same weights (the
 reference's ``init``, carried across by ``params_from_reference``) go
@@ -15,6 +15,9 @@ Tolerances, as rtol and atol alike:
   ``rms_norm`` then einsum does; that is one bf16 ulp at the projection's
   input, carried through the layers (measured: 1e-2 on logits of
   magnitude 0.7, 4e-2 on cache values of magnitude 4, one ulp there).
+  rwkv6 (family ``ssm``) holds to the same two tolerances: its bf16
+  projections and token shifts round where the reference's fused
+  elementwise code may not, and its float32 state carries that.
 """
 
 import dataclasses
@@ -32,6 +35,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import common, lm
 
 DENSE = ["llama3.2-1b", "llama3.2-3b", "qwen3-4b", "qwen2.5-14b"]
+SSM = ["rwkv6-1.6b"]
+PORTED = ("dense", "ssm")
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 
@@ -58,7 +63,9 @@ def _close(got: torch.Tensor, want, tol: float) -> None:
 
 
 def _kv_leaves(cache):
-    return [cache["stages"][0][0]["mixer"][k] for k in ("k", "v")]
+    """The cache's stage leaves in the reference's ``jax.tree.leaves``
+    order (for a dense layer: k, v; for rwkv: ffn shift, state, shift)."""
+    return [t for _, t in common.sorted_leaves(cache["stages"])]
 
 
 # ------------------------------------------------------------------ configs
@@ -104,7 +111,7 @@ def test_param_template_matches_reference_full_llama():
 def test_other_families_and_tp_raise():
     for arch in ARCH_IDS:
         cfg = get_config(arch, reduced=True)
-        if cfg.family == "dense":
+        if cfg.family in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
                 lm.LM(cfg, tp=2, device="cpu")
             continue
@@ -164,6 +171,53 @@ def test_params_from_reference_round_trip():
     assert common.count_params(got) == r_common.count_params(ref_tree)
 
 
+def test_params_from_reference_round_trip_rwkv():
+    """rwkv6's tree (the mixer's time-mix and channel-mix leaves, bf16, and
+    its float32 ``w0`` and ``u``, an empty ffn dict) comes across with
+    every leaf's bits, dtype and shape, under the reference's names."""
+    rm = r_lm.LM(r_get_config("rwkv6-1.6b", reduced=True))
+    ref_tree = jax.device_get(rm.init(4))
+    got = lm.params_from_reference(ref_tree, device="cpu")
+    want = jax.tree_util.tree_leaves(ref_tree)
+    leaves = [t for _, t in common.sorted_leaves(got)]
+    assert len(leaves) == len(want)
+    for g, w in zip(leaves, want):
+        assert str(g.dtype).split(".")[-1] == np.asarray(w).dtype.name
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+    layer = got["stages"][0][0]
+    assert layer["ffn"] == {} and ref_tree["stages"][0][0]["ffn"] == {}
+    assert set(layer["mixer"]) == set(ref_tree["stages"][0][0]["mixer"])
+    assert layer["mixer"]["w0"].dtype == torch.float32
+    assert layer["mixer"]["w_r"].dtype == torch.bfloat16
+    assert common.count_params(got) == r_common.count_params(ref_tree)
+    tmpl = lm.param_template(get_config("rwkv6-1.6b", reduced=True))
+    assert [(p, lf.shape, lf.dtype) for p, lf in common.sorted_leaves(tmpl)] \
+        == [(p, tuple(t.shape), str(t.dtype).split(".")[-1])
+            for p, t in common.sorted_leaves(got)]
+
+
+def test_init_params_rwkv_name_rules():
+    """The reference's name-dispatched rules for rwkv's leaves: ``ln_x`` and
+    the norms 1, ``mu_*`` 0.5, ``w0`` -1 (float32), ``u`` N(0, 0.1)
+    (float32), the matrices N(0, 1/fan_in)."""
+    cfg = get_config("rwkv6-1.6b", reduced=True)
+    p = lm.init_params(cfg, 2, device="cpu")
+    mix = p["stages"][0][0]["mixer"]
+    for name in ("ln_x", "norm"):
+        assert torch.equal(mix[name], torch.ones_like(mix[name]))
+    for name in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ck", "mu_cr"):
+        assert torch.equal(mix[name], torch.full_like(mix[name], 0.5))
+    assert mix["w0"].dtype == torch.float32
+    assert torch.equal(mix["w0"], torch.full_like(mix["w0"], -1.0))
+    assert mix["u"].dtype == torch.float32 and mix["u"].shape == (2, 4, 16)
+    assert 0.05 < float(mix["u"].std()) < 0.2
+    assert mix["w_r"].dtype == torch.bfloat16
+    assert float(mix["w_r"].float().std()) == pytest.approx(1 / 8, rel=0.1)
+    assert p["stages"][0][0]["ffn"] == {}
+
+
 def test_init_params_seeded_on_the_template():
     cfg = get_config("qwen3-4b", reduced=True)
     a = lm.init_params(cfg, 5, device="cpu")
@@ -184,7 +238,7 @@ def test_init_params_seeded_on_the_template():
 
 # ---------------------------------------------------------------- the model
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_decode_step_vs_reference(arch, dtype):
     """6 decode steps of 3 rows from the reference's weights: logits,
     caches and lengths against the reference's jitted ``decode_step``."""
@@ -199,11 +253,35 @@ def test_decode_step_vs_reference(arch, dtype):
         tl, tcache = tm.decode_step(tp, torch.from_numpy(tok), tcache)
         assert tl.shape == (B, rm.cfg.vocab_size)
         _close(tl, rl, TOL[dtype])
-        for g, w in zip(_kv_leaves(tcache), jax.tree.leaves(rcache["stages"])):
-            assert g.dtype == getattr(torch, dtype)
+        want = jax.tree.leaves(rcache["stages"])
+        assert len(_kv_leaves(tcache)) == len(want)
+        for g, w in zip(_kv_leaves(tcache), want):
+            # the cache's dtypes (rwkv's state is float32 in both)
+            assert str(g.dtype).split(".")[-1] == np.asarray(w).dtype.name
             _close(g, w, TOL[dtype])
         np.testing.assert_array_equal(tcache["length"].numpy(),
                                       np.asarray(rcache["length"]))
+
+
+def test_rwkv_bf16_first_decode_step_is_bit_exact():
+    """rwkv6 in bf16, one decode step from an empty cache: logits and every
+    cache leaf equal the reference's jitted step bit for bit.  That holds
+    because the port computes as XLA compiles the reference's layer: the
+    residual sum reaches the channel mix's norm unrounded, and sigmoid is
+    ``1 / (1 + exp(-x))`` op by op."""
+    rm, rp, tm, tp = _pair("rwkv6-1.6b", "bfloat16")
+    B = 3
+    tok = np.random.default_rng(1).integers(
+        0, rm.cfg.vocab_size, (B, 1)).astype(np.int32)
+    rl, rcache = jax.jit(rm.decode_step)(rp, jnp.asarray(tok),
+                                         rm.init_cache(B, 16))
+    tl, tcache = tm.decode_step(tp, torch.from_numpy(tok),
+                                tm.init_cache(B, 16))
+    np.testing.assert_array_equal(tl.float().numpy(),
+                                  np.asarray(rl, np.float32))
+    for g, w in zip(_kv_leaves(tcache), jax.tree.leaves(rcache["stages"])):
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
 
 
 def test_sliding_window_rolling_decode_vs_reference():
@@ -225,11 +303,13 @@ def test_sliding_window_rolling_decode_vs_reference():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-14b"] + SSM)
 def test_prefill_vs_reference(arch, dtype):
     rm, rp, tm, tp = _pair(arch, dtype)
     rng = np.random.default_rng(3)
-    toks = rng.integers(0, rm.cfg.vocab_size, (2, 24)).astype(np.int32)
+    # rwkv's chunked form takes whole chunks of 16 tokens (two here)
+    S = 32 if arch in SSM else 24
+    toks = rng.integers(0, rm.cfg.vocab_size, (2, S)).astype(np.int32)
     want = rm.prefill(rp, {"tokens": jnp.asarray(toks)})
     got = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
     assert got.shape == (2, rm.cfg.vocab_size)

@@ -9,7 +9,8 @@ in float32 from identical values and differ only in the order of their
 sums) and their lengths exactly.  The cases are ``examples/serve_kvs.py``
 part 1, ``tests/test_train_serve.py::test_engine_serves_all``, and a short
 ``max_seq`` at which requests finish by length while idle lanes run past
-the cache.
+the cache.  An engine with a ``KVSessionStore`` parks through the KVS as
+the reference's does.
 """
 
 import dataclasses
@@ -120,6 +121,28 @@ def test_park_resume_like_the_reference(models):
 
 
 def test_session_store_is_not_yet_ported(models):
-    _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Engine(tm, tp, lanes=2, max_seq=16, session_store=object())
+    """``session_store=`` is taken: with a ``KVSessionStore`` (on the CPU)
+    the engine parks a lane mid-request through the KVS, resumes it, and
+    serves every request with the reference's tokens and ``EngineStats``
+    (the reference engine over the reference's store)."""
+    from repro.serve import KVSessionStore as RKVSessionStore
+    from repro_torch.serve import KVSessionStore
+    rm, rp, tm, tp = models
+    runs = []
+    for eng_cls, req_cls, model, params, ss in (
+            (REngine, RRequest, rm, rp, RKVSessionStore()),
+            (Engine, Request, tm, tp, KVSessionStore(device="cpu"))):
+        eng = eng_cls(model, params, lanes=2, max_seq=48, session_store=ss)
+        reqs = [req_cls(rid=i, prompt=[1, 2, 3], max_new=4) for i in range(4)]
+        for r in reqs:
+            eng.submit(r)
+        eng.step()
+        eng.resume(eng.park(1))
+        eng.run()
+        assert ss.get(1) is None  # the finished session's blob reclaimed
+        runs.append((eng, [list(map(int, r.out)) for r in reqs],
+                     ss.meter_total().snapshot()))
+    (reng, rtoks, rmeter), (teng, ttoks, tmeter) = runs
+    assert ttoks == rtoks and tmeter == rmeter
+    assert dataclasses.asdict(teng.stats) == dataclasses.asdict(reng.stats)
+    assert teng.stats.finished == 4 and teng.stats.parked == 1
