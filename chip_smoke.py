@@ -6,15 +6,16 @@
                             # the transport model, the (1, 1) mesh, the
                             # replicated store through a crash, the
                             # telemetry plane, a 4-CN cluster, chaos, the
-                            # front door, session parking and rwkv6;
-                            # one card
+                            # front door, session parking, rwkv6 and
+                            # llama3.2-1b trained; one card
 
 Phases; any failure exits non-zero:
 
-1. print the card's name and power limit (``nvidia-smi``), build the four
+1. print the card's name and power limit (``nvidia-smi``), build the five
    CUDA libraries of ``src/repro_torch/kernels/csrc`` (``ludo_lookup``,
-   ``slot_unpack``, ``paged_attention`` with both paged kernels, and
-   ``fused_norm_matmul``) with one ``nvcc`` each, all at once, for sm_90a;
+   ``slot_unpack``, ``paged_attention`` with both paged kernels,
+   ``fused_norm_matmul`` and its backward ``fused_norm_matmul_bwd``) with
+   one ``nvcc`` each, all at once, for sm_90a;
 2. hold each index kernel bit for bit against its plain PyTorch version on
    the card: ``ludo_lookup`` over a real shard's CN arrays (whose size it
    prints) at the edges of its plan (``ops.ludo_lookup_plan``, printed at
@@ -95,7 +96,7 @@ Phases; any failure exits non-zero:
    ``open_store(StoreSpec("outback-dir", load_factor=0.85,
    cache_budget_bytes=8 * 2^22, params={"initial_depth": 1}))`` over the
    first 2^22 keys of phase 3 serves YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
-   (2^17 ops) through ``submit``/``flush`` at window 1024, every answer
+   (2^16 ops) through ``submit``/``flush`` at window 1024, every answer
    checked against the host oracle, printing the hit and negative-hit
    rates, Gets/s, window p50/p99, the host µs of the cache's
    ``probe_batch`` and ``observe_batch`` a window and its
@@ -118,7 +119,7 @@ Phases; any failure exits non-zero:
    over the first 2^23 of phase 3's keys at the reference's default load
    factors (RACE at 0.69: at 0.7 its build cannot place 2^24 keys), one
    store at a time: YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
-   (2^17 ops, half updates) at window 1024, then 2^12 deletes and Gets of
+   (2^16 ops, half updates) at window 1024, then 2^12 deletes and Gets of
    the deleted keys, every answer checked (for dummy, which verifies no
    key, against the value at index ``key % n``), printing the build's host
    seconds, Gets/s, window p50/p99, YCSB-A ops/s, the device busy share over
@@ -173,8 +174,8 @@ Phases; any failure exits non-zero:
    MN image must be equal.  (b) ``StoreSpec("outback", load_factor=0.85,
    replicas=2)`` over the first 2^22 of phase 3's keys, its primary
    crashing at op
-   9 * 2^15 for 2^15 ops of the op clock (leases at 4096): 2^18 zipf(0.99)
-   Gets, then YCSB-A (2^17 ops, half updates) with 2^14 inserts of fresh
+   2^18 + 2^14 for 2^14 ops of the op clock (leases at 4096): 2^18
+   zipf(0.99) Gets, then YCSB-A (2^16 ops, half updates) with 2^13 inserts of fresh
    keys spread through it and the crash inside it, then 2^18 recovery
    Gets, all at window 1024 in submission order.  Every Get is checked
    against the latest acknowledged value, every acknowledged update and
@@ -228,7 +229,7 @@ Phases; any failure exits non-zero:
    ``simulate_cluster``'s modelled Mops and p50/p99 (a model, not the
    card).  The launch counters are zeroed just before (c)'s traffic and
    read just after, and both index kernels must have launched.  (d)
-   ``run_chaos(seed=3, n_keys=2^16, n_ops=2^17, batch=256,
+   ``run_chaos(seed=3, n_keys=2^16, n_ops=2^16, batch=256,
    telemetry=True)`` on the card must pass;
 13. the serving plane (``repro_torch.serve``): (a) card against CPU: one
    generated two-tenant schedule through four front-door policies (the dormant
@@ -263,7 +264,24 @@ Phases; any failure exits non-zero:
    engine-step p50/p99, the device busy share over profiled decode steps; a
    lane's 12,779,524 B blob refused by ``KVSessionStore.put``.
 
-The line before the last is the kernels' JSON record (all five kernels);
+14. the training path.  (a) ``fused_norm_matmul_bwd`` against its plain
+   version at the test shapes, the edges, a ragged S = 7 x d = 2048 and
+   llama3.2-1b's training entries (S = 2048, d = 2048, F = 2048, 512 and
+   8192, bf16 and float32), two calls bit for bit alike; each training
+   entry timed (events, device by kernel, with dN's product) beside its
+   bound, the plain version and the library's backward (``F.rms_norm`` +
+   ``torch.matmul`` through ``torch.autograd.grad``).  (b) One float32
+   ``make_train_step`` step of llama3.2-1b at full width with 2 layers and
+   of the reduced rwkv6-1.6b, card against CPU (loss, gnorm, every first
+   moment and parameter); a checkpoint restart on the card at that size,
+   replayed bit for bit.  (c) llama3.2-1b at its published widths with
+   random bf16 weights, 8 steps of 4 x 512 tokens of a constant stream:
+   the loss finite and below its first value, gnorm finite; printed: step
+   p50/p99, tokens/s, ``max_memory_allocated``, the device busy share over
+   2 profiled steps, and the launches of both fused kernels a step (the
+   counters zeroed just before the 8 steps and read just after).
+
+The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits 1 and prints no result.
 """
@@ -295,9 +313,11 @@ N_KEYS_LOG2 = 24
 # one host and 1306.7 s on another (the host's Python, not the card, sets
 # the time).
 LATER_KEYS_LOG2 = 22
-# and the later stores' YCSB-A streams are half of phase 3's: at 4700-18000
-# ops/s a 2^18-op stream took 15-56 s a store on that machine's host
-LATER_YCSB_A_LOG2 = 17
+# and the later stores' YCSB-A streams are a quarter of phase 3's: at
+# 4700-18000 ops/s a 2^18-op stream took 15-56 s a store on that machine's
+# host, and the whole run with phase 14 took 913.4-1093.7 s at 2^17 ops on
+# two hosts, each with one NVIDIA H100 80GB HBM3 at 700 W
+LATER_YCSB_A_LOG2 = 16
 N_GETS_LOG2 = 20
 N_YCSB_A_LOG2 = 18
 N_WRITES_LOG2 = 14
@@ -309,6 +329,9 @@ WINDOW = 1024
 # as on the serve path.
 COLD_SETS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# torch.profiler traces taken for one device time, at most, until one holds
+# every kernel named (a trace late in a long run can hold none of them)
+TRACE_TRIES = 3
 # H100 SXM peak float32 rate outside the tensor cores (data sheet); the
 # paged kernels do their products as float32 FMAs.
 F32_FLOPS_PER_S = 67e12
@@ -510,18 +533,19 @@ MESH_WARM_LOG2 = 18
 # specs; the full-size run is the reference faults suite's setting (load
 # factor 0.85, benchmarks/faults_bench.py:113) over phase 3's keys at K=2,
 # a crash of the primary a quarter into a YCSB-A stream on the op clock
-# (2^17 ops, cut from 2^19 to keep the run inside its limit: it ran at
-# 6000-9000 ops/s), over the first 2^LATER_KEYS_LOG2 of phase 3's keys;
+# (2^16 ops and 2^13 inserts, cut from 2^19 to keep the run inside its
+# limit: it ran at 5400-9000 ops/s), over the first 2^LATER_KEYS_LOG2 of
+# phase 3's keys;
 # (c)-(e) take 2^20 keys and the suite's own stream shape
 # (faults_bench.py:53-58)
 FAULT_AGREE_KEYS_LOG2 = 14
 FAULT_AGREE_OPS_LOG2 = 12
 FAULT_LOAD_FACTOR = 0.85
 FAULT_N_GETS_LOG2 = 18
-FAULT_N_A_LOG2 = 17
-FAULT_N_INS_LOG2 = 14
-FAULT_CRASH_AT = 9 << 15
-FAULT_CRASH_OPS = 1 << 15
+FAULT_N_A_LOG2 = 16
+FAULT_N_INS_LOG2 = 13
+FAULT_CRASH_AT = (1 << FAULT_N_GETS_LOG2) + (1 << (FAULT_N_A_LOG2 - 2))
+FAULT_CRASH_OPS = 1 << (FAULT_N_A_LOG2 - 2)
 FAULT_LEASE_OPS = 4096
 FAULT_SMALL_KEYS_LOG2 = 20
 FAULT_WARM_CALLS = 10
@@ -543,7 +567,7 @@ FAULT_TAIL_OPS = 400
 # keys, 4 CNs over a 4-MN pool, CN
 # 3 joining and CN 1 leaving, 2^19 Get lanes (cut from 2^20 to keep the
 # whole run well inside its limit); the large chaos run is run_chaos's
-# own harness at 2^16 keys and 2^17 ops (cut from 2^18 for the limit)
+# own harness at 2^16 keys and 2^16 ops (cut from 2^18 for the limit)
 OBS_AGREE_KEYS_LOG2 = 14
 OBS_AGREE_OPS_LOG2 = 12
 OBS_KEYS_LOG2 = LATER_KEYS_LOG2
@@ -563,7 +587,7 @@ CLUSTER_BURST = 1 << 14
 CLUSTER_PROFILED_CALLS = 64
 CLUSTER_SIM = dict(clients_per_cn=2, window=8, mn_threads=4)
 CHAOS_SEEDS = (1, 2, 3)
-CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 17, batch=256,
+CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 16, batch=256,
                    telemetry=True)
 # phase 13: the serving ingress, session parking through the KVS and the rwkv6
 # family.  The agreement runs the front door's policies over an 8000-key store
@@ -606,6 +630,46 @@ RWKV_MAX_SEQ = 64
 RWKV_PROFILED_STEPS = 8
 # tests/test_torch_models.py's float32 tolerance (rtol and atol)
 RWKV_TOL = 1e-5
+# phase 14: the training path.  (a) fused_norm_matmul_bwd against its plain
+# version at the shapes of tests/test_kernels.py and the edges of
+# tests/test_torch_kernels.py (d = 200 and 64, F = 100 and 131), a ragged
+# S = 7 x d = 2048, and llama3.2-1b's training entries (S = B * seq = 2048
+# rows, d = 2048, F = 2048 for q, 512 for k and v, 8192 for the gate and
+# up), timed at the training entries; the tolerances of the forward (max
+# abs error over the largest value of each gradient).  (b) One float32
+# make_train_step step of llama3.2-1b at full width with TWIN_TRAIN_LAYERS
+# layers, B = 1 and 128 positions (and of the reduced rwkv6-1.6b) on the
+# card and on the CPU from the same weights and batch; then a checkpoint
+# restart on the card at that size in bf16: three steps, save, two more,
+# restore and replay the two, bit for bit.  (c) llama3.2-1b at its published
+# widths, random bf16 weights, TRAIN_STEPS steps of B = 4 x 512 positions
+# of a constant token stream (tests/test_train_serve.py:30-44: learning
+# rate 2e-3, 2 warm-up steps here), then TRAIN_PROFILED_STEPS profiled.
+TRAIN_B, TRAIN_SEQ = 4, 512
+TRAIN_ROWS = TRAIN_B * TRAIN_SEQ
+FNMB_TIMED_SHAPES = [(TRAIN_ROWS, D_MODEL, F, dt)
+                     for dt in ("bfloat16", "float32")
+                     for F in (2048, 512, 8192)]
+FNMB_CHECK_SHAPES = [(256, 512, 1024, "float32"), (512, 256, 512, "float32"),
+                     (128, 1024, 512, "bfloat16"), (7, 200, 100, "float32"),
+                     (9, 64, 131, "bfloat16"), (7, 2048, 1000, "float32"),
+                     (7, 2048, 1000, "bfloat16"), *FNMB_TIMED_SHAPES]
+TWIN_TRAIN_LAYERS = 2
+TWIN_TRAIN_B, TWIN_TRAIN_SEQ = 1, 128
+# the twin's update: a float32 gradient within 1e-3 of the CPU's largest
+# (sums over 128 rows, d = 2048, d_ff = 8192 and vocab 128256 in another
+# order, about 1e-6 apart), read through Adam's first step: each leaf's
+# first moment (b1-weighted gradient) and second moment (squared gradient)
+# within TWIN_TRAIN_TOL of the CPU's largest.  That step moves a parameter
+# by about lr times the sign of its gradient, so a near-zero gradient whose
+# sign differs moves it 2 lr apart: parameters within 2 lr + 1e-6, a check
+# only of a gross fault (a non-finite or missing update)
+TWIN_TRAIN_TOL = 1e-3
+TWIN_TRAIN_LR = 1e-3
+RESTART_STEPS = (3, 2)
+TRAIN_STEPS = 8
+TRAIN_PROFILED_STEPS = 2
+TRAIN_TOKEN = 7
 
 
 def log(*a) -> None:
@@ -634,32 +698,45 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, iters: int, *kernels: str) -> dict:
-    """Device time a call of ``fn``, by kernel: for each name in
-    ``kernels``, the mean time a launch of the CUDA kernels whose names hold
-    it, from ``torch.profiler`` over ``iters`` calls (each such kernel
-    launches once a call); names the trace does not hold are left out.  The
-    mean a launch and not the trace's total over ``iters``: a trace late in
-    a long run can miss launches (logged when it does)."""
+def device_trace(fn, iters: int, *kernels: str) -> tuple:
+    """A ``torch.profiler`` trace of ``iters`` calls of ``fn`` -> (the mean
+    time a launch, in ms, of the CUDA kernels whose names hold each name in
+    ``kernels`` (each such kernel launches once a call; names the trace does
+    not hold are left out), the trace).  The mean a launch and not the
+    trace's total over ``iters``: a trace late in a long run can miss
+    launches (logged when it does), or all of a kernel's, and then another
+    is taken, up to TRACE_TRIES in all, until one holds every name.  A
+    caller that needs every kernel checks that the times hold them all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for ev in prof.key_averages():
-        hit = [k for k in kernels if k in ev.key]
-        if hit and ev.count:
-            t = getattr(ev, "device_time_total", None)
-            t = getattr(ev, "cuda_time_total", 0) if t is None else t
-            times[hit[0]] = times.get(hit[0], 0.0) + t / ev.count / 1e3
-            if ev.count != iters:
-                log(f"profiler: {ev.key[:60]} seen {ev.count} times in "
-                    f"{iters} calls")
-    return times
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for ev in prof.key_averages():
+            hit = [k for k in kernels if k in ev.key]
+            if hit and ev.count:
+                t = getattr(ev, "device_time_total", None)
+                t = getattr(ev, "cuda_time_total", 0) if t is None else t
+                times[hit[0]] = times.get(hit[0], 0.0) + t / ev.count / 1e3
+                if ev.count != iters:
+                    log(f"profiler: {ev.key[:60]} seen {ev.count} times in "
+                        f"{iters} calls")
+        if len(times) == len(kernels):
+            break
+        log(f"profiler: no launch of {sorted(set(kernels) - set(times))} "
+            f"in a trace of {iters} calls")
+    return times, prof
+
+
+def device_times(fn, iters: int, *kernels: str) -> dict:
+    """Device time a call of ``fn``, by kernel: the times of
+    :func:`device_trace`."""
+    return device_trace(fn, iters, *kernels)[0]
 
 
 def device_ms(fn, iters: int, *kernels: str):
@@ -1534,6 +1611,19 @@ def fnm_plan_of(S: int, d: int, F: int, dt: str) -> dict:
         S, d, F, elt, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
+def fnm_kernels_of(plan: dict) -> tuple:
+    """The CUDA kernels, by their names in ``ops.FNM_KERNELS``, that a
+    ``fused_norm_matmul`` call of ``plan`` launches, each once: the row
+    pass then the tile kernel for ``wgmma`` and ``fma``; the split kernel,
+    then the combine when it has more than one split, for the rest."""
+    main = f"fused_norm_matmul_{plan['regime']}_kernel"
+    if plan["regime"] in ("wgmma", "fma"):
+        return "fused_norm_matmul_rows_kernel", main
+    if plan["splits"] > 1:
+        return main, "fused_norm_matmul_combine_kernel"
+    return (main,)
+
+
 def check_fused_norm_matmul(gen) -> dict:
     """The kernel against its plain version on the card at the test, ragged,
     serve, prefill and regime-edge shapes, two calls bit for bit alike, then
@@ -1580,10 +1670,10 @@ def check_fused_norm_matmul(gen) -> dict:
         iters = 200
         bound, by = fnm_bound(S, d, F, dtype)
         kern = cycling(ops.fused_norm_matmul, sets)
-        by_kernel = device_times(kern, 20, *ops.FNM_KERNELS)
+        plan = fnm_plan_of(S, d, F, dt)
+        by_kernel = device_times(kern, 20, *fnm_kernels_of(plan))
         dev = sum(by_kernel.values()) or None
-        row = dict(S=S, d=d, F=F, dtype=dt, weight_sets=len(sets),
-                   plan=fnm_plan_of(S, d, F, dt),
+        row = dict(S=S, d=d, F=F, dtype=dt, weight_sets=len(sets), plan=plan,
                    ms=time_ms(kern, iters), device_ms=dev,
                    device_ms_by_kernel=by_kernel,
                    plain_ms=time_ms(cycling(ref.fused_norm_matmul_ref, sets),
@@ -4621,6 +4711,396 @@ def serve_serving_phase(keys, vals, rng) -> tuple:
     return res, launches
 
 
+# ------------------------------------------------------------ phase 14
+def fnmb_bound(S: int, d: int, F: int, dtype) -> tuple:
+    """The least time of one fused_norm_matmul backward: x, gamma, w and dy
+    read once and dx, dgamma and dw written once over the HBM rate, against
+    the 2*S*d*F operations of dw over the peak of the pipe the kernel
+    takes (the bf16 tensor cores; float32 FMAs)."""
+    import torch
+    elt = 2 if dtype == torch.bfloat16 else 4
+    by_bytes = (2 * S * d + 2 * d + 2 * d * F + S * F) * elt \
+        / HBM_BYTES_PER_S * 1e3
+    peak = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    by_ops = 2 * S * d * F / peak * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
+        else "operations"
+
+
+def fnmb_library(graphs):
+    """The library yardstick, which the port never calls: the backward alone
+    of ``F.rms_norm`` then ``torch.matmul``, through ``torch.autograd.grad``
+    over a graph built beforehand (``graphs``: (y, inputs, dy))."""
+    import torch
+    it = itertools.cycle(graphs)
+
+    def run():
+        y, inputs, dy = next(it)
+        return torch.autograd.grad(y, inputs, dy, retain_graph=True)
+    return run
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in float32."""
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    return err / scale if scale else err
+
+
+def check_fused_norm_matmul_bwd(gen) -> dict:
+    """Phase 14 (a): the backward kernel against its plain version on the
+    card at FNMB_CHECK_SHAPES, two calls bit for bit alike, then timed at
+    the training entries against its bound, the plain version and the
+    library's backward."""
+    import torch
+    import torch.nn.functional as F_
+    from repro_torch.kernels import ops, ref
+    shapes, err = [], 0.0
+    for S, d, F, dt in FNMB_CHECK_SHAPES:
+        dtype = getattr(torch, dt)
+        x, g, w = fnm_inputs(gen, S, d, F, dtype)[0]
+        dy = torch.randn((S, F), generator=gen, device="cuda").to(dtype)
+        got = ops.fused_norm_matmul_bwd(x, g, w, dy)
+        again = ops.fused_norm_matmul_bwd(x, g, w, dy)
+        want = ref.fused_norm_matmul_bwd_ref(x, g, w, dy)
+        torch.cuda.synchronize()
+        rel = {n: _rel_err(a, b) for n, a, b in zip(("dx", "dgamma", "dw"),
+                                                     got, want)}
+        tol = FNM_TOL[dt]
+        check(all(a.dtype == b.dtype and a.shape == b.shape
+                  for a, b in zip(got, want)),
+              f"fused_norm_matmul_bwd: dtypes or shapes differ at S={S}, "
+              f"d={d}, F={F}, {dt}")
+        check(max(rel.values()) <= tol,
+              f"fused_norm_matmul_bwd differs from its plain version beyond "
+              f"{tol} at S={S}, d={d}, F={F}, {dt}: {rel}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"fused_norm_matmul_bwd: two calls differ at S={S}, d={d}, "
+              f"F={F}, {dt}")
+        e = max(float((a.float() - b.float()).abs().max()) if a.numel()
+                else 0.0 for a, b in zip(got, want))
+        err = max(err, e)
+        shapes.append(dict(S=S, d=d, F=F, dtype=dt, max_rel_err=rel,
+                           max_abs_err=e, tolerance=tol))
+    log(f"kernel fused_norm_matmul_bwd: within tolerance of its plain "
+        f"version, and two calls bit for bit alike, at {len(shapes)} shapes "
+        f"(max rel err by gradient "
+        f"{ {n: max(r['max_rel_err'][n] for r in shapes) for n in ('dx', 'dgamma', 'dw')} })")
+    timed = {}
+    for S, d, F, dt in FNMB_TIMED_SHAPES:
+        dtype = getattr(torch, dt)
+        sets = [(*fnm_inputs(gen, S, d, F, dtype)[0],
+                 torch.randn((S, F), generator=gen, device="cuda").to(dtype))
+                for _ in range(2)]
+        graphs = []
+        for x, g, w, dy in sets:
+            ins = tuple(t.detach().clone().requires_grad_() for t in (x, g, w))
+            y = torch.matmul(F_.rms_norm(ins[0], (d,), ins[1], 1e-6), ins[2])
+            graphs.append((y, ins, dy))
+        iters = 20
+        bound, by = fnmb_bound(S, d, F, dtype)
+        kern = cycling(ops.fused_norm_matmul_bwd, sets)
+        by_kernel, prof = device_trace(kern, 10, *ops.FNM_BWD_KERNELS)
+        busy, _ = device_busy_us(prof)
+        check(len(by_kernel) == len(ops.FNM_BWD_KERNELS) and busy > 0,
+              f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}: no trace of "
+              f"{TRACE_TRIES} held all of {ops.FNM_BWD_KERNELS} (it held "
+              f"{sorted(by_kernel)}, {busy} us busy)")
+        dev = sum(by_kernel.values())
+        row = dict(S=S, d=d, F=F, dtype=dt, ms=time_ms(kern, iters),
+                   device_ms=dev, device_ms_by_kernel=by_kernel,
+                   device_ms_with_dn=busy / 10 / 1e3,
+                   plain_ms=time_ms(cycling(ref.fused_norm_matmul_bwd_ref,
+                                            sets), iters),
+                   library_ms=time_ms(fnmb_library(graphs), iters),
+                   bound_ms=bound, bound_by=by)
+        row["share_of_bound"] = bound / dev
+        timed[(S, d, F, dt)] = row
+        log(f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}: {row['ms']:.6f} "
+            f"ms (device {dev}, by kernel {by_kernel}; with dN's product "
+            f"{row['device_ms_with_dn']:.6f}), plain {row['plain_ms']:.6f} "
+            f"ms, rms_norm + matmul backward {row['library_ms']:.6f} ms, "
+            f"bound {bound:.6f} ms ({by}), bound/device "
+            f"{row['share_of_bound']}")
+        del sets, graphs
+    # the record's numbers: one layer's five training entries, bf16
+    layer = [(TRAIN_ROWS, D_MODEL, f, "bfloat16") for f in LAYER_ENTRY_FS]
+    total = {k: sum(timed[sh][k] for sh in layer)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return dict(
+        name="fused_norm_matmul_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_norm_matmul_bwd.cu",
+        replaces="src/repro/kernels/fused_norm_matmul.py:33",
+        replaces_note="the backward of that kernel, which has no Pallas "
+                      "counterpart (the reference differentiates rms_norm "
+                      "then einsum)",
+        max_abs_err=err,
+        work=f"one layer's five training entries (wq, wk, wv, w_gate, "
+             f"w_up) at S={TRAIN_ROWS}, d={D_MODEL}, bf16: "
+             f"F={list(LAYER_ENTRY_FS)}",
+        device_ms=sum(timed[sh]["device_ms"] for sh in layer),
+        bound_by="operations" if all(timed[sh]["bound_by"] == "operations"
+                                     for sh in layer) else "bytes",
+        library_call="torch.autograd.grad of F.rms_norm + torch.matmul",
+        cuda_kernels=list(ops.FNM_BWD_KERNELS),
+        **total, check_shapes=shapes, timed_shapes=list(timed.values()))
+
+
+def _twin_config(arch: str):
+    from repro_torch.configs import get_config
+    if arch == "llama3.2-1b":
+        return dataclasses.replace(get_config(arch),
+                                   num_layers=TWIN_TRAIN_LAYERS,
+                                   dtype="float32")
+    return dataclasses.replace(get_config(arch, reduced=True),
+                               dtype="float32")
+
+
+def train_twin(arch: str, seed: int) -> dict:
+    """One float32 ``make_train_step`` step on the card and on the CPU from
+    the same weights and batch: the loss, gnorm and every updated leaf
+    (parameter, first and second moment) held to the stated tolerances."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import sorted_leaves, tree_map
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.train import SyntheticLM, init_state, make_train_step
+    from repro_torch.train.optimizer import lr_schedule
+    cfg = _twin_config(arch)
+    tcfg = TrainConfig(learning_rate=TWIN_TRAIN_LR, warmup_steps=1,
+                       total_steps=10)
+    p0 = init_params(cfg, seed, device="cuda", dtype=torch.float32)
+    batch = SyntheticLM(cfg.vocab_size, TWIN_TRAIN_SEQ, TWIN_TRAIN_B,
+                        seed=seed).global_batch_at(0)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = LM(cfg, device=device)
+        state = init_state(tree_map(lambda t: t.to(device), p0))
+        step = make_train_step(model, tcfg)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        new, m = step(state, batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = (new, m, time.perf_counter() - t,
+                        dict(ops.LAUNCHES))
+        del state
+    (gn, gm, g_s, g_l), (cn, cm, c_s, _) = runs["cuda"], runs["cpu"]
+    lr1 = float(lr_schedule(tcfg, 1))
+    loss_err = abs(float(gm["loss"]) - float(cm["loss"])) / abs(
+        float(cm["loss"]))
+    gnorm_err = abs(float(gm["gnorm"]) - float(cm["gnorm"])) / float(
+        cm["gnorm"])
+    p_err = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in zip(
+        sorted_leaves(gn.params), sorted_leaves(cn.params)))
+    m_err, v_err = (max(_rel_err(a.cpu(), b) for (_, a), (_, b) in zip(
+        sorted_leaves(getattr(gn, k)), sorted_leaves(getattr(cn, k))))
+        for k in ("m", "v"))
+    check(np.isfinite(float(gm["loss"])) and loss_err <= TWIN_TRAIN_TOL
+          and gnorm_err <= TWIN_TRAIN_TOL,
+          f"{arch} train twin: loss or gnorm differ between card and CPU "
+          f"({loss_err}, {gnorm_err} relative)")
+    check(m_err <= TWIN_TRAIN_TOL and v_err <= TWIN_TRAIN_TOL,
+          f"{arch} train twin: a first or second moment differs by "
+          f"{max(m_err, v_err)} of its largest value")
+    check(p_err <= 2 * lr1 + 1e-6,
+          f"{arch} train twin: a parameter differs by {p_err} > 2 lr")
+    if cfg.family == "dense":
+        check(g_l["fused_norm_matmul"] > 0 and g_l["fused_norm_matmul_bwd"]
+              > 0, f"{arch} train twin: a fused kernel never launched on "
+                   f"the card")
+    res = dict(arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+               loss_card=float(gm["loss"]), loss_cpu=float(cm["loss"]),
+               loss_rel_err=loss_err, gnorm_card=float(gm["gnorm"]),
+               gnorm_cpu=float(cm["gnorm"]), gnorm_rel_err=gnorm_err,
+               m_rel_err=m_err, v_rel_err=v_err, param_max_abs_err=p_err,
+               lr=lr1,
+               card_s=g_s, cpu_s=c_s,
+               launches_card={k: v for k, v in g_l.items() if v})
+    log(f"train twin {arch} ({cfg.num_layers} layers, d {cfg.d_model}): "
+        f"loss {res['loss_card']} / {res['loss_cpu']} (rel {loss_err}), "
+        f"gnorm rel {gnorm_err}, first moments {m_err} and second moments "
+        f"{v_err} of their largest, "
+        f"parameters within {p_err} (2 lr = {2 * lr1}); card {g_s:.3f} s, "
+        f"CPU {c_s:.3f} s; launches {res['launches_card']}")
+    return res
+
+
+def train_restart(seed: int) -> dict:
+    """Phase 14 (b): a checkpoint restart on the card, llama3.2-1b at full
+    width with TWIN_TRAIN_LAYERS layers in bf16: RESTART_STEPS[0] steps, a
+    save, RESTART_STEPS[1] more; then a restore and a replay of those, bit
+    for bit equal to the continued state."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.common import sorted_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.train import (SyntheticLM, init_state, make_train_step,
+                                   restore, save)
+    cfg = dataclasses.replace(_twin_config("llama3.2-1b"), dtype="bfloat16")
+    model = LM(cfg)
+    params = model.init(seed)
+    step = make_train_step(model, TrainConfig(total_steps=20, warmup_steps=2))
+    src = SyntheticLM(cfg.vocab_size, TWIN_TRAIN_SEQ, TWIN_TRAIN_B, seed=seed)
+    state = init_state(params)
+    n0, n1 = RESTART_STEPS
+    for i in range(n0):
+        state, _ = step(state, src.global_batch_at(i))
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t = time.perf_counter()
+        path = save(d, int(state.step), state.tree())
+        save_s = time.perf_counter() - t
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        a = state
+        for i in range(n0, n0 + n1):
+            a, ma = step(a, src.global_batch_at(i))
+        t = time.perf_counter()
+        tr = restore(d, state.tree())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    b = dataclasses.replace(init_state(params), params=tr["params"],
+                            m=tr["m"], v=tr["v"], step=tr["step"])
+    for i in range(n0, n0 + n1):
+        b, mb = step(b, src.global_batch_at(i))
+    same = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        sorted_leaves(a.tree()), sorted_leaves(b.tree())))
+    check(same and torch.equal(ma["loss"], mb["loss"]),
+          "checkpoint restart on the card: the replayed state differs from "
+          "the continued one")
+    res = dict(steps=RESTART_STEPS, checkpoint_bytes=nbytes, save_s=save_s,
+               restore_s=restore_s, bit_for_bit=same,
+               loss=float(ma["loss"]))
+    log(f"checkpoint restart on the card: {n0} steps, save ({nbytes} B, "
+        f"{save_s:.3f} s), {n1} more; restore ({restore_s:.3f} s) and replay "
+        f"bit for bit equal (loss {res['loss']})")
+    return res
+
+
+def train_model(seed: int) -> tuple:
+    """Phase 14 (c), the main path: llama3.2-1b at its published widths,
+    random bf16 weights from the seed, TRAIN_STEPS steps of
+    ``make_train_step`` on a constant token stream (launch counters zeroed
+    just before the steps and read just after), then TRAIN_PROFILED_STEPS
+    profiled steps.  Returns the numbers and the launch counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import count_params
+    from repro_torch.models.lm import LM
+    from repro_torch.train import init_state, make_train_step
+    cfg = get_config("llama3.2-1b")
+    model = LM(cfg)
+    state = init_state(model.init(seed))
+    n_params = count_params(state.params)
+    step = make_train_step(model, TrainConfig(total_steps=40, warmup_steps=2,
+                                              learning_rate=2e-3))
+    toks = np.full((TRAIN_B, TRAIN_SEQ), TRAIN_TOKEN, np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, times = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"training: a loss or gnorm is not finite ({losses}, {gnorms})")
+    check(losses[-1] < losses[0],
+          f"training: the loss did not fall below its first value {losses}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(TRAIN_PROFILED_STEPS):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy, n_ops = device_busy_us(prof)
+    by_name = {}  # device us a step by CUDA kernel, the largest first
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        t = getattr(ev, "cuda_time_total", 0) if t is None else t
+        if t:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    fused = {k: sum(t for n, t in by_name.items() if any(
+        f in n for f in names)) / busy if busy else None
+        for k, names in (("fused_norm_matmul", ops.FNM_KERNELS),
+                         ("fused_norm_matmul_bwd", ops.FNM_BWD_KERNELS))}
+    fwd, bwd = (launches[k] / TRAIN_STEPS
+                for k in ("fused_norm_matmul", "fused_norm_matmul_bwd"))
+    ms = np.asarray(times) * 1e3
+    res = dict(
+        model=cfg.name, params=n_params, batch=TRAIN_B, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, losses=losses, gnorms=gnorms,
+        step_p50_ms=float(np.percentile(ms, 50)),
+        step_p99_ms=float(np.percentile(ms, 99)),
+        tokens_per_s=TRAIN_STEPS * TRAIN_B * TRAIN_SEQ / float(np.sum(times)),
+        max_memory_allocated=peak,
+        device_busy_share=busy / wall_us if n_ops else None,
+        device_ops_per_step=n_ops / TRAIN_PROFILED_STEPS,
+        share_of_device_time=fused,
+        top_kernels_ms_per_step=[(n[:80], t / TRAIN_PROFILED_STEPS / 1e3)
+                                 for n, t in top],
+        fused_norm_matmul_per_step=fwd, fused_norm_matmul_bwd_per_step=bwd,
+        expected_per_step=dict(
+            fused_norm_matmul=2 * ENTRIES_PER_LAYER * cfg.num_layers,
+            fused_norm_matmul_bwd=ENTRIES_PER_LAYER * cfg.num_layers))
+    log(f"trained {cfg.name} ({n_params} parameters, bf16) {TRAIN_STEPS} "
+        f"steps of {TRAIN_B} x {TRAIN_SEQ} tokens: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, gnorm {gnorms[-1]:.4f}; step p50 "
+        f"{res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms, "
+        f"{res['tokens_per_s']:.1f} tokens/s; max_memory_allocated {peak} "
+        f"B; device busy share {res['device_busy_share']} at "
+        f"{res['device_ops_per_step']:.1f} device ops a step; launches a "
+        f"step: fused_norm_matmul {fwd}, fused_norm_matmul_bwd {bwd} "
+        f"(expected {res['expected_per_step']}); their shares of device "
+        f"time {fused}; the largest kernels, ms a step: "
+        f"{res['top_kernels_ms_per_step']}")
+    return res, launches
+
+
+def serve_training_phase(gen) -> tuple:
+    """Phase 14: (a) :func:`check_fused_norm_matmul_bwd`, (b) the twins and
+    the restart, (c) :func:`train_model`.  Returns the kernel's record, the
+    numbers and the main path's launch counts."""
+    import torch
+    res, t = {}, time.perf_counter()
+    record = check_fused_norm_matmul_bwd(gen)
+    res["kernel_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["twins"] = [train_twin(arch, SEED)
+                    for arch in ("llama3.2-1b", "rwkv6-1.6b")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["restart"] = train_restart(SEED)
+    res["agreement_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res["train"], launches = train_model(SEED)
+    res["train_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 14 (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s".format(
+        res["kernel_s"], res["agreement_s"], res["train_s"]))
+    return record, res, launches
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -4859,6 +5339,21 @@ def main() -> int:
     log(f"launches on the session path: {slaunch['sessions']}")
     log(f"serving path: {json.dumps(sres)}")
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
+    # ---- phase 14: the training path ----
+    t14 = time.perf_counter()
+    kernels["fused_norm_matmul_bwd"], tres, tlaunch = \
+        serve_training_phase(gen)
+    kernels["fused_norm_matmul_bwd"]["launches"] = \
+        tlaunch["fused_norm_matmul_bwd"]
+    for name, k in kernels.items():
+        k["launches_train_path"] = tlaunch[name]
+    for name in ("fused_norm_matmul", "fused_norm_matmul_bwd"):
+        check(tlaunch[name] > 0, f"{name} never launched on the training "
+              f"path")
+    log(f"launches on the training path: {tlaunch}")
+    log(f"training path: {json.dumps(tres)}")
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,12 @@ SIGNATURES = {
     "fused_norm_matmul": ("fused_norm_matmul", "fused_norm_matmul_launch",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                            _I, _P]),
+    # x, gamma, dy, dn, dx, dgamma, dw, workspace; S, d, F, dtype, eps,
+    # rows a block of the row pass; stream
+    "fused_norm_matmul_bwd": ("fused_norm_matmul_bwd",
+                              "fused_norm_matmul_bwd_launch",
+                              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _F, _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

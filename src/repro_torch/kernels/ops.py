@@ -18,7 +18,11 @@ launches: the split pass over KV heads x runs of pages, and the combine
 pass over the runs' partials (see ``csrc/paged_attention.cu``).  A
 ``fused_norm_matmul`` call counts one too: its plan
 (:func:`fused_norm_matmul_plan`) makes one or two CUDA launches (see
-``csrc/fused_norm_matmul.cu``).
+``csrc/fused_norm_matmul.cu``).  Its backward,
+:func:`fused_norm_matmul_bwd`, counts one for its three CUDA launches
+(``csrc/fused_norm_matmul_bwd.cu``); :func:`fused_norm_matmul` goes through
+the autograd node :class:`FusedNormMatmul` only when a gradient is asked
+for, so a call without one makes no node and launches as before.
 
 The checks that only the CUDA kernels need (the paged kernels' head
 widths, shared memory, grid and alignment) run on the CUDA branch alone:
@@ -34,7 +38,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"ludo_lookup": 0, "slot_unpack": 0, "paged_attention": 0,
-            "cuckoo_paged_attention": 0, "fused_norm_matmul": 0}
+            "cuckoo_paged_attention": 0, "fused_norm_matmul": 0,
+            "fused_norm_matmul_bwd": 0}
 # the float types the paged-attention and fused-norm kernels are built for
 POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
@@ -87,6 +92,15 @@ FNM_KERNELS = ("fused_norm_matmul_mma_kernel",
                "fused_norm_matmul_rows_kernel",
                "fused_norm_matmul_fma_kernel",
                "fused_norm_matmul_wgmma_kernel")
+# fused_norm_matmul_bwd (csrc/fused_norm_matmul_bwd.cu): the row pass takes
+# blocks of fused_norm_matmul_bwd_plan rows, about FNM_BWD_BLOCKS_PER_SM
+# blocks an SM, each holding its float32 dgamma partial (d floats) in shared
+# memory, so d is at most FNM_BWD_MAX_D.
+FNM_BWD_BLOCKS_PER_SM = 2
+FNM_BWD_MAX_D = PAGED_SMEM_LIMIT // 4
+FNM_BWD_KERNELS = ("fused_norm_matmul_bwd_rows_kernel",
+                   "fused_norm_matmul_bwd_reduce_kernel",
+                   "fused_norm_matmul_bwd_dw_kernel")
 # ludo_lookup (csrc/ludo_lookup.cu, ludo_lookup_plan): one key a thread in
 # blocks of LUDO_MIN_THREADS to LUDO_MAX_THREADS threads
 LUDO_MIN_THREADS, LUDO_MAX_THREADS = 32, 256
@@ -464,12 +478,8 @@ def fused_norm_matmul_workspace(plan: dict, S: int, d: int, F: int,
     return S * dp * elt // 4 + S
 
 
-def fused_norm_matmul(x, gamma, w):
-    """``RMSNorm(x; eps=1e-6) * gamma @ w`` -> (S, F) in the dtype of ``x``.
-
-    ``x`` (S, d), ``gamma`` (d,) and ``w`` (d, F) are contiguous tensors of
-    one dtype (float32 or bfloat16) on one device; the norm and the product
-    accumulate in float32."""
+def _check_fnm(x, gamma, w) -> None:
+    """The checks of :func:`fused_norm_matmul` and its backward."""
     for name, t, dim in (("x", x, 2), ("gamma", gamma, 1), ("w", w, 2)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got "
@@ -491,11 +501,33 @@ def fused_norm_matmul(x, gamma, w):
                          f"{tuple(gamma.shape)}, w {tuple(w.shape)}")
     if max(S * d, d * F, S * F) >= 2**31 or S > 65535 * FNM_ROW_GROUP:
         raise ValueError("a size exceeds the kernel's int index or grid")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_norm_matmul runs on cuda or cpu, not "
+                         f"{x.device}")
+
+
+def fused_norm_matmul(x, gamma, w):
+    """``RMSNorm(x; eps=1e-6) * gamma @ w`` -> (S, F) in the dtype of ``x``.
+
+    ``x`` (S, d), ``gamma`` (d,) and ``w`` (d, F) are contiguous tensors of
+    one dtype (float32 or bfloat16) on one device; the norm and the product
+    accumulate in float32.  With grad mode on and an input that requires
+    grad, the call goes through :class:`FusedNormMatmul`, whose backward is
+    :func:`fused_norm_matmul_bwd`; otherwise no autograd node is made."""
+    _check_fnm(x, gamma, w)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or w.requires_grad):
+        return FusedNormMatmul.apply(x, gamma, w)
+    return _fused_norm_matmul(x, gamma, w)
+
+
+def _fused_norm_matmul(x, gamma, w):
+    """:func:`fused_norm_matmul` on checked inputs: the plain version for a
+    CPU tensor, the kernel for a CUDA one."""
+    (S, d), F = x.shape, w.shape[1]
     device = x.device
     if device.type == "cpu":
         return ref.fused_norm_matmul_ref(x, gamma, w, eps=NORM_EPS)
-    if device.type != "cuda":
-        raise ValueError(f"fused_norm_matmul runs on cuda or cpu, not {device}")
     out = torch.empty((S, F), dtype=x.dtype, device=device)
     if S and F:
         elt = x.element_size()
@@ -513,6 +545,85 @@ def fused_norm_matmul(x, gamma, w):
         _raise_on(err, "fused_norm_matmul")
         LAUNCHES["fused_norm_matmul"] += 1
     return out
+
+
+def fused_norm_matmul_bwd_plan(S: int, n_sm: int) -> int:
+    """Rows of x a block of the backward's row pass takes: about
+    ``FNM_BWD_BLOCKS_PER_SM`` blocks an SM over the S rows."""
+    return max(1, -(-S // (FNM_BWD_BLOCKS_PER_SM * n_sm)))
+
+
+def fused_norm_matmul_bwd_workspace(S: int, d: int, rows: int) -> int:
+    """Float32 workspace of a backward call, in floats: the inverse RMS of
+    each row (S, rounded up to a multiple of 4), then a dgamma partial of d
+    floats for each block of ``rows`` rows."""
+    return -(-S // 4) * 4 + -(-S // rows) * d
+
+
+def fused_norm_matmul_bwd(x, gamma, w, dy):
+    """The gradients of :func:`fused_norm_matmul` given ``dy`` (S, F) ->
+    ``(dx, dgamma, dw)`` in the dtypes of ``x``, ``gamma`` and ``w``.
+
+    The inputs are checked as the forward's, and ``dy`` is a contiguous
+    (S, F) tensor of their dtype on their device.  A CPU tensor gets the
+    plain version; a CUDA one ``dN = dy @ w^T`` by ``torch.matmul`` (in the
+    input type), then the kernel (``csrc/fused_norm_matmul_bwd.cu``), which
+    recomputes the normalized rows, writes dx, dgamma and dw, and counts one
+    launch."""
+    _check_fnm(x, gamma, w)
+    (S, d), F = x.shape, w.shape[1]
+    if not isinstance(dy, torch.Tensor):
+        raise TypeError(f"dy must be a torch.Tensor, got {type(dy).__name__}")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy must be {x.dtype} like x, got {dy.dtype}")
+    if dy.device != x.device:
+        raise ValueError(f"dy is on {dy.device}, expected {x.device}")
+    if tuple(dy.shape) != (S, F) or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous ({S}, {F}) tensor, got "
+                         f"shape {tuple(dy.shape)} "
+                         f"(contiguous={dy.is_contiguous()})")
+    device = x.device
+    if device.type == "cpu":
+        return ref.fused_norm_matmul_bwd_ref(x, gamma, w, dy, eps=NORM_EPS)
+    if d > FNM_BWD_MAX_D:
+        raise ValueError(f"d={d} exceeds the {FNM_BWD_MAX_D} columns of a "
+                         f"dgamma partial in a block's shared memory")
+    if S == 0 or F == 0:  # no term: every gradient is zero
+        return (torch.zeros_like(x), torch.zeros_like(gamma),
+                torch.zeros_like(w))
+    dx = torch.empty_like(x)
+    dgamma = torch.empty_like(gamma)
+    dw = torch.empty_like(w)
+    dn = torch.matmul(dy, w.t())
+    rows = fused_norm_matmul_bwd_plan(S, _sm_count(device))
+    ws = torch.empty(fused_norm_matmul_bwd_workspace(S, d, rows),
+                     dtype=torch.float32, device=device)
+    err = _launch(device, build.launcher("fused_norm_matmul_bwd"),
+                  x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                  dn.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+                  dw.data_ptr(), ws.data_ptr(), S, d, F,
+                  POOL_DTYPES[x.dtype], NORM_EPS, rows, _stream(device))
+    _raise_on(err, "fused_norm_matmul_bwd")
+    LAUNCHES["fused_norm_matmul_bwd"] += 1
+    return dx, dgamma, dw
+
+
+class FusedNormMatmul(torch.autograd.Function):
+    """:func:`fused_norm_matmul` as an autograd node: it saves only ``x``,
+    ``gamma`` and ``w`` (the normalized rows are recomputed), and its
+    backward is :func:`fused_norm_matmul_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w):
+        ctx.save_for_backward(x, gamma, w)
+        return _fused_norm_matmul(x, gamma, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, w = ctx.saved_tensors
+        grads = fused_norm_matmul_bwd(x, gamma, w, dy.contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def flash_combine(o_parts, m_parts, l_parts):

@@ -163,10 +163,31 @@ def fused_norm_matmul_ref(x, gamma, w, eps: float = 1e-6):
     """``RMSNorm(x) * gamma @ w``, the dense-arch QKV/MLP entry: x (S, d),
     gamma (d,), w (d, F).  The norm and the product run in float32 and the
     result has the dtype of ``x``; on the card the product is full float32
-    only while ``torch.backends.cuda.matmul.allow_tf32`` is False."""
-    xf = x.float()
+    only while ``torch.backends.cuda.matmul.allow_tf32`` is False (float64,
+    which no kernel takes, stays float64: gradcheck's inputs)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct)
     nrm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return ((nrm * gamma.float()) @ w.float()).to(x.dtype)
+    return ((nrm * gamma.to(ct)) @ w.to(ct)).to(x.dtype)
+
+
+def fused_norm_matmul_bwd_ref(x, gamma, w, dy, eps: float = 1e-6):
+    """The gradients of :func:`fused_norm_matmul_ref` given ``dy`` (S, F)
+    -> ``(dx, dgamma, dw)`` in the dtypes of ``x``, ``gamma`` and ``w``,
+    computed in float32 (float64 stays float64).  With ``r = rsqrt(mean(x^2)
+    + eps)``, ``n = x * r`` and ``dN = dy @ w^T``: ``dgamma = sum_s dN * n``,
+    ``g = dN * gamma``, ``dx = r * (g - n * mean(g * n))`` and ``dw = (n *
+    gamma)^T @ dy``."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf, gf, wf, dyf = x.to(ct), gamma.to(ct), w.to(ct), dy.to(ct)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    n = xf * r
+    dn = dyf @ wf.T
+    dgamma = (dn * n).sum(dim=0)
+    g = dn * gf
+    dx = r * (g - n * (g * n).mean(dim=-1, keepdim=True))
+    dw = (n * gf).T @ dyf
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dw.to(w.dtype)
 
 
 def fused_norm_matmul_split_partials(x, gamma, w, krange: int):

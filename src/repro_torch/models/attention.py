@@ -20,12 +20,14 @@ NEG_INF = -1e30
 
 
 def repeat_kv(k, n_heads: int):
-    """GQA repeat: (B,S,Hkv,d) -> (B,S,H,d); head h reads kv head h // g."""
-    Hkv = k.shape[2]
+    """GQA repeat: (B,S,Hkv,d) -> (B,S,H,d); head h reads kv head h // g.
+    An expand, whose backward sums each group in a fixed order (the
+    backward of ``index_select`` on the card adds with atomics)."""
+    B, S, Hkv, d = k.shape
     if Hkv == n_heads:
         return k
-    idx = torch.arange(n_heads, device=k.device) // (n_heads // Hkv)
-    return k.index_select(2, idx)
+    return k[:, :, :, None].expand(B, S, Hkv, n_heads // Hkv, d) \
+        .reshape(B, S, n_heads, d)
 
 
 # ---------------------------------------------------------------- flash core
@@ -148,12 +150,11 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window if cfg.attn_kind == "swa" else None
-    kv_idx = gqa_kv_map(cfg, H, device=x.device)
     if mode == "train":
-        o = flash_attention(q, k.index_select(2, kv_idx),
-                            v.index_select(2, kv_idx), causal=True,
+        o = flash_attention(q, repeat_kv(k, H), repeat_kv(v, H), causal=True,
                             window=window)
         return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
+    kv_idx = gqa_kv_map(cfg, H, device=x.device)
     # decode: cache = (k_cache, v_cache, length); the new token is written at
     # per-row `length` (positions = length for RoPE). SWA uses a rolling
     # cache: slot = length % window_size, all-written-slots valid.

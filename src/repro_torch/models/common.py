@@ -87,6 +87,26 @@ def sorted_leaves(tree, path=()):
     return [] if tree is None else [(path, tree)]
 
 
+def tree_from_sorted_leaves(tree, leaves):
+    """``tree``'s structure (its dict keys in their order) with its leaves
+    replaced by ``leaves``, given in :func:`sorted_leaves` order: the
+    inverse of flattening, as the reference's ``tree_unflatten``."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            new = {k: walk(t[k]) for k in sorted(t)}
+            return {k: new[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return None if t is None else next(it)
+
+    out = walk(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and of ``rest``, which share its
     structure), keeping the structure; None stays None."""

@@ -30,6 +30,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.outback import resolve_device
@@ -268,6 +269,31 @@ def _apply_ffn(kind, p, x, mixer_p, *, mode, cache, x_sum=None):
     return x + torch.matmul(silu(g) * u, p["w_down"]).view(B, S, d), cache
 
 
+def _group_body(group, lp, x, cfg, positions, mode, cache_g):
+    """One group of layers (``lp``: their parameters; ``cache_g``: each
+    layer's ``(c_m, c_f)``, or None in train mode) -> (x, each layer's
+    ``(nc_m, nc_f)``): the body that remat wraps."""
+    new_cache_g = []
+    for li, (mixer, ffn) in enumerate(group):
+        mp, fp = lp[li]["mixer"], lp[li]["ffn"]
+        c_m, c_f = (None, None) if cache_g is None else cache_g[li]
+        x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg, positions=positions,
+                                      mode=mode, cache=c_m)
+        x, nc_f = _apply_ffn(ffn, fp, x, mp, mode=mode, cache=c_f,
+                             x_sum=x_sum)
+        new_cache_g.append((nc_m, nc_f))
+    return x, new_cache_g
+
+
+def _ce_chunk(hs, ls, emb):
+    """Summed cross entropy of one chunk of positions: logits in the
+    activation dtype, then float32, as the reference takes them."""
+    logits = (hs @ emb.T.to(hs.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, ls.long()[..., None])[..., 0]
+    return (lse - gold).sum()
+
+
 # --------------------------------------------------------------- the model
 class LM:
     """A model bound to a config and a device (CUDA unless given): pure
@@ -292,34 +318,47 @@ class LM:
         return h @ emb.T.to(h.dtype)
 
     # ---- the layer stack
-    def _stack(self, params, x, *, positions, mode, caches=None, length=None):
+    def _stack(self, params, x, *, positions, mode, caches=None, length=None,
+               remat=False):
         """Run all stages.  ``caches``: the cache's per-stage trees, stacked
         on the layer axis (None in train mode); ``length`` is the shared
-        per-row cache write position (decode).  Returns (x, new_caches)."""
+        per-row cache write position (decode).  With ``remat``, in train
+        mode and with a gradient asked for, each group of layers runs under
+        ``torch.utils.checkpoint`` (non-reentrant): its activations are
+        recomputed in the backward, as the reference's
+        ``jax.checkpoint(nothing_saveable)`` does.  Returns (x,
+        new_caches)."""
         cfg = self.cfg
+        ckpt = remat and mode == "train" and torch.is_grad_enabled()
         new_caches = []
         for s_idx, ((repeat, group), sp) in enumerate(
                 zip(self.program, params["stages"])):
+            # every leaf's per-layer views at once: one backward node a leaf
+            views = [{part: {k: v.unbind(0) for k, v in layer[part].items()}
+                      for part in ("mixer", "ffn")} for layer in sp]
             new_layers = [[] for _ in group]
             for i in range(repeat):
-                for li, (mixer, ffn) in enumerate(group):
-                    mp = {k: v[i] for k, v in sp[li]["mixer"].items()}
-                    fp = {k: v[i] for k, v in sp[li]["ffn"].items()}
-                    c_m = c_f = None
-                    if caches is not None:
+                lp = [{part: {k: v[i] for k, v in lv[part].items()}
+                       for part in ("mixer", "ffn")} for lv in views]
+                cache_g = None
+                if caches is not None:
+                    cache_g = []
+                    for li, (mixer, _) in enumerate(group):
                         c = caches[s_idx][li]
                         # the reference's tuple form of the layer's cache
                         c_m = tuple(c["mixer"][n][i]
                                     for n in _MIXER_CACHE[mixer])
                         if mixer == "gqa":
                             c_m = (*c_m, length)  # per-row write position
-                        c_f = None if c["ffn"] is None else c["ffn"][i]
-                    x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg,
-                                                  positions=positions,
-                                                  mode=mode, cache=c_m)
-                    x, nc_f = _apply_ffn(ffn, fp, x, mp, mode=mode,
-                                         cache=c_f, x_sum=x_sum)
-                    new_layers[li].append((nc_m, nc_f))
+                        cache_g.append(
+                            (c_m, None if c["ffn"] is None else c["ffn"][i]))
+                args = (group, lp, x, cfg, positions, mode, cache_g)
+                x, new_cache_g = (checkpoint(_group_body, *args,
+                                             use_reentrant=False)
+                                  if ckpt else _group_body(*args))
+                if caches is not None:
+                    for li, nc in enumerate(new_cache_g):
+                        new_layers[li].append(nc)
             if caches is not None:
                 new_caches.append([
                     {"mixer": {n: torch.stack([m[j] for m, _ in layers])
@@ -328,6 +367,55 @@ class LM:
                              torch.stack([f for _, f in layers]))}
                     for (mixer, _), layers in zip(group, new_layers)])
         return x, (new_caches if caches is not None else None)
+
+    # ---- training ----------------------------------------------------------
+    def _inputs_embed(self, params, batch):
+        if self.cfg.vision_tokens:
+            raise NotImplementedError("vision_proj (family vlm) is not yet "
+                                      "ported")
+        return self._embed(params, batch["tokens"])
+
+    def train_loss(self, params, batch, *, remat=True):
+        """-> (loss, metrics).  ``batch``: tensors ``tokens`` and ``labels``
+        (B, S) on the model's device."""
+        cfg = self.cfg
+        x = self._inputs_embed(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        x, _ = self._stack(params, x, positions=positions, mode="train",
+                           remat=remat)
+        x = rms_norm(x, params["final_norm"])
+        labels = batch["labels"]
+        loss = self._ce(params, x, labels)
+        if cfg.mtp:
+            loss = loss + 0.1 * self._mtp_loss(params, x, labels)
+        # the ported families have no MoE layer: no load-balancing loss
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return loss, {"ce": loss, "aux": aux}
+
+    def _ce(self, params, h, labels):
+        """Cross entropy chunked over S by up to 512 positions, as the
+        reference's non-vocab-parallel branch; with a gradient asked for,
+        each chunk runs under ``torch.utils.checkpoint``, so its (B, chunk,
+        V) float32 logits are recomputed in the backward rather than
+        kept."""
+        emb = params.get("lm_head", params["embed"])
+        B, S, _ = h.shape
+        chunk = max(1, min(512, S))
+        n = S // chunk if S % chunk == 0 else 1
+        chunk = S // n if n else S
+        ckpt = torch.is_grad_enabled()
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n):
+            hs = h[:, i * chunk:(i + 1) * chunk]
+            ls = labels[:, i * chunk:(i + 1) * chunk]
+            part = (checkpoint(_ce_chunk, hs, ls, emb, use_reentrant=False)
+                    if ckpt else _ce_chunk(hs, ls, emb))
+            tot = tot + part
+        return tot / (B * S)
+
+    def _mtp_loss(self, params, h, labels):
+        raise NotImplementedError("the multi-token-prediction loss (deepseek) "
+                                  "is not yet ported")
 
     # ---- serving -----------------------------------------------------------
     def cache_template(self, batch: int, max_seq: int):

@@ -67,7 +67,14 @@ card and skips without one.  It holds:
   replay, launching the index kernels; a ``KVSessionStore`` on the card
   answers a park/resume/shrink/delete stream, meters and ends in the CPU's
   MN images and cache state; the reduced rwkv6 in float32 decodes and
-  prefills on the card within 1e-5 of the CPU.
+  prefills on the card within 1e-5 of the CPU;
+* the training path: ``fused_norm_matmul_bwd`` against
+  ``ref.fused_norm_matmul_bwd_ref`` with the forward's tolerances at the
+  test shapes, a ragged S and a training entry, counted once a call and
+  bit for bit alike twice; a gradient through ``ops.fused_norm_matmul``
+  on the card launches both kernels; one float32 ``make_train_step`` step
+  of the reduced llama3.2-1b and rwkv6-1.6b on the card against the CPU;
+  a checkpoint restart on the card replayed bit for bit.
 """
 
 import numpy as np
@@ -1063,3 +1070,128 @@ def test_rwkv_decode_on_card_matches_cpu(card):
     got = models["cuda"].prefill(p_gpu, {"tokens": toks.to("cuda")})
     want = models["cpu"].prefill(p_cpu, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+# ------------------------------------------------------ the training path
+FNMB_SHAPES = [  # tests/test_torch_kernels.py's, a ragged S, a training entry
+    (256, 512, 1024, "float32"), (512, 256, 512, "float32"),
+    (128, 1024, 512, "bfloat16"), (7, 200, 100, "float32"),
+    (9, 64, 131, "bfloat16"), (7, 2048, 1000, "bfloat16"),
+    (2048, 2048, 512, "bfloat16"), (2048, 2048, 512, "float32")]
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("S,d,F,dtype", FNMB_SHAPES)
+def test_fused_norm_matmul_bwd_on_card(card, S, d, F, dtype):
+    """The backward kernel against its plain version with the forward's
+    tolerances (as the largest error over each gradient's largest value:
+    dN and the normalized rows round to bf16 once in bf16), counted once a
+    call, and two calls bit for bit alike (no atomics)."""
+    x, g, w = _fnm_inputs(13, S, d, F, dtype)
+    dy = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (S, F)).astype(np.float32)).to("cuda", getattr(torch, dtype))
+    n = ops.LAUNCHES["fused_norm_matmul_bwd"]
+    got = ops.fused_norm_matmul_bwd(x, g, w, dy)
+    assert ops.LAUNCHES["fused_norm_matmul_bwd"] == n + 1
+    want = ref.fused_norm_matmul_bwd_ref(x, g, w, dy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.is_cuda
+        assert _rel(a, b) <= FNM_TOL[dtype]
+    for a, b in zip(ops.fused_norm_matmul_bwd(x, g, w, dy), got):
+        assert torch.equal(a, b)
+
+
+def test_fused_norm_matmul_grad_goes_through_both_kernels_on_card(card):
+    """With a gradient asked for, the forward kernel runs inside
+    ``FusedNormMatmul`` and its backward is the backward kernel; without
+    one, no node and no backward launch."""
+    x, g, w = _fnm_inputs(15, 64, 256, 96, "bfloat16")
+    dy = torch.ones((64, 96), dtype=torch.bfloat16, device="cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        assert ops.fused_norm_matmul(x, g, w.requires_grad_()).grad_fn is None
+    out = ops.fused_norm_matmul(x, g, w)
+    assert type(out.grad_fn).__name__ == "FusedNormMatmulBackward"
+    (dw,) = torch.autograd.grad(out, (w,), dy)
+    assert ops.LAUNCHES["fused_norm_matmul"] == 2
+    assert ops.LAUNCHES["fused_norm_matmul_bwd"] == 1
+    assert torch.equal(dw, ops.fused_norm_matmul_bwd(x, g, w.detach(),
+                                                     dy)[2])
+
+
+def _train_cfg(arch, dtype):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, reduced=True), dtype=dtype)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One float32 ``make_train_step`` step of the reduced config on the
+    card and on the CPU from the same weights and batch: loss and gnorm
+    within 1e-5 relative, first moments within 1e-4 of each leaf's largest
+    value (the same sums in another order), parameters within 2 lr (Adam's
+    first step moves each by about lr times its gradient's sign)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.common import sorted_leaves, tree_map
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.train import SyntheticLM, init_state, make_train_step
+    cfg = _train_cfg(arch, "float32")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    p_cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    batch = SyntheticLM(cfg.vocab_size, 32, 4, seed=2).global_batch_at(0)
+    out = {}
+    ops.reset_launch_counts()
+    for d in ("cuda", "cpu"):
+        state = init_state(tree_map(lambda t: t.to(d), p_cpu))
+        out[d] = make_train_step(LM(cfg, device=d), tcfg)(state, batch)
+    (gs, gm), (cs, cm) = out["cuda"], out["cpu"]
+    assert gs.params["embed"].is_cuda
+    for k in ("loss", "gnorm"):
+        np.testing.assert_allclose(float(gm[k]), float(cm[k]), rtol=1e-5)
+    for (_, a), (_, b) in zip(sorted_leaves(gs.m), sorted_leaves(cs.m)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    for (_, a), (_, b) in zip(sorted_leaves(gs.params),
+                              sorted_leaves(cs.params)):
+        assert float((a.cpu() - b).abs().max()) <= 2e-3 + 1e-6
+    if cfg.family == "dense":  # 5 entries a layer, forward and remat
+        assert ops.LAUNCHES["fused_norm_matmul"] == 10 * cfg.num_layers
+        assert ops.LAUNCHES["fused_norm_matmul_bwd"] == 5 * cfg.num_layers
+
+
+def test_checkpoint_restart_on_card_is_bit_exact(card, tmp_path):
+    """The reduced llama3.2-1b in bf16 on the card: three steps, a save,
+    two more; a restore and a replay of the two give the same state bit
+    for bit (no atomics on the path, so the replay is deterministic)."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.common import sorted_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.train import (SyntheticLM, init_state, make_train_step,
+                                   restore, save)
+    model = LM(_train_cfg("llama3.2-1b", "bfloat16"), device="cuda")
+    params = model.init(0)
+    step = make_train_step(model, TrainConfig(total_steps=20,
+                                              warmup_steps=2))
+    src = SyntheticLM(model.cfg.vocab_size, 32, 4, seed=0)
+    state = init_state(params)
+    for i in range(3):
+        state, _ = step(state, src.global_batch_at(i))
+    save(str(tmp_path), int(state.step), state.tree())
+    a = state
+    for i in (3, 4):
+        a, ma = step(a, src.global_batch_at(i))
+    t = restore(str(tmp_path), state.tree())
+    b = dataclasses.replace(init_state(params), params=t["params"], m=t["m"],
+                            v=t["v"], step=t["step"])
+    for i in (3, 4):
+        b, mb = step(b, src.global_batch_at(i))
+    assert torch.equal(ma["loss"], mb["loss"])
+    for (_, x), (_, y) in zip(sorted_leaves(a.tree()),
+                              sorted_leaves(b.tree())):
+        assert x.is_cuda and torch.equal(x, y)

@@ -21,7 +21,12 @@
   the KVS on the CPU), or ``repro_torch.core.sharded_kvs`` (and runs a Get on a
   one-rank CPU mesh), has neither ``jax`` nor ``repro`` in
   ``sys.modules``;
-* without a card, the entry points raise unless the caller passes
+* a fresh interpreter that imports the training path
+  (``repro_torch.train``, ``repro_torch.launch.train``, and trains, saves
+  and resumes on the CPU) has neither ``jax`` nor ``repro`` in
+  ``sys.modules``;
+* without a card, the entry points (the launcher and
+  ``examples/train_lm_torch.py`` too) raise unless the caller passes
   ``device="cpu"``, and ``chip_smoke.py`` exits non-zero with no result.
 """
 
@@ -57,7 +62,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py",
     ROOT / "tools" / "baselines_probe.py", ROOT / "tools" / "mesh_probe.py",
     ROOT / "tools" / "faults_probe.py",
-    ROOT / "tools" / "cluster_probe.py", ROOT / "tools" / "session_probe.py"]
+    ROOT / "tools" / "cluster_probe.py", ROOT / "tools" / "session_probe.py",
+    ROOT / "tools" / "train_probe.py", ROOT / "examples" / "train_lm_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -337,14 +343,60 @@ def test_importing_the_serving_port_loads_neither_jax_nor_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", ["repro_torch.train",
+                                    "repro_torch.launch.train"])
+def test_importing_the_training_path_loads_neither_jax_nor_repro(module):
+    """``repro_torch.train`` and ``repro_torch.launch.train``, each imported
+    alone in a fresh interpreter that then trains, saves and restores the
+    reduced llama3.2-1b through the launcher on the CPU."""
+    code = (
+        "import sys, json, importlib, tempfile\n"
+        f"importlib.import_module({module!r})\n"
+        "from repro_torch.launch.train import main\n"
+        "d = tempfile.mkdtemp()\n"
+        "args = ['--arch', 'llama3.2-1b', '--seq', '16', '--batch', '2',\n"
+        "        '--device', 'cpu', '--checkpoint-dir', d]\n"
+        "main(args + ['--steps', '2'])\n"
+        "main(args + ['--steps', '3', '--resume'])\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert "resumed from step 2" in out.stdout
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """The launcher and the example train on CUDA unless given ``--device
+    cpu``: without a card they raise, never falling back to the CPU."""
+    from repro_torch.launch import train as launch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch.main(["--arch", "llama3.2-1b", "--steps", "1"])
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch, runpy, sys\n"
+         "torch.cuda.is_available = lambda: False\n"
+         "sys.argv = ['train_lm_torch.py', '--steps', '1']\n"
+         "runpy.run_path("
+         f"{str(ROOT / 'examples' / 'train_lm_torch.py')!r}, "
+         "run_name='__main__')\n"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr
+
+
 def test_kernels_are_built_from_the_repo_sources_only():
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["fused_norm_matmul.cu", "ludo_lookup.cu",
-                    "paged_attention.cu", "slot_unpack.cu"]
+    assert srcs == ["fused_norm_matmul.cu", "fused_norm_matmul_bwd.cu",
+                    "ludo_lookup.cu", "paged_attention.cu", "slot_unpack.cu"]
     assert set(build.SIGNATURES) == {"ludo_lookup", "slot_unpack",
                                      "paged_attention",
                                      "cuckoo_paged_attention",
-                                     "fused_norm_matmul"}
+                                     "fused_norm_matmul",
+                                     "fused_norm_matmul_bwd"}
     assert build.LIBRARIES == [s[:-3] for s in srcs]
     assert build.BUILD_DIR == ROOT / "src" / "repro_torch" / "kernels" / "_build"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
