@@ -650,10 +650,24 @@ TRAIN_ROWS = TRAIN_B * TRAIN_SEQ
 FNMB_TIMED_SHAPES = [(TRAIN_ROWS, D_MODEL, F, dt)
                      for dt in ("bfloat16", "float32")
                      for F in (2048, 512, 8192)]
+# the bf16 edges of ops.fused_norm_matmul_bwd_dw_plan: d not a multiple of
+# 8 (elementwise loads, A's ragged last box), S not a multiple of 64 and F
+# not of the tile (the tensor maps' zeros) with splits, the same with the
+# 128 x 256 tile (dy boxes wholly past F), d past the row pass's
+# registers (reread) in wgmma and in mma, and past 8 dgamma partials in
+# shared memory (d = 7000: the warps' turns); with the training entries
+# (F = 512: 2 splits), every regime, both wgmma tiles, a split plan and
+# both row passes run
 FNMB_CHECK_SHAPES = [(256, 512, 1024, "float32"), (512, 256, 512, "float32"),
                      (128, 1024, 512, "bfloat16"), (7, 200, 100, "float32"),
                      (9, 64, 131, "bfloat16"), (7, 2048, 1000, "float32"),
-                     (7, 2048, 1000, "bfloat16"), *FNMB_TIMED_SHAPES]
+                     (7, 2048, 1000, "bfloat16"), (100, 1004, 256, "bfloat16"),
+                     (200, 640, 384, "bfloat16"),
+                     (300, 1100, 1800, "bfloat16"), (64, 2304, 256, "bfloat16"),
+                     (33, 2304, 131, "bfloat16"), (9, 7000, 64, "bfloat16"),
+                     (9, 7000, 64, "float32"), *FNMB_TIMED_SHAPES]
+# traces a like-for-like device time of phase 14 (a) takes the median of
+FNMB_BUSY_TRACES = 3
 TWIN_TRAIN_LAYERS = 2
 TWIN_TRAIN_B, TWIN_TRAIN_SEQ = 1, 128
 # the twin's update: a float32 gradient within 1e-3 of the CPU's largest
@@ -4748,11 +4762,62 @@ def _rel_err(got, want) -> float:
     return err / scale if scale else err
 
 
+def fnmb_plan_of(S: int, d: int, F: int, dt: str) -> dict:
+    """The plan ``ops.fused_norm_matmul_bwd`` takes for a call of these
+    sizes on card 0 with dy on a 16-byte boundary."""
+    import torch
+    from repro_torch.kernels import ops
+    return ops.fused_norm_matmul_bwd_dw_plan(
+        S, d, F, getattr(torch, dt).itemsize,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def fnmb_kernels_of(plan: dict) -> tuple:
+    """The CUDA kernels, by their names in ``ops.FNM_BWD_KERNELS``, that a
+    ``fused_norm_matmul_bwd`` call of ``plan`` launches, each once: the
+    row pass and the dgamma reduction, then the wgmma dw (and the sum of
+    its splits when it has more than one) or the mma / fma dw."""
+    rows = ("fused_norm_matmul_bwd_warp_rows_kernel",
+            "fused_norm_matmul_bwd_reduce_kernel")
+    if plan["regime"] != "wgmma":
+        return (*rows, "fused_norm_matmul_bwd_dw_kernel")
+    if plan["splits"] > 1:
+        return (*rows, "fused_norm_matmul_bwd_wgmma_kernel",
+                "fused_norm_matmul_bwd_dwsum_kernel")
+    return (*rows, "fused_norm_matmul_bwd_wgmma_kernel")
+
+
+def device_busy_ms(fn, iters: int, traces: int = FNMB_BUSY_TRACES) -> list:
+    """The device time a call of ``fn`` in each of ``traces``
+    ``torch.profiler`` traces of ``iters`` calls: the union of a trace's
+    device intervals over ``iters``, in ms, as :func:`device_trace`'s
+    callers take the hand path's.  A trace that holds no device operation
+    (late in a long run) is retaken, up to TRACE_TRIES times for each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(traces):
+        for _ in range(TRACE_TRIES):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            busy, n_ops = device_busy_us(prof)
+            if n_ops:
+                out.append(busy / iters / 1e3)
+                break
+            log(f"profiler: no device operation in a trace of {iters} calls")
+    return out
+
+
 def check_fused_norm_matmul_bwd(gen) -> dict:
     """Phase 14 (a): the backward kernel against its plain version on the
-    card at FNMB_CHECK_SHAPES, two calls bit for bit alike, then timed at
-    the training entries against its bound, the plain version and the
-    library's backward."""
+    card at FNMB_CHECK_SHAPES (every regime of its plan, a split plan, both
+    row passes), two calls bit for bit alike, then timed at the training
+    entries against its bound, the plain version and the library's
+    backward, the last two like for like by their device time in traces."""
     import torch
     import torch.nn.functional as F_
     from repro_torch.kernels import ops, ref
@@ -4768,24 +4833,33 @@ def check_fused_norm_matmul_bwd(gen) -> dict:
         rel = {n: _rel_err(a, b) for n, a, b in zip(("dx", "dgamma", "dw"),
                                                      got, want)}
         tol = FNM_TOL[dt]
+        plan = fnmb_plan_of(S, d, F, dt)
         check(all(a.dtype == b.dtype and a.shape == b.shape
                   for a, b in zip(got, want)),
               f"fused_norm_matmul_bwd: dtypes or shapes differ at S={S}, "
               f"d={d}, F={F}, {dt}")
         check(max(rel.values()) <= tol,
               f"fused_norm_matmul_bwd differs from its plain version beyond "
-              f"{tol} at S={S}, d={d}, F={F}, {dt}: {rel}")
+              f"{tol} at S={S}, d={d}, F={F}, {dt}, plan {plan}: {rel}")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"fused_norm_matmul_bwd: two calls differ at S={S}, d={d}, "
-              f"F={F}, {dt}")
+              f"F={F}, {dt}, plan {plan}")
         e = max(float((a.float() - b.float()).abs().max()) if a.numel()
                 else 0.0 for a, b in zip(got, want))
         err = max(err, e)
-        shapes.append(dict(S=S, d=d, F=F, dtype=dt, max_rel_err=rel,
-                           max_abs_err=e, tolerance=tol))
+        shapes.append(dict(S=S, d=d, F=F, dtype=dt, plan=plan,
+                           max_rel_err=rel, max_abs_err=e, tolerance=tol))
+    ran = {(r["plan"]["regime"], r["plan"]["tile"][1],
+            r["plan"]["splits"] > 1, r["plan"]["reread"]) for r in shapes}
+    check({r[0] for r in ran} == set(ops.FNM_BWD_REGIMES)
+          and {r[1] for r in ran if r[0] == "wgmma"} == {128, 256}
+          and any(r[2] for r in ran) and {r[3] for r in ran} == {False, True},
+          f"fused_norm_matmul_bwd: the check shapes miss a regime, a tile, "
+          f"a split plan or a row pass: {sorted(ran)}")
     log(f"kernel fused_norm_matmul_bwd: within tolerance of its plain "
         f"version, and two calls bit for bit alike, at {len(shapes)} shapes "
-        f"(max rel err by gradient "
+        f"(regime, tile columns, split, reread: {sorted(ran)}; max rel err "
+        f"by gradient "
         f"{ {n: max(r['max_rel_err'][n] for r in shapes) for n in ('dx', 'dgamma', 'dw')} })")
     timed = {}
     for S, d, F, dt in FNMB_TIMED_SHAPES:
@@ -4801,33 +4875,52 @@ def check_fused_norm_matmul_bwd(gen) -> dict:
         iters = 20
         bound, by = fnmb_bound(S, d, F, dtype)
         kern = cycling(ops.fused_norm_matmul_bwd, sets)
-        by_kernel, prof = device_trace(kern, 10, *ops.FNM_BWD_KERNELS)
+        plan = fnmb_plan_of(S, d, F, dt)
+        names = fnmb_kernels_of(plan)
+        by_kernel, prof = device_trace(kern, 10, *names)
         busy, _ = device_busy_us(prof)
-        check(len(by_kernel) == len(ops.FNM_BWD_KERNELS) and busy > 0,
+        check(len(by_kernel) == len(names) and busy > 0,
               f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}: no trace of "
-              f"{TRACE_TRIES} held all of {ops.FNM_BWD_KERNELS} (it held "
+              f"{TRACE_TRIES} held all of {names} (it held "
               f"{sorted(by_kernel)}, {busy} us busy)")
         dev = sum(by_kernel.values())
-        row = dict(S=S, d=d, F=F, dtype=dt, ms=time_ms(kern, iters),
-                   device_ms=dev, device_ms_by_kernel=by_kernel,
-                   device_ms_with_dn=busy / 10 / 1e3,
+        with_dn = device_busy_ms(kern, 10)
+        lib_dev = device_busy_ms(fnmb_library(graphs), 10)
+        check(len(with_dn) == len(lib_dev) == FNMB_BUSY_TRACES,
+              f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}: a trace held "
+              f"no device operation (hand path {with_dn}, library "
+              f"{lib_dev})")
+        row = dict(S=S, d=d, F=F, dtype=dt, plan=plan,
+                   ms=time_ms(kern, iters), device_ms=dev,
+                   device_ms_by_kernel=by_kernel,
+                   device_ms_with_dn=float(np.median(with_dn)),
+                   device_ms_with_dn_traces=with_dn,
                    plain_ms=time_ms(cycling(ref.fused_norm_matmul_bwd_ref,
                                             sets), iters),
                    library_ms=time_ms(fnmb_library(graphs), iters),
+                   library_device_ms=float(np.median(lib_dev)),
+                   library_device_ms_traces=lib_dev,
                    bound_ms=bound, bound_by=by)
         row["share_of_bound"] = bound / dev
+        row["with_dn_over_library_device"] = \
+            row["device_ms_with_dn"] / row["library_device_ms"]
         timed[(S, d, F, dt)] = row
-        log(f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}: {row['ms']:.6f} "
-            f"ms (device {dev}, by kernel {by_kernel}; with dN's product "
-            f"{row['device_ms_with_dn']:.6f}), plain {row['plain_ms']:.6f} "
-            f"ms, rms_norm + matmul backward {row['library_ms']:.6f} ms, "
-            f"bound {bound:.6f} ms ({by}), bound/device "
-            f"{row['share_of_bound']}")
+        log(f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}, plan {plan}: "
+            f"{row['ms']:.6f} ms (device {dev}, by kernel {by_kernel}; with "
+            f"dN's product {row['device_ms_with_dn']:.6f}, traces "
+            f"{with_dn}), plain {row['plain_ms']:.6f} ms, rms_norm + matmul "
+            f"backward {row['library_ms']:.6f} ms (device "
+            f"{row['library_device_ms']:.6f}, traces {lib_dev}), bound "
+            f"{bound:.6f} ms ({by}), bound/device {row['share_of_bound']}, "
+            f"with dN / library device "
+            f"{row['with_dn_over_library_device']}")
         del sets, graphs
     # the record's numbers: one layer's five training entries, bf16
     layer = [(TRAIN_ROWS, D_MODEL, f, "bfloat16") for f in LAYER_ENTRY_FS]
     total = {k: sum(timed[sh][k] for sh in layer)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    lib_dev = sum(timed[sh]["library_device_ms"] for sh in layer)
+    with_dn = sum(timed[sh]["device_ms_with_dn"] for sh in layer)
     return dict(
         name="fused_norm_matmul_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_norm_matmul_bwd.cu",
@@ -4840,6 +4933,7 @@ def check_fused_norm_matmul_bwd(gen) -> dict:
              f"w_up) at S={TRAIN_ROWS}, d={D_MODEL}, bf16: "
              f"F={list(LAYER_ENTRY_FS)}",
         device_ms=sum(timed[sh]["device_ms"] for sh in layer),
+        device_ms_with_dn=with_dn, library_device_ms=lib_dev,
         bound_by="operations" if all(timed[sh]["bound_by"] == "operations"
                                      for sh in layer) else "bytes",
         library_call="torch.autograd.grad of F.rms_norm + torch.matmul",

@@ -54,12 +54,13 @@ SIGNATURES = {
     "fused_norm_matmul": ("fused_norm_matmul", "fused_norm_matmul_launch",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                            _I, _P]),
-    # x, gamma, dy, dn, dx, dgamma, dw, workspace; S, d, F, dtype, eps,
-    # rows a block of the row pass; stream
+    # x, gamma, dy, dn, dx, dgamma, dw, workspace, dw's workspace; S, d,
+    # F, dtype, eps, rows a block of the row pass, regime, dw's tile
+    # columns, splits, reread; stream
     "fused_norm_matmul_bwd": ("fused_norm_matmul_bwd",
                               "fused_norm_matmul_bwd_launch",
-                              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _F, _I, _P]),
+                              [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _F, _I, _I, _I, _I, _I, _P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

@@ -19,10 +19,11 @@ pass over the runs' partials (see ``csrc/paged_attention.cu``).  A
 ``fused_norm_matmul`` call counts one too: its plan
 (:func:`fused_norm_matmul_plan`) makes one or two CUDA launches (see
 ``csrc/fused_norm_matmul.cu``).  Its backward,
-:func:`fused_norm_matmul_bwd`, counts one for its three CUDA launches
-(``csrc/fused_norm_matmul_bwd.cu``); :func:`fused_norm_matmul` goes through
-the autograd node :class:`FusedNormMatmul` only when a gradient is asked
-for, so a call without one makes no node and launches as before.
+:func:`fused_norm_matmul_bwd`, counts one for its three or four CUDA
+launches (``csrc/fused_norm_matmul_bwd.cu``); :func:`fused_norm_matmul`
+goes through the autograd node :class:`FusedNormMatmul` only when a
+gradient is asked for, so a call without one makes no node and launches
+as before.
 
 The checks that only the CUDA kernels need (the paged kernels' head
 widths, shared memory, grid and alignment) run on the CUDA branch alone:
@@ -93,14 +94,29 @@ FNM_KERNELS = ("fused_norm_matmul_mma_kernel",
                "fused_norm_matmul_fma_kernel",
                "fused_norm_matmul_wgmma_kernel")
 # fused_norm_matmul_bwd (csrc/fused_norm_matmul_bwd.cu): the row pass takes
-# blocks of fused_norm_matmul_bwd_plan rows, about FNM_BWD_BLOCKS_PER_SM
-# blocks an SM, each holding its float32 dgamma partial (d floats) in shared
-# memory, so d is at most FNM_BWD_MAX_D.
+# blocks of fused_norm_matmul_bwd_plan rows (a warp a row), about
+# FNM_BWD_BLOCKS_PER_SM blocks an SM, each holding its float32 dgamma
+# partial (d floats) in shared memory, so d is at most FNM_BWD_MAX_D.  A
+# warp keeps a row of x and of dN in registers where d * elt is at most
+# FNM_BWD_RESIDENT_BYTES, else reads it again (``reread``).  dw runs in
+# one of FNM_BWD_REGIMES (fused_norm_matmul_bwd_dw_plan): tiles of dw
+# (rows of d, columns of F), one block a tile: wgmma FNM_BWD_WGMMA_TILE
+# where those tiles fill at least half the SMs, else FNM_BWD_DW_TILE (as
+# mma and fma); wgmma splits S (steps of FNM_BWD_STEP rows) into at most
+# FNM_BWD_MAX_SPLITS ranges where its tiles alone leave SMs idle, and keeps
+# A = x * r * gamma in bf16 rows padded to FNM_PAD.
 FNM_BWD_BLOCKS_PER_SM = 2
 FNM_BWD_MAX_D = PAGED_SMEM_LIMIT // 4
-FNM_BWD_KERNELS = ("fused_norm_matmul_bwd_rows_kernel",
+FNM_BWD_RESIDENT_BYTES = 4096
+FNM_BWD_REGIMES = ("fma", "mma", "wgmma")
+FNM_BWD_DW_TILE, FNM_BWD_WGMMA_TILE = (128, 128), (128, 256)
+FNM_BWD_STEP = 64
+FNM_BWD_MAX_SPLITS = 8
+FNM_BWD_KERNELS = ("fused_norm_matmul_bwd_warp_rows_kernel",
                    "fused_norm_matmul_bwd_reduce_kernel",
-                   "fused_norm_matmul_bwd_dw_kernel")
+                   "fused_norm_matmul_bwd_dw_kernel",
+                   "fused_norm_matmul_bwd_wgmma_kernel",
+                   "fused_norm_matmul_bwd_dwsum_kernel")
 # ludo_lookup (csrc/ludo_lookup.cu, ludo_lookup_plan): one key a thread in
 # blocks of LUDO_MIN_THREADS to LUDO_MAX_THREADS threads
 LUDO_MIN_THREADS, LUDO_MAX_THREADS = 32, 256
@@ -554,10 +570,74 @@ def fused_norm_matmul_bwd_plan(S: int, n_sm: int) -> int:
 
 
 def fused_norm_matmul_bwd_workspace(S: int, d: int, rows: int) -> int:
-    """Float32 workspace of a backward call, in floats: the inverse RMS of
-    each row (S, rounded up to a multiple of 4), then a dgamma partial of d
-    floats for each block of ``rows`` rows."""
+    """Float32 workspace of a backward call's row pass, in floats: the
+    inverse RMS of each row (S, rounded up to a multiple of 4), then a
+    dgamma partial of d floats for each block of ``rows`` rows."""
     return -(-S // 4) * 4 + -(-S // rows) * d
+
+
+def fused_norm_matmul_bwd_dw_plan(S: int, d: int, F: int, elt: int,
+                                  n_sm: int, aligned: bool = True) -> dict:
+    """How ``csrc/fused_norm_matmul_bwd.cu`` computes dw (and whether its
+    row pass keeps rows in registers) for an (S, d) x (d, F) call of
+    ``elt``-byte values on a card of ``n_sm`` SMs -> ``dict(regime, tile,
+    splits, reread)``.
+
+    ``wgmma`` for bf16 whose dy rows are whole 16-byte chunks (``F % 8 ==
+    0`` and ``aligned``: dy on a 16-byte boundary), ``mma`` for the rest
+    of bf16, ``fma`` for float32; ``tile`` is (rows of d, columns of F) of
+    a block: for ``wgmma`` ``FNM_BWD_WGMMA_TILE`` where its tiles fill half
+    the SMs or more (a wider tile reads less from L2 a product), else
+    ``FNM_BWD_DW_TILE`` (twice the blocks, so fewer S-splits, whose
+    partials cost bytes).  ``wgmma`` splits S into ``splits`` ranges of
+    whole steps of ``FNM_BWD_STEP`` rows when its tiles leave SMs idle:
+    the most splits (at most ``FNM_BWD_MAX_SPLITS``, each with a step)
+    whose tiles x splits blocks still run in one wave of ``n_sm`` (a
+    second wave of shorter blocks costs what the split saved, and the
+    partials cost bytes); the others take all of S in one block.
+    ``reread``: a row of x is wider than ``FNM_BWD_RESIDENT_BYTES``, so
+    the row pass reads it again for its second pass."""
+    reread = d * elt > FNM_BWD_RESIDENT_BYTES
+    if elt == 4:
+        regime = "fma"
+    elif F % 8 == 0 and aligned:
+        regime = "wgmma"
+    else:
+        regime = "mma"
+    if regime != "wgmma":
+        return dict(regime=regime, tile=FNM_BWD_DW_TILE, splits=1,
+                    reread=reread)
+    tile = FNM_BWD_WGMMA_TILE
+    tiles = -(-d // tile[0]) * -(-F // tile[1])
+    if 2 * tiles <= n_sm:
+        tile = FNM_BWD_DW_TILE
+        tiles = -(-d // tile[0]) * -(-F // tile[1])
+    return dict(regime=regime, tile=tile,
+                splits=_fnm_bwd_splits(S, tiles, n_sm),
+                reread=reread)
+
+
+def _fnm_bwd_splits(S: int, tiles: int, n_sm: int) -> int:
+    """S-splits of a wgmma dw of ``tiles`` tiles: ``n_sm // tiles`` (at
+    least 1, at most ``FNM_BWD_MAX_SPLITS`` and the steps of
+    ``FNM_BWD_STEP`` rows in S), then as many as ranges of ``ceil(steps /
+    that)`` whole steps need, so that none is empty."""
+    steps = -(-S // FNM_BWD_STEP)
+    want = max(1, min(steps, FNM_BWD_MAX_SPLITS, n_sm // tiles))
+    return -(-steps // -(-steps // want))
+
+
+def fused_norm_matmul_bwd_dw_workspace(plan: dict, S: int, d: int,
+                                       F: int) -> int:
+    """Float32 workspace of dw, in floats: for ``wgmma``, A (S rows of d
+    padded to ``FNM_PAD``, bf16: a multiple of 32 floats, so the partials
+    start on a 128-byte boundary), then the float32 partials (splits, d,
+    F) when it has more than one split; none for the other regimes."""
+    if plan["regime"] != "wgmma":
+        return 0
+    dp = -(-d // FNM_PAD) * FNM_PAD
+    return S * dp // 2 + (plan["splits"] * d * F if plan["splits"] > 1
+                          else 0)
 
 
 def fused_norm_matmul_bwd(x, gamma, w, dy):
@@ -567,9 +647,9 @@ def fused_norm_matmul_bwd(x, gamma, w, dy):
     The inputs are checked as the forward's, and ``dy`` is a contiguous
     (S, F) tensor of their dtype on their device.  A CPU tensor gets the
     plain version; a CUDA one ``dN = dy @ w^T`` by ``torch.matmul`` (in the
-    input type), then the kernel (``csrc/fused_norm_matmul_bwd.cu``), which
-    recomputes the normalized rows, writes dx, dgamma and dw, and counts one
-    launch."""
+    input type), then the kernels of ``csrc/fused_norm_matmul_bwd.cu`` in
+    the regime of :func:`fused_norm_matmul_bwd_dw_plan`, which recompute
+    the normalized rows, write dx, dgamma and dw, and count one launch."""
     _check_fnm(x, gamma, w)
     (S, d), F = x.shape, w.shape[1]
     if not isinstance(dy, torch.Tensor):
@@ -595,14 +675,23 @@ def fused_norm_matmul_bwd(x, gamma, w, dy):
     dgamma = torch.empty_like(gamma)
     dw = torch.empty_like(w)
     dn = torch.matmul(dy, w.t())
-    rows = fused_norm_matmul_bwd_plan(S, _sm_count(device))
+    n_sm = _sm_count(device)
+    rows = fused_norm_matmul_bwd_plan(S, n_sm)
+    plan = fused_norm_matmul_bwd_dw_plan(S, d, F, x.element_size(), n_sm,
+                                         dy.data_ptr() % 16 == 0)
     ws = torch.empty(fused_norm_matmul_bwd_workspace(S, d, rows),
                      dtype=torch.float32, device=device)
+    n_dw = fused_norm_matmul_bwd_dw_workspace(plan, S, d, F)
+    ws_dw = torch.empty(n_dw, dtype=torch.float32, device=device) \
+        if n_dw else None
     err = _launch(device, build.launcher("fused_norm_matmul_bwd"),
                   x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
                   dn.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-                  dw.data_ptr(), ws.data_ptr(), S, d, F,
-                  POOL_DTYPES[x.dtype], NORM_EPS, rows, _stream(device))
+                  dw.data_ptr(), ws.data_ptr(),
+                  None if ws_dw is None else ws_dw.data_ptr(), S, d, F,
+                  POOL_DTYPES[x.dtype], NORM_EPS, rows,
+                  FNM_BWD_REGIMES.index(plan["regime"]), plan["tile"][1],
+                  plan["splits"], int(plan["reread"]), _stream(device))
     _raise_on(err, "fused_norm_matmul_bwd")
     LAUNCHES["fused_norm_matmul_bwd"] += 1
     return dx, dgamma, dw

@@ -190,6 +190,28 @@ def fused_norm_matmul_bwd_ref(x, gamma, w, dy, eps: float = 1e-6):
     return dx.to(x.dtype), dgamma.to(gamma.dtype), dw.to(w.dtype)
 
 
+def fused_norm_matmul_bwd_dw_splits(x, gamma, dy, splits: int,
+                                    step: int = 64, eps: float = 1e-6):
+    """dw as the backward's ``wgmma`` regime computes it: ``A = x * r *
+    gamma`` rounded once to bf16 (``r = rsqrt(mean(x^2) + eps)``), S cut
+    into ``splits`` ranges of whole steps of ``step`` rows (``per =
+    ceil(steps / splits)`` steps each, the last fewer), each range's
+    float32 ``A^T dy`` a partial, the partials summed in split order and
+    rounded once to the type of ``dy`` -> (dw, partials (splits, d, F))."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    a = (xf * r * gamma.float()).to(torch.bfloat16).float()
+    steps = -(-x.shape[0] // step)
+    per = -(-steps // splits)
+    parts = torch.stack([a[z * per * step:(z + 1) * per * step].T
+                         @ dyf[z * per * step:(z + 1) * per * step]
+                         for z in range(splits)])
+    tot = parts[0]
+    for p in parts[1:]:
+        tot = tot + p
+    return tot.to(dy.dtype), parts
+
+
 def fused_norm_matmul_split_partials(x, gamma, w, krange: int):
     """The stream regime's split pass of ``csrc/fused_norm_matmul.cu``, with
     the norm factored out of the dot: for each K-split of ``krange`` rows of

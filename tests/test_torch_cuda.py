@@ -71,7 +71,10 @@ card and skips without one.  It holds:
 * the training path: ``fused_norm_matmul_bwd`` against
   ``ref.fused_norm_matmul_bwd_ref`` with the forward's tolerances at the
   test shapes, a ragged S and a training entry, counted once a call and
-  bit for bit alike twice; a gradient through ``ops.fused_norm_matmul``
+  bit for bit alike twice; each regime of its plan (``wgmma`` with and
+  without S-splits and with rows read twice, ``mma`` for ragged F and for
+  dy off a 16-byte line, ``fma``) against the plain version, two calls bit
+  for bit; a gradient through ``ops.fused_norm_matmul``
   on the card launches both kernels; one float32 ``make_train_step`` step
   of the reduced llama3.2-1b and rwkv6-1.6b on the card against the CPU;
   a checkpoint restart on the card replayed bit for bit.
@@ -1100,6 +1103,50 @@ def test_fused_norm_matmul_bwd_on_card(card, S, d, F, dtype):
     want = ref.fused_norm_matmul_bwd_ref(x, g, w, dy)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape and a.is_cuda
+        assert _rel(a, b) <= FNM_TOL[dtype]
+    for a, b in zip(ops.fused_norm_matmul_bwd(x, g, w, dy), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,d,F,dtype,aligned,want", [
+    (2048, 2048, 512, "bfloat16", True, ("wgmma", 128, 2, False)),
+    (2048, 2048, 2048, "bfloat16", True, ("wgmma", 256, 1, False)),
+    (300, 1100, 1800, "bfloat16", True, ("wgmma", 256, 1, False)),
+    (200, 640, 384, "bfloat16", True, ("wgmma", 128, 4, False)),
+    (100, 1004, 256, "bfloat16", True, ("wgmma", 128, 2, False)),
+    (64, 2304, 256, "bfloat16", True, ("wgmma", 128, 1, True)),
+    (9, 64, 131, "bfloat16", True, ("mma", 128, 1, False)),
+    (96, 256, 512, "bfloat16", False, ("mma", 128, 1, False)),
+    (33, 2304, 131, "bfloat16", True, ("mma", 128, 1, True)),
+    (256, 512, 1024, "float32", True, ("fma", 128, 1, False)),
+    (7, 2048, 1000, "float32", True, ("fma", 128, 1, True)),
+    (9, 7000, 64, "float32", True, ("fma", 128, 1, True))])
+def test_fused_norm_matmul_bwd_regimes_on_card(card, S, d, F, dtype, aligned,
+                                               want):
+    """Each regime of ``ops.fused_norm_matmul_bwd_dw_plan`` (and both row
+    passes) against the plain version with the forward's tolerances (bf16
+    3e-2, float32 1e-4), and two calls bit for bit alike, a split plan's
+    among them (its partials are summed in split order, no atomics).  dy
+    off a 16-byte boundary takes the mma regime; wgmma's two tile widths
+    run, the wide one at ragged S, d and F; d = 7000 has the row pass's
+    warps add to dgamma in turn."""
+    x, g, w = _fnm_inputs(16, S, d, F, dtype)
+    vals = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        S * F).astype(np.float32)).to("cuda", getattr(torch, dtype))
+    buf = torch.empty(S * F + 8, dtype=vals.dtype, device="cuda")
+    dy = buf[:S * F] if aligned else buf[1:1 + S * F]
+    dy.copy_(vals)
+    dy = dy.view(S, F)
+    assert dy.is_contiguous() and (dy.data_ptr() % 16 == 0) == aligned
+    plan = ops.fused_norm_matmul_bwd_dw_plan(S, d, F, x.element_size(), card,
+                                             aligned)
+    assert (plan["regime"], plan["reread"]) == (want[0], want[3])
+    # the tile and splits of an H100's 132 SMs
+    assert (plan["tile"][1], plan["splits"]) == want[1:3] or card != 132
+    got = ops.fused_norm_matmul_bwd(x, g, w, dy)
+    want_g = ref.fused_norm_matmul_bwd_ref(x, g, w, dy)
+    for a, b in zip(got, want_g):
+        assert a.dtype == b.dtype and a.shape == b.shape
         assert _rel(a, b) <= FNM_TOL[dtype]
     for a, b in zip(ops.fused_norm_matmul_bwd(x, g, w, dy), got):
         assert torch.equal(a, b)

@@ -16,7 +16,13 @@ port fuses the norm into one kernel, so it carries a backward of its own
   the normalized rows to bf16 before the product and the port does not),
   each as the largest error over the gradient's largest value.
 
-``ops.fused_norm_matmul_bwd_plan`` and the workspace size are pinned.
+``ops.fused_norm_matmul_bwd_plan`` and the workspace size are pinned, and
+so are ``ops.fused_norm_matmul_bwd_dw_plan`` (the regime, S-splits and row
+pass of the kernels at the training entries and at ragged, unaligned and
+float32 shapes) and dw's workspace.  ``ref.fused_norm_matmul_bwd_dw_splits``
+models the ``wgmma`` regime's dw (A rounded once to bf16, float32 partials
+over ranges of S summed in split order, one rounding) and is held against
+the plain backward and ``jax.grad`` with the bf16 tolerance, 3e-2.
 ``ops.fused_norm_matmul`` goes through the autograd node ``FusedNormMatmul``
 only when grad mode is on and an input requires grad; otherwise it makes no
 node, and on the CPU no call counts a launch.  The kernel itself is held
@@ -161,3 +167,102 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take():
         ops.fused_norm_matmul_bwd(x, g.bfloat16(), w, dy)
     with pytest.raises(ValueError):
         ops.fused_norm_matmul_bwd(x, g, w[:32].contiguous(), dy)
+
+
+TRAIN_ENTRIES = [(2048, 2048, f) for f in (2048, 512, 512, 8192, 8192)]
+
+
+def _tiles(d, F, tile):
+    return -(-d // tile[0]) * -(-F // tile[1])
+
+
+@pytest.mark.parametrize("S,d,F", TRAIN_ENTRIES)
+def test_bwd_dw_plan_at_the_training_entries(S, d, F):
+    """llama3.2-1b's five entries: bf16 on the tensor cores, rows of 4 KB
+    kept in registers, tiles of 128 x 256 where they fill half of 132 SMs
+    (F = 2048 and 8192) else 128 x 128, and as many S-splits as one wave
+    holds (F = 512: 64 tiles, 2 splits, 128 blocks)."""
+    plan = ops.fused_norm_matmul_bwd_dw_plan(S, d, F, 2, 132)
+    assert plan["regime"] == "wgmma" and not plan["reread"]
+    assert ops.FNM_BWD_WGMMA_TILE == (128, 256)
+    assert plan["tile"] == {2048: (128, 256), 512: (128, 128),
+                            8192: (128, 256)}[F]
+    wide = _tiles(d, F, ops.FNM_BWD_WGMMA_TILE)
+    assert (plan["tile"] == ops.FNM_BWD_WGMMA_TILE) == (2 * wide > 132)
+    tiles, n = _tiles(d, F, plan["tile"]), plan["splits"]
+    assert n == {2048: 1, 512: 2, 8192: 1}[F]
+    assert n == 1 or tiles * n <= 132 < tiles * (n + 1)
+
+
+@pytest.mark.parametrize("S,d,F,elt,aligned,want", [
+    (9, 64, 131, 2, True, ("mma", 128, 1, False)),  # dy rows not 16 bytes
+    (96, 256, 512, 2, False, ("mma", 128, 1, False)),  # dy off a 16-byte line
+    (7, 2048, 1000, 2, True, ("wgmma", 128, 1, False)),  # one step
+    (200, 640, 384, 2, True, ("wgmma", 128, 4, False)),  # 15 tiles, 4 steps
+    (128, 1024, 512, 2, True, ("wgmma", 128, 2, False)),  # 32 tiles, 2 steps
+    (300, 1100, 1800, 2, True, ("wgmma", 256, 1, False)),  # 72 wide tiles
+    (64, 2304, 256, 2, True, ("wgmma", 128, 1, True)),  # a row past 4 KB
+    (33, 2304, 131, 2, True, ("mma", 128, 1, True)),
+    (256, 512, 1024, 4, True, ("fma", 128, 1, False)),
+    (2048, 2048, 8192, 4, True, ("fma", 128, 1, True)),  # 8 KB rows
+])
+def test_bwd_dw_plan_at_ragged_unaligned_and_float32_shapes(S, d, F, elt,
+                                                           aligned, want):
+    plan = ops.fused_norm_matmul_bwd_dw_plan(S, d, F, elt, 132, aligned)
+    assert (plan["regime"], plan["tile"][1], plan["splits"],
+            plan["reread"]) == want
+    assert plan["tile"][0] == 128
+    if want[0] == "wgmma":  # every split has a step; more need more steps
+        steps = -(-S // ops.FNM_BWD_STEP)
+        per = -(-steps // plan["splits"])
+        assert (plan["splits"] - 1) * per < steps
+        tiles = _tiles(d, F, plan["tile"])
+        assert plan["splits"] == min(steps, 132 // tiles) \
+            or plan["splits"] == ops.FNM_BWD_MAX_SPLITS
+
+
+def test_bwd_dw_workspace():
+    """A of (S, d rounded up to 64) bf16 in floats, then the partials of
+    a split plan; nothing outside the wgmma regime."""
+    plan = ops.fused_norm_matmul_bwd_dw_plan(2048, 2048, 512, 2, 132)
+    assert ops.fused_norm_matmul_bwd_dw_workspace(plan, 2048, 2048, 512) \
+        == 2048 * 2048 // 2 + 2 * 2048 * 512
+    plan = ops.fused_norm_matmul_bwd_dw_plan(2048, 2048, 8192, 2, 132)
+    assert ops.fused_norm_matmul_bwd_dw_workspace(plan, 2048, 2048, 8192) \
+        == 2048 * 2048 // 2
+    plan = ops.fused_norm_matmul_bwd_dw_plan(100, 1004, 256, 2, 132)
+    assert plan["splits"] == 2
+    assert ops.fused_norm_matmul_bwd_dw_workspace(plan, 100, 1004, 256) \
+        == 100 * 1024 // 2 + 2 * 1004 * 256
+    for elt, aligned in ((2, False), (4, True)):
+        plan = ops.fused_norm_matmul_bwd_dw_plan(96, 256, 512, elt, 132,
+                                                 aligned)
+        assert ops.fused_norm_matmul_bwd_dw_workspace(plan, 96, 256, 512) == 0
+
+
+@pytest.mark.parametrize("S,d,F,splits", [
+    (200, 96, 64, 4), (128, 64, 40, 2), (7, 32, 16, 1)])
+def test_bwd_dw_split_order_matches_the_reference_and_jax(S, d, F, splits):
+    (jx, jg, jw, jdy), (x, g, w, dy) = _inputs(6, S, d, F, "bfloat16")
+    got, parts = ref.fused_norm_matmul_bwd_dw_splits(x, g, dy, splits)
+    assert got.dtype == torch.bfloat16 and parts.shape == (splits, d, F)
+    tot = parts[0]
+    for p in parts[1:]:  # split order, one rounding
+        tot = tot + p
+    assert torch.equal(got, tot.to(torch.bfloat16))
+    # each split covers whole steps of 64 rows, the last the rest
+    per = -(-(-(-S // 64)) // splits) * 64
+    xf = x.float()
+    a = (xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+         * g.float()).to(torch.bfloat16).float()
+    torch.testing.assert_close(parts[-1], a[(splits - 1) * per:].T
+                               @ dy.float()[(splits - 1) * per:],
+                               rtol=0, atol=0)
+    want = ref.fused_norm_matmul_bwd_ref(x, g, w, dy)[2]
+    assert _rel(got, want) <= TOL["bfloat16"]
+
+    def loss(w_):
+        out = (r_rms_norm(jx, jg) @ w_).astype(jnp.float32)
+        return jnp.sum(out * jdy.astype(jnp.float32))
+
+    assert _rel(got, jax.grad(loss)(jw)) <= TOL["bfloat16"]

@@ -5,8 +5,10 @@ none of the launches it timed, or only some of the kernels; ``device_trace``
 then takes another trace (up to ``TRACE_TRIES`` in all) until one holds
 every named kernel, instead of reporting no device time (which failed phase
 4's check ``no device time in the trace`` on one card) or a partial sum.
-Also pinned: the kernels phase 6 names for each plan of the forward, and
-phase 14's bound of the backward.
+Also pinned: the kernels phases 6 and 14 name for each plan of the
+forward and of the backward, phase 14's bound of the backward, and its
+like-for-like device times (``device_busy_ms``: one a trace, a trace that
+holds no device operation retaken).
 """
 
 import sys
@@ -133,3 +135,53 @@ def test_fnmb_bound_is_the_larger_of_bytes_and_operations(F, dtype, by):
     got, kind = chip_smoke.fnmb_bound(S, d, F, dtype)
     assert got == pytest.approx(max(by_bytes, by_ops))
     assert kind == by
+
+
+@pytest.mark.parametrize("S,d,F,elt,aligned,want", [
+    (2048, 2048, 8192, 2, True, ("fused_norm_matmul_bwd_wgmma_kernel",)),
+    (2048, 2048, 512, 2, True, ("fused_norm_matmul_bwd_wgmma_kernel",
+                                "fused_norm_matmul_bwd_dwsum_kernel")),
+    (9, 64, 131, 2, True, ("fused_norm_matmul_bwd_dw_kernel",)),
+    (96, 256, 512, 2, False, ("fused_norm_matmul_bwd_dw_kernel",)),
+    (2048, 2048, 8192, 4, True, ("fused_norm_matmul_bwd_dw_kernel",)),
+])
+def test_fnmb_kernels_of_names_what_the_plan_launches(S, d, F, elt, aligned,
+                                                      want):
+    from repro_torch.kernels import ops
+    plan = ops.fused_norm_matmul_bwd_dw_plan(S, d, F, elt, 132, aligned)
+    got = chip_smoke.fnmb_kernels_of(plan)
+    assert got == ("fused_norm_matmul_bwd_warp_rows_kernel",
+                   "fused_norm_matmul_bwd_reduce_kernel", *want)
+    assert set(got) <= set(ops.FNM_BWD_KERNELS)
+    # no name holds another: a trace's kernel is matched by substring
+    names = ops.FNM_BWD_KERNELS + ops.FNM_KERNELS
+    assert not any(a != b and a in b for a in names for b in names)
+
+
+class _Busy(_Trace):
+    """A profiler stand-in whose n-th trace holds device intervals
+    ``plan[n - 1]`` (start, end) in us."""
+
+    def __exit__(self, *a):
+        _Busy.taken += 1
+        return False
+
+    def events(self):
+        from torch.autograd import DeviceType
+        return [types.SimpleNamespace(
+            device_type=DeviceType.CUDA,
+            time_range=types.SimpleNamespace(start=a, end=b))
+            for a, b in _Busy.plan[_Busy.taken - 1]]
+
+
+def test_device_busy_ms_takes_each_trace_and_retakes_an_empty_one(
+        monkeypatch):
+    import torch.profiler
+    monkeypatch.setattr(torch.profiler, "profile", _Busy)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _Busy.taken = 0
+    # union of the intervals over 10 calls: 30 us -> 0.003 ms; 50 -> 0.005
+    _Busy.plan = [[(0, 20), (10, 30)], [], [(0, 50)], [(5, 15), (20, 40)]]
+    got = chip_smoke.device_busy_ms(lambda: None, 10)
+    assert _Busy.taken == 4
+    assert got == pytest.approx([0.003, 0.005, 0.003])
