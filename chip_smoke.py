@@ -6,8 +6,9 @@
                             # the transport model, the (1, 1) mesh, the
                             # replicated store through a crash, the
                             # telemetry plane, a 4-CN cluster, chaos, the
-                            # front door, session parking, rwkv6 and
-                            # llama3.2-1b trained; one card
+                            # front door, session parking, rwkv6,
+                            # llama3.2-1b trained, and llava, mixtral and
+                            # deepseek served; one card
 
 Phases; any failure exits non-zero:
 
@@ -272,14 +273,35 @@ Phases; any failure exits non-zero:
    bound, the plain version and the library's backward (``F.rms_norm`` +
    ``torch.matmul`` through ``torch.autograd.grad``).  (b) One float32
    ``make_train_step`` step of llama3.2-1b at full width with 2 layers and
-   of the reduced rwkv6-1.6b, card against CPU (loss, gnorm, every first
-   moment and parameter); a checkpoint restart on the card at that size,
-   replayed bit for bit.  (c) llama3.2-1b at its published widths with
-   random bf16 weights, 8 steps of 4 x 512 tokens of a constant stream:
+   of the reduced rwkv6-1.6b, llava-next-mistral-7b, mixtral-8x22b and
+   deepseek-v3-671b (row 6 and the MoE aux loss), card against CPU (loss,
+   gnorm, every first moment and parameter); a checkpoint restart on the
+   card at llama's size, replayed bit for bit.  (c) llama3.2-1b at its
+   published widths with random bf16 weights, 8 steps of 4 x 512 tokens
+   of a constant stream:
    the loss finite and below its first value, gnorm finite; printed: step
    p50/p99, tokens/s, ``max_memory_allocated``, the device busy share over
    2 profiled steps, and the launches of both fused kernels a step (the
    counters zeroed just before the 8 steps and read just after).
+
+15. the vlm, MoE and MLA families.  ``fused_norm_matmul`` against its plain
+   version at the (d, F) pairs these configs launch (``FAMILY_FNM_PAIRS``:
+   d = 4096, 6144, 7168 and 1536), S = 8 and 256, two calls bit for bit,
+   and timed at S = 8.  Then (a) llava-next-mistral-7b at its published
+   widths and 32 layers, (b) mixtral-8x22b at its published widths cut to
+   8 layers, (c) deepseek-v3-671b at its published widths cut to its 3
+   dense layers and its first MoE layer, with the MTP block, each with
+   random bf16 weights drawn on the card in slices: parameters, bytes,
+   init seconds and peak memory; 8 requests through ``Engine(lanes=4)``
+   (the launch counters zeroed just before the run and read just after,
+   ``fused_norm_matmul`` launched as often a decode_step call as the
+   program implies: 5 a llava layer, 3 a mixtral layer, 5 a deepseek
+   layer), decode-step p50/p99, tokens/s; 8 profiled decode steps (busy
+   share, device ops a step); llava's ``LM.prefill`` of a prompt behind
+   576 seeded patch embeddings; a float32 card-vs-CPU twin (llava at full
+   width with 2 layers, the others reduced: decode steps and a prefill,
+   with patches for llava).  Last, a bf16 checkpoint restart of the
+   reduced deepseek on the card replays bit for bit.
 
 The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -680,10 +702,49 @@ TWIN_TRAIN_B, TWIN_TRAIN_SEQ = 1, 128
 # only of a gross fault (a non-finite or missing update)
 TWIN_TRAIN_TOL = 1e-3
 TWIN_TRAIN_LR = 1e-3
+# the float32 training twins: llama3.2-1b cut to TWIN_TRAIN_LAYERS, the
+# rest their reduced configs (the vlm, MoE and MLA families run row 6 and
+# the MoE aux loss)
+TRAIN_TWIN_ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "llava-next-mistral-7b",
+                    "mixtral-8x22b", "deepseek-v3-671b")
 RESTART_STEPS = (3, 2)
 TRAIN_STEPS = 8
 TRAIN_PROFILED_STEPS = 2
 TRAIN_TOKEN = 7
+# phase 15: the vlm, MoE and MLA families at their published widths
+# (src/repro_torch/configs/), random bf16 weights from SEED: llava-next-
+# mistral-7b at all 32 layers (7.26e9 parameters), mixtral-8x22b cut to
+# 8 of its 56 layers (2.04e10: a layer is 5.0 GB, 16 would not fit the
+# 80 GB card), deepseek-v3-671b cut to its 3 dense layers and its first
+# MoE layer, with the MTP block (1.58e10).  Each serves FAMILY_REQUESTS
+# requests of FAMILY_PROMPT_MIN-MAX prompt tokens and FAMILY_NEW greedy
+# new tokens through FAMILY_LANES lanes of FAMILY_MAX_SEQ positions.
+FAMILIES = (("llava-next-mistral-7b", None), ("mixtral-8x22b", 8),
+            ("deepseek-v3-671b", 4))
+FAMILY_LANES, FAMILY_MAX_SEQ = 4, 64
+FAMILY_REQUESTS, FAMILY_NEW = 8, 16
+FAMILY_PROMPT_MIN, FAMILY_PROMPT_MAX = 6, 12
+FAMILY_PROFILED_STEPS = 8
+# the prompt behind llava's 576 patches; the twins' prompts
+FAMILY_PROMPT = 16
+# the twins: llava at full width cut to 2 layers, mixtral and deepseek
+# reduced, float32, TWIN_TOL
+FAMILY_TWIN_LAYERS = 2
+FAMILY_TWIN_STEPS = 4
+# fused_norm_matmul entries a layer: GQA's q, k, v; MLA's wq_a, wq_b and
+# wkv_a; SwiGLU's gate and up; a MoE ffn's shared expert's gate and up
+# (counted by fused_per_decode_step; its router and routed experts are
+# plain products)
+FNM_ENTRIES = {"gqa": 3, "mla": 3, "mlp": 2, "moe": 0}
+# row 5's new (d, F) pairs: llava's wq, wk / wv and MLP; mixtral's wq and
+# wk / wv; deepseek's wq_a, wkv_a, dense MLP, shared expert and wq_b;
+# checked at S = 8 and 256, timed at S = 8
+FAMILY_FNM_PAIRS = ((4096, 4096), (4096, 1024), (4096, 14336),
+                    (6144, 6144), (6144, 1024),
+                    (7168, 1536), (7168, 576), (7168, 18432), (7168, 2048),
+                    (1536, 24576))
+FAMILY_FNM_SHAPES = [(S, d, F, "bfloat16") for S in (8, 256)
+                     for d, F in FAMILY_FNM_PAIRS]
 
 
 def log(*a) -> None:
@@ -1638,16 +1699,14 @@ def fnm_kernels_of(plan: dict) -> tuple:
     return (main,)
 
 
-def check_fused_norm_matmul(gen) -> dict:
-    """The kernel against its plain version on the card at the test, ragged,
-    serve, prefill and regime-edge shapes, two calls bit for bit alike, then
-    timed at the serve and prefill shapes."""
+def check_fnm_shapes(gen, check_shapes) -> list:
+    """``fused_norm_matmul`` against its plain version on the card at each
+    (S, d, F, dtype) of ``check_shapes``, within FNM_TOL, two calls bit for
+    bit alike -> each shape's record."""
     import torch
     from repro_torch.kernels import ops, ref
     shapes = []
-    err = 0.0
-    regimes = {}
-    for S, d, F, dt in FNM_CHECK_SHAPES:
+    for S, d, F, dt in check_shapes:
         dtype = getattr(torch, dt)
         x, g, w = fnm_inputs(gen, S, d, F, dtype)[0]
         got = ops.fused_norm_matmul(x, g, w)
@@ -1666,45 +1725,65 @@ def check_fused_norm_matmul(gen) -> dict:
         check(torch.equal(got, again),
               f"fused_norm_matmul: two calls differ at S={S}, d={d}, F={F}, "
               f"{dt}, plan {plan}")
-        err = max(err, e)
-        regimes[plan["regime"]] = regimes.get(plan["regime"], 0) + 1
         shapes.append(dict(S=S, d=d, F=F, dtype=dt, max_abs_err=e,
                            tolerance=tol, plan=plan))
+        del x, g, w
+    regimes = {}
+    for sh in shapes:
+        regimes[sh["plan"]["regime"]] = regimes.get(sh["plan"]["regime"],
+                                                    0) + 1
     log(f"kernel fused_norm_matmul: within tolerance of its plain version, "
         f"and two calls bit for bit alike, at {len(shapes)} shapes (max abs "
-        f"err {err}; shapes by regime {regimes})")
-    timed = {}
-    for S, d, F, dt in FNM_TIMED_SHAPES:
-        dtype = getattr(torch, dt)
-        # enough distinct weight sets that each launch finds its w outside
-        # the 50 MB L2, as a layer's weights are on the model path
-        w_bytes = d * F * (2 if dtype == torch.bfloat16 else 4)
-        sets = fnm_inputs(gen, S, d, F, dtype,
-                          max(2, -(-COLD_BYTES // w_bytes)))
-        iters = 200
-        bound, by = fnm_bound(S, d, F, dtype)
-        kern = cycling(ops.fused_norm_matmul, sets)
-        plan = fnm_plan_of(S, d, F, dt)
-        by_kernel = device_times(kern, 20, *fnm_kernels_of(plan))
-        dev = sum(by_kernel.values()) or None
-        row = dict(S=S, d=d, F=F, dtype=dt, weight_sets=len(sets), plan=plan,
-                   ms=time_ms(kern, iters), device_ms=dev,
-                   device_ms_by_kernel=by_kernel,
-                   plain_ms=time_ms(cycling(ref.fused_norm_matmul_ref, sets),
-                                    iters),
-                   library_ms=time_ms(cycling(fnm_library, sets), iters),
-                   bound_ms=bound, bound_by=by)
-        row["device_below_library"] = dev is not None \
-            and dev < row["library_ms"]
-        timed[(S, d, F, dt)] = row
-        shares = {k: round(v / dev, 4) for k, v in by_kernel.items()} \
-            if dev else {}
-        log(f"fused_norm_matmul S={S} d={d} F={F} {dt}, plan {row['plan']}: "
-            f"{row['ms']:.6f} ms (device {dev}; share by kernel {shares}), "
-            f"plain {row['plain_ms']:.6f} ms, rms_norm + matmul "
-            f"{row['library_ms']:.6f} ms, bound {bound:.6f} ms ({by}); "
-            f"device below library: {row['device_below_library']}")
-        del sets
+        f"err {max(sh['max_abs_err'] for sh in shapes)}; shapes by regime "
+        f"{regimes})")
+    return shapes
+
+
+def time_fnm_shape(gen, S: int, d: int, F: int, dt: str) -> dict:
+    """One shape of ``fused_norm_matmul`` timed by events and by the
+    profiler's device time, beside its bound, its plain version and the
+    library's ``rms_norm`` + ``matmul``, each launch on one of enough
+    weight sets that it finds its w outside the 50 MB L2, as a layer's
+    weights are on the model path."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dtype = getattr(torch, dt)
+    w_bytes = d * F * (2 if dtype == torch.bfloat16 else 4)
+    sets = fnm_inputs(gen, S, d, F, dtype,
+                      max(2, -(-COLD_BYTES // w_bytes)))
+    iters = 200
+    bound, by = fnm_bound(S, d, F, dtype)
+    kern = cycling(ops.fused_norm_matmul, sets)
+    plan = fnm_plan_of(S, d, F, dt)
+    by_kernel = device_times(kern, 20, *fnm_kernels_of(plan))
+    dev = sum(by_kernel.values()) or None
+    row = dict(S=S, d=d, F=F, dtype=dt, weight_sets=len(sets), plan=plan,
+               ms=time_ms(kern, iters), device_ms=dev,
+               device_ms_by_kernel=by_kernel,
+               plain_ms=time_ms(cycling(ref.fused_norm_matmul_ref, sets),
+                                iters),
+               library_ms=time_ms(cycling(fnm_library, sets), iters),
+               bound_ms=bound, bound_by=by)
+    row["device_below_library"] = dev is not None \
+        and dev < row["library_ms"]
+    shares = {k: round(v / dev, 4) for k, v in by_kernel.items()} \
+        if dev else {}
+    log(f"fused_norm_matmul S={S} d={d} F={F} {dt}, plan {row['plan']}: "
+        f"{row['ms']:.6f} ms (device {dev}; share by kernel {shares}), "
+        f"plain {row['plain_ms']:.6f} ms, rms_norm + matmul "
+        f"{row['library_ms']:.6f} ms, bound {bound:.6f} ms ({by}); "
+        f"device below library: {row['device_below_library']}")
+    return row
+
+
+def check_fused_norm_matmul(gen) -> dict:
+    """The kernel against its plain version on the card at the test, ragged,
+    serve, prefill and regime-edge shapes, two calls bit for bit alike, then
+    timed at the serve and prefill shapes."""
+    from repro_torch.kernels import ops
+    shapes = check_fnm_shapes(gen, FNM_CHECK_SHAPES)
+    err = max(sh["max_abs_err"] for sh in shapes)
+    timed = {sh: time_fnm_shape(gen, *sh) for sh in FNM_TIMED_SHAPES}
     # the record's numbers: one layer's five entries of a decode step
     layer = [(LANES, D_MODEL, f, "bfloat16") for f in LAYER_ENTRY_FS]
     total = {k: sum(timed[sh][k] for sh in layer)
@@ -1736,10 +1815,9 @@ def serve_model(gen_seed: int) -> dict:
     that follow the counted run."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.common import count_params
     from repro_torch.models.lm import LM
-    from repro_torch.serve import Engine, Request
+    from repro_torch.serve import Engine
     cfg = get_config("llama3.2-1b")
     t0 = time.perf_counter()
     model = LM(cfg)
@@ -1753,15 +1831,82 @@ def serve_model(gen_seed: int) -> dict:
     log(f"model: {cfg.name}, {n_params} parameters "
         f"({2 * n_params} B in bf16), drawn on the card in {init_s:.3f} s")
     eng = Engine(model, params, lanes=LANES, max_seq=MAX_SEQ)
-    rng = np.random.default_rng(gen_seed)
-    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
-        1, cfg.vocab_size, int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1)))],
-        max_new=MAX_NEW) for i in range(N_REQUESTS)]
+    reqs = engine_requests(gen_seed, cfg.vocab_size, N_REQUESTS, PROMPT_MIN,
+                           PROMPT_MAX, MAX_NEW)
+    times, launches, run_s = run_timed_engine(eng, reqs)
+    res = dict(model=cfg.name, params=n_params, lanes=LANES,
+               max_seq=MAX_SEQ, requests=N_REQUESTS,
+               **engine_numbers(eng, reqs, times, launches, run_s, cfg,
+                                ENTRIES_PER_LAYER * cfg.num_layers))
+    return res, model, params, eng
+
+
+def engine_numbers(eng, reqs, times, launches, run_s, cfg,
+                   fused_per_call: int) -> dict:
+    """Checks an engine run of :func:`run_timed_engine` (every request
+    finished with its ``max_new`` tokens in range, the prompt tokens and
+    decode steps counted, ``fused_per_call`` fused launches in each
+    decode_step call) and returns its numbers."""
+    n_calls = len(times["prefill"]) + len(times["decode"])
+    st = eng.stats
+    check(st.finished == len(reqs) and all(r.done for r in reqs),
+          f"{cfg.name}: a request did not finish")
+    check(all(len(r.out) == r.max_new for r in reqs),
+          f"{cfg.name}: a request stopped before max_new")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+          f"{cfg.name}: a generated token is out of range")
+    check(st.prefill_tokens == sum(len(r.prompt) for r in reqs),
+          f"{cfg.name}: prefill_tokens is not the sum of the prompt lengths")
+    check(st.decode_steps == len(times["decode"]),
+          f"{cfg.name}: decode steps and timed batched steps differ")
+    check(launches["fused_norm_matmul"] == fused_per_call * n_calls,
+          f"{cfg.name}: fused_norm_matmul launched "
+          f"{launches['fused_norm_matmul']} times in {n_calls} decode_step "
+          f"calls, not {fused_per_call} a call")
+    dec = np.asarray(times["decode"]) * 1e3
+    pre = np.asarray(times["prefill"]) * 1e3
+    generated = sum(len(r.out) for r in reqs)
+    res = dict(
+        prompt_tokens=st.prefill_tokens, generated_tokens=generated,
+        decode_steps=st.decode_steps, decode_step_calls=n_calls, run_s=run_s,
+        generated_tokens_per_s=generated / run_s,
+        decode_step_p50_ms=float(np.percentile(dec, 50)),
+        decode_step_p99_ms=float(np.percentile(dec, 99)),
+        prefill_token_step_p50_ms=float(np.percentile(pre, 50)),
+        fused_per_call=fused_per_call, launches=launches)
+    log(f"{cfg.name}: served {len(reqs)} requests ({st.prefill_tokens} "
+        f"prompt tokens, {generated} generated) in {run_s:.3f} s: "
+        f"{st.decode_steps} batched decode steps p50 "
+        f"{res['decode_step_p50_ms']:.4f} ms, p99 "
+        f"{res['decode_step_p99_ms']:.4f} ms; prefill-token steps p50 "
+        f"{res['prefill_token_step_p50_ms']:.4f} ms; "
+        f"{res['generated_tokens_per_s']:.2f} generated tokens/s; launches "
+        f"{launches} ({fused_per_call} fused a decode_step call, as the "
+        f"program implies)")
+    return res
+
+
+def engine_requests(seed: int, vocab: int, n: int, lo: int, hi: int,
+                    max_new: int) -> list:
+    """``n`` requests of ``lo``-``hi`` prompt tokens drawn from the seed,
+    each for ``max_new`` greedy tokens."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        1, vocab, int(rng.integers(lo, hi + 1)))], max_new=max_new)
+        for i in range(n)]
+
+
+def run_timed_engine(eng, reqs) -> tuple:
+    """``eng`` serves ``reqs`` with every decode_step call synced and timed,
+    a call made from the lane-by-lane prefill told apart from the batched
+    decode steps; the launch counters are zeroed just before the run and
+    read just after -> (times {"prefill": [s], "decode": [s]}, launches,
+    run seconds)."""
+    import torch
+    from repro_torch.kernels import ops
     for r in reqs:
         eng.submit(r)
-
-    # every decode_step call is synced and timed; a call made from the
-    # lane-by-lane prefill is told apart from the batched decode steps
     step, lane_token = eng._step, eng._decode_lane_token
     in_prefill, times = [False], {"prefill": [], "decode": []}
 
@@ -1788,62 +1933,27 @@ def serve_model(gen_seed: int) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    n_calls = len(times["prefill"]) + len(times["decode"])
-    st = eng.stats
-    check(st.finished == N_REQUESTS and all(r.done for r in reqs),
-          "a request did not finish")
-    check(all(len(r.out) == MAX_NEW for r in reqs),
-          "a request stopped before max_new")
-    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
-          "a generated token is out of range")
-    check(st.prefill_tokens == sum(len(r.prompt) for r in reqs),
-          "prefill_tokens is not the sum of the prompt lengths")
-    check(st.decode_steps == len(times["decode"]),
-          "decode steps and timed batched steps differ")
-    check(launches["fused_norm_matmul"]
-          == ENTRIES_PER_LAYER * cfg.num_layers * n_calls,
-          f"fused_norm_matmul launched {launches['fused_norm_matmul']} times "
-          f"in {n_calls} decode_step calls, not "
-          f"{ENTRIES_PER_LAYER * cfg.num_layers} a call")
-    dec = np.asarray(times["decode"]) * 1e3
-    pre = np.asarray(times["prefill"]) * 1e3
-    generated = sum(len(r.out) for r in reqs)
-    res = dict(
-        model=cfg.name, params=n_params, lanes=LANES, max_seq=MAX_SEQ,
-        requests=N_REQUESTS, prompt_tokens=st.prefill_tokens,
-        generated_tokens=generated, decode_steps=st.decode_steps,
-        decode_step_calls=n_calls, run_s=run_s,
-        generated_tokens_per_s=generated / run_s,
-        decode_step_p50_ms=float(np.percentile(dec, 50)),
-        decode_step_p99_ms=float(np.percentile(dec, 99)),
-        prefill_token_step_p50_ms=float(np.percentile(pre, 50)),
-        launches=launches)
-    log(f"served {N_REQUESTS} requests ({st.prefill_tokens} prompt tokens, "
-        f"{generated} generated) in {run_s:.3f} s: {st.decode_steps} batched "
-        f"decode steps p50 {res['decode_step_p50_ms']:.4f} ms, p99 "
-        f"{res['decode_step_p99_ms']:.4f} ms; prefill-token steps p50 "
-        f"{res['prefill_token_step_p50_ms']:.4f} ms; "
-        f"{res['generated_tokens_per_s']:.2f} generated tokens/s; launches "
-        f"{launches}")
-    return res, model, params, eng
+    eng._step, eng._decode_lane_token = step, lane_token
+    return times, launches, run_s
 
 
-def profile_decode(model, params, cache) -> dict:
-    """16 batched decode steps as the engine runs them (step, greedy
-    sample, pull to the host) under ``torch.profiler``: the device busy
-    share of the host wall time and the fused kernel's share of device
-    time."""
+def profile_decode(model, params, cache, lanes: int = LANES,
+                   steps: int = PROFILED_STEPS) -> dict:
+    """``steps`` batched decode steps of ``lanes`` lanes as the engine runs
+    them (step, greedy sample, pull to the host) under ``torch.profiler``:
+    the device busy share of the host wall time and the fused kernel's
+    share of device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
-    tokens = torch.ones((LANES, 1), dtype=torch.int32, device="cuda")
+    tokens = torch.ones((lanes, 1), dtype=torch.int32, device="cuda")
     model.decode_step(params, tokens, cache)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
+        for _ in range(steps):
             logits, cache = model.decode_step(params, tokens, cache)
             tokens = torch.argmax(logits, -1).int()[:, None]
             tokens.tolist()
@@ -1853,12 +1963,12 @@ def profile_decode(model, params, cache) -> dict:
     fused = sum(e.time_range.end - e.time_range.start for e in prof.events()
                 if e.device_type == DeviceType.CUDA
                 and any(k in e.name for k in ops.FNM_KERNELS))
-    res = dict(profiled_steps=PROFILED_STEPS,
-               profiled_step_ms=wall_us / PROFILED_STEPS / 1e3,
+    res = dict(profiled_steps=steps,
+               profiled_step_ms=wall_us / steps / 1e3,
                device_busy_share=busy / wall_us if n_ops else None,
                fused_share_of_device_time=fused / busy if busy else None,
-               device_ops_per_step=n_ops / PROFILED_STEPS)
-    log(f"profiled decode ({PROFILED_STEPS} steps): "
+               device_ops_per_step=n_ops / steps)
+    log(f"profiled decode ({steps} steps): "
         f"{res['profiled_step_ms']:.4f} ms a step, device busy share "
         f"{res['device_busy_share']}, fused_norm_matmul "
         f"{res['fused_share_of_device_time']} of device time, "
@@ -4960,14 +5070,13 @@ def train_twin(arch: str, seed: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models.common import sorted_leaves, tree_map
     from repro_torch.models.lm import LM, init_params
-    from repro_torch.train import SyntheticLM, init_state, make_train_step
+    from repro_torch.train import init_state, make_train_step
     from repro_torch.train.optimizer import lr_schedule
     cfg = _twin_config(arch)
     tcfg = TrainConfig(learning_rate=TWIN_TRAIN_LR, warmup_steps=1,
                        total_steps=10)
     p0 = init_params(cfg, seed, device="cuda", dtype=torch.float32)
-    batch = SyntheticLM(cfg.vocab_size, TWIN_TRAIN_SEQ, TWIN_TRAIN_B,
-                        seed=seed).global_batch_at(0)
+    batch = synthetic_source(cfg, seed).global_batch_at(0)
     runs = {}
     for device in ("cuda", "cpu"):
         model = LM(cfg, device=device)
@@ -5001,7 +5110,7 @@ def train_twin(arch: str, seed: int) -> dict:
           f"{max(m_err, v_err)} of its largest value")
     check(p_err <= 2 * lr1 + 1e-6,
           f"{arch} train twin: a parameter differs by {p_err} > 2 lr")
-    if cfg.family == "dense":
+    if cfg.family != "ssm":  # rwkv has no norm -> projection entry
         check(g_l["fused_norm_matmul"] > 0 and g_l["fused_norm_matmul_bwd"]
               > 0, f"{arch} train twin: a fused kernel never launched on "
                    f"the card")
@@ -5022,11 +5131,23 @@ def train_twin(arch: str, seed: int) -> dict:
     return res
 
 
-def train_restart(seed: int) -> dict:
-    """Phase 14 (b): a checkpoint restart on the card, llama3.2-1b at full
-    width with TWIN_TRAIN_LAYERS layers in bf16: RESTART_STEPS[0] steps, a
-    save, RESTART_STEPS[1] more; then a restore and a replay of those, bit
-    for bit equal to the continued state."""
+def synthetic_source(cfg, seed: int, seq: int = TWIN_TRAIN_SEQ,
+                     batch: int = TWIN_TRAIN_B):
+    """The training data of a twin: ``SyntheticLM`` batches of ``cfg``'s
+    vocabulary, with seeded patch embeddings for a vlm."""
+    from repro_torch.train import SyntheticLM
+    return SyntheticLM(cfg.vocab_size, seq, batch, seed=seed,
+                       frontend="vision" if cfg.vision_tokens else None,
+                       d_model=cfg.d_model, aux_len=cfg.vision_tokens)
+
+
+def train_restart(seed: int, arch: str = "llama3.2-1b") -> dict:
+    """A checkpoint restart on the card in bf16, of ``arch``'s twin config
+    (phase 14 (b): llama3.2-1b at full width with TWIN_TRAIN_LAYERS layers;
+    phase 15 (c): the reduced deepseek-v3-671b, whose binned MoE adds
+    nothing with atomics): RESTART_STEPS[0] steps, a save,
+    RESTART_STEPS[1] more; then a restore and a replay of those, bit for
+    bit equal to the continued state."""
     import shutil
     import tempfile
 
@@ -5034,13 +5155,12 @@ def train_restart(seed: int) -> dict:
     from repro_torch.configs import TrainConfig
     from repro_torch.models.common import sorted_leaves
     from repro_torch.models.lm import LM
-    from repro_torch.train import (SyntheticLM, init_state, make_train_step,
-                                   restore, save)
-    cfg = dataclasses.replace(_twin_config("llama3.2-1b"), dtype="bfloat16")
+    from repro_torch.train import init_state, make_train_step, restore, save
+    cfg = dataclasses.replace(_twin_config(arch), dtype="bfloat16")
     model = LM(cfg)
     params = model.init(seed)
     step = make_train_step(model, TrainConfig(total_steps=20, warmup_steps=2))
-    src = SyntheticLM(cfg.vocab_size, TWIN_TRAIN_SEQ, TWIN_TRAIN_B, seed=seed)
+    src = synthetic_source(cfg, seed)
     state = init_state(params)
     n0, n1 = RESTART_STEPS
     for i in range(n0):
@@ -5067,14 +5187,15 @@ def train_restart(seed: int) -> dict:
     same = all(torch.equal(x, y) for (_, x), (_, y) in zip(
         sorted_leaves(a.tree()), sorted_leaves(b.tree())))
     check(same and torch.equal(ma["loss"], mb["loss"]),
-          "checkpoint restart on the card: the replayed state differs from "
-          "the continued one")
-    res = dict(steps=RESTART_STEPS, checkpoint_bytes=nbytes, save_s=save_s,
-               restore_s=restore_s, bit_for_bit=same,
+          f"{arch} checkpoint restart on the card: the replayed state "
+          f"differs from the continued one")
+    res = dict(arch=arch, steps=RESTART_STEPS, checkpoint_bytes=nbytes,
+               save_s=save_s, restore_s=restore_s, bit_for_bit=same,
                loss=float(ma["loss"]))
-    log(f"checkpoint restart on the card: {n0} steps, save ({nbytes} B, "
-        f"{save_s:.3f} s), {n1} more; restore ({restore_s:.3f} s) and replay "
-        f"bit for bit equal (loss {res['loss']})")
+    log(f"{arch} checkpoint restart on the card: {n0} steps, save "
+        f"({nbytes} B, {save_s:.3f} s), {n1} more; restore "
+        f"({restore_s:.3f} s) and replay bit for bit equal (loss "
+        f"{res['loss']})")
     return res
 
 
@@ -5177,8 +5298,7 @@ def serve_training_phase(gen) -> tuple:
     record = check_fused_norm_matmul_bwd(gen)
     res["kernel_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    res["twins"] = [train_twin(arch, SEED)
-                    for arch in ("llama3.2-1b", "rwkv6-1.6b")]
+    res["twins"] = [train_twin(arch, SEED) for arch in TRAIN_TWIN_ARCHS]
     gc.collect()
     torch.cuda.empty_cache()
     res["restart"] = train_restart(SEED)
@@ -5193,6 +5313,202 @@ def serve_training_phase(gen) -> tuple:
     log("phase 14 (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s".format(
         res["kernel_s"], res["agreement_s"], res["train_s"]))
     return record, res, launches
+
+
+# ------------------------------------------------------------ phase 15
+def fused_per_decode_step(cfg) -> int:
+    """``fused_norm_matmul`` launches one decode_step of ``cfg`` makes, as
+    its program implies: FNM_ENTRIES of each layer's mixer and ffn (a MoE
+    ffn's only with a shared expert)."""
+    from repro_torch.models.lm import make_program
+    per = dict(FNM_ENTRIES)
+    if cfg.moe is not None and cfg.moe.num_shared:
+        per["moe"] = FNM_ENTRIES["mlp"]
+    return sum(repeat * sum(per[m] + per[f] for m, f in group)
+               for repeat, group in make_program(cfg))
+
+
+def family_config(arch: str, layers: int | None):
+    """``arch`` at its published widths, its depth cut to ``layers``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def vision_prefill(model, params, seed: int) -> dict:
+    """One ``LM.prefill`` of a FAMILY_PROMPT-token prompt behind the
+    config's ``vision_tokens`` seeded patch embeddings (576 for llava), on
+    the card: logits finite, of the vocabulary's width, each fused entry
+    launched once a layer."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT),
+                                     generator=gen, device="cuda"),
+             "patches": torch.randn((1, cfg.vision_tokens, cfg.d_model),
+                                    generator=gen, device="cuda")}
+    model.prefill(params, batch)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    logits = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = ops.LAUNCHES["fused_norm_matmul"]
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill with patches: logits not finite or of shape "
+          f"{tuple(logits.shape)}")
+    check(launches == fused_per_decode_step(cfg),
+          f"{cfg.name} prefill with patches: {launches} fused launches")
+    rows = cfg.vision_tokens + FAMILY_PROMPT
+    log(f"{cfg.name} prefill: {FAMILY_PROMPT} tokens behind "
+        f"{cfg.vision_tokens} patch embeddings ({rows} rows) in {ms:.3f} ms, "
+        f"{launches} fused launches")
+    return dict(prefill_rows=rows, prefill_ms=ms, prefill_launches=launches)
+
+
+def family_twin(arch: str, seed: int) -> dict:
+    """The float32 card-vs-CPU twin of a family: ``arch`` at full width cut
+    to FAMILY_TWIN_LAYERS (llava) or its reduced config, the same float32
+    weights on the card and on the CPU (plain versions); FAMILY_TWIN_STEPS
+    teacher-forced decode steps of FAMILY_LANES lanes and a prefill of two
+    FAMILY_PROMPT-token prompts (behind the config's patch embeddings for a
+    vlm): logits within TWIN_TOL absolute and the same argmax."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import LM, init_params
+    cfg = (dataclasses.replace(get_config(arch),
+                               num_layers=FAMILY_TWIN_LAYERS)
+           if arch == "llava-next-mistral-7b"
+           else get_config(arch, reduced=True))
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    p0 = init_params(cfg, seed, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    toks = [rng.integers(0, cfg.vocab_size, (FAMILY_LANES, 1)).astype(
+        np.int32) for _ in range(FAMILY_TWIN_STEPS)]
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, FAMILY_PROMPT)).astype(np.int32))}
+    if cfg.vision_tokens:
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = LM(cfg, device=device)
+        p = p0 if device == "cuda" else tree_map(lambda t: t.cpu(), p0)
+        cache = model.init_cache(FAMILY_LANES, FAMILY_TWIN_STEPS + 1)
+        t0 = time.perf_counter()
+        out = []
+        for tok in toks:
+            logits, cache = model.decode_step(
+                p, torch.from_numpy(tok).to(device), cache)
+            out.append(logits.cpu())
+        pre = model.prefill(p, {k: v.to(device) for k, v in batch.items()})
+        runs[device] = (torch.stack(out), pre.cpu(),
+                        time.perf_counter() - t0)
+        del p, cache
+    (gd, gp, g_s), (cd, cp, c_s) = runs["cuda"], runs["cpu"]
+    err = max(float((gd - cd).abs().max()), float((gp - cp).abs().max()))
+    same = bool(torch.equal(gd.argmax(-1), cd.argmax(-1))
+                and torch.equal(gp.argmax(-1), cp.argmax(-1)))
+    check(bool(torch.isfinite(gd).all() and torch.isfinite(gp).all())
+          and err <= TWIN_TOL,
+          f"{arch} float32 twin: card and CPU logits differ by {err} > "
+          f"{TWIN_TOL}")
+    check(same, f"{arch} float32 twin: the argmax differs between card and "
+                f"CPU")
+    behind = f" behind {cfg.vision_tokens} patches" if cfg.vision_tokens \
+        else ""
+    log(f"{arch} float32 twin ({cfg.num_layers} layers, d {cfg.d_model}): "
+        f"{FAMILY_TWIN_STEPS} teacher-forced steps of {FAMILY_LANES} lanes "
+        f"and a prefill of 2 x {FAMILY_PROMPT} tokens{behind}: card vs CPU max abs logit err {err} (tolerance {TWIN_TOL}, logits "
+        f"up to {float(cd.abs().max()):.4f}), same argmax; card {g_s:.3f} s, "
+        f"CPU {c_s:.3f} s")
+    return dict(twin_layers=cfg.num_layers, twin_d_model=cfg.d_model,
+                twin_max_abs_err=err, twin_same_argmax=same)
+
+
+def serve_family(arch: str, layers: int | None, seed: int) -> tuple:
+    """One family at its published widths on the card, random bf16 weights
+    drawn from the seed (a bank in slices, ``normal_init``):
+    ``Engine(lanes=FAMILY_LANES)`` serves FAMILY_REQUESTS requests, the
+    launch counters zeroed just before the run and read just after; then
+    FAMILY_PROFILED_STEPS profiled decode steps.  Returns the numbers and
+    the run's launch counts."""
+    import torch
+    from repro_torch.models.common import count_params, tree_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import Engine
+    cfg = family_config(arch, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = count_params(params)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    check(model.device.type == "cuda"
+          and all(t.is_cuda and t.dtype == torch.bfloat16
+                  for t in tree_leaves(params)),
+          f"{arch}: the model is not on the card in bf16")
+    log(f"{arch}: {cfg.num_layers} layers at d {cfg.d_model}, {n_params} "
+        f"parameters ({n_bytes} B), drawn on the card in {init_s:.3f} s, "
+        f"max_memory_allocated {init_peak} B")
+    eng = Engine(model, params, lanes=FAMILY_LANES, max_seq=FAMILY_MAX_SEQ)
+    reqs = engine_requests(seed, cfg.vocab_size, FAMILY_REQUESTS,
+                           FAMILY_PROMPT_MIN, FAMILY_PROMPT_MAX, FAMILY_NEW)
+    times, launches, run_s = run_timed_engine(eng, reqs)
+    res = dict(model=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+               params=n_params, param_bytes=n_bytes, init_s=init_s,
+               init_max_memory_allocated=init_peak, lanes=FAMILY_LANES,
+               max_seq=FAMILY_MAX_SEQ, requests=FAMILY_REQUESTS,
+               **engine_numbers(eng, reqs, times, launches, run_s, cfg,
+                                fused_per_decode_step(cfg)))
+    res.update(profile_decode(model, params, eng.cache, FAMILY_LANES,
+                              FAMILY_PROFILED_STEPS))
+    if cfg.vision_tokens:
+        res.update(vision_prefill(model, params, seed))
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"{arch}: max_memory_allocated {res['max_memory_allocated']} B")
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(family_twin(arch, seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def serve_families_phase(gen) -> tuple:
+    """Phase 15: row 5 at the families' new shapes, then each family served
+    (:func:`serve_family`), then the reduced deepseek's bf16 restart.
+    Returns row 5's new shapes, the numbers and each family's launch
+    counts."""
+    res, t = {}, time.perf_counter()
+    res["fnm_check_shapes"] = check_fnm_shapes(gen, FAMILY_FNM_SHAPES)
+    res["fnm_timed"] = [time_fnm_shape(gen, 8, d, F, "bfloat16")
+                        for d, F in FAMILY_FNM_PAIRS]
+    res["fnm_s"] = time.perf_counter() - t
+    launches = {}
+    for arch, layers in FAMILIES:
+        t = time.perf_counter()
+        res[arch], launches[arch] = serve_family(arch, layers, SEED)
+        res[arch]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["restart"] = train_restart(SEED, "deepseek-v3-671b")
+    res["restart_s"] = time.perf_counter() - t
+    log("phase 15: row 5's shapes {:.1f} s, {}, restart {:.1f} s".format(
+        res["fnm_s"], ", ".join(f"{a} {res[a]['seconds']:.1f} s"
+                                for a, _ in FAMILIES), res["restart_s"]))
+    return res, launches
 
 
 _KEY_OFFSET = 0x5EED << 40
@@ -5448,6 +5764,18 @@ def main() -> int:
     log(f"launches on the training path: {tlaunch}")
     log(f"training path: {json.dumps(tres)}")
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
+    # ---- phase 15: the vlm, MoE and MLA families ----
+    t15 = time.perf_counter()
+    vres, vlaunch = serve_families_phase(gen)
+    for name, k in kernels.items():
+        k["launches_families_path"] = {a: vlaunch[a][name] for a in vlaunch}
+    for arch in vlaunch:
+        check(vlaunch[arch]["fused_norm_matmul"] > 0, f"fused_norm_matmul "
+              f"never launched on {arch}'s serving path")
+    log(f"launches on the families' serving paths: {vlaunch}")
+    log(f"families path: {json.dumps(vres)}")
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Launchers of the port (the reference's ``launch/``): ``train``."""
+"""Launchers of the port (the reference's ``launch/``): ``train`` and
+``serve``."""

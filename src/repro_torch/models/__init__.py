@@ -1,2 +1,3 @@
 """The model substrate: configs' architectures as pure functions of their
-parameters (``lm.LM``), dense family first."""
+parameters (``lm.LM``): the dense, vlm, MoE (GQA or MLA, ``moe``) and ssm
+families."""

@@ -1,12 +1,13 @@
-"""Attention, GQA (full / sliding-window): the reference's
+"""Attention, GQA (full / sliding-window) and MLA: the reference's
 ``models/attention.py`` in PyTorch, full-sequence and decode paths.
 
 The q, k and v projections enter through ``ops.fused_norm_matmul``: the
 caller passes the un-normalized activation and the mixer's RMSNorm gamma,
 and each projection is one kernel launch on a view of the head-major
-weight, with no copy.  ``flash_attention`` and ``decode_attention`` are
+weight, with no copy.  MLA has three such entries (the mixer's norm into
+``wq_a`` and into ``wkv_a``, ``q_a_norm`` into ``wq_b``).
+``flash_attention``, ``decode_attention`` and MLA's absorbed decode are
 plain PyTorch, as the reference computes them outside any Pallas kernel.
-MLA waits for the family that needs it.
 """
 
 from __future__ import annotations
@@ -184,3 +185,89 @@ def _write_at(cache, kv, length):
     pos = torch.arange(cache.shape[1], device=cache.device)
     hit = (pos[None, :] == length[:, None])[:, :, None, None]
     return torch.where(hit, kv.to(cache.dtype), cache)
+
+
+# ------------------------------------------------------------------- MLA box
+def mla_params_shape(cfg):
+    d = cfg.d_model
+    m = cfg.mla
+    H = cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": (d, m.q_lora_rank),
+        "q_a_norm": (m.q_lora_rank,),
+        "wq_b": (m.q_lora_rank, H * qk_dim),
+        "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_a_norm": (m.kv_lora_rank,),
+        "wk_b": (m.kv_lora_rank, H * m.qk_nope_head_dim),
+        "wv_b": (m.kv_lora_rank, H * m.v_head_dim),
+        "wo": (H * m.v_head_dim, d),
+    }
+
+
+def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
+    """Multi-head latent attention (deepseek-v3).  mode: 'train' | 'prefill'
+    (returns the latent cache rows) | 'decode' (uses ``cache``).
+
+    ``x`` is the un-normalized residual stream and ``gamma`` the mixer's
+    RMSNorm weight.  The cache stores only the compressed latent
+    (kv_lora_rank + rope dims a token); decode uses the absorbed-matmul
+    form, in float32, so K/V are never expanded.  ``c_kv`` is explicit
+    (the cache stores it), so ``wk_b`` and ``wv_b`` are plain products."""
+    B, S, d = x.shape
+    m = cfg.mla
+    H = cfg.num_heads
+    r = m.kv_lora_rank
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = (dn + dr) ** -0.5
+    x2d = x.reshape(B * S, d)
+
+    q_a = ops.fused_norm_matmul(x2d, gamma, p["wq_a"])
+    q = ops.fused_norm_matmul(q_a, p["q_a_norm"], p["wq_b"]).view(
+        B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = ops.fused_norm_matmul(x2d, gamma, p["wkv_a"]).view(B, S, r + dr)
+    c_kv = rms_norm(kv_a[..., :r], p["kv_a_norm"])
+    k_rope = apply_rope(kv_a[..., r:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+
+    if mode in ("train", "prefill"):
+        k_nope = torch.matmul(c_kv, p["wk_b"]).view(B, S, H, dn)
+        v = torch.matmul(c_kv, p["wv_b"]).view(B, S, H, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        o = flash_attention(qq, k, v, causal=True, scale=scale)
+        out = o.reshape(B, S, H * dv).to(x.dtype) @ p["wo"]
+        if mode == "prefill":
+            return out, (c_kv, k_rope)
+        return out
+
+    # ---- decode (absorbed): scores over the latent cache directly --------
+    c_cache, r_cache, length = cache
+    c_cache = _write_at2(c_cache, c_kv, length)
+    r_cache = _write_at2(r_cache, k_rope, length)
+    wk_b = p["wk_b"].reshape(r, H, dn).float()
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_b)  # (B,1,H,r)
+    c_f = c_cache.float()
+    s = torch.einsum("bshr,btr->bhst", q_abs, c_f)
+    s = s + torch.einsum("bshd,btd->bhst", q_rope.float(), r_cache.float())
+    s = s * scale
+    pos = torch.arange(c_cache.shape[1], device=x.device)[None, None, None, :]
+    s = torch.where(pos < (length + 1)[:, None, None, None], s, NEG_INF)
+    attn = torch.softmax(s, dim=-1)  # (B,H,1,T)
+    o_lat = torch.einsum("bhst,btr->bshr", attn, c_f)
+    o = torch.einsum("bshr,rhd->bshd", o_lat,
+                     p["wv_b"].reshape(r, H, dv).float())
+    out = o.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]
+    return out, (c_cache, r_cache)
+
+
+def _write_at2(cache, row, length):
+    """Write (B,1,D) rows into (B,T,D) at per-row length: a select by
+    position, the reference's one-hot blend for finite values."""
+    pos = torch.arange(cache.shape[1], device=cache.device)
+    hit = (pos[None, :] == length[:, None])[:, :, None]
+    return torch.where(hit, row.to(cache.dtype), cache)

@@ -57,11 +57,31 @@ def _rope_table(head_dim: int, theta: float, device: torch.device):
 
 
 # ------------------------------------------------------------------- init
+# float32 elements of one draw (1 GiB): a larger leaf is drawn in slices
+DRAW_ELEMS = 1 << 28
+
+
 def normal_init(gen: torch.Generator, shape, scale: float, dtype):
     """``scale * N(0, 1)`` drawn in float32 on the generator's device, then
-    cast to ``dtype``."""
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device,
-                        dtype=torch.float32) * scale).to(dtype)
+    cast to ``dtype``.  A leaf of more than ``DRAW_ELEMS`` elements is
+    drawn in slices of whole rows of its last axis, each cast into place,
+    so the float32 transient stays near ``DRAW_ELEMS`` elements
+    (deepseek-v3's routed bank, 256 x 7168 x 2048, would take 15 GB
+    whole)."""
+    shape = tuple(shape)
+    n = int(np.prod(shape))
+    chunk = DRAW_ELEMS
+    if n <= chunk or not shape:
+        return (torch.randn(shape, generator=gen, device=gen.device,
+                            dtype=torch.float32) * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, chunk // shape[-1])
+    for i in range(0, rows.shape[0], step):
+        part = rows[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device,
+                               dtype=torch.float32) * scale)
+    return out
 
 
 def tree_leaves(tree):

@@ -1,5 +1,5 @@
 """LM assembly: the reference's ``models/lm.py`` in PyTorch, families
-``dense`` and ``ssm`` (rwkv6).
+``dense``, ``vlm``, ``moe`` (GQA or MLA) and ``ssm`` (rwkv6).
 
 An architecture compiles to a list of **stages**; each stage runs
 ``repeat`` structurally-identical **groups** of layers, with the
@@ -15,13 +15,15 @@ family's program as data:
   rwkv6:                     1 stage x L  [(rwkv, rwkv_cm)]
   whisper:                   decoder stage (causal gqa + cross-attn)
 
-Only the dense and ssm families run here, at ``tp=1``: the others raise
-``NotImplementedError``.  Every dense layer's RMSNorm -> projection pairs
-(q, k, v and the SwiGLU gate and up) run through ``ops.fused_norm_matmul``;
-the rwkv mixer norms, then shifts, then projects, so it has no such pair
-(``models/rwkv.py``).  The parameter tree has the reference's names and
-nesting, so ``params_from_reference`` carries the reference's weights
-across.
+The hybrid and encdec families and ``tp > 1`` raise
+``NotImplementedError``.  Every RMSNorm -> projection pair with a
+continuous output runs through ``ops.fused_norm_matmul``: GQA's q, k and
+v, MLA's three entries (``models/attention.py``), the SwiGLU gate and up,
+and the shared expert's gate and up (``models/moe.py``).  The MoE router
+is not such a pair (see ``_apply_ffn``); the rwkv mixer norms, then
+shifts, then projects, so it has none (``models/rwkv.py``).  The
+parameter tree has the reference's names and nesting, so
+``params_from_reference`` carries the reference's weights across.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.outback import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import normal_init, rms_norm, silu, tree_map
 
@@ -55,9 +58,9 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-_PORTED_FAMILIES = ("dense", "ssm")
+_PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm")
 # each mixer's cache leaves, in the order of its tuple form
-_MIXER_CACHE = {"gqa": ("k", "v"), "rwkv": ("x", "s")}
+_MIXER_CACHE = {"gqa": ("k", "v"), "mla": ("c", "r"), "rwkv": ("x", "s")}
 
 
 def _require_ported(cfg: ModelConfig, tp: int) -> None:
@@ -116,6 +119,8 @@ def _mixer_template(kind: str, cfg: ModelConfig):
                 t[k] = Leaf(s, scale=so)
             else:
                 t[k] = Leaf(s)
+    elif kind == "mla":
+        t = {k: Leaf(s) for k, s in att.mla_params_shape(cfg).items()}
     elif kind == "rwkv":
         for k, s in rwkv_mod.rwkv_params_shape(cfg).items():
             t[k] = Leaf(s, dtype="float32" if k in ("w0", "u")
@@ -129,11 +134,16 @@ def _mixer_template(kind: str, cfg: ModelConfig):
 def _ffn_template(kind: str, cfg: ModelConfig):
     if kind == "rwkv_cm":
         return {}  # rwkv channel-mix params live in the mixer's dict
-    if kind != "mlp":
-        raise NotImplementedError(f"ffn {kind!r} is not yet ported")
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": Leaf((d, f)), "w_up": Leaf((d, f)),
-            "w_down": Leaf((f, d)), "norm": Leaf((d,))}
+    if kind == "mlp":
+        t = {"w_gate": Leaf((d, f)), "w_up": Leaf((d, f)),
+             "w_down": Leaf((f, d))}
+    elif kind == "moe":  # router, the (E, d, f) banks, the shared s_*
+        t = {k: Leaf(s) for k, s in moe_mod.moe_params_shape(cfg).items()}
+    else:
+        raise NotImplementedError(f"ffn {kind!r} is not yet ported")
+    t["norm"] = Leaf((d,))
+    return t
 
 
 def param_template(cfg: ModelConfig, tp: int = 1):
@@ -151,6 +161,13 @@ def param_template(cfg: ModelConfig, tp: int = 1):
         stages.append(tree_map(
             lambda lf: Leaf((repeat, *lf.shape), lf.dtype, lf.scale), gt))
     t["stages"] = stages
+    if cfg.mtp:
+        t["mtp"] = {"mixer": _mixer_template(
+            "mla" if cfg.attn_kind == "mla" else "gqa", cfg),
+            "ffn": _ffn_template("mlp", cfg),
+            "proj": Leaf((2 * d, d))}
+    if cfg.vision_tokens:
+        t["vision_proj"] = Leaf((d, d))  # stub anyres projector
     return t
 
 
@@ -237,52 +254,75 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache):
             out, new_cache = rwkv_mod.time_mix(p, h, cfg, mode=mode,
                                                cache=cache)
         return x + out, new_cache, x.float() + out.float()
-    if kind != "gqa":
+    if kind not in ("gqa", "mla"):
         raise NotImplementedError(f"mixer {kind!r} is not yet ported")
+    apply = att.gqa_apply if kind == "gqa" else att.mla_apply
     if mode == "train":
-        out = att.gqa_apply(p, x, cfg, gamma=p["norm"], positions=positions,
-                            mode="train")
+        out = apply(p, x, cfg, gamma=p["norm"], positions=positions,
+                    mode="train")
         return x + out, None, None
-    out, new_cache = att.gqa_apply(p, x, cfg, gamma=p["norm"],
-                                   positions=positions, mode=mode,
-                                   cache=cache)
+    out, new_cache = apply(p, x, cfg, gamma=p["norm"], positions=positions,
+                           mode=mode, cache=cache)
     return x + out, new_cache, None
 
 
-def _apply_ffn(kind, p, x, mixer_p, *, mode, cache, x_sum=None):
-    """-> (x, new ffn cache).  SwiGLU with both entries through the fused
-    norm -> matmul kernel; rwkv's channel mix normalises the unrounded
-    residual sum ``x_sum`` with the mixer's ``ln_x`` and carries its
-    token-shift input in the ffn cache."""
+def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None):
+    """-> (x, new ffn cache, the MoE aux loss or None).  SwiGLU with both
+    entries through the fused norm -> matmul kernel; rwkv's channel mix
+    normalises the unrounded residual sum ``x_sum`` with the mixer's
+    ``ln_x`` and carries its token-shift input in the ffn cache.
+
+    MoE, as the reference: ``h = rms_norm(x)`` once, in the model's dtype,
+    feeds the router (in float32) and the expert bins.  The router does not
+    go through the fused kernel: that kernel never rounds the normalized
+    rows to bf16, so near-tied scores would pick other experts than the
+    reference does, a different answer and not a rounding difference.  The
+    shared expert's gate and up do (``norm_in``)."""
     if kind == "rwkv_cm":
         h = rms_norm(x_sum, mixer_p["ln_x"]).to(x.dtype)
         if mode == "train":
-            return x + rwkv_mod.channel_mix(mixer_p, h, mode="train"), None
+            return (x + rwkv_mod.channel_mix(mixer_p, h, mode="train"), None,
+                    None)
         out, new_c = rwkv_mod.channel_mix(mixer_p, h, mode=mode, cache=cache)
-        return x + out, new_c
-    if kind != "mlp":
-        raise NotImplementedError(f"ffn {kind!r} is not yet ported")
+        return x + out, new_c, None
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
+    if kind == "moe":
+        h = rms_norm(x, p["norm"])
+        norm_in = (x2d, p["norm"])
+        if cfg.moe_gather_decode and B * S <= 64 and mode == "decode":
+            out, aux = moe_mod.moe_gather_apply(p, h, cfg, norm_in=norm_in)
+        else:
+            out, aux = moe_mod.moe_apply_binned(
+                p, h, cfg, capacity_factor=cfg.moe.capacity_factor,
+                norm_in=norm_in)
+        return x + out, cache, aux
+    if kind != "mlp":
+        raise NotImplementedError(f"ffn {kind!r} is not yet ported")
     g = ops.fused_norm_matmul(x2d, p["norm"], p["w_gate"])
     u = ops.fused_norm_matmul(x2d, p["norm"], p["w_up"])
-    return x + torch.matmul(silu(g) * u, p["w_down"]).view(B, S, d), cache
+    return (x + torch.matmul(silu(g) * u, p["w_down"]).view(B, S, d), cache,
+            None)
 
 
 def _group_body(group, lp, x, cfg, positions, mode, cache_g):
     """One group of layers (``lp``: their parameters; ``cache_g``: each
-    layer's ``(c_m, c_f)``, or None in train mode) -> (x, each layer's
-    ``(nc_m, nc_f)``): the body that remat wraps."""
+    layer's ``(c_m, c_f)``, or None in train mode) -> (x, the group's MoE
+    aux loss (None without a MoE layer), each layer's ``(nc_m, nc_f)``):
+    the body that remat wraps, so the recompute gives the same aux."""
     new_cache_g = []
+    aux_g = None
     for li, (mixer, ffn) in enumerate(group):
         mp, fp = lp[li]["mixer"], lp[li]["ffn"]
         c_m, c_f = (None, None) if cache_g is None else cache_g[li]
         x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg, positions=positions,
                                       mode=mode, cache=c_m)
-        x, nc_f = _apply_ffn(ffn, fp, x, mp, mode=mode, cache=c_f,
-                             x_sum=x_sum)
+        x, nc_f, aux = _apply_ffn(ffn, fp, x, cfg, mp, mode=mode, cache=c_f,
+                                  x_sum=x_sum)
+        if aux is not None:
+            aux_g = aux if aux_g is None else aux_g + aux
         new_cache_g.append((nc_m, nc_f))
-    return x, new_cache_g
+    return x, aux_g, new_cache_g
 
 
 def _ce_chunk(hs, ls, emb):
@@ -326,11 +366,13 @@ class LM:
         mode and with a gradient asked for, each group of layers runs under
         ``torch.utils.checkpoint`` (non-reentrant): its activations are
         recomputed in the backward, as the reference's
-        ``jax.checkpoint(nothing_saveable)`` does.  Returns (x,
-        new_caches)."""
+        ``jax.checkpoint(nothing_saveable)`` does.  Returns (x, the MoE
+        layers' aux losses summed in layer order (None without a MoE
+        layer), new_caches)."""
         cfg = self.cfg
         ckpt = remat and mode == "train" and torch.is_grad_enabled()
         new_caches = []
+        aux_total = None
         for s_idx, ((repeat, group), sp) in enumerate(
                 zip(self.program, params["stages"])):
             # every leaf's per-layer views at once: one backward node a leaf
@@ -348,14 +390,17 @@ class LM:
                         # the reference's tuple form of the layer's cache
                         c_m = tuple(c["mixer"][n][i]
                                     for n in _MIXER_CACHE[mixer])
-                        if mixer == "gqa":
+                        if mixer in ("gqa", "mla"):
                             c_m = (*c_m, length)  # per-row write position
                         cache_g.append(
                             (c_m, None if c["ffn"] is None else c["ffn"][i]))
                 args = (group, lp, x, cfg, positions, mode, cache_g)
-                x, new_cache_g = (checkpoint(_group_body, *args,
-                                             use_reentrant=False)
-                                  if ckpt else _group_body(*args))
+                x, aux_g, new_cache_g = (checkpoint(_group_body, *args,
+                                                    use_reentrant=False)
+                                         if ckpt else _group_body(*args))
+                if aux_g is not None:
+                    aux_total = aux_g if aux_total is None \
+                        else aux_total + aux_g
                 if caches is not None:
                     for li, nc in enumerate(new_cache_g):
                         new_layers[li].append(nc)
@@ -366,30 +411,41 @@ class LM:
                      "ffn": (None if layers[0][1] is None else
                              torch.stack([f for _, f in layers]))}
                     for (mixer, _), layers in zip(group, new_layers)])
-        return x, (new_caches if caches is not None else None)
+        return x, aux_total, (new_caches if caches is not None else None)
 
     # ---- training ----------------------------------------------------------
     def _inputs_embed(self, params, batch):
+        """Token embeddings, behind the projected patch embeddings (vlm's
+        stub anyres frontend: ``patches`` (B, P, d), a plain product)."""
+        x = self._embed(params, batch["tokens"])
         if self.cfg.vision_tokens:
-            raise NotImplementedError("vision_proj (family vlm) is not yet "
-                                      "ported")
-        return self._embed(params, batch["tokens"])
+            vis = torch.matmul(batch["patches"].to(x.dtype),
+                               params["vision_proj"])
+            x = torch.cat([vis, x], dim=1)
+        return x
 
     def train_loss(self, params, batch, *, remat=True):
         """-> (loss, metrics).  ``batch``: tensors ``tokens`` and ``labels``
-        (B, S) on the model's device."""
+        (B, S) on the model's device, and vlm's ``patches``; only the text
+        positions carry loss.  The MTP term (deepseek) and the MoE aux loss
+        (``aux_loss_coef * aux / num_layers``) are added as in the
+        reference, whose ``ce`` metric is the whole loss."""
         cfg = self.cfg
         x = self._inputs_embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        x, _ = self._stack(params, x, positions=positions, mode="train",
-                           remat=remat)
+        x, aux, _ = self._stack(params, x, positions=positions, mode="train",
+                                remat=remat)
         x = rms_norm(x, params["final_norm"])
+        if cfg.vision_tokens:
+            x = x[:, cfg.vision_tokens:]
         labels = batch["labels"]
         loss = self._ce(params, x, labels)
         if cfg.mtp:
             loss = loss + 0.1 * self._mtp_loss(params, x, labels)
-        # the ported families have no MoE layer: no load-balancing loss
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None:  # no MoE layer
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.moe:
+            loss = loss + cfg.moe.aux_loss_coef * aux / max(cfg.num_layers, 1)
         return loss, {"ce": loss, "aux": aux}
 
     def _ce(self, params, h, labels):
@@ -414,8 +470,21 @@ class LM:
         return tot / (B * S)
 
     def _mtp_loss(self, params, h, labels):
-        raise NotImplementedError("the multi-token-prediction loss (deepseek) "
-                                  "is not yet ported")
+        """Deepseek MTP: one extra block predicts token t+2 from [h_t;
+        e_{t+1}]."""
+        cfg = self.cfg
+        S = h.shape[1]
+        mp = params["mtp"]
+        e_next = self._embed(params, labels)  # embedding of token t+1
+        z = torch.cat([h[:, :-1], e_next[:, :-1]], dim=-1) @ \
+            mp["proj"].to(h.dtype)
+        pos = torch.arange(S - 1, device=h.device)[None]
+        z, _, _ = _apply_mixer("mla" if cfg.attn_kind == "mla" else "gqa",
+                               mp["mixer"], z, cfg, positions=pos,
+                               mode="train", cache=None)
+        z, _, _ = _apply_ffn("mlp", mp["ffn"], z, cfg, mp["mixer"],
+                             mode="train", cache=None)
+        return self._ce(params, z, labels[:, 1:])
 
     # ---- serving -----------------------------------------------------------
     def cache_template(self, batch: int, max_seq: int):
@@ -427,6 +496,12 @@ class LM:
                 kv = Leaf((repeat, batch, max_seq, cfg.num_kv_heads,
                            cfg.head_dim), dtype=cfg.dtype)
                 return {"k": kv, "v": kv}
+            if kind == "mla":  # the compressed latent and the rope key
+                m = cfg.mla
+                return {"c": Leaf((repeat, batch, max_seq, m.kv_lora_rank),
+                                  dtype=cfg.dtype),
+                        "r": Leaf((repeat, batch, max_seq,
+                                   m.qk_rope_head_dim), dtype=cfg.dtype)}
             hs = cfg.rwkv_head_size
             H = cfg.d_model // hs
             return {"x": Leaf((repeat, batch, cfg.d_model), dtype=cfg.dtype),
@@ -452,17 +527,18 @@ class LM:
         cache).  The cache is not changed: the step returns a new one."""
         x = self._embed(params, tokens)
         length = cache["length"]
-        x, new_stages = self._stack(params, x, positions=length[:, None],
-                                    mode="decode", caches=cache["stages"],
-                                    length=length)
+        x, _, new_stages = self._stack(params, x, positions=length[:, None],
+                                       mode="decode", caches=cache["stages"],
+                                       length=length)
         x = rms_norm(x, params["final_norm"])
         logits = self._unembed_logits(params, x[:, 0])
         return logits, {"stages": new_stages, "length": length + 1}
 
     def prefill(self, params, batch):
-        """Full-sequence forward: logits at the last position."""
-        x = self._embed(params, batch["tokens"])
+        """Full-sequence forward: logits at the last position (``batch``:
+        ``tokens``, and vlm's ``patches``)."""
+        x = self._inputs_embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        x, _ = self._stack(params, x, positions=positions, mode="train")
+        x, _, _ = self._stack(params, x, positions=positions, mode="train")
         x = rms_norm(x, params["final_norm"])
         return self._unembed_logits(params, x[:, -1])

@@ -76,8 +76,14 @@ card and skips without one.  It holds:
   dy off a 16-byte line, ``fma``) against the plain version, two calls bit
   for bit; a gradient through ``ops.fused_norm_matmul``
   on the card launches both kernels; one float32 ``make_train_step`` step
-  of the reduced llama3.2-1b and rwkv6-1.6b on the card against the CPU;
-  a checkpoint restart on the card replayed bit for bit.
+  of the reduced llama3.2-1b, rwkv6-1.6b, llava-next-mistral-7b,
+  mixtral-8x22b and deepseek-v3-671b on the card against the CPU; a
+  checkpoint restart on the card replayed bit for bit, for llama3.2-1b
+  and for deepseek (whose binned MoE adds nothing with atomics);
+* the vlm, MoE and MLA families: the reduced llava, mixtral and deepseek
+  in float32 decode (MLA's latent cache, the binned MoE) and prefill
+  (llava behind its patches) on the card within 1e-5 of the CPU, with the
+  routing indices of every MoE layer equal.
 """
 
 import numpy as np
@@ -1075,6 +1081,65 @@ def test_rwkv_decode_on_card_matches_cpu(card):
     torch.testing.assert_close(got.cpu(), want, **tol)
 
 
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "mixtral-8x22b",
+                                  "deepseek-v3-671b"])
+def test_family_decode_on_card_matches_cpu(card, arch):
+    """The reduced config in float32 from the same weights: 6 decode steps
+    (logits and every cache leaf) and a 24-token prefill (behind the
+    config's patch embeddings for llava), card against CPU, within 1e-5;
+    the MoE router picks the same experts on both at every layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import sorted_leaves, tree_map
+    from repro_torch.models.lm import LM, init_params
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    p_cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    params = {"cpu": p_cpu, "cuda": tree_map(lambda t: t.to("cuda"), p_cpu)}
+    models = {d: LM(cfg, device=d) for d in params}
+    caches = {d: m.init_cache(3, 16) for d, m in models.items()}
+    picks = {"cpu": [], "cuda": []}
+    route = moe.router_probs
+
+    def spy(p, x, c):
+        out = route(p, x, c)
+        picks[x.device.type].append(out[1].cpu())
+        return out
+
+    rng = np.random.default_rng(1)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    moe.router_probs = spy
+    try:
+        for _ in range(6):
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))
+                                   .astype(np.int32))
+            logits = {d: None for d in models}
+            for d, m in models.items():
+                logits[d], caches[d] = m.decode_step(params[d], tok.to(d),
+                                                     caches[d])
+            torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"],
+                                       **tol)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 24)).astype(np.int32))}
+        if cfg.vision_tokens:
+            batch["patches"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+        got = models["cuda"].prefill(params["cuda"], {
+            k: v.to("cuda") for k, v in batch.items()})
+        want = models["cpu"].prefill(params["cpu"], batch)
+    finally:
+        moe.router_probs = route
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    for (_, g), (_, w) in zip(sorted_leaves(caches["cuda"]),
+                              sorted_leaves(caches["cpu"])):
+        torch.testing.assert_close(g.cpu(), w, **tol)
+    assert len(picks["cuda"]) == len(picks["cpu"])
+    assert (len(picks["cpu"]) > 0) == (cfg.moe is not None)
+    for a, b in zip(picks["cuda"], picks["cpu"]):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------ the training path
 FNMB_SHAPES = [  # tests/test_torch_kernels.py's, a ragged S, a training entry
     (256, 512, 1024, "float32"), (512, 256, 512, "float32"),
@@ -1176,7 +1241,9 @@ def _train_cfg(arch, dtype):
     return dataclasses.replace(get_config(arch, reduced=True), dtype=dtype)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b",
+                                  "llava-next-mistral-7b", "mixtral-8x22b",
+                                  "deepseek-v3-671b"])
 def test_train_step_on_card_matches_cpu(card, arch):
     """One float32 ``make_train_step`` step of the reduced config on the
     card and on the CPU from the same weights and batch: loss and gnorm
@@ -1190,7 +1257,10 @@ def test_train_step_on_card_matches_cpu(card, arch):
     cfg = _train_cfg(arch, "float32")
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
     p_cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
-    batch = SyntheticLM(cfg.vocab_size, 32, 4, seed=2).global_batch_at(0)
+    batch = SyntheticLM(cfg.vocab_size, 32, 4, seed=2,
+                        frontend="vision" if cfg.vision_tokens else None,
+                        d_model=cfg.d_model,
+                        aux_len=cfg.vision_tokens).global_batch_at(0)
     out = {}
     ops.reset_launch_counts()
     for d in ("cuda", "cpu"):
@@ -1215,13 +1285,25 @@ def test_checkpoint_restart_on_card_is_bit_exact(card, tmp_path):
     """The reduced llama3.2-1b in bf16 on the card: three steps, a save,
     two more; a restore and a replay of the two give the same state bit
     for bit (no atomics on the path, so the replay is deterministic)."""
+    _restart_replays(tmp_path, "llama3.2-1b")
+
+
+def test_moe_checkpoint_restart_on_card_is_bit_exact(card, tmp_path):
+    """The same restart of the reduced deepseek-v3-671b (MLA, the binned
+    MoE with its shared expert, the MTP and aux losses): its dispatch and
+    combine backwards sum in a fixed order, so the replay is bit for
+    bit."""
+    _restart_replays(tmp_path, "deepseek-v3-671b")
+
+
+def _restart_replays(tmp_path, arch):
     import dataclasses
     from repro_torch.configs import TrainConfig
     from repro_torch.models.common import sorted_leaves
     from repro_torch.models.lm import LM
     from repro_torch.train import (SyntheticLM, init_state, make_train_step,
                                    restore, save)
-    model = LM(_train_cfg("llama3.2-1b", "bfloat16"), device="cuda")
+    model = LM(_train_cfg(arch, "bfloat16"), device="cuda")
     params = model.init(0)
     step = make_train_step(model, TrainConfig(total_steps=20,
                                               warmup_steps=2))

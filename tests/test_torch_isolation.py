@@ -2,7 +2,8 @@
 
 * an AST scan of every module under ``src/repro_torch/``, of
   ``chip_smoke.py``, of
-  ``tools/{fnm,step,ludo,store,baselines,mesh,faults,cluster,session}_probe.py``,
+  ``tools/{fnm,step,ludo,store,baselines,mesh,faults,cluster,session,
+  train,families}_probe.py``,
   of the
   on-card tests (``tests/test_torch_cuda.py``, which must run on the GPU
   machine, and its fault specs, ``tests/_torch_fault_specs.py``), of
@@ -18,9 +19,10 @@
   and runs a chaos run with telemetry on the CPU), ``repro_torch.serve`` (and serves a request
   on the CPU; and its front door, traffic plane and session store, which
   push a schedule through a front door and park an rwkv6 lane through
-  the KVS on the CPU), or ``repro_torch.core.sharded_kvs`` (and runs a Get on a
-  one-rank CPU mesh), has neither ``jax`` nor ``repro`` in
-  ``sys.modules``;
+  the KVS on the CPU), the MoE block or the serving launcher (and serves
+  the reduced mixtral and deepseek on the CPU), or
+  ``repro_torch.core.sharded_kvs`` (and runs a Get on a one-rank CPU
+  mesh), has neither ``jax`` nor ``repro`` in ``sys.modules``;
 * a fresh interpreter that imports the training path
   (``repro_torch.train``, ``repro_torch.launch.train``, and trains, saves
   and resumes on the CPU) has neither ``jax`` nor ``repro`` in
@@ -63,7 +65,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "baselines_probe.py", ROOT / "tools" / "mesh_probe.py",
     ROOT / "tools" / "faults_probe.py",
     ROOT / "tools" / "cluster_probe.py", ROOT / "tools" / "session_probe.py",
-    ROOT / "tools" / "train_probe.py", ROOT / "examples" / "train_lm_torch.py"]
+    ROOT / "tools" / "train_probe.py", ROOT / "tools" / "families_probe.py",
+    ROOT / "examples" / "train_lm_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -215,6 +218,31 @@ def test_importing_the_serving_plane_loads_neither_jax_nor_repro(module):
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.launch.serve"])
+def test_importing_the_model_families_loads_neither_jax_nor_repro(module):
+    """The MoE block and the serving launcher, each imported alone in a
+    fresh interpreter that then serves the reduced mixtral-8x22b and
+    deepseek-v3-671b (MLA, the shared expert) through the launcher on the
+    CPU."""
+    code = (
+        "import sys, json, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "from repro_torch.launch import serve\n"
+        "for arch in ('mixtral-8x22b', 'deepseek-v3-671b'):\n"
+        "    serve.main(['--arch', arch, '--device', 'cpu', '--requests',\n"
+        "                '2', '--max-new', '2'])\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    lines = out.stdout.strip().splitlines()
+    assert lines[:2] == ["finished=2 decode_steps=2 prefill_tokens=12"] * 2
+    assert json.loads(lines[-1]) == []
 
 
 def test_session_store_raises_without_cuda(monkeypatch):

@@ -1,4 +1,6 @@
-"""Port vs reference: configs, model blocks and the dense and ssm LMs.
+"""Port vs reference: configs, model blocks and the dense, ssm, vlm and
+moe LMs (llava-next-mistral-7b, mixtral-8x22b, deepseek-v3-671b with MLA
+and the MTP block).
 
 The same inputs (made from a seed with numpy) and the same weights (the
 reference's ``init``, carried across by ``params_from_reference``) go
@@ -17,7 +19,12 @@ Tolerances, as rtol and atol alike:
   magnitude 0.7, 4e-2 on cache values of magnitude 4, one ulp there).
   rwkv6 (family ``ssm``) holds to the same two tolerances: its bf16
   projections and token shifts round where the reference's fused
-  elementwise code may not, and its float32 state carries that.
+  elementwise code may not, and its float32 state carries that.  So do
+  the vlm and moe families: the router reads the same ``rms_norm`` output
+  in float32, so a layer's experts are the reference's unless a score is
+  within a rounding of a tie, and MLA's absorbed decode is float32 in
+  both.  Their training losses and gradients take
+  ``tests/test_torch_train.py``'s tolerances (float32 1e-5 and 1e-4).
 """
 
 import dataclasses
@@ -33,10 +40,12 @@ from repro.models import common as r_common
 from repro.models import lm as r_lm
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import common, lm
+from repro_torch.train import step as t_step
 
 DENSE = ["llama3.2-1b", "llama3.2-3b", "qwen3-4b", "qwen2.5-14b"]
 SSM = ["rwkv6-1.6b"]
-PORTED = ("dense", "ssm")
+NEW = ["llava-next-mistral-7b", "mixtral-8x22b", "deepseek-v3-671b"]
+PORTED = ("dense", "ssm", "vlm", "moe")
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 
@@ -54,6 +63,18 @@ def _pair(arch: str, dtype: str, **replace):
         jax.device_get(rp), device="cpu",
         dtype=torch.float32 if dtype == "float32" else None)
     return rm, rp, tm, tp
+
+
+def _prefill_batch(cfg, toks, rng):
+    """The prefill inputs in both packages: tokens, and vlm's seeded patch
+    embeddings."""
+    r, t = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cfg.vision_tokens:
+        pat = rng.standard_normal(
+            (toks.shape[0], cfg.vision_tokens, cfg.d_model)).astype(
+                np.float32)
+        r["patches"], t["patches"] = jnp.asarray(pat), torch.from_numpy(pat)
+    return r, t
 
 
 def _close(got: torch.Tensor, want, tol: float) -> None:
@@ -106,6 +127,24 @@ def test_param_template_matches_reference_full_llama():
         assert (g.shape, g.dtype, g.scale) == (w.shape, w.dtype, w.scale)
     n = sum(int(np.prod(lf.shape)) for lf in flat_g.values())
     assert n == 1_235_814_400
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_param_template_matches_reference_full_new_families(arch):
+    """The full llava, mixtral and deepseek trees (the MoE banks, MLA's
+    leaves, the MTP block, ``vision_proj``): the reference's names,
+    shapes, dtypes and scales, and its parameter count."""
+    got = common.sorted_leaves(lm.param_template(get_config(arch)))
+    want = jax.tree_util.tree_flatten_with_path(
+        r_lm.param_template(r_get_config(arch)),
+        is_leaf=lambda x: isinstance(x, r_lm.Leaf))[0]
+    assert [p for p, _ in got] == [
+        tuple(getattr(k, "key", getattr(k, "idx", None)) for k in wp)
+        for wp, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        assert (g.shape, g.dtype, g.scale) == (w.shape, w.dtype, w.scale)
+    n = sum(int(np.prod(g.shape)) for _, g in got)
+    assert n == sum(int(np.prod(w.shape)) for _, w in want)
 
 
 def test_other_families_and_tp_raise():
@@ -218,6 +257,58 @@ def test_init_params_rwkv_name_rules():
     assert p["stages"][0][0]["ffn"] == {}
 
 
+@pytest.mark.parametrize("arch", NEW)
+def test_params_from_reference_round_trip_new_families(arch):
+    """The reference's llava, mixtral and deepseek trees, the
+    layer-stacked (L, E, d, f) expert banks included, come across with
+    every leaf's bits, dtype and shape, under the reference's names."""
+    ref_tree = jax.device_get(r_lm.LM(r_get_config(arch, reduced=True))
+                              .init(4))
+    got = lm.params_from_reference(ref_tree, device="cpu")
+    want = jax.tree_util.tree_leaves(ref_tree)
+    leaves = common.sorted_leaves(got)
+    assert len(leaves) == len(want)
+    for (_, g), w in zip(leaves, want):
+        assert str(g.dtype).split(".")[-1] == np.asarray(w).dtype.name
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+    tmpl = lm.param_template(get_config(arch, reduced=True))
+    assert [(p, lf.shape) for p, lf in common.sorted_leaves(tmpl)] == \
+        [(p, tuple(t.shape)) for p, t in leaves]
+    assert common.count_params(got) == r_common.count_params(ref_tree)
+
+
+def test_init_params_new_leaves_name_rules(monkeypatch):
+    """The reference's rules on the new leaves: MLA's two norms and the
+    MoE ffn's norm 1, every matrix N(0, 1/fan_in) with fan_in =
+    shape[-2] (an expert bank's is d, ``w_down``'s is d_ff_expert, the MTP
+    ``proj``'s 2 d), and a bank drawn in slices when it is larger than one
+    draw: seeded, and the same statistics."""
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    p = lm.init_params(cfg, 3, device="cpu", dtype=torch.float32)
+    mix, ffn = p["stages"][1][0]["mixer"], p["stages"][1][0]["ffn"]
+    for t in (mix["q_a_norm"], mix["kv_a_norm"], ffn["norm"]):
+        assert torch.equal(t, torch.ones_like(t))
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    for t, fan_in in ((ffn["router"], d), (ffn["w_gate"], d),
+                      (ffn["w_down"], f), (ffn["s_up"], d),
+                      (mix["wq_b"], cfg.mla.q_lora_rank),
+                      (p["mtp"]["proj"], 2 * d)):
+        assert float(t.std()) == pytest.approx(fan_in ** -0.5, rel=0.15)
+    vis = lm.init_params(get_config("llava-next-mistral-7b", reduced=True),
+                         0, device="cpu")["vision_proj"]
+    assert vis.dtype == torch.bfloat16 and vis.shape == (64, 64)
+    monkeypatch.setattr(common, "DRAW_ELEMS", 64)  # slices of one row
+    gen = torch.Generator().manual_seed(1)
+    a = common.normal_init(gen, (3, 50, 40), 0.5, torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    b = common.normal_init(gen, (3, 50, 40), 0.5, torch.bfloat16)
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert float(a.float().std()) == pytest.approx(0.5, rel=0.05)
+    assert float(a.float().mean()) == pytest.approx(0.0, abs=0.02)
+
+
 def test_init_params_seeded_on_the_template():
     cfg = get_config("qwen3-4b", reduced=True)
     a = lm.init_params(cfg, 5, device="cpu")
@@ -238,10 +329,11 @@ def test_init_params_seeded_on_the_template():
 
 # ---------------------------------------------------------------- the model
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + SSM)
+@pytest.mark.parametrize("arch", DENSE + SSM + NEW)
 def test_decode_step_vs_reference(arch, dtype):
     """6 decode steps of 3 rows from the reference's weights: logits,
-    caches and lengths against the reference's jitted ``decode_step``."""
+    caches (MLA's latent and rope caches too) and lengths against the
+    reference's jitted ``decode_step``."""
     rm, rp, tm, tp = _pair(arch, dtype)
     B, S = 3, 16
     rcache, tcache = rm.init_cache(B, S), tm.init_cache(B, S)
@@ -303,15 +395,18 @@ def test_sliding_window_rolling_decode_vs_reference():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-14b"] + SSM)
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-14b"] + SSM + NEW)
 def test_prefill_vs_reference(arch, dtype):
+    """The last position's logits of a full forward; llava's prompt sits
+    behind its projected patch embeddings."""
     rm, rp, tm, tp = _pair(arch, dtype)
     rng = np.random.default_rng(3)
     # rwkv's chunked form takes whole chunks of 16 tokens (two here)
     S = 32 if arch in SSM else 24
     toks = rng.integers(0, rm.cfg.vocab_size, (2, S)).astype(np.int32)
-    want = rm.prefill(rp, {"tokens": jnp.asarray(toks)})
-    got = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    r_batch, t_batch = _prefill_batch(tm.cfg, toks, rng)
+    want = rm.prefill(rp, r_batch)
+    got = tm.prefill(tp, t_batch)
     assert got.shape == (2, rm.cfg.vocab_size)
     _close(got, want, TOL[dtype])
 
@@ -358,3 +453,95 @@ def test_teacher_forced_decode_matches_prefill():
     for t in range(16):
         logits, cache = tm.decode_step(tp, toks[:, t:t + 1], cache)
     torch.testing.assert_close(logits, full, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_teacher_forced_decode_matches_prefill_moe(arch):
+    """The MoE families' token-by-token decode (MLA's absorbed form for
+    deepseek) ends at their prefill's logits, at capacity factor 16 so
+    that no pick drops (``tests/test_arch_smoke.py:72-74``)."""
+    cfg = get_config(arch, reduced=True)
+    _, _, tm, tp = _pair(arch, "float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=16.0))
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(
+        rng.integers(0, tm.cfg.vocab_size, (1, 16)).astype(np.int32))
+    full = tm.prefill(tp, {"tokens": toks})
+    cache = tm.init_cache(1, 16)
+    for t in range(16):
+        logits, cache = tm.decode_step(tp, toks[:, t:t + 1], cache)
+    torch.testing.assert_close(logits, full, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", NEW)
+def test_train_loss_and_grads_vs_reference_new_families(arch, dtype):
+    """``train_loss`` (llava's text positions behind its patches; the MoE
+    aux loss; deepseek's MTP term) and every leaf's gradient against
+    ``jax.value_and_grad`` of the reference's, with remat: the loss and
+    the ``ce`` and ``aux`` metrics, then the gradients (float32 1e-5 and
+    1e-4, bf16 5e-2)."""
+    rm, rp, tm, tp = _pair(arch, dtype)
+    if dtype == "float32":  # weights and gradients in float32
+        rp = jax.tree.map(lambda a: a.astype(jnp.float32), rp)
+        tp = common.tree_map(lambda t: t.float(), tp)
+    rng = np.random.default_rng(11)
+    toks, labels = (rng.integers(0, tm.cfg.vocab_size, (2, 16)).astype(
+        np.int32) for _ in range(2))
+    r_batch, t_batch = _prefill_batch(tm.cfg, toks, rng)
+    r_batch["labels"] = jnp.asarray(labels)
+    t_batch["labels"] = torch.from_numpy(labels)
+    vg = jax.jit(jax.value_and_grad(
+        lambda p, b: rm.train_loss(p, b, remat=True), has_aux=True))
+    (r_loss, r_met), r_grads = vg(rp, r_batch)
+    loss, grads = t_step.value_and_grad(t_step.make_loss_fn(tm), tp,
+                                        t_batch)
+    _, t_met = tm.train_loss(tp, t_batch)
+    loss_tol, grad_tol = (1e-5, 1e-4) if dtype == "float32" else (5e-2,
+                                                                    5e-2)
+    for got, want in ((loss, r_loss), (t_met["ce"], r_met["ce"]),
+                      (t_met["aux"], r_met["aux"])):
+        np.testing.assert_allclose(float(got), float(want), rtol=loss_tol,
+                                   atol=loss_tol)
+    assert (float(t_met["aux"]) > 0) == (tm.cfg.moe is not None)
+    r_leaves = jax.tree.leaves(r_grads)
+    t_leaves = common.sorted_leaves(grads)
+    assert len(r_leaves) == len(t_leaves)
+    for (path, t), r in zip(t_leaves, r_leaves):
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(r, np.float32), rtol=grad_tol,
+                                   atol=grad_tol, err_msg=str(path))
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+def test_mla_apply_full_sequence_modes_vs_reference(mode):
+    """MLA's train and prefill forms (the prefill's latent cache rows, c_kv
+    and the rope key, too) against the reference's ``mla_apply`` of the
+    normalized rows, float32; the port takes the un-normalized rows and
+    the mixer's gamma."""
+    from repro.models import attention as r_att
+    from repro_torch.models import attention as att
+    rc = dataclasses.replace(r_get_config("deepseek-v3-671b", reduced=True),
+                             dtype="float32")
+    tc = dataclasses.replace(get_config("deepseek-v3-671b", reduced=True),
+                             dtype="float32")
+    rng = np.random.default_rng(12)
+    p = {k: (rng.standard_normal(s) / (np.sqrt(s[-2]) if len(s) > 1 else 1)
+             ).astype(np.float32) for k, s in att.mla_params_shape(tc).items()}
+    x = rng.standard_normal((2, 10, tc.d_model)).astype(np.float32)
+    gamma = (1 + 0.1 * rng.standard_normal(tc.d_model)).astype(np.float32)
+    pos = np.arange(10)[None]
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    h = r_common.rms_norm(jnp.asarray(x), jnp.asarray(gamma))
+    want = r_att.mla_apply(jp, h, rc, positions=jnp.asarray(pos), mode=mode)
+    got = att.mla_apply({k: torch.from_numpy(v) for k, v in p.items()},
+                        torch.from_numpy(x), tc,
+                        gamma=torch.from_numpy(gamma),
+                        positions=torch.from_numpy(pos), mode=mode)
+    if mode == "train":
+        got, want = (got,), (want,)
+    else:
+        got, want = (got[0], *got[1]), (want[0], *want[1])
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        _close(g, w, TOL["float32"])

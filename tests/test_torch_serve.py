@@ -10,12 +10,16 @@ sums) and their lengths exactly.  The cases are ``examples/serve_kvs.py``
 part 1, ``tests/test_train_serve.py::test_engine_serves_all``, and a short
 ``max_seq`` at which requests finish by length while idle lanes run past
 the cache.  An engine with a ``KVSessionStore`` parks through the KVS as
-the reference's does.
+the reference's does.  The reduced llava-next-mistral-7b, mixtral-8x22b
+and deepseek-v3-671b (MLA's latent cache, the binned MoE over the
+engine's whole batch of lanes) serve ``serve_kvs_part1`` with the
+reference's tokens, stats, caches and lengths, the same way.
 """
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,6 +29,7 @@ from repro.models.lm import LM as RLM
 from repro.serve import Engine as REngine
 from repro.serve import Request as RRequest
 from repro_torch.configs import get_config
+from repro_torch.models.common import sorted_leaves
 from repro_torch.models.lm import LM, params_from_reference
 from repro_torch.serve import Engine, Request
 
@@ -88,6 +93,32 @@ def test_engine_generates_what_the_reference_does(models, case):
     assert teng.stats.finished == len(reqs)
     assert teng.stats.prefill_tokens == sum(len(p) for _, p, _ in reqs)
     _check_caches(teng, reng)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "mixtral-8x22b",
+                                  "deepseek-v3-671b"])
+def test_engine_serves_the_new_families_as_the_reference(arch):
+    rcfg = dataclasses.replace(r_get_config(arch, reduced=True),
+                               dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch, reduced=True),
+                               dtype="float32")
+    rm = RLM(rcfg)
+    rp = jax.tree.map(lambda a: a.astype(jnp.float32), rm.init(0))
+    tm = LM(tcfg, device="cpu")
+    tp = params_from_reference(jax.device_get(rp), device="cpu")
+    lanes, max_seq, reqs = CASES["serve_kvs_part1"]
+    reng, rout = _serve(REngine, RRequest, rm, rp, lanes, max_seq, reqs)
+    teng, tout = _serve(Engine, Request, tm, tp, lanes, max_seq, reqs)
+    assert tout == rout
+    assert dataclasses.asdict(teng.stats) == dataclasses.asdict(reng.stats)
+    np.testing.assert_array_equal(teng.cache["length"].numpy(),
+                                  np.asarray(reng.cache["length"]))
+    want = jax.tree.leaves(reng.cache["stages"])
+    got = sorted_leaves(teng.cache["stages"])
+    assert len(got) == len(want)
+    for (_, g), w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_park_resume_like_the_reference(models):
