@@ -7,8 +7,8 @@
                             # replicated store through a crash, the
                             # telemetry plane, a 4-CN cluster, chaos, the
                             # front door, session parking, rwkv6,
-                            # llama3.2-1b trained, and llava, mixtral and
-                            # deepseek served; one card
+                            # llama3.2-1b trained, and llava, mixtral,
+                            # deepseek, jamba and whisper served; one card
 
 Phases; any failure exits non-zero:
 
@@ -302,6 +302,26 @@ Phases; any failure exits non-zero:
    width with 2 layers, the others reduced: decode steps and a prefill,
    with patches for llava).  Last, a bf16 checkpoint restart of the
    reduced deepseek on the card replays bit for bit.
+16. the hybrid and encdec families.  ``fused_norm_matmul`` against its
+   plain version at the (d, F) pairs these configs add
+   (``HYBRID_FNM_PAIRS``: jamba's mamba ``w_in``, whisper's q / k / v /
+   cq and its MLP), S = 8 and 256, and whisper's encoder rows (S = 4 x
+   1500, no multiple of any tile), two calls bit for bit; timed at S = 8.
+   Then (a) jamba-v0.1-52b at its published widths cut to HYBRID_LAYERS of
+   its 32 layers and (b) whisper-large-v3 whole (32 encoder and 32
+   decoder layers), random bf16 weights drawn on the card: 8 requests
+   through ``Engine(lanes=4)`` (``fused_norm_matmul`` launched as often a
+   decode_step call as the program implies: 18 a jamba period, 6 a
+   whisper decoder layer; whisper on the zero encoder stub, as the
+   reference's engine), decode-step p50/p99, tokens/s, 8 profiled steps;
+   jamba's ``LM.prefill`` of 16 tokens (the mamba scan on the card);
+   whisper's ``LM.prefill`` over frames of (4, 1500, 1280) (its encoder:
+   5 fused launches a layer), its encoder timed alone, then 8
+   teacher-forced decode steps on that encoder output (real
+   cross-attention); a float32 card-vs-CPU twin of each (jamba reduced;
+   whisper at full width with 2 + 2 layers and 1500 frames, decode given
+   its encoder output).  The reduced jamba and whisper also take phase 14
+   (b)'s float32 training step.
 
 The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -706,7 +726,8 @@ TWIN_TRAIN_LR = 1e-3
 # rest their reduced configs (the vlm, MoE and MLA families run row 6 and
 # the MoE aux loss)
 TRAIN_TWIN_ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "llava-next-mistral-7b",
-                    "mixtral-8x22b", "deepseek-v3-671b")
+                    "mixtral-8x22b", "deepseek-v3-671b", "jamba-v0.1-52b",
+                    "whisper-large-v3")
 RESTART_STEPS = (3, 2)
 TRAIN_STEPS = 8
 TRAIN_PROFILED_STEPS = 2
@@ -732,10 +753,11 @@ FAMILY_PROMPT = 16
 FAMILY_TWIN_LAYERS = 2
 FAMILY_TWIN_STEPS = 4
 # fused_norm_matmul entries a layer: GQA's q, k, v; MLA's wq_a, wq_b and
-# wkv_a; SwiGLU's gate and up; a MoE ffn's shared expert's gate and up
-# (counted by fused_per_decode_step; its router and routed experts are
-# plain products)
-FNM_ENTRIES = {"gqa": 3, "mla": 3, "mlp": 2, "moe": 0}
+# wkv_a; mamba's w_in; the cross-attention layer's q, k, v and cq; SwiGLU's
+# gate and up; a MoE ffn's shared expert's gate and up (counted by
+# fused_per_decode_step; its router and routed experts are plain products)
+FNM_ENTRIES = {"gqa": 3, "mla": 3, "mamba": 1, "gqa_cross": 4, "mlp": 2,
+               "moe": 0}
 # row 5's new (d, F) pairs: llava's wq, wk / wv and MLP; mixtral's wq and
 # wk / wv; deepseek's wq_a, wkv_a, dense MLP, shared expert and wq_b;
 # checked at S = 8 and 256, timed at S = 8
@@ -745,6 +767,31 @@ FAMILY_FNM_PAIRS = ((4096, 4096), (4096, 1024), (4096, 14336),
                     (1536, 24576))
 FAMILY_FNM_SHAPES = [(S, d, F, "bfloat16") for S in (8, 256)
                      for d, F in FAMILY_FNM_PAIRS]
+# phase 16: the hybrid and encdec families at their published widths,
+# random bf16 weights from SEED, served as phase 15's.  jamba-v0.1-52b
+# (src/repro_torch/configs/jamba_v0_1_52b.py) is cut to HYBRID_LAYERS of
+# its 32 layers, 3 of its 4 periods: 38,811,955,200 parameters,
+# 77,630,103,552 B, where the 32 layers' 103,148,888,064 B do not fit one
+# 80 GB card.  whisper-large-v3 runs whole (32 encoder and 32 decoder
+# layers, 4,044,119,040 B).  jamba's prefill is HYBRID_PROMPT tokens of one
+# row; whisper's is FAMILY_PROMPT tokens of WHISPER_ROWS rows behind frames
+# of (WHISPER_ROWS, 1500, 1280), then WHISPER_TF_STEPS teacher-forced decode
+# steps on that encoder output.  The twins: jamba reduced; whisper at full
+# width cut to WHISPER_TWIN_LAYERS encoder and decoder layers, its 1500
+# frames kept.
+HYBRID_LAYERS = 24
+HYBRID_FAMILIES = (("jamba-v0.1-52b", HYBRID_LAYERS),
+                   ("whisper-large-v3", None))
+HYBRID_PROMPT = 16
+WHISPER_ROWS = 4
+WHISPER_TF_STEPS = 8
+WHISPER_TWIN_LAYERS = 2
+# row 5's new (d, F) pairs: jamba's mamba w_in; whisper's q / k / v / o-width
+# entries and its MLP; whisper's encoder rows: S = WHISPER_ROWS x 1500
+HYBRID_FNM_PAIRS = ((4096, 16384), (1280, 1280), (1280, 5120))
+HYBRID_FNM_SHAPES = [(S, d, F, "bfloat16") for S in (8, 256)
+                     for d, F in HYBRID_FNM_PAIRS] + [
+    (WHISPER_ROWS * 1500, 1280, F, "bfloat16") for F in (1280, 5120)]
 
 
 def log(*a) -> None:
@@ -5134,11 +5181,14 @@ def train_twin(arch: str, seed: int) -> dict:
 def synthetic_source(cfg, seed: int, seq: int = TWIN_TRAIN_SEQ,
                      batch: int = TWIN_TRAIN_B):
     """The training data of a twin: ``SyntheticLM`` batches of ``cfg``'s
-    vocabulary, with seeded patch embeddings for a vlm."""
+    vocabulary, with seeded patch embeddings for a vlm and frame
+    embeddings for an encdec config, as ``launch/train.py`` makes them."""
     from repro_torch.train import SyntheticLM
     return SyntheticLM(cfg.vocab_size, seq, batch, seed=seed,
-                       frontend="vision" if cfg.vision_tokens else None,
-                       d_model=cfg.d_model, aux_len=cfg.vision_tokens)
+                       frontend=("vision" if cfg.vision_tokens else
+                                 "audio" if cfg.is_encdec else None),
+                       d_model=cfg.d_model,
+                       aux_len=cfg.vision_tokens or cfg.encoder_seq)
 
 
 def train_restart(seed: int, arch: str = "llama3.2-1b") -> dict:
@@ -5328,6 +5378,15 @@ def fused_per_decode_step(cfg) -> int:
                for repeat, group in make_program(cfg))
 
 
+def fused_per_prefill(cfg) -> int:
+    """``fused_norm_matmul`` launches of one ``LM.prefill``: the decoder's,
+    as a decode step's, and an encdec config's encoder, FNM_ENTRIES of a
+    gqa mixer and an MLP a layer."""
+    enc = cfg.encoder_layers * (FNM_ENTRIES["gqa"] + FNM_ENTRIES["mlp"]) \
+        if cfg.is_encdec else 0
+    return fused_per_decode_step(cfg) + enc
+
+
 def family_config(arch: str, layers: int | None):
     """``arch`` at its published widths, its depth cut to ``layers``."""
     from repro_torch.configs import get_config
@@ -5336,13 +5395,28 @@ def family_config(arch: str, layers: int | None):
                                                           num_layers=layers)
 
 
+def timed_launches(fn) -> tuple:
+    """``fn()`` once to warm up, then once synced and timed with the launch
+    counters zeroed just before and read just after -> (its result, ms,
+    fused_norm_matmul launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    fn()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3, \
+        ops.LAUNCHES["fused_norm_matmul"]
+
+
 def vision_prefill(model, params, seed: int) -> dict:
     """One ``LM.prefill`` of a FAMILY_PROMPT-token prompt behind the
     config's ``vision_tokens`` seeded patch embeddings (576 for llava), on
     the card: logits finite, of the vocabulary's width, each fused entry
     launched once a layer."""
     import torch
-    from repro_torch.kernels import ops
     cfg = model.cfg
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -5350,14 +5424,8 @@ def vision_prefill(model, params, seed: int) -> dict:
                                      generator=gen, device="cuda"),
              "patches": torch.randn((1, cfg.vision_tokens, cfg.d_model),
                                     generator=gen, device="cuda")}
-    model.prefill(params, batch)  # warm-up
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    logits = model.prefill(params, batch)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t) * 1e3
-    launches = ops.LAUNCHES["fused_norm_matmul"]
+    logits, ms, launches = timed_launches(
+        lambda: model.prefill(params, batch))
     check(logits.shape == (1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{cfg.name} prefill with patches: logits not finite or of shape "
@@ -5371,41 +5439,61 @@ def vision_prefill(model, params, seed: int) -> dict:
     return dict(prefill_rows=rows, prefill_ms=ms, prefill_launches=launches)
 
 
-def family_twin(arch: str, seed: int) -> dict:
-    """The float32 card-vs-CPU twin of a family: ``arch`` at full width cut
-    to FAMILY_TWIN_LAYERS (llava) or its reduced config, the same float32
-    weights on the card and on the CPU (plain versions); FAMILY_TWIN_STEPS
-    teacher-forced decode steps of FAMILY_LANES lanes and a prefill of two
-    FAMILY_PROMPT-token prompts (behind the config's patch embeddings for a
-    vlm): logits within TWIN_TOL absolute and the same argmax."""
-    import torch
+def twin_config(arch: str):
+    """A family's float32 twin config: llava at full width cut to
+    FAMILY_TWIN_LAYERS, whisper at full width cut to WHISPER_TWIN_LAYERS
+    encoder and decoder layers (its 1500 frames kept), the rest
+    reduced."""
     from repro_torch.configs import get_config
+    if arch == "llava-next-mistral-7b":
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=FAMILY_TWIN_LAYERS)
+    elif arch == "whisper-large-v3":
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=WHISPER_TWIN_LAYERS,
+                                  encoder_layers=WHISPER_TWIN_LAYERS)
+    else:
+        cfg = get_config(arch, reduced=True)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def family_twin(arch: str, seed: int) -> dict:
+    """The float32 card-vs-CPU twin of a family (:func:`twin_config`), the
+    same float32 weights on the card and on the CPU (plain versions);
+    FAMILY_TWIN_STEPS teacher-forced decode steps of FAMILY_LANES lanes (an
+    encdec config's on its encoder's output of seeded frames, computed on
+    each device) and a prefill of two FAMILY_PROMPT-token prompts (behind
+    the config's patch embeddings for a vlm, over seeded frames for an
+    encdec config): logits within TWIN_TOL absolute and the same argmax."""
+    import torch
     from repro_torch.models.common import tree_map
     from repro_torch.models.lm import LM, init_params
-    cfg = (dataclasses.replace(get_config(arch),
-                               num_layers=FAMILY_TWIN_LAYERS)
-           if arch == "llava-next-mistral-7b"
-           else get_config(arch, reduced=True))
-    cfg = dataclasses.replace(cfg, dtype="float32")
+    cfg = twin_config(arch)
     p0 = init_params(cfg, seed, device="cuda", dtype=torch.float32)
     rng = np.random.default_rng(seed + 1)
     toks = [rng.integers(0, cfg.vocab_size, (FAMILY_LANES, 1)).astype(
         np.int32) for _ in range(FAMILY_TWIN_STEPS)]
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, FAMILY_PROMPT)).astype(np.int32))}
-    if cfg.vision_tokens:
-        batch["patches"] = torch.from_numpy(rng.standard_normal(
-            (2, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+    for name, n in (("patches", cfg.vision_tokens),
+                    ("frames", cfg.encoder_seq if cfg.is_encdec else 0)):
+        if n:
+            batch[name] = torch.from_numpy(rng.standard_normal(
+                (2, n, cfg.d_model)).astype(np.float32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (FAMILY_LANES, cfg.encoder_seq, cfg.d_model)).astype(np.float32)) \
+        if cfg.is_encdec else None
     runs = {}
     for device in ("cuda", "cpu"):
         model = LM(cfg, device=device)
         p = p0 if device == "cuda" else tree_map(lambda t: t.cpu(), p0)
         cache = model.init_cache(FAMILY_LANES, FAMILY_TWIN_STEPS + 1)
         t0 = time.perf_counter()
+        enc = None if frames is None else model._encode(p, frames.to(device))
         out = []
         for tok in toks:
             logits, cache = model.decode_step(
-                p, torch.from_numpy(tok).to(device), cache)
+                p, torch.from_numpy(tok).to(device), cache, enc_out=enc)
             out.append(logits.cpu())
         pre = model.prefill(p, {k: v.to(device) for k, v in batch.items()})
         runs[device] = (torch.stack(out), pre.cpu(),
@@ -5421,8 +5509,10 @@ def family_twin(arch: str, seed: int) -> dict:
           f"{TWIN_TOL}")
     check(same, f"{arch} float32 twin: the argmax differs between card and "
                 f"CPU")
-    behind = f" behind {cfg.vision_tokens} patches" if cfg.vision_tokens \
-        else ""
+    behind = (f" behind {cfg.vision_tokens} patches" if cfg.vision_tokens
+              else f" over {cfg.encoder_seq} frames ({cfg.encoder_layers} "
+                   f"encoder layers; decode on its output)"
+              if cfg.is_encdec else "")
     log(f"{arch} float32 twin ({cfg.num_layers} layers, d {cfg.d_model}): "
         f"{FAMILY_TWIN_STEPS} teacher-forced steps of {FAMILY_LANES} lanes "
         f"and a prefill of 2 x {FAMILY_PROMPT} tokens{behind}: card vs CPU max abs logit err {err} (tolerance {TWIN_TOL}, logits "
@@ -5441,7 +5531,7 @@ def serve_family(arch: str, layers: int | None, seed: int) -> tuple:
     the run's launch counts."""
     import torch
     from repro_torch.models.common import count_params, tree_leaves
-    from repro_torch.models.lm import LM
+    from repro_torch.models.lm import LM, param_template
     from repro_torch.serve import Engine
     cfg = family_config(arch, layers)
     gc.collect()
@@ -5456,9 +5546,11 @@ def serve_family(arch: str, layers: int | None, seed: int) -> tuple:
     n_params = count_params(params)
     n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     check(model.device.type == "cuda"
-          and all(t.is_cuda and t.dtype == torch.bfloat16
-                  for t in tree_leaves(params)),
-          f"{arch}: the model is not on the card in bf16")
+          and all(t.is_cuda and t.dtype == getattr(torch, lf.dtype)
+                  for t, lf in zip(tree_leaves(params),
+                                   tree_leaves(param_template(cfg)))),
+          f"{arch}: the model is not on the card in bf16 (mamba's A_log, "
+          f"D and dt_bias in float32)")
     log(f"{arch}: {cfg.num_layers} layers at d {cfg.d_model}, {n_params} "
         f"parameters ({n_bytes} B), drawn on the card in {init_s:.3f} s, "
         f"max_memory_allocated {init_peak} B")
@@ -5476,6 +5568,10 @@ def serve_family(arch: str, layers: int | None, seed: int) -> tuple:
                               FAMILY_PROFILED_STEPS))
     if cfg.vision_tokens:
         res.update(vision_prefill(model, params, seed))
+    if cfg.family == "hybrid":
+        res.update(hybrid_prefill(model, params, seed))
+    if cfg.is_encdec:
+        res.update(encdec_runs(model, params, seed))
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"{arch}: max_memory_allocated {res['max_memory_allocated']} B")
     del eng, model, params
@@ -5508,6 +5604,123 @@ def serve_families_phase(gen) -> tuple:
     log("phase 15: row 5's shapes {:.1f} s, {}, restart {:.1f} s".format(
         res["fnm_s"], ", ".join(f"{a} {res[a]['seconds']:.1f} s"
                                 for a, _ in FAMILIES), res["restart_s"]))
+    return res, launches
+
+
+# ------------------------------------------------------------ phase 16
+def hybrid_prefill(model, params, seed: int) -> dict:
+    """One ``LM.prefill`` of HYBRID_PROMPT tokens on the card (the mamba
+    layers' scan): logits finite, of the vocabulary's width, each fused
+    entry launched once a layer."""
+    import torch
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, HYBRID_PROMPT),
+                                     generator=gen, device="cuda")}
+    logits, ms, launches = timed_launches(
+        lambda: model.prefill(params, batch))
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill: logits not finite or of shape "
+          f"{tuple(logits.shape)}")
+    check(launches == fused_per_prefill(cfg),
+          f"{cfg.name} prefill: {launches} fused launches, not "
+          f"{fused_per_prefill(cfg)}")
+    log(f"{cfg.name} prefill of {HYBRID_PROMPT} tokens (the mamba scan on "
+        f"the card): {ms:.3f} ms, {launches} fused launches")
+    return dict(prefill_tokens=HYBRID_PROMPT, prefill_ms=ms,
+                prefill_launches=launches)
+
+
+def encdec_runs(model, params, seed: int) -> dict:
+    """whisper beyond the engine's zero stub, on the card: one
+    ``LM.prefill`` of WHISPER_ROWS x FAMILY_PROMPT tokens over seeded frames
+    of (WHISPER_ROWS, encoder_seq, d) (the encoder and the decoder's
+    cross-attention to it), the encoder alone, then WHISPER_TF_STEPS
+    teacher-forced decode steps on its output: logits finite, the fused
+    launches of each as the program implies, the times."""
+    import torch
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (WHISPER_ROWS, FAMILY_PROMPT),
+                         generator=gen, device="cuda")
+    frames = torch.randn((WHISPER_ROWS, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks, "frames": frames}
+    logits, pre_ms, pre_l = timed_launches(
+        lambda: model.prefill(params, batch))
+    enc, enc_ms, enc_l = timed_launches(
+        lambda: model._encode(params, frames))
+    n_enc = cfg.encoder_layers * (FNM_ENTRIES["gqa"] + FNM_ENTRIES["mlp"])
+    check(logits.shape == (WHISPER_ROWS, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(enc).all()),
+          f"{cfg.name} prefill over frames: logits or the encoder output "
+          f"not finite")
+    check(pre_l == fused_per_prefill(cfg) and enc_l == n_enc,
+          f"{cfg.name}: {pre_l} fused launches in a prefill and {enc_l} in "
+          f"the encoder, not {fused_per_prefill(cfg)} and {n_enc}")
+    from repro_torch.kernels import ops
+    cache = model.init_cache(WHISPER_ROWS, WHISPER_TF_STEPS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = []
+    for t in range(WHISPER_TF_STEPS):
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(params, toks[:, t:t + 1], cache,
+                                       enc_out=enc)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(out).all()),
+              f"{cfg.name}: a decode step on the encoder output is not "
+              f"finite")
+    tf_l = ops.LAUNCHES["fused_norm_matmul"]
+    check(tf_l == WHISPER_TF_STEPS * fused_per_decode_step(cfg),
+          f"{cfg.name}: {tf_l} fused launches in {WHISPER_TF_STEPS} decode "
+          f"steps on the encoder output")
+    ms = np.asarray(times) * 1e3
+    res = dict(frames=list(frames.shape), prefill_ms=pre_ms,
+               prefill_launches=pre_l, encoder_ms=enc_ms,
+               encoder_launches=enc_l, tf_steps=WHISPER_TF_STEPS,
+               tf_step_p50_ms=float(np.percentile(ms, 50)),
+               tf_step_p99_ms=float(np.percentile(ms, 99)),
+               tf_launches=tf_l)
+    log(f"{cfg.name}: prefill of {WHISPER_ROWS} x {FAMILY_PROMPT} tokens "
+        f"over frames {res['frames']} in {pre_ms:.3f} ms ({pre_l} fused "
+        f"launches), the encoder alone {enc_ms:.3f} ms ({enc_l}); "
+        f"{WHISPER_TF_STEPS} teacher-forced decode steps on its output: p50 "
+        f"{res['tf_step_p50_ms']:.4f} ms, p99 {res['tf_step_p99_ms']:.4f} "
+        f"ms ({tf_l} fused launches)")
+    return res
+
+
+def serve_hybrid_phase(gen) -> tuple:
+    """Phase 16: row 5 at the hybrid and encdec configs' new shapes, then
+    jamba and whisper served (:func:`serve_family`, with
+    :func:`hybrid_prefill` and :func:`encdec_runs`).  Returns the numbers
+    and each family's launch counts."""
+    import torch
+    res, t = {}, time.perf_counter()
+    res["fnm_check_shapes"] = check_fnm_shapes(gen, HYBRID_FNM_SHAPES)
+    res["fnm_timed"] = [time_fnm_shape(gen, 8, d, F, "bfloat16")
+                        for d, F in HYBRID_FNM_PAIRS]
+    res["fnm_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    res["free_bytes_before_models"], res["total_bytes"] = free, total
+    log(f"phase 16: {free} B free of {total} B on the card before the "
+        f"models")
+    launches = {}
+    for arch, layers in HYBRID_FAMILIES:
+        t = time.perf_counter()
+        res[arch], launches[arch] = serve_family(arch, layers, SEED)
+        res[arch]["seconds"] = time.perf_counter() - t
+    log("phase 16: row 5's shapes {:.1f} s, {}".format(
+        res["fnm_s"], ", ".join(f"{a} {res[a]['seconds']:.1f} s"
+                                for a, _ in HYBRID_FAMILIES)))
     return res, launches
 
 
@@ -5776,6 +5989,18 @@ def main() -> int:
     log(f"launches on the families' serving paths: {vlaunch}")
     log(f"families path: {json.dumps(vres)}")
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # ---- phase 16: the hybrid and encdec families ----
+    t16 = time.perf_counter()
+    hres, hlaunch = serve_hybrid_phase(gen)
+    for name, k in kernels.items():
+        k["launches_hybrid_path"] = {a: hlaunch[a][name] for a in hlaunch}
+    for arch in hlaunch:
+        check(hlaunch[arch]["fused_norm_matmul"] > 0, f"fused_norm_matmul "
+              f"never launched on {arch}'s serving path")
+    log(f"launches on the hybrid and encdec serving paths: {hlaunch}")
+    log(f"hybrid and encdec path: {json.dumps(hres)}")
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

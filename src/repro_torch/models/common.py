@@ -24,6 +24,12 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
+def xla_sigmoid(x):
+    """The reference's sigmoid as XLA expands it: ``1 / (1 + exp(-x))``, op
+    by op in ``x``'s dtype (``torch.sigmoid`` rounds bf16 differently)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
     return (silu(x @ w_gate) * (x @ w_up)) @ w_down

@@ -1,5 +1,6 @@
-"""LM assembly: the reference's ``models/lm.py`` in PyTorch, families
-``dense``, ``vlm``, ``moe`` (GQA or MLA) and ``ssm`` (rwkv6).
+"""LM assembly: the reference's ``models/lm.py`` in PyTorch, all six
+families: ``dense``, ``vlm``, ``moe`` (GQA or MLA), ``ssm`` (rwkv6),
+``hybrid`` (jamba: mamba and attention) and ``encdec`` (whisper).
 
 An architecture compiles to a list of **stages**; each stage runs
 ``repeat`` structurally-identical **groups** of layers, with the
@@ -13,17 +14,21 @@ family's program as data:
   deepseek-v3:               (mla, mlp) x3 dense head, then (mla, moe) x58
   jamba:                     4 periods of "mmmammmm" with MoE on odd slots
   rwkv6:                     1 stage x L  [(rwkv, rwkv_cm)]
-  whisper:                   decoder stage (causal gqa + cross-attn)
+  whisper:                   encoder (bidirectional gqa + mlp, its own
+                             stack) + decoder stage (causal gqa + cross-attn)
 
-The hybrid and encdec families and ``tp > 1`` raise
-``NotImplementedError``.  Every RMSNorm -> projection pair with a
-continuous output runs through ``ops.fused_norm_matmul``: GQA's q, k and
-v, MLA's three entries (``models/attention.py``), the SwiGLU gate and up,
-and the shared expert's gate and up (``models/moe.py``).  The MoE router
-is not such a pair (see ``_apply_ffn``); the rwkv mixer norms, then
-shifts, then projects, so it has none (``models/rwkv.py``).  The
-parameter tree has the reference's names and nesting, so
-``params_from_reference`` carries the reference's weights across.
+``tp > 1`` raises ``NotImplementedError``.  Every RMSNorm -> projection
+pair with a continuous output runs through ``ops.fused_norm_matmul``:
+GQA's q, k and v (the encoder's too), MLA's three entries
+(``models/attention.py``), mamba's ``w_in`` (``models/mamba.py``), the
+cross-attention's ``cq``, the SwiGLU gate and up, and the shared expert's
+gate and up (``models/moe.py``).  The MoE router is not such a pair (see
+``_apply_ffn``); the rwkv mixer norms, then shifts, then projects, so it
+has none (``models/rwkv.py``); the cross-attention's ``ck`` and ``cv``
+read the encoder output, normalized already by ``enc_final_norm``, and
+are plain products, as in the reference.  The parameter tree has the
+reference's names and nesting, so ``params_from_reference`` carries the
+reference's weights across.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.outback import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as att
+from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import normal_init, rms_norm, silu, tree_map
@@ -58,9 +64,13 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-_PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm")
-# each mixer's cache leaves, in the order of its tuple form
-_MIXER_CACHE = {"gqa": ("k", "v"), "mla": ("c", "r"), "rwkv": ("x", "s")}
+_PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# each mixer's cache leaves, in the order of its tuple form (whisper's
+# cross-attention K/V are recomputed from the encoder output each step,
+# so only the self-attention cache is stored)
+_MIXER_CACHE = {"gqa": ("k", "v"), "gqa_cross": ("k", "v"),
+                "mla": ("c", "r"), "mamba": ("h", "tail"),
+                "rwkv": ("x", "s")}
 
 
 def _require_ported(cfg: ModelConfig, tp: int) -> None:
@@ -109,7 +119,7 @@ def make_program(cfg: ModelConfig):
 def _mixer_template(kind: str, cfg: ModelConfig):
     d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
     t = {}
-    if kind == "gqa":
+    if kind in ("gqa", "gqa_cross"):
         sq = 1.0 / float(np.sqrt(d))
         so = 1.0 / float(np.sqrt(H * hd))
         for k, s in att.gqa_params_shape(cfg).items():
@@ -119,14 +129,25 @@ def _mixer_template(kind: str, cfg: ModelConfig):
                 t[k] = Leaf(s, scale=so)
             else:
                 t[k] = Leaf(s)
+        if kind == "gqa_cross":  # the cross-attention's projections
+            Hkv = cfg.num_kv_heads
+            t["cq"] = Leaf((d, H, hd), scale=sq)
+            t["ck"] = Leaf((d, Hkv, hd), scale=sq)
+            t["cv"] = Leaf((d, Hkv, hd), scale=sq)
+            t["co"] = Leaf((H, hd, d), scale=so)
+            t["norm_cross"] = Leaf((d,))
     elif kind == "mla":
         t = {k: Leaf(s) for k, s in att.mla_params_shape(cfg).items()}
+    elif kind == "mamba":  # in the model's dtype, as in the reference
+        t = {k: Leaf(s, dtype="float32" if k in ("A_log", "D", "dt_bias")
+                     else cfg.dtype)
+             for k, s in mam.mamba_params_shape(cfg).items()}
     elif kind == "rwkv":
         for k, s in rwkv_mod.rwkv_params_shape(cfg).items():
             t[k] = Leaf(s, dtype="float32" if k in ("w0", "u")
                         else "bfloat16")
     else:
-        raise NotImplementedError(f"mixer {kind!r} is not yet ported")
+        raise ValueError(kind)
     t["norm"] = Leaf((d,))
     return t
 
@@ -141,7 +162,7 @@ def _ffn_template(kind: str, cfg: ModelConfig):
     elif kind == "moe":  # router, the (E, d, f) banks, the shared s_*
         t = {k: Leaf(s) for k, s in moe_mod.moe_params_shape(cfg).items()}
     else:
-        raise NotImplementedError(f"ffn {kind!r} is not yet ported")
+        raise ValueError(kind)
     t["norm"] = Leaf((d,))
     return t
 
@@ -161,6 +182,13 @@ def param_template(cfg: ModelConfig, tp: int = 1):
         stages.append(tree_map(
             lambda lf: Leaf((repeat, *lf.shape), lf.dtype, lf.scale), gt))
     t["stages"] = stages
+    if cfg.is_encdec:  # the encoder: bidirectional gqa + mlp, stacked
+        enc = {"mixer": _mixer_template("gqa", cfg),
+               "ffn": _ffn_template("mlp", cfg)}
+        t["encoder"] = tree_map(
+            lambda lf: Leaf((cfg.encoder_layers, *lf.shape), lf.dtype,
+                            lf.scale), enc)
+        t["enc_final_norm"] = Leaf((d,))
     if cfg.mtp:
         t["mtp"] = {"mixer": _mixer_template(
             "mla" if cfg.attn_kind == "mla" else "gqa", cfg),
@@ -168,6 +196,8 @@ def param_template(cfg: ModelConfig, tp: int = 1):
             "proj": Leaf((2 * d, d))}
     if cfg.vision_tokens:
         t["vision_proj"] = Leaf((d, d))  # stub anyres projector
+    if cfg.is_encdec:
+        t["frame_proj"] = Leaf((d, d))  # stub conv-frontend projector
     return t
 
 
@@ -185,11 +215,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
         dt = dtype or _DTYPES[lf.dtype]
         if any(s == 0 for s in lf.shape):
             return torch.zeros(lf.shape, dtype=dt, device=device)
-        # name-dispatched special leaves (independent of the stack axis);
-        # the rules of the other families' leaves come with those families
+        # name-dispatched special leaves (independent of the stack axis)
         if "norm" in name or name == "ln_x":
             return torch.ones(lf.shape, dtype=dt, device=device)
-        if name.startswith("b"):
+        if name.startswith("b") or name in ("dt_bias", "conv_b"):
             return torch.zeros(lf.shape, dtype=dt, device=device)
         if name.startswith("mu_"):
             return torch.full(lf.shape, 0.5, dtype=dt, device=device)
@@ -197,6 +226,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
             return torch.full(lf.shape, -1.0, dtype=dt, device=device)
         if name == "u":
             return normal_init(gen, lf.shape, 0.1, dt)
+        if name == "A_log":  # mamba: A = -(1..N) on every channel
+            n = torch.arange(1, lf.shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            return torch.log(n).expand(lf.shape).to(dt).contiguous()
+        if name == "D":
+            return torch.ones(lf.shape, dtype=dt, device=device)
         if len(lf.shape) >= 2:
             fan_in = lf.shape[-2]
             scale = lf.scale if lf.scale is not None else 1.0 / np.sqrt(fan_in)
@@ -239,12 +274,13 @@ def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
 
 
 # ------------------------------------------------------------- layer apply
-def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache):
+def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None):
     """-> (x + mixer(x), new mixer cache, the sum unrounded or None).
 
     rwkv's residual sum also comes back in float32: the reference's
     compiled layer fuses that add into the channel mix's RMSNorm, which
-    reads the sum before it is rounded to bf16."""
+    reads the sum before it is rounded to bf16.  ``gqa_cross`` adds the
+    cross-attention to ``enc_out`` after the self-attention."""
     if kind == "rwkv":
         h = rms_norm(x, p["norm"])
         new_cache = None
@@ -254,16 +290,44 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache):
             out, new_cache = rwkv_mod.time_mix(p, h, cfg, mode=mode,
                                                cache=cache)
         return x + out, new_cache, x.float() + out.float()
-    if kind not in ("gqa", "mla"):
-        raise NotImplementedError(f"mixer {kind!r} is not yet ported")
-    apply = att.gqa_apply if kind == "gqa" else att.mla_apply
+    if kind == "mamba":
+        if mode == "train":
+            return (x + mam.mamba_apply(p, x, cfg, gamma=p["norm"],
+                                        mode="train"), None, None)
+        out, new_cache = mam.mamba_apply(p, x, cfg, gamma=p["norm"],
+                                         mode=mode, cache=cache)
+        return x + out, new_cache, None
+    if kind not in ("gqa", "gqa_cross", "mla"):
+        raise ValueError(kind)
+    apply = att.mla_apply if kind == "mla" else att.gqa_apply
+    new_cache = None
     if mode == "train":
         out = apply(p, x, cfg, gamma=p["norm"], positions=positions,
                     mode="train")
-        return x + out, None, None
-    out, new_cache = apply(p, x, cfg, gamma=p["norm"], positions=positions,
-                           mode=mode, cache=cache)
-    return x + out, new_cache, None
+    else:
+        out, new_cache = apply(p, x, cfg, gamma=p["norm"],
+                               positions=positions, mode=mode, cache=cache)
+    x = x + out
+    if kind == "gqa_cross":
+        x = x + _cross_attn(p, x, enc_out, cfg)
+    return x, new_cache, None
+
+
+def _cross_attn(p, x, enc_out, cfg):
+    """Decoder cross-attention (whisper) of the un-normalized ``x`` to the
+    (B, Se, d) encoder output: ``norm_cross`` -> ``cq`` is one fused
+    launch; ``ck`` and ``cv`` project the encoder output, which
+    ``enc_final_norm`` has normalized, as plain products."""
+    B, S, d = x.shape
+    H, hd = p["cq"].shape[1], p["cq"].shape[2]
+    q = ops.fused_norm_matmul(x.reshape(B * S, d), p["norm_cross"],
+                              p["cq"].reshape(d, H * hd)).view(B, S, H, hd)
+    e = enc_out.to(x.dtype)
+    k = torch.einsum("bsd,dhk->bshk", e, p["ck"])
+    v = torch.einsum("bsd,dhk->bshk", e, p["cv"])
+    o = att.flash_attention(q, att.repeat_kv(k, H), att.repeat_kv(v, H),
+                            causal=False)
+    return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["co"])
 
 
 def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None):
@@ -298,16 +362,17 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None):
                 norm_in=norm_in)
         return x + out, cache, aux
     if kind != "mlp":
-        raise NotImplementedError(f"ffn {kind!r} is not yet ported")
+        raise ValueError(kind)
     g = ops.fused_norm_matmul(x2d, p["norm"], p["w_gate"])
     u = ops.fused_norm_matmul(x2d, p["norm"], p["w_up"])
     return (x + torch.matmul(silu(g) * u, p["w_down"]).view(B, S, d), cache,
             None)
 
 
-def _group_body(group, lp, x, cfg, positions, mode, cache_g):
+def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None):
     """One group of layers (``lp``: their parameters; ``cache_g``: each
-    layer's ``(c_m, c_f)``, or None in train mode) -> (x, the group's MoE
+    layer's ``(c_m, c_f)``, or None in train mode; ``enc_out``: the
+    encoder output a ``gqa_cross`` layer reads) -> (x, the group's MoE
     aux loss (None without a MoE layer), each layer's ``(nc_m, nc_f)``):
     the body that remat wraps, so the recompute gives the same aux."""
     new_cache_g = []
@@ -316,7 +381,7 @@ def _group_body(group, lp, x, cfg, positions, mode, cache_g):
         mp, fp = lp[li]["mixer"], lp[li]["ffn"]
         c_m, c_f = (None, None) if cache_g is None else cache_g[li]
         x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg, positions=positions,
-                                      mode=mode, cache=c_m)
+                                      mode=mode, cache=c_m, enc_out=enc_out)
         x, nc_f, aux = _apply_ffn(ffn, fp, x, cfg, mp, mode=mode, cache=c_f,
                                   x_sum=x_sum)
         if aux is not None:
@@ -357,12 +422,46 @@ class LM:
         emb = params.get("lm_head", params["embed"])
         return h @ emb.T.to(h.dtype)
 
+    # ---- encoder (whisper)
+    def _encode(self, params, frames):
+        """The encoder over (B, Se, d) frame embeddings: ``frame_proj``,
+        then each layer's bidirectional attention without RoPE (whisper
+        learns its positions; the stub frontend carries them) and its MLP,
+        then ``enc_final_norm``.  q, k and v, and the gate and up, are
+        fused launches."""
+        cfg = self.cfg
+        x = torch.matmul(frames.to(_dtype(cfg)), params["frame_proj"])
+        B, S, d = x.shape
+        H, hd = cfg.num_heads, cfg.head_dim
+        enc = params["encoder"]
+        views = {part: {k: v.unbind(0) for k, v in enc[part].items()}
+                 for part in ("mixer", "ffn")}
+        for i in range(cfg.encoder_layers):
+            mp = {k: v[i] for k, v in views["mixer"].items()}
+            fp = {k: v[i] for k, v in views["ffn"].items()}
+            x2d = x.reshape(B * S, d)
+
+            def proj(w):
+                heads = w.shape[1]
+                return ops.fused_norm_matmul(
+                    x2d, mp["norm"], w.reshape(d, heads * hd)).view(
+                        B, S, heads, hd)
+
+            q, k, v = proj(mp["wq"]), proj(mp["wk"]), proj(mp["wv"])
+            o = att.flash_attention(q, att.repeat_kv(k, H),
+                                    att.repeat_kv(v, H), causal=False)
+            x = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), mp["wo"])
+            x, _, _ = _apply_ffn("mlp", fp, x, cfg, mp, mode="train",
+                                 cache=None)
+        return rms_norm(x, params["enc_final_norm"])
+
     # ---- the layer stack
     def _stack(self, params, x, *, positions, mode, caches=None, length=None,
-               remat=False):
+               remat=False, enc_out=None):
         """Run all stages.  ``caches``: the cache's per-stage trees, stacked
         on the layer axis (None in train mode); ``length`` is the shared
-        per-row cache write position (decode).  With ``remat``, in train
+        per-row cache write position (decode); ``enc_out`` the encoder
+        output (encdec).  With ``remat``, in train
         mode and with a gradient asked for, each group of layers runs under
         ``torch.utils.checkpoint`` (non-reentrant): its activations are
         recomputed in the backward, as the reference's
@@ -390,11 +489,11 @@ class LM:
                         # the reference's tuple form of the layer's cache
                         c_m = tuple(c["mixer"][n][i]
                                     for n in _MIXER_CACHE[mixer])
-                        if mixer in ("gqa", "mla"):
+                        if mixer in ("gqa", "gqa_cross", "mla"):
                             c_m = (*c_m, length)  # per-row write position
                         cache_g.append(
                             (c_m, None if c["ffn"] is None else c["ffn"][i]))
-                args = (group, lp, x, cfg, positions, mode, cache_g)
+                args = (group, lp, x, cfg, positions, mode, cache_g, enc_out)
                 x, aux_g, new_cache_g = (checkpoint(_group_body, *args,
                                                     use_reentrant=False)
                                          if ckpt else _group_body(*args))
@@ -424,17 +523,25 @@ class LM:
             x = torch.cat([vis, x], dim=1)
         return x
 
+    def _enc_out(self, params, batch):
+        """The encoder's output of ``batch["frames"]`` (encdec), or None."""
+        if not self.cfg.is_encdec:
+            return None
+        return self._encode(params, batch["frames"])
+
     def train_loss(self, params, batch, *, remat=True):
         """-> (loss, metrics).  ``batch``: tensors ``tokens`` and ``labels``
-        (B, S) on the model's device, and vlm's ``patches``; only the text
-        positions carry loss.  The MTP term (deepseek) and the MoE aux loss
-        (``aux_loss_coef * aux / num_layers``) are added as in the
-        reference, whose ``ce`` metric is the whole loss."""
+        (B, S) on the model's device, vlm's ``patches`` and encdec's
+        ``frames`` (B, Se, d); only the text positions carry loss.  The MTP
+        term (deepseek) and the MoE aux loss (``aux_loss_coef * aux /
+        num_layers``) are added as in the reference, whose ``ce`` metric
+        is the whole loss."""
         cfg = self.cfg
         x = self._inputs_embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
         x, aux, _ = self._stack(params, x, positions=positions, mode="train",
-                                remat=remat)
+                                remat=remat,
+                                enc_out=self._enc_out(params, batch))
         x = rms_norm(x, params["final_norm"])
         if cfg.vision_tokens:
             x = x[:, cfg.vision_tokens:]
@@ -492,10 +599,17 @@ class LM:
         cfg = self.cfg
 
         def mixer_cache(kind, repeat):
-            if kind == "gqa":
+            if kind in ("gqa", "gqa_cross"):
                 kv = Leaf((repeat, batch, max_seq, cfg.num_kv_heads,
                            cfg.head_dim), dtype=cfg.dtype)
                 return {"k": kv, "v": kv}
+            if kind == "mamba":  # the float32 SSM state and the conv tail
+                mc = cfg.mamba
+                di = mc.expand * cfg.d_model
+                return {"h": Leaf((repeat, batch, di, mc.d_state),
+                                  dtype="float32"),
+                        "tail": Leaf((repeat, batch, mc.d_conv - 1, di),
+                                     dtype=cfg.dtype)}
             if kind == "mla":  # the compressed latent and the rope key
                 m = cfg.mla
                 return {"c": Leaf((repeat, batch, max_seq, m.kv_lora_rank),
@@ -522,23 +636,32 @@ class LM:
                                    device=self.device),
             self.cache_template(batch, max_seq))
 
-    def decode_step(self, params, tokens, cache):
+    def decode_step(self, params, tokens, cache, *, enc_out=None):
         """One token for every sequence. tokens (B,1) -> (logits (B,V),
-        cache).  The cache is not changed: the step returns a new one."""
+        cache).  The cache is not changed: the step returns a new one.
+        encdec reads ``enc_out`` (B, Se, d); without it, a zero encoder
+        stub of (B, encoder_seq, d), made anew each step, as in the
+        reference (whose ``Engine`` passes none either)."""
+        cfg = self.cfg
         x = self._embed(params, tokens)
         length = cache["length"]
+        if cfg.is_encdec and enc_out is None:
+            enc_out = torch.zeros((tokens.shape[0], cfg.encoder_seq,
+                                   cfg.d_model), dtype=_dtype(cfg),
+                                  device=x.device)
         x, _, new_stages = self._stack(params, x, positions=length[:, None],
                                        mode="decode", caches=cache["stages"],
-                                       length=length)
+                                       length=length, enc_out=enc_out)
         x = rms_norm(x, params["final_norm"])
         logits = self._unembed_logits(params, x[:, 0])
         return logits, {"stages": new_stages, "length": length + 1}
 
     def prefill(self, params, batch):
         """Full-sequence forward: logits at the last position (``batch``:
-        ``tokens``, and vlm's ``patches``)."""
+        ``tokens``, vlm's ``patches`` and encdec's ``frames``)."""
         x = self._inputs_embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        x, _, _ = self._stack(params, x, positions=positions, mode="train")
+        x, _, _ = self._stack(params, x, positions=positions, mode="train",
+                              enc_out=self._enc_out(params, batch))
         x = rms_norm(x, params["final_norm"])
         return self._unembed_logits(params, x[:, -1])

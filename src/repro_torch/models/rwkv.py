@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.common import xla_sigmoid
+
 _CLIP = 80.0  # exponent safety net; inactive for w_log in [-WLOG_FLOOR, 0]
 _LORA = 32  # decay LoRA rank
 WLOG_FLOOR = 4.0  # per-step decay floor e^-4: with chunk 16 the cumulative
@@ -56,12 +58,6 @@ def _decay(p, xw):
     return w_log.reshape(*xw.shape[:-1], H, hs)  # negative log-decay
 
 
-def _sigmoid(x):
-    """The reference's sigmoid as XLA expands it: ``1 / (1 + exp(-x))``, op
-    by op in ``x``'s dtype (``torch.sigmoid`` rounds bf16 differently)."""
-    return 1 / (1 + torch.exp(-x))
-
-
 def _shift(x, x_prev):
     """Token shift: x_{t-1} sequence (B,S,d) given previous-token carry."""
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
@@ -88,7 +84,7 @@ def time_mix(p, x, cfg, *, mode, cache=None, chunk: int = 16):
     k = (mix(p["mu_k"]) @ p["w_k"]).reshape(B, S, H, hs)
     v = (mix(p["mu_v"]) @ p["w_v"]).reshape(B, S, H, hs)
     gp = mix(p["mu_g"]) @ p["w_g"]
-    g = gp * _sigmoid(gp)  # silu
+    g = gp * xla_sigmoid(gp)  # silu
     w_log = _decay(p, mix(p["mu_w"]))  # (B,S,H,hs), <= 0
 
     rf, kf, vf = r.float(), k.float(), v.float()
@@ -157,7 +153,7 @@ def channel_mix(p, x, *, mode, cache=None):
     xk = x + (xs - x) * p["mu_ck"]
     xr = x + (xs - x) * p["mu_cr"]
     h = torch.square(torch.relu(xk @ p["c_k"])) @ p["c_v"]
-    out = _sigmoid(xr @ p["c_r"]) * h
+    out = xla_sigmoid(xr @ p["c_r"]) * h
     if mode == "train":
         return out
     return out, x[:, -1]

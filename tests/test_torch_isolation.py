@@ -221,17 +221,20 @@ def test_importing_the_serving_plane_loads_neither_jax_nor_repro(module):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.models.mamba",
                                     "repro_torch.launch.serve"])
 def test_importing_the_model_families_loads_neither_jax_nor_repro(module):
-    """The MoE block and the serving launcher, each imported alone in a
-    fresh interpreter that then serves the reduced mixtral-8x22b and
-    deepseek-v3-671b (MLA, the shared expert) through the launcher on the
+    """The MoE and mamba blocks and the serving launcher, each imported
+    alone in a fresh interpreter that then serves the reduced
+    mixtral-8x22b, deepseek-v3-671b (MLA, the shared expert),
+    jamba-v0.1-52b and whisper-large-v3 through the launcher on the
     CPU."""
     code = (
         "import sys, json, importlib\n"
         f"importlib.import_module({module!r})\n"
         "from repro_torch.launch import serve\n"
-        "for arch in ('mixtral-8x22b', 'deepseek-v3-671b'):\n"
+        "for arch in ('mixtral-8x22b', 'deepseek-v3-671b', 'jamba-v0.1-52b',\n"
+        "             'whisper-large-v3'):\n"
         "    serve.main(['--arch', arch, '--device', 'cpu', '--requests',\n"
         "                '2', '--max-new', '2'])\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
@@ -241,7 +244,7 @@ def test_importing_the_model_families_loads_neither_jax_nor_repro(module):
                          capture_output=True, text=True, timeout=120,
                          check=True)
     lines = out.stdout.strip().splitlines()
-    assert lines[:2] == ["finished=2 decode_steps=2 prefill_tokens=12"] * 2
+    assert lines[:4] == ["finished=2 decode_steps=2 prefill_tokens=12"] * 4
     assert json.loads(lines[-1]) == []
 
 

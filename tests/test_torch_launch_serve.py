@@ -4,8 +4,8 @@ against the reference's (``python -m repro.launch.serve``) on the CPU.
 Each launcher runs in a subprocess of its own, as a user would start it,
 with its defaults (8 requests of 6 prompt tokens, 4 lanes, 8 new tokens,
 128 positions, the reduced config, weights from seed 0).  For
-mixtral-8x22b both run and their final lines are equal; llava and
-deepseek run through the port alone, since each reference run spends its
+mixtral-8x22b both run and their final lines are equal; llava,
+deepseek, jamba and whisper run through the port alone, since each reference run spends its
 time on jit compiles, and their lines are the counts the engine's
 schedule implies (the reference's, which no token value moves: the
 engine stops a request at ``max_new`` here).  Without a card the
@@ -43,7 +43,8 @@ def test_mixtral_line_equals_the_reference_launchers():
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "jamba-v0.1-52b",
+                                  "whisper-large-v3"])
 def test_port_launcher_serves_the_family(arch):
     got = _last_line("repro_torch.launch.serve", "--arch", arch, "--device",
                      "cpu")

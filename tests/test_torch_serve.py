@@ -12,8 +12,11 @@ part 1, ``tests/test_train_serve.py::test_engine_serves_all``, and a short
 the cache.  An engine with a ``KVSessionStore`` parks through the KVS as
 the reference's does.  The reduced llava-next-mistral-7b, mixtral-8x22b
 and deepseek-v3-671b (MLA's latent cache, the binned MoE over the
-engine's whole batch of lanes) serve ``serve_kvs_part1`` with the
-reference's tokens, stats, caches and lengths, the same way.
+engine's whole batch of lanes), jamba-v0.1-52b (mamba's state and conv
+tail beside the attention cache) and whisper-large-v3 (the zero encoder
+stub each step in both: neither engine passes an encoder output) serve
+``serve_kvs_part1`` with the reference's tokens, stats, caches and
+lengths, the same way.
 """
 
 import dataclasses
@@ -96,7 +99,8 @@ def test_engine_generates_what_the_reference_does(models, case):
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "mixtral-8x22b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "jamba-v0.1-52b",
+                                  "whisper-large-v3"])
 def test_engine_serves_the_new_families_as_the_reference(arch):
     rcfg = dataclasses.replace(r_get_config(arch, reduced=True),
                                dtype="float32")

@@ -411,11 +411,11 @@ def test_int8_grad_compression_over_pods_is_not_yet_ported(tiny):
 
 
 def test_unported_loss_terms_raise(tiny):
-    """The loss terms this test once found unported run now: a vlm's
-    patches branch (only the text positions carry loss) and deepseek's MTP
-    term give finite losses, checked against the reference in
-    ``tests/test_torch_models.py``; a family still unported (hybrid, whose
-    mamba mixer the loss would need) raises before any loss."""
+    """The loss terms this test once found unported run now (it keeps its
+    name): a vlm's patches branch (only the text positions carry loss),
+    deepseek's MTP term, jamba's mamba scan and MoE aux loss and whisper's
+    encoder over frames give finite losses, checked against the reference
+    in ``tests/test_torch_models.py``."""
     cfg, model, params = tiny
     b = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
     vcfg = dataclasses.replace(cfg, family="vlm", vision_tokens=4)
@@ -427,8 +427,14 @@ def test_unported_loss_terms_raise(tiny):
     dp = ds.init(0)
     h = torch.randn(4, 32, ds.cfg.d_model).to(torch.bfloat16)
     assert torch.isfinite(ds._mtp_loss(dp, h, b["labels"]))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        lm.LM(get_config("jamba-v0.1-52b", reduced=True), device="cpu")
+    jamba = lm.LM(get_config("jamba-v0.1-52b", reduced=True), device="cpu")
+    loss, met = jamba.train_loss(jamba.init(0), b)
+    assert torch.isfinite(loss) and float(met["aux"]) > 0
+    wcfg = get_config("whisper-large-v3", reduced=True)
+    whisper = lm.LM(wcfg, device="cpu")
+    wb = dict(b, frames=torch.randn(4, wcfg.encoder_seq, wcfg.d_model))
+    loss, _ = whisper.train_loss(whisper.init(0), wb)
+    assert torch.isfinite(loss)
 
 
 def test_launcher_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
@@ -441,6 +447,16 @@ def test_launcher_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "step    1  loss" in out and "resumed from step 2" in out
     assert train.latest_step(str(tmp_path)) == 3
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-large-v3"])
+def test_launcher_trains_the_hybrid_and_encdec_families_on_cpu(arch, capsys):
+    """The launcher's defaults (128 positions, 4 rows; whisper's audio
+    frontend gives its frames, moved to the device with the batch)."""
+    from repro_torch.launch import train as launch
+    launch.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "step    1  loss" in out and out.strip().endswith("done")
 
 
 def test_train_lm_torch_example_runs_on_cpu():
