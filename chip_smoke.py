@@ -7,8 +7,10 @@
                             # replicated store through a crash, the
                             # telemetry plane, a 4-CN cluster, chaos, the
                             # front door, session parking, rwkv6,
-                            # llama3.2-1b trained, and llava, mixtral,
-                            # deepseek, jamba and whisper served; one card
+                            # llama3.2-1b trained, llava, mixtral,
+                            # deepseek, jamba and whisper served, and
+                            # qwen2.5-14b and mixtral served and llama
+                            # trained by two ranks at tp = 2; one card
 
 Phases; any failure exits non-zero:
 
@@ -76,7 +78,7 @@ Phases; any failure exits non-zero:
    ``torch.matmul`` yardstick, each launch on weights outside L2;
 7. serve llama3.2-1b at full width: ``Engine(LM(llama3.2-1b), lanes=8,
    max_seq=256)`` with random bf16 weights drawn on the card from the seed
-   takes 16 requests (16-64 prompt tokens, 32 greedy new tokens) and runs
+   takes 8 requests (16-64 prompt tokens, 32 greedy new tokens) and runs
    them to the end.  Every request must finish with in-range tokens,
    ``prefill_tokens`` must be the sum of the prompt lengths, and
    ``fused_norm_matmul`` must have launched exactly 5 x 16 times a
@@ -95,15 +97,15 @@ Phases; any failure exits non-zero:
    resize events (less their wall-clock seconds), directory, depths, every
    table's MN image and the cache's whole state must agree exactly.  Then
    ``open_store(StoreSpec("outback-dir", load_factor=0.85,
-   cache_budget_bytes=8 * 2^22, params={"initial_depth": 1}))`` over the
-   first 2^22 keys of phase 3 serves YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
-   (2^16 ops) through ``submit``/``flush`` at window 1024, every answer
+   cache_budget_bytes=8 * 2^20, params={"initial_depth": 1}))`` over the
+   first 2^20 keys of phase 3 serves YCSB-C (2^19 zipf(0.99) Gets) and YCSB-A
+   (2^15 ops) through ``submit``/``flush`` at window 1024, every answer
    checked against the host oracle, printing the hit and negative-hit
    rates, Gets/s, window p50/p99, the host µs of the cache's
    ``probe_batch`` and ``observe_batch`` a window and its
    ``memory_bytes()``; both index kernels must launch in every window with
    a cache miss or a write (counters zeroed just before, read just after).
-   Then table 0 (about 2^21 live keys) splits: 2^16 Gets before,
+   Then table 0 (about 2^19 live keys) splits: 2^16 Gets before,
    ``begin_split``, 2^16 Gets and 2^12 inserts of new keys in the window
    (those routed to the frozen table come back ``"frozen"``), ``build()``
    (timed), ``finish()``, 2^16 Gets after and a read-back of every insert;
@@ -120,7 +122,7 @@ Phases; any failure exits non-zero:
    over the first 2^23 of phase 3's keys at the reference's default load
    factors (RACE at 0.69: at 0.7 its build cannot place 2^24 keys), one
    store at a time: YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
-   (2^16 ops, half updates) at window 1024, then 2^12 deletes and Gets of
+   (2^15 ops, half updates) at window 1024, then 2^12 deletes and Gets of
    the deleted keys, every answer checked (for dummy, which verifies no
    key, against the value at index ``key % n``), printing the build's host
    seconds, Gets/s, window p50/p99, YCSB-A ops/s, the device busy share over
@@ -146,12 +148,12 @@ Phases; any failure exits non-zero:
    state must be equal; then each state's mesh Get (``make_get_fn``) for
    both variants, plain and with a warmed one-replica CN cache, each with
    a transport: every lane, the hit mask, the meter and the trace must be
-   equal.  (b) The first 2^22 of phase 3's keys in one ``sharded`` store
-   (load factor 0.85, one shard) with a transport: YCSB-C (2^20 zipf(0.99)
+   equal.  (b) The first 2^20 of phase 3's keys in one ``sharded`` store
+   (load factor 0.85, one shard) with a transport: YCSB-C (2^17 zipf(0.99)
    Gets, a window of 1024 a submit) through the adapter, then
    ``mesh_state()`` -> ``place_state`` -> ``make_get_fn`` for each variant
-   over the same 2^20 Gets in calls of 1024 and 2^16 lanes, plain and with
-   a 128 MiB CN cache warmed on the first 2^18 Gets.  Every answer is
+   over the same 2^17 Gets in calls of 1024 and 2^16 lanes, plain and with
+   a 128 MiB CN cache warmed on the first 2^15 Gets.  Every answer is
    checked: a lane misses only where its key is an overflow resident (the
    mesh runs no Makeup-Get) and no cache hit answered it, no lane is
    dropped; each call launches ``ludo_lookup`` and ``slot_unpack``; the
@@ -173,10 +175,10 @@ Phases; any failure exits non-zero:
    answers, statuses, each OpResult's attribution, meter snapshots, the
    pipeline's stats, traces, the plane's state and every replica's final
    MN image must be equal.  (b) ``StoreSpec("outback", load_factor=0.85,
-   replicas=2)`` over the first 2^22 of phase 3's keys, its primary
+   replicas=2)`` over the first 2^20 of phase 3's keys, its primary
    crashing at op
    2^18 + 2^14 for 2^14 ops of the op clock (leases at 4096): 2^18
-   zipf(0.99) Gets, then YCSB-A (2^16 ops, half updates) with 2^13 inserts of fresh
+   zipf(0.99) Gets, then YCSB-A (2^15 ops, half updates) with 2^13 inserts of fresh
    keys spread through it and the crash inside it, then 2^18 recovery
    Gets, all at window 1024 in submission order.  Every Get is checked
    against the latest acknowledged value, every acknowledged update and
@@ -194,7 +196,7 @@ Phases; any failure exits non-zero:
    keys with a transport, replayed with ``simulate(trace, clients=4,
    replicas=2)``: p50/p99/p999 and the availability curve's fault windows
    (the reference's model of the fabric, not a measurement of the card).
-   (d) The same crash at K=1 over 2^20 keys: lanes degrade to
+   (d) The same crash at K=1 over 2^18 keys: lanes degrade to
    ``"unavailable"`` with ``found=False``, and after the window every key
    is served.  (e) ``replicas=1`` with the dormant
    ``FaultSchedule(lease_term_ops=0)`` meters and traces byte for byte as
@@ -209,19 +211,19 @@ Phases; any failure exits non-zero:
    traces, MN images and launch counts; an N=1 ``cluster_of`` must answer,
    meter, trace and end in the MN state of ``open_store``; ``run_chaos``
    at its defaults for seeds 1-3 must pass with the CPU's report.  (b)
-   The reference ``obs`` suite's overhead procedure over the first 2^22
+   The reference ``obs`` suite's overhead procedure over the first 2^20
    of phase 3's keys: one engine, a stack with
    ``TelemetryHub(TelemetryConfig(window_ops=4096))`` and one without, a
-   warm-up rep each, 5 interleaved reps of 2^18 zipf(0.99) Gets (one
+   warm-up rep each, 3 interleaved reps of 2^18 zipf(0.99) Gets (one
    ``submit`` each) with GC outside the clock, the minimum a side:
    Gets/s on and off, ``overhead_frac`` (the suite's criterion < 0.05,
    printed, not gated), ``ops{op=get}`` checked exact, each side's device
    busy share.  (c) ``cluster_of`` the ``cluster`` suite's spec
    (``outback-dir``, load factor 0.85, a 256 KiB cache a CN, initial
-   depth 3, telemetry on) over the first 2^22 of phase 3's keys, 4 CNs over
+   depth 3, telemetry on) over the first 2^20 of phase 3's keys, 4 CNs over
    a 4-MN
    pool: CNs 0-2 start, CN 3 joins at op 2^18, every live CN drives
-   zipf(0.9) Gets in batches of 256 (2^19 lanes), each CN updates 2^14/4
+   zipf(0.9) Gets in batches of 256 (2^17 lanes), each CN updates 2^14/4
    keys other CNs own, CN 1 leaves, and every acknowledged update reads
    back through the survivors (0 lost); every answer checked.  Printed:
    Gets/s in all and per CN, batch p50/p99, hit rates, forward RPCs,
@@ -242,8 +244,8 @@ Phases; any failure exits non-zero:
    ``KVSessionStore`` park/get/shrink/delete stream: answers, meters, MN images
    and the cache's state equal; the reduced rwkv6 in float32: 6 decode steps
    and a prefill within 1e-5.  (b) The slo suite's timing store (``outback``,
-   load factor 0.85, window 512, a transport) over the first 2^22 of phase 3's
-   keys: the knee from the suite's capacity probe, then 2^19 offers of its
+   load factor 0.85, window 512, a transport) over the first 2^20 of phase 3's
+   keys: the knee from the suite's capacity probe, then 2^18 offers of its
    singleflight, isolation and acked-writes streams through ``FrontDoor.run``:
    every answer held against a host oracle of the latest acknowledged values,
    every acknowledged write read back (0 lost), no refused update applied;
@@ -253,7 +255,7 @@ Phases; any failure exits non-zero:
    ``simulate_open`` (the reference's model of the fabric, not the card).  The
    launch counters are zeroed just before the three streams and read just
    after.  (c) llama3.2-1b at its published widths with random bf16 weights in
-   ``Engine(lanes=4, max_seq=32,
+   ``Engine(lanes=4, max_seq=16,
    session_store=KVSessionStore(cn_cache_budget_bytes=256 KiB))``: a few steps,
    then a lane parks, resumes, parks and resumes again (each timed), its state
    equal bit for bit to the parked state each time, its length kept, CN cache
@@ -315,13 +317,41 @@ Phases; any failure exits non-zero:
    whisper decoder layer; whisper on the zero encoder stub, as the
    reference's engine), decode-step p50/p99, tokens/s, 8 profiled steps;
    jamba's ``LM.prefill`` of 16 tokens (the mamba scan on the card);
-   whisper's ``LM.prefill`` over frames of (4, 1500, 1280) (its encoder:
-   5 fused launches a layer), its encoder timed alone, then 8
+   whisper's ``LM.prefill`` over frames of (2, 1500, 1280) (its encoder:
+   5 fused launches a layer), its encoder timed alone, then 4
    teacher-forced decode steps on that encoder output (real
    cross-attention); a float32 card-vs-CPU twin of each (jamba reduced;
    whisper at full width with 2 + 2 layers and 1500 frames, decode given
    its encoder output).  The reduced jamba and whisper also take phase 14
    (b)'s float32 training step.
+17. tensor parallelism over a mesh of ranks (``launch/mesh.py``): two rank
+   processes (``tools/tp_rank.py``) in one world on the one card, whose
+   process group serves card tensors with gloo (NCCL refuses two ranks on
+   one device; the mesh says so and takes ``ppermute`` through
+   ``all_gather``, gloo's ``send`` of a card tensor aborting).
+   ``fused_norm_matmul`` against its plain version at the tp = 2 shard
+   shapes (``TP_FNM_PAIRS``, S = 4 and 8), timed at S = 4.  (a) The probe:
+   ``all_reduce``, ``all_gather``, ``send``/``recv`` of bf16, float32 and
+   int8 card tensors (the first two must work) and a 40 KB
+   ``all_reduce``'s host µs.  (b) qwen2.5-14b whole at tp = 2 (about 14.8
+   GB of bf16 shards a rank, drawn on the card from the seed): 8 requests
+   through ``Engine(lanes=4, max_seq=64)``, both ranks' tokens equal, row
+   5 at exactly the shard shapes, decode-step p50/p99, tokens/s, 8
+   profiled steps, the mesh's collectives a call (calls, bytes, host
+   time), peak memory; (c) its float32 twin at 2 layers, tp = 2 against
+   tp = 1 within 1e-3 and the same argmax; (d) mixtral-8x22b cut to 4
+   layers through ``moe_spmd``, served likewise, and its float32 twin at 2
+   layers (the same routing and the same bins, so the same dropped picks);
+   (e) llama3.2-1b at its published widths trained 2 steps of 2 x 512
+   tokens a rank over (1, 2) (tp, vocab-parallel cross entropy), (2, 1)
+   (ZeRO-1: the moments' halves, the parameters equal on both ranks after
+   the gather) and (2, 1, 1) (the int8 pod exchange, 8 of the 16 layers
+   for memory: its loss within 1e-3 of the plain step's on the global
+   batch, ``ef`` nonzero, int8 bytes counted on ``pod``; and at the
+   reference's own test's size, its first leaf's update cosine to the
+   plain step's above 0.8), and a
+   float32 twin at 2 layers: the (2, 1) step equals the plain step within
+   1e-5.  The kernels' launches of both ranks are summed.
 
 The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -334,6 +364,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -353,13 +384,18 @@ N_KEYS_LOG2 = 24
 # one H100 (NVIDIA H100 80GB HBM3, 700 W) each of them spent 40-125 s in
 # its host build at 2^24 keys, and the same tree at 2^23 took 990.0 s on
 # one host and 1306.7 s on another (the host's Python, not the card, sets
-# the time).
-LATER_KEYS_LOG2 = 22
+# the time).  Cut from 2^22 to 2^20 when phase 17 came: at 2^22 these
+# builds took about 131 s of a 1066.0 s run, and at 2^21 the whole script
+# with phase 17 ran past 1200 s on a slow host.
+LATER_KEYS_LOG2 = 20
 # and the later stores' YCSB-A streams are a quarter of phase 3's: at
 # 4700-18000 ops/s a 2^18-op stream took 15-56 s a store on that machine's
 # host, and the whole run with phase 14 took 913.4-1093.7 s at 2^17 ops on
 # two hosts, each with one NVIDIA H100 80GB HBM3 at 700 W
-LATER_YCSB_A_LOG2 = 16
+LATER_YCSB_A_LOG2 = 15  # 2^16 until phase 17 came
+# phase 8's YCSB-C Gets (2^N_GETS_LOG2 until phase 17 came: about 19 s at
+# the cached store's 56,000 Gets/s)
+DIR_GETS_LOG2 = 19
 N_GETS_LOG2 = 20
 N_YCSB_A_LOG2 = 18
 N_WRITES_LOG2 = 14
@@ -505,10 +541,10 @@ COLD_BYTES = 100 << 20
 # Phase 7: Engine(LM(llama3.2-1b)) at full width (src/repro_torch/configs/
 # llama3_2_1b.py: 16 layers, d_model 2048, 32 query heads over 8 KV heads of
 # 64, d_ff 8192, vocab 128256, tied embeddings), random bf16 weights from
-# SEED; 16 requests of 16-64 prompt tokens and 32 greedy new tokens
+# SEED; 8 requests of 16-64 prompt tokens and 32 greedy new tokens
 # through 8 lanes of 256 positions.
 LANES, MAX_SEQ = 8, 256
-N_REQUESTS, MAX_NEW = 16, 32
+N_REQUESTS, MAX_NEW = 8, 32  # 16 requests until phase 17 came
 PROMPT_MIN, PROMPT_MAX = 16, 64
 D_MODEL = 2048
 # the fused entries of one layer: wq, wk, wv, w_gate, w_up
@@ -525,10 +561,10 @@ TWIN_TOL = 1e-3
 # Phase 8: the cached, resizable store.  StoreSpec("outback-dir") over the
 # phase-3 keys with the reference's own settings: load factor 0.85 (its
 # fig17_resize, benchmarks/paper_figs.py) and a CN cache of 8 bytes a key
-# (its zipf_cache): 2^25 bytes for the first 2^22 keys (LATER_KEYS_LOG2),
-# in two tables (initial_depth 1).  YCSB-C 2^20 zipf(0.99) Gets and YCSB-A
+# (its zipf_cache): 2^23 bytes for the first 2^20 keys (LATER_KEYS_LOG2),
+# in two tables (initial_depth 1).  YCSB-C 2^DIR_GETS_LOG2 zipf(0.99) Gets and YCSB-A
 # 2^LATER_YCSB_A_LOG2 ops at window 1024, then a split of table 0 (about
-# 2^21 live keys)
+# 2^19 live keys)
 # with 2^DIR_SPLIT_GETS_LOG2 Gets and 2^DIR_SPLIT_INSERTS_LOG2 inserts of new
 # keys inside its window, and as many Gets before and after it.  The
 # agreement step runs a 2^14-key store with a 64 KiB cache on the card and
@@ -544,7 +580,7 @@ DIR_AGREE_CACHE = 64 << 10
 # RACE at 0.69: at its default 0.7 the reference's 2-choice build cannot
 # place phase 3's 2^24 keys ("RACE table full"), and 0.69 is the largest
 # hundredth at which it can, at 2^24 and 2^23 keys but not at 2^22 (so
-# this phase keeps 2^23, where the other later stores take 2^22); a
+# this phase keeps 2^23, where the other later stores take 2^21); a
 # 2^14-key agreement store at load factor 0.5 (the stream's inserts stay
 # below MICA's displacement bound); the MN step timed at B = 2^16; the
 # modelled comparison at 2^20 keys and 2^16 recorded Gets.
@@ -563,33 +599,36 @@ SIM_CLIENTS = (1, 8, 64)
 # at the registry's load factor 0.85.  A mesh call takes the serve window or
 # the MN step's batch of lanes; MESH_PROFILED of its calls are profiled.  The
 # cached runs probe a 128 MiB CN cache (8 bytes a key, phase 8's budget) warmed
-# on the stream's first 2^18 Gets.
+# on the stream's first 2^MESH_WARM_LOG2 Gets.
 MESH_AGREE_KEYS_LOG2 = 14
 MESH_VARIANTS = ("outback", "race")
 MESH_RTS = {"outback": 1, "race": 2}
 MESH_BATCHES = (WINDOW, MN_BATCH)
 MESH_PROFILED = {WINDOW: 32, MN_BATCH: 4}
 MESH_CACHE_BYTES = 128 << 20
-MESH_WARM_LOG2 = 18
+# the mesh runs' zipf Gets (2^20 until phase 17 came: the 1024-lane calls
+# took about 25 s of the phase) and the cache's warm-up
+MESH_GETS_LOG2 = 17
+MESH_WARM_LOG2 = 15
 # phase 11: the failure plane.  The agreement runs 2^14 keys through five
 # specs; the full-size run is the reference faults suite's setting (load
 # factor 0.85, benchmarks/faults_bench.py:113) over phase 3's keys at K=2,
 # a crash of the primary a quarter into a YCSB-A stream on the op clock
-# (2^16 ops and 2^13 inserts, cut from 2^19 to keep the run inside its
+# (2^15 ops and 2^13 inserts, cut from 2^19 to keep the run inside its
 # limit: it ran at 5400-9000 ops/s), over the first 2^LATER_KEYS_LOG2 of
 # phase 3's keys;
-# (c)-(e) take 2^20 keys and the suite's own stream shape
+# (c)-(e) take 2^FAULT_SMALL_KEYS_LOG2 keys and the suite's own stream shape
 # (faults_bench.py:53-58)
 FAULT_AGREE_KEYS_LOG2 = 14
 FAULT_AGREE_OPS_LOG2 = 12
 FAULT_LOAD_FACTOR = 0.85
 FAULT_N_GETS_LOG2 = 18
-FAULT_N_A_LOG2 = 16
+FAULT_N_A_LOG2 = 15  # 2^16 until phase 17 came
 FAULT_N_INS_LOG2 = 13
 FAULT_CRASH_AT = (1 << FAULT_N_GETS_LOG2) + (1 << (FAULT_N_A_LOG2 - 2))
 FAULT_CRASH_OPS = 1 << (FAULT_N_A_LOG2 - 2)
 FAULT_LEASE_OPS = 4096
-FAULT_SMALL_KEYS_LOG2 = 20
+FAULT_SMALL_KEYS_LOG2 = 18  # 2^20 until phase 17 came
 FAULT_WARM_CALLS = 10
 FAULT_GET_LANES = 64
 FAULT_ROUNDS = 40
@@ -607,15 +646,16 @@ FAULT_TAIL_OPS = 400
 # factor 0.85, a 256 KiB cache a CN, initial depth 3) with its zipf(0.9)
 # skew and batch of 256 over the first 2^LATER_KEYS_LOG2 of phase 3's
 # keys, 4 CNs over a 4-MN pool, CN
-# 3 joining and CN 1 leaving, 2^19 Get lanes (cut from 2^20 to keep the
-# whole run well inside its limit); the large chaos run is run_chaos's
+# 3 joining and CN 1 leaving, 2^17 Get lanes (cut from 2^20, to 2^19 and
+# then to 2^17 when phase 17 came, to keep the whole run well inside its
+# limit); the large chaos run is run_chaos's
 # own harness at 2^16 keys and 2^16 ops (cut from 2^18 for the limit)
 OBS_AGREE_KEYS_LOG2 = 14
-OBS_AGREE_OPS_LOG2 = 12
+OBS_AGREE_OPS_LOG2 = 11  # 2^12 until phase 17 came
 OBS_KEYS_LOG2 = LATER_KEYS_LOG2
 OBS_WINDOW_OPS = 4096
 OBS_GETS_LOG2 = 18
-OBS_REPS = 5
+OBS_REPS = 3  # 5 until phase 17 came
 OBS_PROFILED_WINDOWS = 32
 CLUSTER_CNS = 4
 CLUSTER_MNS = 4
@@ -623,8 +663,8 @@ CLUSTER_CACHE_BYTES = 256 << 10
 CLUSTER_DEPTH = 3
 CLUSTER_THETA = 0.9
 CLUSTER_BATCH = 256
-CLUSTER_LANES_LOG2 = 19
-CLUSTER_JOIN_AT = 1 << 18
+CLUSTER_LANES_LOG2 = 17
+CLUSTER_JOIN_AT = 1 << 16
 CLUSTER_BURST = 1 << 14
 CLUSTER_PROFILED_CALLS = 64
 CLUSTER_SIM = dict(clients_per_cn=2, window=8, mn_threads=4)
@@ -640,7 +680,7 @@ CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 16, batch=256,
 # 2^LATER_KEYS_LOG2 of phase 3's keys; its knee is taken at FD_KNEE_FRAC of the
 # suite's capacity probe (slo_bench.py:136-147: 4000 zipf Gets posted at t=0
 # over 8 QPs), with the knee's p999 from a pass-through run there (the suite
-# sweeps ten loads for it); then 2^19 offers from the suite's singleflight,
+# sweeps ten loads for it); then 2^18 offers from the suite's singleflight,
 # isolation (the contended arm) and acked-writes specs and policies
 # (slo_bench.py:205-214, 259-370).  Session parking runs llama3.2-1b at its
 # published widths through KVSessionStore(cn_cache_budget_bytes=256 KiB)
@@ -653,16 +693,16 @@ FD_AGREE_KEYS = 8000
 FD_WINDOW = 512
 FD_QPS = 8
 FD_C = 8
-FD_OFFERS = {"singleflight": 1 << 18, "isolation": 1 << 17,
-             "acked_writes": 1 << 17}
+FD_OFFERS = {"singleflight": 1 << 17, "isolation": 1 << 16,
+             "acked_writes": 1 << 16}  # halved when phase 17 came
 FD_PROBE_GETS = 4000
 FD_KNEE_FRAC = 0.85
 FD_PROFILED_OFFERS = 1 << 14
 SESSION_LANES = 4
-SESSION_MAX_SEQ = 32
+SESSION_MAX_SEQ = 16  # 32 until phase 17 came (a first park took 46-60 s)
 SESSION_CACHE_BYTES = 256 << 10
 SESSION_PROMPT = 8
-SESSION_NEW = 24
+SESSION_NEW = 6
 SESSION_STEPS = 3
 RWKV_LANES = 8
 RWKV_REQUESTS = 8
@@ -783,8 +823,8 @@ HYBRID_LAYERS = 24
 HYBRID_FAMILIES = (("jamba-v0.1-52b", HYBRID_LAYERS),
                    ("whisper-large-v3", None))
 HYBRID_PROMPT = 16
-WHISPER_ROWS = 4
-WHISPER_TF_STEPS = 8
+WHISPER_ROWS = 2  # 4 rows and 8 steps until phase 17 came
+WHISPER_TF_STEPS = 4
 WHISPER_TWIN_LAYERS = 2
 # row 5's new (d, F) pairs: jamba's mamba w_in; whisper's q / k / v / o-width
 # entries and its MLP; whisper's encoder rows: S = WHISPER_ROWS x 1500
@@ -792,6 +832,19 @@ HYBRID_FNM_PAIRS = ((4096, 16384), (1280, 1280), (1280, 5120))
 HYBRID_FNM_SHAPES = [(S, d, F, "bfloat16") for S in (8, 256)
                      for d, F in HYBRID_FNM_PAIRS] + [
     (WHISPER_ROWS * 1500, 1280, F, "bfloat16") for F in (1280, 5120)]
+# phase 17: tensor parallelism over a world of two ranks on the one card
+# (tools/tp_rank.py; gloo for card tensors, NCCL refusing two ranks on one
+# device).  Row 5's (d, F) at tp = 2: qwen2.5-14b's q, k / v and gate / up
+# shards, mixtral-8x22b's q and k / v shards; checked at the engine's 4
+# rows and at 8, timed at 4.
+TP_RANKS = 2
+TP_FNM_PAIRS = ((5120, 2560), (5120, 512), (5120, 6912), (6144, 3072),
+                (6144, 512))
+TP_FNM_SHAPES = [(S, d, F, "bfloat16") for S in (4, 8)
+                 for d, F in TP_FNM_PAIRS]
+TP_PROBE_DTYPES = ("bfloat16", "float32", "int8")
+TP_PROBE_TIMEOUT = 180
+TP_MAIN_TIMEOUT = 600
 
 
 def log(*a) -> None:
@@ -2285,7 +2338,7 @@ def serve_directory(keys, vals, rng) -> dict:
 
     ops.reset_launch_counts()
     # ---- YCSB-C ----
-    gets("dir_ycsb_c", perm[zipf_ranks(rng, n, 1 << N_GETS_LOG2)])
+    gets("dir_ycsb_c", perm[zipf_ranks(rng, n, 1 << DIR_GETS_LOG2)])
     # ---- YCSB-A: half reads, half updates, in submission order ----
     n_a = 1 << LATER_YCSB_A_LOG2
     idx_a = perm[zipf_ranks(rng, n, n_a)]
@@ -2966,7 +3019,7 @@ def serve_mesh(keys, vals, rng, mesh) -> dict:
     o_lo, o_hi, _ = shard.overflow.items()
     over = np.isin(keys, join_u64(o_lo, o_hi))
     res["overflow_keys"] = int(over.sum())
-    idx = rng.permutation(n)[zipf_ranks(rng, n, 1 << N_GETS_LOG2)]
+    idx = rng.permutation(n)[zipf_ranks(rng, n, 1 << MESH_GETS_LOG2)]
 
     # ---- YCSB-C through the adapter, a window a submit ----
     lat, hs = [], []
@@ -5724,6 +5777,152 @@ def serve_hybrid_phase(gen) -> tuple:
     return res, launches
 
 
+# ------------------------------------------------------------ phase 17
+def start_tp_world(mode: str) -> tuple:
+    """Start TP_RANKS processes of ``tools/tp_rank.py MODE`` in one world
+    (a ``file://`` rendezvous in a temporary directory) -> the handle
+    :func:`wait_tp_world` takes."""
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="tp_world_"))
+    outs = [tmp / f"rank{r}.json" for r in range(TP_RANKS)]
+    # two processes share the card's memory: segments that grow in place
+    # keep the allocators' fragments from adding up
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "tp_rank.py"), mode,
+         str(tmp / "rdv"), str(r), str(outs[r])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(TP_RANKS)]
+    return tmp, outs, procs
+
+
+def wait_tp_world(handle, timeout: float) -> tuple:
+    """Wait up to ``timeout`` s in all for a world of
+    :func:`start_tp_world`, killing its processes after it -> (each rank's
+    JSON or None, exit codes, each rank's last 3000 characters of
+    output)."""
+    import shutil
+    tmp, outs, procs = handle
+    logs, rcs = [""] * TP_RANKS, [None] * TP_RANKS
+    deadline = time.perf_counter() + timeout
+    try:
+        for r, p in enumerate(procs):
+            try:
+                logs[r] = p.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter()))[0]
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                logs[r] = p.communicate()[0]
+            rcs[r] = p.returncode
+        res = [json.loads(o.read_text()) if o.exists() else None
+               for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, rcs, [(lg or "")[-3000:] for lg in logs]
+
+
+def tp_probe(world) -> dict:
+    """17 (a), the probe world ``world`` (:func:`start_tp_world`): which
+    collectives gloo serves on card tensors of each dtype in a world of
+    two ranks on the one card, and a 40 KB bf16 ``all_reduce``'s host µs.
+    ``all_reduce`` and ``all_gather`` must serve every dtype (the phase's
+    mesh needs them); ``send``/``recv`` is recorded as it comes (gloo's
+    TCP pair writes from the device pointer: the sending rank aborts,
+    which ends the probe's world)."""
+    outs, rcs, logs = wait_tp_world(world, TP_PROBE_TIMEOUT)
+    ops = {}
+    for op in ("all_reduce", "all_gather", "send_recv"):
+        for dt in TP_PROBE_DTYPES:
+            key = f"{op}/{dt}"
+            got = [(o or {}).get("ops", {}).get(key, "not reached")
+                   for o in outs]
+            ops[key] = "ok" if all(g == "ok" for g in got) else got
+    res = dict(ops=ops, exit_codes=rcs,
+               all_reduce_40KB_us=[(o or {}).get("all_reduce_40KB_us")
+                                   for o in outs])
+    log(f"17 (a) gloo on card tensors, two ranks on one card: "
+        f"{json.dumps(res)}")
+    need = [f"{op}/{dt}" for op in ("all_reduce", "all_gather")
+            for dt in TP_PROBE_DTYPES]
+    check(all(ops[k] == "ok" for k in need),
+          f"gloo does not serve {[k for k in need if ops[k] != 'ok']} on card "
+          f"tensors; the phase's mesh needs them: {logs}")
+    return res
+
+
+def serve_tp_phase(gen) -> tuple:
+    """Phase 17: row 5 at the tp = 2 shard shapes, the gloo probe, then the
+    world of two ranks (``tools/tp_rank.py main``: qwen2.5-14b served, its
+    float32 twin, mixtral-8x22b cut to 4 layers served, its float32 twin,
+    llama3.2-1b trained over three meshes).  Returns the numbers and the
+    launch counts summed over both ranks."""
+    import torch
+    res, t = {}, time.perf_counter()
+    # the probe's ranks start up while row 5 is checked, and are done
+    # before it is timed
+    probe = start_tp_world("probe")
+    res["fnm_check_shapes"] = check_fnm_shapes(gen, TP_FNM_SHAPES)
+    res["probe"] = tp_probe(probe)
+    res["fnm_timed"] = [time_fnm_shape(gen, 4, d, F, "bfloat16")
+                        for d, F in TP_FNM_PAIRS]
+    res["fnm_probe_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks, rcs, logs = wait_tp_world(start_tp_world("main"),
+                                     TP_MAIN_TIMEOUT)
+    res["world_s"] = time.perf_counter() - t
+    failed = [r for r, out in enumerate(ranks)
+              if rcs[r] != 0 or out is None or "error" in out]
+    for r in failed:
+        out = ranks[r] or {}
+        log(f"17 rank {r} (exit {rcs[r]}): {out.get('traceback', '')}\n"
+            f"{logs[r]}\nwhat it finished: "
+            f"{json.dumps({k: v for k, v in out.items() if k != 'traceback'})}")
+    check(not failed, f"phase 17: ranks {failed} failed (above)")
+    for r, out in enumerate(ranks):
+        check(out["backend"] == "gloo" and out["p2p"] == "all_gather",
+              f"rank {r}: backend {out['backend']}, ppermute {out['p2p']}")
+        log(f"17 rank {r}: mesh backend {out['backend']} (two ranks on "
+            f"{out['device']}), ppermute by {out['p2p']}; "
+            f"{out['seconds']:.1f} s")
+        for arch in ("qwen2.5-14b", "mixtral-8x22b"):
+            a = out[arch]
+            log(f"17 rank {r} {arch} ({a['layers']} layers, tp {a['tp']}): "
+                f"{a['params_local']} parameters a rank ({a['param_bytes_local']}"
+                f" B) drawn in {a['init_s']:.3f} s; decode_step p50 "
+                f"{a['decode_step_ms']['p50']:.4f} ms, p99 "
+                f"{a['decode_step_ms']['p99']:.4f} ms over "
+                f"{a['decode_step_calls']} calls; "
+                f"{a['generated_tokens_per_s']:.2f} generated tokens/s; busy "
+                f"{a['device_busy_share']}, {a['device_ops_per_step']:.1f} "
+                f"device ops a step; collectives a call "
+                f"{json.dumps(a['collectives_per_call'])}; peak "
+                f"{a['max_memory_allocated']} B; tokens equal on the ranks "
+                f"{a['tokens_equal_on_ranks']}; row 5 at {a['row5_shapes']}; "
+                f"twin {json.dumps(a['twin'])}")
+        tr = out["train"]
+        for m in ("tp_1x2", "zero_2x1", "pod_2x1x1", "pod_reduced"):
+            log(f"17 rank {r} train {m}: step ms {tr[m]['step_ms']}, losses "
+                f"{tr[m]['losses']}, {tr[m]['tokens_per_s']:.1f} tokens/s a "
+                f"rank; {json.dumps({k: v for k, v in tr[m].items() if k not in ('step_ms', 'losses', 'tokens_per_s')})}")
+        if "zero_twin_max_abs_err" in tr:
+            log(f"17 rank {r} float32 twin of the (2, 1) step: max abs err "
+                f"{tr['zero_twin_max_abs_err']}")
+    res["ranks"] = ranks
+    launches = {k: sum(out["launches"][k] for out in ranks)
+                for k in ranks[0]["launches"]}
+    log("phase 17: row 5's shapes and the probe {:.1f} s, the world "
+        "{:.1f} s".format(res["fnm_probe_s"], res["world_s"]))
+    return res, launches
+
+
 _KEY_OFFSET = 0x5EED << 40
 
 
@@ -5772,9 +5971,14 @@ def main() -> int:
     check(eng.device.type == "cuda" and eng.slots_lo.is_cuda
           and eng.cn.seeds.is_cuda, "the store is not on the card")
 
+    log(f"phase 1 and the store: {time.perf_counter() - t_start:.1f} s")
+
     # ---- phase 2: kernels against their plain versions ----
+    t2 = time.perf_counter()
     kernels = check_kernels(eng, keys, rng)
     agreement_check(SEED)
+    log(f"phase 2: {time.perf_counter() - t2:.1f} s")
+    t3 = time.perf_counter()
 
     # ---- phase 3: the main path ----
     ops.reset_launch_counts()
@@ -5813,8 +6017,10 @@ def main() -> int:
     del store, eng
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3: {time.perf_counter() - t3:.1f} s")
 
     # ---- phase 4: the paged kernels against their plain versions ----
+    t4 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -5851,8 +6057,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"phases 4-5: {time.perf_counter() - t4:.1f} s")
+
     # ---- phase 6: fused_norm_matmul against its plain version ----
+    t6 = time.perf_counter()
     kernels["fused_norm_matmul"] = check_fused_norm_matmul(gen)
+    log(f"phase 6: {time.perf_counter() - t6:.1f} s")
 
     # ---- phase 7: the dense-model serving path ----
     torch.cuda.reset_peak_memory_stats()
@@ -5871,8 +6081,10 @@ def main() -> int:
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 7: {time.perf_counter() - t6:.1f} s (with phase 6)")
 
     # ---- phase 8: the cached, resizable store ----
+    t8 = time.perf_counter()
     store_agreement_check(SEED)
     torch.cuda.reset_peak_memory_stats()
     dres = serve_directory(keys, vals, rng)
@@ -5885,6 +6097,7 @@ def main() -> int:
     log(f"directory store path: {json.dumps(dres)}")
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
     # ---- phase 9: the comparison baselines and the transport model ----
     t9 = time.perf_counter()
@@ -6001,6 +6214,18 @@ def main() -> int:
     log(f"launches on the hybrid and encdec serving paths: {hlaunch}")
     log(f"hybrid and encdec path: {json.dumps(hres)}")
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+
+    # ---- phase 17: tensor parallelism, two ranks on the card ----
+    t17 = time.perf_counter()
+    pres, plaunch = serve_tp_phase(gen)
+    for name, k in kernels.items():
+        k["launches_tp_path"] = plaunch[name]
+    for name in ("fused_norm_matmul", "fused_norm_matmul_bwd"):
+        check(plaunch[name] > 0, f"{name} never launched on the "
+              f"tensor-parallel path")
+    log(f"launches on the tensor-parallel path (both ranks): {plaunch}")
+    log(f"tensor-parallel path: {json.dumps(pres)}")
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

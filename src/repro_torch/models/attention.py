@@ -12,6 +12,8 @@ plain PyTorch, as the reference computes them outside any Pallas kernel.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from repro_torch.kernels import ops
@@ -117,26 +119,51 @@ def gqa_params_shape(cfg):
     return shapes
 
 
-def gqa_kv_map(cfg, H_eff: int, device=None):
-    """Static q-head -> kv-head mapping (head h reads kv head h // g); pad
-    heads beyond cfg.num_heads map as the last real head does."""
+def gqa_kv_heads(cfg, n_heads: int, q0: int = 0, kv0: int = 0) -> list:
+    """Static q-head -> kv-head mapping of the heads ``q0 .. q0 + n_heads``
+    (head h reads kv head h // g; pad heads beyond cfg.num_heads map as
+    the last real head does), as indices into kv heads held from ``kv0``
+    on."""
     g = max(1, cfg.num_heads // cfg.num_kv_heads)
-    idx = torch.clamp(torch.arange(H_eff, device=device),
-                      max=cfg.num_heads - 1)
-    return idx // g
+    return [min(q0 + j, cfg.num_heads - 1) // g - kv0
+            for j in range(n_heads)]
 
 
-def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
+def expand_kv(k, heads: list):
+    """(B,S,Hkv,d) -> (B,S,len(heads),d), q head j reading kv head
+    ``heads[j]`` (a nondecreasing list): each run of one kv head an
+    expand, so the backward sums each group in a fixed order; the plain
+    GQA pattern is :func:`repeat_kv`."""
+    B, S, Hkv, d = k.shape
+    runs = [(h, len(list(grp))) for h, grp in itertools.groupby(heads)]
+    if [h for h, _ in runs] == list(range(Hkv)) \
+            and len({n for _, n in runs}) == 1:
+        return repeat_kv(k, len(heads))
+    return torch.cat([k[:, :, h:h + 1].expand(B, S, n, d) for h, n in runs],
+                     dim=2)
+
+
+def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
+              q0: int = 0, kv0: int = 0):
     """mode: 'train' (the full sequence, no cache) | 'decode' (one token
     against ``cache``, returns the new cache).
 
     ``x`` (B,S,d) is the un-normalized residual stream and ``gamma`` the
     mixer's RMSNorm weight: each of q, k and v is one
-    ``ops.fused_norm_matmul`` launch.  ``H`` is read from the weights."""
+    ``ops.fused_norm_matmul`` launch.  ``H`` is read from the weights, so
+    ``pad_attn_heads``'s padded q heads flow through: heads at or past
+    ``cfg.num_heads`` read the last real head's kv and contribute zero.
+    On a mesh the weights are one rank's heads, the first of them global
+    q head ``q0`` and kv head ``kv0``."""
     B, S, d = x.shape
     H, hd = p["wq"].shape[1], cfg.head_dim
     Hkv = p["wk"].shape[1]
     x2d = x.reshape(B * S, d)
+    heads = gqa_kv_heads(cfg, H, q0, kv0)
+    pad_mask = None
+    if q0 + H > cfg.num_heads:  # padded heads contribute zero
+        pad_mask = (torch.arange(q0, q0 + H, device=x.device)
+                    < cfg.num_heads).float()
 
     def proj(w, heads):
         return ops.fused_norm_matmul(x2d, gamma, w.reshape(d, heads * hd)) \
@@ -152,10 +179,12 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window if cfg.attn_kind == "swa" else None
     if mode == "train":
-        o = flash_attention(q, repeat_kv(k, H), repeat_kv(v, H), causal=True,
-                            window=window)
+        o = flash_attention(q, expand_kv(k, heads), expand_kv(v, heads),
+                            causal=True, window=window)
+        if pad_mask is not None:
+            o = o * pad_mask[None, None, :, None]
         return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
-    kv_idx = gqa_kv_map(cfg, H, device=x.device)
+    kv_idx = torch.tensor(heads, device=x.device)
     # decode: cache = (k_cache, v_cache, length); the new token is written at
     # per-row `length` (positions = length for RoPE). SWA uses a rolling
     # cache: slot = length % window_size, all-written-slots valid.
@@ -172,6 +201,8 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
     else:
         o = decode_attention(q, k_cache, v_cache, length + 1, window=window,
                              kv_idx=kv_idx)
+    if pad_mask is not None:
+        o = o * pad_mask[None, None, :, None].to(o.dtype)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     return out, (k_cache, v_cache)
 

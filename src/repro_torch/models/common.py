@@ -90,9 +90,25 @@ def normal_init(gen: torch.Generator, shape, scale: float, dtype):
     return out
 
 
+class Spec(tuple):
+    """A sharding spec, the port's ``PartitionSpec``: one entry per leading
+    dimension, each ``None`` (not split), a mesh axis name, or a tuple of
+    axis names (split over their product, the first axis major); missing
+    trailing entries are ``None``.  A tree of specs has the parameter
+    tree's structure, and the tree functions here take a spec as a leaf."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"Spec{tuple.__repr__(self)}"
+
+
 def tree_leaves(tree):
     """The tensors of a nested dict/list/tuple tree, in order (None is an
     empty subtree)."""
+    if isinstance(tree, Spec):
+        return [tree]
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):
@@ -104,6 +120,8 @@ def sorted_leaves(tree, path=()):
     """``[(path, leaf)]`` in the order of the reference's
     ``jax.tree.flatten``: dict keys sorted, lists in order, None an empty
     subtree; ``path`` is the keys and indices down to the leaf."""
+    if isinstance(tree, Spec):
+        return [(path, tree)]
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
                 for x in sorted_leaves(tree[k], path + (k,))]
@@ -136,6 +154,8 @@ def tree_from_sorted_leaves(tree, leaves):
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and of ``rest``, which share its
     structure), keeping the structure; None stays None."""
+    if isinstance(tree, Spec):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}

@@ -17,7 +17,14 @@ family's program as data:
   whisper:                   encoder (bidirectional gqa + mlp, its own
                              stack) + decoder stage (causal gqa + cross-attn)
 
-``tp > 1`` raises ``NotImplementedError``.  Every RMSNorm -> projection
+Tensor parallelism (``tp > 1``) runs over a ``launch/mesh.py`` mesh for
+the gqa mixers, the MLP and the MoE (``moe_spmd``), with the reference's
+specs (``param_pspecs``; ``pad_attn_heads`` pads the q heads to a multiple
+of tp) and a vocab-parallel embedding, logits and cross entropy: each
+rank runs its share with the collectives where the reference's GSPMD puts
+them (``LM``).  The mla, mamba, rwkv and gqa_cross mixers,
+``cache_seq_shard``, ``moe_gather_decode`` and a data axis above 1 in
+serving raise ``NotImplementedError`` at tp > 1.  Every RMSNorm -> projection
 pair with a continuous output runs through ``ops.fused_norm_matmul``:
 GQA's q, k and v (the encoder's too), MLA's three entries
 (``models/attention.py``), mamba's ``w_in`` (``models/mamba.py``), the
@@ -42,11 +49,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.outback import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.mesh import BATCH_AXES
 from repro_torch.models import attention as att
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.common import normal_init, rms_norm, silu, tree_map
+from repro_torch.models.common import (Spec, normal_init, rms_norm, silu,
+                                       tree_map)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int32": torch.int32}
@@ -58,28 +68,51 @@ class Leaf:
     shape: tuple
     dtype: str = "bfloat16"
     scale: float | None = None  # None => 1/sqrt(fan_in)
+    spec: Spec = Spec()  # the reference's PartitionSpec, as a Spec
 
 
 def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def _tp(dim: int, tp: int) -> bool:
+    return tp > 1 and dim % tp == 0
+
+
 _PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the mixers whose sharded program is ported (gqa: heads over `model`)
+_TP_MIXERS = ("gqa",)
 # each mixer's cache leaves, in the order of its tuple form (whisper's
 # cross-attention K/V are recomputed from the encoder output each step,
 # so only the self-attention cache is stored)
 _MIXER_CACHE = {"gqa": ("k", "v"), "gqa_cross": ("k", "v"),
                 "mla": ("c", "r"), "mamba": ("h", "tail"),
                 "rwkv": ("x", "s")}
+_REFUSED = "is not yet ported at tp > 1 (ROADMAP item 18c)"
 
 
-def _require_ported(cfg: ModelConfig, tp: int) -> None:
+def _require_family(cfg: ModelConfig) -> None:
     if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
                                   f"not yet ported")
-    if tp != 1:
-        raise NotImplementedError(f"tensor parallelism (tp={tp}) is not yet "
-                                  f"ported")
+
+
+def _require_ported(cfg: ModelConfig, tp: int) -> None:
+    """The family is ported, and at ``tp > 1`` so is its sharded program:
+    every mixer gqa, no ``cache_seq_shard``, no ``moe_gather_decode``."""
+    _require_family(cfg)
+    if tp == 1:
+        return
+    for _, group in make_program(cfg):
+        for mixer, _ in group:
+            if mixer not in _TP_MIXERS:
+                raise NotImplementedError(
+                    f"the {mixer!r} mixer ({cfg.name}) {_REFUSED}")
+    if cfg.cache_seq_shard:
+        raise NotImplementedError(f"cache_seq_shard ({cfg.name}) {_REFUSED}")
+    if cfg.moe is not None and cfg.moe_gather_decode:
+        raise NotImplementedError(f"moe_gather_decode ({cfg.name}) "
+                                  f"{_REFUSED}")
 
 
 # ------------------------------------------------------------ layer descs
@@ -116,83 +149,140 @@ def make_program(cfg: ModelConfig):
 
 
 # ------------------------------------------------------- param templates
-def _mixer_template(kind: str, cfg: ModelConfig):
-    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+_COL, _ROW, _REP = Spec(None, "model"), Spec("model", None), Spec()
+
+
+def q_heads(cfg: ModelConfig, tp: int) -> int:
+    """The q heads of the parameters: ``num_heads``, padded up to a
+    multiple of ``tp`` under ``pad_attn_heads``."""
+    if cfg.pad_attn_heads and tp > 1:
+        return -(-cfg.num_heads // tp) * tp
+    return cfg.num_heads
+
+
+def _mixer_template(kind: str, cfg: ModelConfig, tp: int = 1):
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    col = lambda s: _COL if _tp(s[-1], tp) else _REP
+    row = lambda s: _ROW if _tp(s[0], tp) else _REP
     t = {}
     if kind in ("gqa", "gqa_cross"):
+        # head-major projections: the head axis is split, never a head;
+        # attention is replicated when the q heads do not divide tp
+        H_eff = q_heads(cfg, tp)
+        qspec = Spec(None, "model", None) if _tp(H_eff, tp) else _REP
+        kvspec = Spec(None, "model", None) if _tp(Hkv, tp) else _REP
+        ospec = Spec("model", None, None) if _tp(H_eff, tp) else _REP
         sq = 1.0 / float(np.sqrt(d))
         so = 1.0 / float(np.sqrt(H * hd))
         for k, s in att.gqa_params_shape(cfg).items():
-            if k in ("wq", "wk", "wv"):
-                t[k] = Leaf(s, scale=sq)
+            s = tuple(H_eff if x == H else x for x in s)
+            if k == "wq":
+                t[k] = Leaf(s, scale=sq, spec=qspec)
+            elif k in ("wk", "wv"):
+                t[k] = Leaf(s, scale=sq, spec=kvspec)
             elif k == "wo":
-                t[k] = Leaf(s, scale=so)
+                t[k] = Leaf(s, scale=so, spec=ospec)
+            elif k == "bq":
+                t[k] = Leaf(s, spec=_ROW if _tp(H, tp) else _REP)
+            elif k in ("bk", "bv"):
+                t[k] = Leaf(s, spec=_ROW if _tp(Hkv, tp) else _REP)
             else:
                 t[k] = Leaf(s)
         if kind == "gqa_cross":  # the cross-attention's projections
-            Hkv = cfg.num_kv_heads
-            t["cq"] = Leaf((d, H, hd), scale=sq)
-            t["ck"] = Leaf((d, Hkv, hd), scale=sq)
-            t["cv"] = Leaf((d, Hkv, hd), scale=sq)
-            t["co"] = Leaf((H, hd, d), scale=so)
+            t["cq"] = Leaf((d, H, hd), scale=sq, spec=qspec)
+            t["ck"] = Leaf((d, Hkv, hd), scale=sq, spec=kvspec)
+            t["cv"] = Leaf((d, Hkv, hd), scale=sq, spec=kvspec)
+            t["co"] = Leaf((H, hd, d), scale=so, spec=ospec)
             t["norm_cross"] = Leaf((d,))
     elif kind == "mla":
-        t = {k: Leaf(s) for k, s in att.mla_params_shape(cfg).items()}
+        for k, s in att.mla_params_shape(cfg).items():
+            spec = (col(s) if k in ("wq_b", "wk_b", "wv_b")
+                    else row(s) if k == "wo" else _REP)
+            t[k] = Leaf(s, spec=spec)
     elif kind == "mamba":  # in the model's dtype, as in the reference
+        di = cfg.mamba.expand * d
+        spec = {"w_in": _COL if _tp(2 * di, tp) else _REP,
+                "conv_w": _COL if _tp(di, tp) else _REP,
+                "conv_b": Spec("model") if _tp(di, tp) else _REP,
+                "w_bcdt": _ROW if _tp(di, tp) else _REP,
+                "w_dt": _COL if _tp(di, tp) else _REP,
+                "dt_bias": Spec("model") if _tp(di, tp) else _REP,
+                "A_log": _ROW if _tp(di, tp) else _REP,
+                "D": Spec("model") if _tp(di, tp) else _REP,
+                "w_out": _ROW if _tp(di, tp) else _REP}
         t = {k: Leaf(s, dtype="float32" if k in ("A_log", "D", "dt_bias")
-                     else cfg.dtype)
+                     else cfg.dtype, spec=spec[k])
              for k, s in mam.mamba_params_shape(cfg).items()}
     elif kind == "rwkv":
         for k, s in rwkv_mod.rwkv_params_shape(cfg).items():
-            t[k] = Leaf(s, dtype="float32" if k in ("w0", "u")
-                        else "bfloat16")
+            if k in ("w_r", "w_k", "w_v", "w_g", "c_k"):
+                t[k] = Leaf(s, spec=col(s))
+            elif k in ("w_o", "c_v"):
+                t[k] = Leaf(s, spec=row(s))
+            elif k in ("w0", "u"):
+                t[k] = Leaf(s, dtype="float32", spec=row(s))
+            else:
+                t[k] = Leaf(s)
     else:
         raise ValueError(kind)
     t["norm"] = Leaf((d,))
     return t
 
 
-def _ffn_template(kind: str, cfg: ModelConfig):
+def _ffn_template(kind: str, cfg: ModelConfig, tp: int = 1):
     if kind == "rwkv_cm":
         return {}  # rwkv channel-mix params live in the mixer's dict
     d, f = cfg.d_model, cfg.d_ff
     if kind == "mlp":
-        t = {"w_gate": Leaf((d, f)), "w_up": Leaf((d, f)),
-             "w_down": Leaf((f, d))}
+        sc, sr = (_COL, _ROW) if _tp(f, tp) else (_REP, _REP)
+        t = {"w_gate": Leaf((d, f), spec=sc), "w_up": Leaf((d, f), spec=sc),
+             "w_down": Leaf((f, d), spec=sr)}
     elif kind == "moe":  # router, the (E, d, f) banks, the shared s_*
-        t = {k: Leaf(s) for k, s in moe_mod.moe_params_shape(cfg).items()}
+        m = cfg.moe
+        ep = Spec("model", None, None) if _tp(m.num_experts, tp) else _REP
+        fs = m.d_ff_expert * m.num_shared
+        sc, sr = (_COL, _ROW) if _tp(fs, tp) else (_REP, _REP)
+        spec = {"router": _REP, "w_gate": ep, "w_up": ep, "w_down": ep,
+                "s_gate": sc, "s_up": sc, "s_down": sr}
+        t = {k: Leaf(s, spec=spec[k])
+             for k, s in moe_mod.moe_params_shape(cfg).items()}
     else:
         raise ValueError(kind)
     t["norm"] = Leaf((d,))
     return t
 
 
+def _stacked(tree, repeat: int):
+    """Every leaf with the layer-stack axis prepended (spec ``None``)."""
+    return tree_map(lambda lf: Leaf((repeat, *lf.shape), lf.dtype, lf.scale,
+                                    Spec(None, *lf.spec)), tree)
+
+
 def param_template(cfg: ModelConfig, tp: int = 1):
-    """Full parameter template tree: {embed, stages[...], final_norm, ...}."""
-    _require_ported(cfg, tp)
+    """Full parameter template tree: {embed, stages[...], final_norm, ...};
+    each leaf's shape is the whole array's (with ``pad_attn_heads``'s q
+    heads at ``tp``) and its spec the reference's at ``tp``.  The specs
+    cover every family, also where its sharded program is not ported."""
+    _require_family(cfg)
     d, V = cfg.d_model, cfg.vocab_size
-    t = {"embed": Leaf((V, d), scale=0.02), "final_norm": Leaf((d,))}
+    vspec = _ROW if _tp(V, tp) else _REP
+    t = {"embed": Leaf((V, d), scale=0.02, spec=vspec),
+         "final_norm": Leaf((d,))}
     if not cfg.tie_embeddings:
-        t["lm_head"] = Leaf((V, d), scale=0.02)
-    stages = []
-    for repeat, group in make_program(cfg):
-        gt = [{"mixer": _mixer_template(mixer, cfg),
-               "ffn": _ffn_template(ffn, cfg)} for mixer, ffn in group]
-        # prepend the layer-stack axis to every leaf
-        stages.append(tree_map(
-            lambda lf: Leaf((repeat, *lf.shape), lf.dtype, lf.scale), gt))
-    t["stages"] = stages
+        t["lm_head"] = Leaf((V, d), scale=0.02, spec=vspec)
+    t["stages"] = [_stacked([{"mixer": _mixer_template(mixer, cfg, tp),
+                              "ffn": _ffn_template(ffn, cfg, tp)}
+                             for mixer, ffn in group], repeat)
+                   for repeat, group in make_program(cfg)]
     if cfg.is_encdec:  # the encoder: bidirectional gqa + mlp, stacked
-        enc = {"mixer": _mixer_template("gqa", cfg),
-               "ffn": _ffn_template("mlp", cfg)}
-        t["encoder"] = tree_map(
-            lambda lf: Leaf((cfg.encoder_layers, *lf.shape), lf.dtype,
-                            lf.scale), enc)
+        t["encoder"] = _stacked({"mixer": _mixer_template("gqa", cfg, tp),
+                                 "ffn": _ffn_template("mlp", cfg, tp)},
+                                cfg.encoder_layers)
         t["enc_final_norm"] = Leaf((d,))
     if cfg.mtp:
         t["mtp"] = {"mixer": _mixer_template(
-            "mla" if cfg.attn_kind == "mla" else "gqa", cfg),
-            "ffn": _ffn_template("mlp", cfg),
+            "mla" if cfg.attn_kind == "mla" else "gqa", cfg, tp),
+            "ffn": _ffn_template("mlp", cfg, tp),
             "proj": Leaf((2 * d, d))}
     if cfg.vision_tokens:
         t["vision_proj"] = Leaf((d, d))  # stub anyres projector
@@ -201,11 +291,32 @@ def param_template(cfg: ModelConfig, tp: int = 1):
     return t
 
 
+def param_pspecs(cfg: ModelConfig, tp: int = 1):
+    """The template's specs, a tree of :class:`Spec`."""
+    return tree_map(lambda lf: lf.spec, param_template(cfg, tp))
+
+
+def abstract_params(cfg: ModelConfig, tp: int = 1):
+    """The whole parameters as tensors on the ``meta`` device (shape and
+    dtype, no storage): the reference's ``ShapeDtypeStruct`` tree."""
+    return tree_map(lambda lf: torch.empty(lf.shape, dtype=_DTYPES[lf.dtype],
+                                           device="meta"),
+                    param_template(cfg, tp))
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
-                dtype: torch.dtype | None = None, tp: int = 1):
+                dtype: torch.dtype | None = None, tp: int = 1, mesh=None):
     """Random weights from ``seed`` on ``device`` (CUDA unless given), with
     the reference's name-dispatched rules; ``dtype`` overrides every leaf's
-    (bfloat16 by default, as in the reference)."""
+    (bfloat16 by default, as in the reference).  The leaves are drawn
+    whole, in one order, so every rank draws the same model; with
+    ``mesh`` (whose ``model`` size is ``tp``) each rank keeps only its
+    slice of each leaf, a contiguous tensor of its own, and the whole leaf
+    is freed before the next is drawn."""
+    if mesh is not None:
+        tp = mesh.shape.get("model", 1)
+        device = mesh.device if device is None else device
+    _require_ported(cfg, tp)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -238,12 +349,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
             return normal_init(gen, lf.shape, float(scale), dt)
         return normal_init(gen, lf.shape, 0.1, dt)
 
+    def mk_local(name: str, lf: Leaf):
+        full = mk(name, lf)
+        if mesh is None:
+            return full
+        return mesh_mod.local_slice(full, lf.spec, mesh)
+
     def walk(tree, name=""):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, name) for v in tree]
-        return mk(name, tree)
+        return mk_local(name, tree)
 
     return walk(tmpl)
 
@@ -274,13 +391,56 @@ def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
 
 
 # ------------------------------------------------------------- layer apply
-def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None):
+def _gqa_shard(p, x, cfg, par):
+    """This rank's share of a gqa mixer over ``par``'s ``model`` axis ->
+    (leaves, x, gamma, q0, kv0, split).  With the q heads split, the rank
+    holds heads ``q0..`` (and kv heads ``kv0..`` when they split, else
+    all): the activation and gamma enter through ``copy_to`` (the fused
+    norm's dx and dgamma are partial sums), as does every replicated leaf
+    that only the local heads read (kv weights, ``bq`` of padded heads,
+    which the rank slices, the q/k norms).  Otherwise attention runs
+    replicated, with no collective."""
+    tp = par.shape["model"]
+    if not _tp(q_heads(cfg, tp), tp):
+        return p, x, p["norm"], 0, 0, False
+    f = par.copy_to
+    r = par.axis_index("model")
+    h_loc = p["wq"].shape[1]
+    q0 = r * h_loc
+    kv_split = _tp(cfg.num_kv_heads, tp)
+    kv0 = r * p["wk"].shape[1] if kv_split else 0
+    lp = dict(p)
+    for k in ("q_norm", "k_norm") + (() if kv_split else
+                                     ("wk", "wv", "bk", "bv")):
+        if k in lp:
+            lp[k] = f(lp[k])
+    if "bq" in lp and not _tp(cfg.num_heads, tp):  # replicated, padded
+        lp["bq"] = f(lp["bq"])[q0:q0 + h_loc]
+    return lp, f(x), f(p["norm"]), q0, kv0, True
+
+
+def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
+                 par=None):
     """-> (x + mixer(x), new mixer cache, the sum unrounded or None).
 
     rwkv's residual sum also comes back in float32: the reference's
     compiled layer fuses that add into the channel mix's RMSNorm, which
     reads the sum before it is rounded to bf16.  ``gqa_cross`` adds the
-    cross-attention to ``enc_out`` after the self-attention."""
+    cross-attention to ``enc_out`` after the self-attention.  ``par``:
+    the mesh whose ``model`` axis splits the mixer (gqa only), or None."""
+    if par is not None and kind == "gqa":
+        lp, xin, gamma, q0, kv0, split = _gqa_shard(p, x, cfg, par)
+        new_cache = None
+        if mode == "train":
+            out = att.gqa_apply(lp, xin, cfg, gamma=gamma, positions=positions,
+                                mode="train", q0=q0, kv0=kv0)
+        else:
+            out, new_cache = att.gqa_apply(lp, xin, cfg, gamma=gamma,
+                                           positions=positions, mode=mode,
+                                           cache=cache, q0=q0, kv0=kv0)
+        if split:  # wo is row-split: one psum
+            out = par.reduce_from(out)
+        return x + out, new_cache, None
     if kind == "rwkv":
         h = rms_norm(x, p["norm"])
         new_cache = None
@@ -330,7 +490,8 @@ def _cross_attn(p, x, enc_out, cfg):
     return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["co"])
 
 
-def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None):
+def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None,
+               par=None):
     """-> (x, new ffn cache, the MoE aux loss or None).  SwiGLU with both
     entries through the fused norm -> matmul kernel; rwkv's channel mix
     normalises the unrounded residual sum ``x_sum`` with the mixer's
@@ -341,7 +502,11 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None):
     go through the fused kernel: that kernel never rounds the normalized
     rows to bf16, so near-tied scores would pick other experts than the
     reference does, a different answer and not a rounding difference.  The
-    shared expert's gate and up do (``norm_in``)."""
+    shared expert's gate and up do (``norm_in``).
+
+    ``par``: the mesh whose ``model`` axis splits the ffn, or None.  The
+    MLP splits gate and up by columns and ``w_down`` by rows (one psum)
+    when ``d_ff`` divides; the MoE runs ``moe_spmd``."""
     if kind == "rwkv_cm":
         h = rms_norm(x_sum, mixer_p["ln_x"]).to(x.dtype)
         if mode == "train":
@@ -356,6 +521,8 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None):
         norm_in = (x2d, p["norm"])
         if cfg.moe_gather_decode and B * S <= 64 and mode == "decode":
             out, aux = moe_mod.moe_gather_apply(p, h, cfg, norm_in=norm_in)
+        elif par is not None:
+            out, aux = moe_mod.moe_spmd(p, h, cfg, par, norm_in=norm_in)
         else:
             out, aux = moe_mod.moe_apply_binned(
                 p, h, cfg, capacity_factor=cfg.moe.capacity_factor,
@@ -363,13 +530,20 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None):
         return x + out, cache, aux
     if kind != "mlp":
         raise ValueError(kind)
-    g = ops.fused_norm_matmul(x2d, p["norm"], p["w_gate"])
-    u = ops.fused_norm_matmul(x2d, p["norm"], p["w_up"])
-    return (x + torch.matmul(silu(g) * u, p["w_down"]).view(B, S, d), cache,
-            None)
+    split = par is not None and _tp(cfg.d_ff, par.shape["model"])
+    xin, gamma = x2d, p["norm"]
+    if split:  # the fused norm's dx and dgamma are partial sums
+        xin, gamma = par.copy_to(xin), par.copy_to(gamma)
+    g = ops.fused_norm_matmul(xin, gamma, p["w_gate"])
+    u = ops.fused_norm_matmul(xin, gamma, p["w_up"])
+    out = torch.matmul(silu(g) * u, p["w_down"])
+    if split:
+        out = par.reduce_from(out)
+    return x + out.view(B, S, d), cache, None
 
 
-def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None):
+def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None,
+                par=None):
     """One group of layers (``lp``: their parameters; ``cache_g``: each
     layer's ``(c_m, c_f)``, or None in train mode; ``enc_out``: the
     encoder output a ``gqa_cross`` layer reads) -> (x, the group's MoE
@@ -381,9 +555,10 @@ def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None):
         mp, fp = lp[li]["mixer"], lp[li]["ffn"]
         c_m, c_f = (None, None) if cache_g is None else cache_g[li]
         x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg, positions=positions,
-                                      mode=mode, cache=c_m, enc_out=enc_out)
+                                      mode=mode, cache=c_m, enc_out=enc_out,
+                                      par=par)
         x, nc_f, aux = _apply_ffn(ffn, fp, x, cfg, mp, mode=mode, cache=c_f,
-                                  x_sum=x_sum)
+                                  x_sum=x_sum, par=par)
         if aux is not None:
             aux_g = aux if aux_g is None else aux_g + aux
         new_cache_g.append((nc_m, nc_f))
@@ -399,28 +574,94 @@ def _ce_chunk(hs, ls, emb):
     return (lse - gold).sum()
 
 
+def _ce_chunk_vp(hs, ls, emb, mesh):
+    """The same over this rank's rows of the vocabulary (Megatron's
+    vocab-parallel CE): the max is taken without a gradient before its
+    ``pmax``, and the logsumexp's sum and the gold logit each reduce with
+    one psum (identity backward)."""
+    vloc = emb.shape[0]
+    logits = (hs @ emb.T.to(hs.dtype)).float()
+    with torch.no_grad():
+        lmax = mesh.pmax(logits.amax(dim=-1), "model")
+    z = torch.exp(logits - lmax[..., None]).sum(dim=-1)
+    lse = torch.log(mesh.reduce_from(z, "model")) + lmax
+    rel = ls.long() - mesh.axis_index("model") * vloc
+    ok = (rel >= 0) & (rel < vloc)
+    g = logits.gather(-1, rel.clamp(0, vloc - 1)[..., None])[..., 0]
+    gold = mesh.reduce_from(torch.where(ok, g, 0.0), "model")
+    return (lse - gold).sum()
+
+
 # --------------------------------------------------------------- the model
 class LM:
     """A model bound to a config and a device (CUDA unless given): pure
-    functions of the parameters and the cache, as in the reference."""
+    functions of the parameters and the cache, as in the reference.
 
-    def __init__(self, cfg: ModelConfig, tp: int = 1, *, device=None):
-        _require_ported(cfg, tp)
+    With ``mesh`` (``launch/mesh.py``), ``tp`` is its ``model`` size and
+    the model is this rank's program: its parameters are the rank's
+    shards (``init`` draws them, ``launch.mesh.shard_params`` carries the
+    reference's across), its inputs the rank's share of the batch (the
+    whole batch on every ``model`` rank), and it calls the collectives
+    where the reference's GSPMD puts them.  Without a mesh, ``tp > 1``
+    only shapes the parameters (``pad_attn_heads``) and the program runs
+    whole, as the reference's does without one."""
+
+    def __init__(self, cfg: ModelConfig, tp: int = 1, mesh=None, *,
+                 device=None):
         self.cfg = cfg
-        self.tp = tp
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.tp = mesh.shape.get("model", 1) if mesh is not None else tp
+        _require_ported(cfg, self.tp)
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
+        # the batch axes: ('pod', 'data') on a multi-pod mesh
+        self.batch_axes = (("pod", "data") if mesh is not None
+                           and "pod" in mesh.axis_names else ("data",))
         self.program = make_program(cfg)
+        # the mesh the layers split over (None: every layer whole)
+        self._par = mesh if mesh is not None and self.tp > 1 else None
+
+    @property
+    def _vocab_parallel(self) -> bool:
+        """Embedding, logits and CE over this rank's rows of the
+        vocabulary.  The reference also asks that the batch divide the
+        data size; the port's batch is already the rank's share."""
+        return self._par is not None and self.cfg.vocab_size % self.tp == 0
+
+    @property
+    def _data_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.axis_size(BATCH_AXES)
 
     def init(self, seed: int = 0):
-        return init_params(self.cfg, seed, device=self.device)
+        return init_params(self.cfg, seed, device=self.device, tp=self.tp,
+                           mesh=self.mesh)
 
-    # ---- embedding / unembedding
+    def abstract(self):
+        return abstract_params(self.cfg, self.tp)
+
+    def pspecs(self):
+        return param_pspecs(self.cfg, self.tp)
+
+    # ---- embedding / unembedding (vocab-parallel over a mesh)
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(_dtype(self.cfg))
+        emb = params["embed"]
+        if not self._vocab_parallel:
+            return emb[tokens.long()].to(_dtype(self.cfg))
+        vloc = emb.shape[0]
+        rel = tokens.long() - self.mesh.axis_index("model") * vloc
+        ok = (rel >= 0) & (rel < vloc)
+        e = torch.where(ok[..., None], emb[rel.clamp(0, vloc - 1)], 0)
+        return self.mesh.reduce_from(e, "model").to(_dtype(self.cfg))
 
     def _unembed_logits(self, params, h):
+        """Logits over the whole vocabulary; vocab-parallel, each rank's
+        columns are gathered in rank order, so every rank holds (and
+        samples from) the same logits."""
         emb = params.get("lm_head", params["embed"])
-        return h @ emb.T.to(h.dtype)
+        logits = h @ emb.T.to(h.dtype)
+        if self._vocab_parallel:
+            logits = self.mesh.all_gather(logits, "model", dim=-1)
+        return logits
 
     # ---- encoder (whisper)
     def _encode(self, params, frames):
@@ -493,7 +734,8 @@ class LM:
                             c_m = (*c_m, length)  # per-row write position
                         cache_g.append(
                             (c_m, None if c["ffn"] is None else c["ffn"][i]))
-                args = (group, lp, x, cfg, positions, mode, cache_g, enc_out)
+                args = (group, lp, x, cfg, positions, mode, cache_g, enc_out,
+                        self._par)
                 x, aux_g, new_cache_g = (checkpoint(_group_body, *args,
                                                     use_reentrant=False)
                                          if ckpt else _group_body(*args))
@@ -557,22 +799,27 @@ class LM:
 
     def _ce(self, params, h, labels):
         """Cross entropy chunked over S by up to 512 positions, as the
-        reference's non-vocab-parallel branch; with a gradient asked for,
+        reference's non-vocab-parallel branch (over a mesh, its
+        vocab-parallel one, ``_ce_chunk_vp``); with a gradient asked for,
         each chunk runs under ``torch.utils.checkpoint``, so its (B, chunk,
         V) float32 logits are recomputed in the backward rather than
-        kept."""
+        kept.  The loss is the mean over the rank's batch."""
         emb = params.get("lm_head", params["embed"])
         B, S, _ = h.shape
         chunk = max(1, min(512, S))
         n = S // chunk if S % chunk == 0 else 1
         chunk = S // n if n else S
         ckpt = torch.is_grad_enabled()
+        fn, extra = _ce_chunk, ()
+        if self._vocab_parallel:
+            fn, extra = _ce_chunk_vp, (self.mesh,)
+            h = self.mesh.copy_to(h)  # enters this rank's vocabulary rows
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(n):
             hs = h[:, i * chunk:(i + 1) * chunk]
             ls = labels[:, i * chunk:(i + 1) * chunk]
-            part = (checkpoint(_ce_chunk, hs, ls, emb, use_reentrant=False)
-                    if ckpt else _ce_chunk(hs, ls, emb))
+            part = (checkpoint(fn, hs, ls, emb, *extra, use_reentrant=False)
+                    if ckpt else fn(hs, ls, emb, *extra))
             tot = tot + part
         return tot / (B * S)
 
@@ -595,13 +842,22 @@ class LM:
 
     # ---- serving -----------------------------------------------------------
     def cache_template(self, batch: int, max_seq: int):
-        """Tree of (shape, dtype) Leafs describing the decode cache."""
+        """Tree of (shape, dtype, spec) Leafs describing the decode cache
+        (whole shapes; over a mesh a rank holds its kv heads when they
+        split with the q heads, else all of them)."""
         cfg = self.cfg
+        if self._data_size > 1:
+            raise NotImplementedError(
+                f"serving over a data axis of {self._data_size} (and the "
+                f"batch-1 sequence split of the cache) {_REFUSED}")
+        kv_split = self._par is not None and _tp(cfg.num_kv_heads, self.tp) \
+            and _tp(q_heads(cfg, self.tp), self.tp)
+        kv_spec = Spec(None, None, None, "model", None) if kv_split else _REP
 
         def mixer_cache(kind, repeat):
             if kind in ("gqa", "gqa_cross"):
                 kv = Leaf((repeat, batch, max_seq, cfg.num_kv_heads,
-                           cfg.head_dim), dtype=cfg.dtype)
+                           cfg.head_dim), dtype=cfg.dtype, spec=kv_spec)
                 return {"k": kv, "v": kv}
             if kind == "mamba":  # the float32 SSM state and the conv tail
                 mc = cfg.mamba
@@ -631,8 +887,13 @@ class LM:
         return {"stages": stages, "length": Leaf((batch,), dtype="int32")}
 
     def init_cache(self, batch: int, max_seq: int):
+        """Zeros of the rank's share of :meth:`cache_template`."""
+        def shape(lf):
+            return lf.shape if self.mesh is None else \
+                mesh_mod.local_shape(lf.shape, lf.spec, self.mesh)
+
         return tree_map(
-            lambda lf: torch.zeros(lf.shape, dtype=_DTYPES[lf.dtype],
+            lambda lf: torch.zeros(shape(lf), dtype=_DTYPES[lf.dtype],
                                    device=self.device),
             self.cache_template(batch, max_seq))
 

@@ -6,7 +6,7 @@ one (d, E) matmul + top-k) runs where the tokens live, like the CN locator;
 the **expert weights** (memory-heavy) are the MN pool.  Under tensor
 parallelism the experts shard over the ``model`` axis and one collective
 recombines the weighted outputs, a single round trip a layer
-(``moe_spmd`` in the reference); that form comes with the port's mesh.
+(:func:`moe_spmd`, over a ``launch/mesh.py`` mesh).
 The dispatch/combine arithmetic is the sharded KVS router's binning trick
 (``core/sharded_kvs.py``).
 
@@ -240,4 +240,67 @@ def moe_gather_apply(p, x, cfg, stacks=None, layer_idx=None, *,
     if m.num_shared:
         out = out + shared_expert(p, xf, norm_in)
     aux = load_balance_loss(scores, idx, m.num_experts)
+    return out.reshape(B, S, d), aux
+
+
+def spmd_bins(idx, E: int, E_loc: int, m_idx: int, C: int):
+    """:func:`bins` of one ``model`` rank of :func:`moe_spmd`: the picks
+    of experts ``m_idx * E_loc ..`` go to local bins, every other pick to
+    one extra bin that is cut off, by the same stable sort; so the local
+    bins hold exactly the lanes that the whole binning gives those
+    experts.  -> (lane_tok (E_loc*C,), dest (T*k,): E_loc*C for a pick
+    dropped or not local)."""
+    rel = idx - m_idx * E_loc
+    tgt = torch.where((rel >= 0) & (rel < E_loc), rel, E_loc)
+    lane_tok, dest = bins(tgt, E_loc + 1, C)
+    return lane_tok[:E_loc * C], torch.clamp(dest, max=E_loc * C)
+
+
+def moe_spmd(p, x, cfg, mesh, *, norm_in=None):
+    """Replicated-EP dispatch over ``mesh``'s ``model`` axis: the
+    reference's ``moe_spmd`` as this rank's program.  The tokens are
+    replicated across ``model``; the rank bins only the picks routed to
+    its ``E / tp`` local experts (``p``'s banks are its shards; C from the
+    rank's T), runs them, and one psum over ``model`` recombines, with the
+    shared expert's partial sum folded into it when its weights are
+    row-split (added after it otherwise).  The activation and the routing
+    weights enter the local experts through ``copy_to``, so the router's
+    gradient sums over ranks.  With ``E % tp != 0`` the banks are whole
+    and nothing is reduced.  Nothing adds with atomics."""
+    B, S, d = x.shape
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    tp = mesh.shape["model"]
+    split = E % tp == 0
+    E_loc = E // tp if split else E
+    T = B * S
+    C = max(8, int(T * k / E * m.capacity_factor))
+    w, idx, scores = router_probs(p, x, cfg)
+    xf = x.reshape(T, d)
+    idx = idx.reshape(T, k)
+    lane_tok, dest = spmd_bins(idx, E, E_loc,
+                               mesh.axis_index("model") if split else 0, C)
+    f = mesh.copy_to if split else (lambda t: t)
+    lane_w = torch.zeros(E_loc * C + 1, dtype=x.dtype, device=x.device)
+    lane_w = lane_w.index_put((dest,), f(w).reshape(-1).to(x.dtype))
+    lane_w = lane_w[:E_loc * C]
+    lanes = dest.view(T, k).sort(dim=1).values
+    xin = _Dispatch.apply(f(xf), lane_tok, lanes).view(E_loc, C, d)
+    h = silu(torch.bmm(xin, p["w_gate"])) * torch.bmm(xin, p["w_up"])
+    y = torch.bmm(h, p["w_down"]).reshape(E_loc * C, d)
+    out = _Combine.apply(y * lane_w[:, None], lanes, lane_tok)
+    if m.num_shared:
+        fs = m.d_ff_expert * m.num_shared
+        if fs % tp == 0:  # row-split: its partial sum joins the psum
+            part = shared_expert(
+                p, mesh.copy_to(xf), None if norm_in is None else
+                tuple(mesh.copy_to(t) for t in norm_in))
+            out = mesh.reduce_from(out + part, "model") if split else \
+                out + mesh.reduce_from(part, "model")
+        else:
+            out = (mesh.reduce_from(out, "model") if split else out) + \
+                shared_expert(p, xf, norm_in)
+    elif split:
+        out = mesh.reduce_from(out, "model")
+    aux = load_balance_loss(scores, idx.reshape(B, S, k), E)
     return out.reshape(B, S, d), aux

@@ -83,7 +83,15 @@ card and skips without one.  It holds:
 * the vlm, MoE and MLA families: the reduced llava, mixtral and deepseek
   in float32 decode (MLA's latent cache, the binned MoE) and prefill
   (llava behind its patches) on the card within 1e-5 of the CPU, with the
-  routing indices of every MoE layer equal.
+  routing indices of every MoE layer equal;
+* tensor parallelism: a world of two ranks on the one card
+  (``tools/tp_rank.py``, gloo serving card tensors) reduces and gathers
+  bf16, float32 and int8 card tensors; ``fused_norm_matmul`` against its
+  plain version at the tp = 2 shard shapes of qwen2.5-14b and
+  mixtral-8x22b; and in that world the reduced qwen2.5-14b (padded heads)
+  and mixtral (a shared expert) at tp = 2 against tp = 1 (prefill and
+  three decode steps in float32, the same routing and bins), and the
+  (2, 1) ZeRO-1 step against the plain step.
 """
 
 import numpy as np
@@ -1337,3 +1345,64 @@ def _restart_replays(tmp_path, arch):
     for (_, x), (_, y) in zip(sorted_leaves(a.tree()),
                               sorted_leaves(b.tree())):
         assert x.is_cuda and torch.equal(x, y)
+
+
+# ------------------------------------------------------ tensor parallelism
+TP_SHARD_PAIRS = [(5120, 2560), (5120, 512), (5120, 6912), (6144, 3072),
+                  (6144, 512)]
+
+
+@pytest.mark.parametrize("S", [4, 8])
+@pytest.mark.parametrize("d,F", TP_SHARD_PAIRS)
+def test_fused_norm_matmul_at_tp_shard_shapes_on_card(card, S, d, F):
+    """Row 5 at each rank's q, k / v and gate / up columns at tp = 2."""
+    x, g, w, got = _check_fnm(S, d, F, "bfloat16")
+    assert torch.equal(got, ops.fused_norm_matmul(x, g, w))
+
+
+def _tp_world(mode: str, tmp_path) -> list:
+    """Two ranks of ``tools/tp_rank.py MODE`` on the card -> their JSON."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    tool = Path(__file__).resolve().parents[1] / "tools" / "tp_rank.py"
+    outs = [tmp_path / f"rank{r}.json" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(tool), mode,
+                               str(tmp_path / "rdv"), str(r), str(outs[r])],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return [json.loads(o.read_text()) if o.exists() else {"error": lg}
+            for o, lg in zip(outs, logs)]
+
+
+def test_tp_world_of_two_ranks_on_card(card, tmp_path):
+    """gloo serves all_reduce and all_gather of card tensors of each dtype
+    between two ranks on one card."""
+    for out in _tp_world("probe", tmp_path):
+        for op in ("all_reduce", "all_gather"):
+            for dt in ("bfloat16", "float32", "int8"):
+                assert out["ops"][f"{op}/{dt}"] == "ok", out
+
+
+def test_tp_reduced_twins_on_card(card, tmp_path):
+    """tp = 2 against the whole program on the card: the reduced qwen2.5-14b
+    with padded heads and mixtral with a shared expert (float32 prefill and
+    decode within 1e-3, the same argmax, routing and bins), and the (2, 1)
+    ZeRO-1 step against the plain step within 1e-5."""
+    outs = _tp_world("reduced", tmp_path)
+    for out in outs:
+        assert "error" not in out, out.get("traceback", out["error"])
+    twin = outs[0]
+    assert twin["qwen2.5-14b"]["same_argmax"]
+    assert twin["qwen2.5-14b"]["max_abs_err"] <= 1e-3
+    assert twin["mixtral-8x22b"]["routing_equal"]
+    assert twin["mixtral-8x22b"]["bins_equal"]
+    assert twin["zero_twin_max_abs_err"] <= 1e-5

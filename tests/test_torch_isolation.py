@@ -7,9 +7,12 @@
   of the
   on-card tests (``tests/test_torch_cuda.py``, which must run on the GPU
   machine, and its fault specs, ``tests/_torch_fault_specs.py``), of
-  ``tests/test_torch_ludo_plan.py`` and of the spawned mesh rank
-  (``tests/_torch_mesh_rank.py``) finds no import of ``jax`` or
-  of ``repro``;
+  ``tests/test_torch_ludo_plan.py`` and of the spawned mesh ranks
+  (``tests/_torch_mesh_rank.py``, ``tests/_torch_tp_rank.py``,
+  ``tools/tp_rank.py``) finds no import of ``jax`` or of ``repro``;
+* a fresh interpreter that imports ``repro_torch.launch.mesh`` (and
+  decodes and trains a reduced llama over a one-rank CPU mesh) has
+  neither ``jax`` nor ``repro`` in ``sys.modules``;
 * a fresh interpreter that imports ``repro_torch.api`` (and builds a store
   on the CPU), ``repro_torch.net`` (and builds and replays a ``race``
   store's trace on the CPU), the fault plane (``repro_torch.net.faults``
@@ -59,6 +62,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "test_torch_ludo_plan.py",
     ROOT / "tests" / "_torch_mesh_rank.py",
+    ROOT / "tests" / "_torch_tp_rank.py", ROOT / "tools" / "tp_rank.py",
+    ROOT / "tools" / "tp_probe.py",
     ROOT / "tests" / "_torch_fault_specs.py",
     ROOT / "tools" / "fnm_probe.py", ROOT / "tools" / "step_probe.py",
     ROOT / "tools" / "ludo_probe.py", ROOT / "tools" / "store_probe.py",
@@ -100,6 +105,37 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "k = splitmix64(np.arange(1, 200, dtype=np.uint64))\n"
         "st = api.open_store(api.StoreSpec('outback'), k, k, device='cpu')\n"
         "assert st.get_batch(k).found.all()\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_the_mesh_loads_neither_jax_nor_repro(tmp_path):
+    """``repro_torch.launch.mesh`` in a fresh interpreter that joins a
+    one-rank gloo world, builds a CPU mesh, shards a reduced llama over it
+    and runs a decode step and a sharded train step."""
+    code = (
+        "import sys, json, torch, torch.distributed as dist\n"
+        "from repro_torch.launch import mesh as mm\n"
+        "from repro_torch.configs import TrainConfig, get_config\n"
+        "from repro_torch.models.lm import LM\n"
+        "from repro_torch.train import init_state, make_train_step\n"
+        f"dist.init_process_group('gloo', init_method='file://{tmp_path}/r',"
+        " rank=0, world_size=1)\n"
+        "mesh = mm.make_mesh((1, 1), device='cpu')\n"
+        "m = LM(get_config('llama3.2-1b', reduced=True), mesh=mesh)\n"
+        "p = m.init(0)\n"
+        "tok = torch.zeros((2, 1), dtype=torch.int32)\n"
+        "logits, _ = m.decode_step(p, tok, m.init_cache(2, 8))\n"
+        "assert logits.shape == (2, m.cfg.vocab_size)\n"
+        "st = init_state(p, mesh=mesh, pspecs=m.pspecs())\n"
+        "st, met = make_train_step(m, TrainConfig())(st, {\n"
+        "    'tokens': tok.repeat(1, 8), 'labels': tok.repeat(1, 8)})\n"
+        "dist.destroy_process_group()\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
         " in ('jax', 'jaxlib', 'repro'))))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

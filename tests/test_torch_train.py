@@ -399,10 +399,13 @@ def test_checkpoints_cross_the_packages(pairs, tmp_path):
 
 
 def test_int8_grad_compression_over_pods_is_not_yet_ported(tiny):
+    """The int8 pod exchange is ported now (``test_torch_train_mesh.py``);
+    it runs over a ``launch.mesh.Mesh`` of ranks, and a mesh-like object
+    with a second pod, which has no collectives, is refused."""
     _, model, _ = tiny
     tcfg = TrainConfig(grad_compression="int8")
     pods = types.SimpleNamespace(shape={"pod": 2, "data": 1, "model": 1})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         train.make_train_step(model, tcfg, mesh=pods)
     # one pod (or no mesh) takes the plain step, as in the reference
     train.make_train_step(model, tcfg)
