@@ -291,37 +291,18 @@ def _coords_of(rank: int, axis_names, sizes) -> dict:
     return out
 
 
-class MeshShape:
-    """A mesh's arithmetic without a world: ``axis_names``, ``shape`` and
-    ``size``, for the reference's production and debug shapes, which need
-    more ranks than a test has."""
-
-    def __init__(self, shape, axis_names):
-        self.axis_names = tuple(axis_names)
-        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
-
-    @property
-    def size(self) -> int:
-        return int(np.prod(list(self.shape.values())))
+PRODUCTION_SHAPES = {False: ((16, 16), AXES_2D),
+                     True: ((2, 16, 16), AXES_3D)}
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
-    """The reference's ``(16, 16)`` mesh, or ``(2, 16, 16)`` over pods: a
-    :class:`Mesh` inside a world of that size, else its
-    :class:`MeshShape`."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    return _mesh_or_shape(shape, AXES_3D if multi_pod else AXES_2D, device)
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's ``(16, 16)`` mesh, or ``(2, 16, 16)`` over pods
+    (``PRODUCTION_SHAPES``): a world of 256 or 512 ranks."""
+    return make_mesh(*PRODUCTION_SHAPES[multi_pod], device=device)
 
 
-def make_debug_mesh(data: int = 1, model: int = 1, *, device=None):
-    return _mesh_or_shape((data, model), AXES_2D, device)
-
-
-def _mesh_or_shape(shape, axis_names, device):
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() == int(np.prod(shape)):
-        return make_mesh(shape, axis_names, device=device)
-    return MeshShape(shape, axis_names)
+def make_debug_mesh(data: int = 1, model: int = 1, *, device=None) -> Mesh:
+    return make_mesh((data, model), AXES_2D, device=device)
 
 
 # ---------------------------------------------------------------------------

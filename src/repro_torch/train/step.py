@@ -85,12 +85,6 @@ def _int8_pod_exchange(grads, ef, npods: int, mesh, max_axes=None):
             tree_from_sorted_leaves(ef, [o[1] for o in out]))
 
 
-def _leaf_at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
 def make_train_step(model: LM, tcfg: TrainConfig, *, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds (B, S) ``tokens`` and ``labels`` (numpy arrays or tensors) of

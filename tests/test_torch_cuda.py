@@ -88,7 +88,8 @@ card and skips without one.  It holds:
   (``tools/tp_rank.py``, gloo serving card tensors) reduces and gathers
   bf16, float32 and int8 card tensors; ``fused_norm_matmul`` against its
   plain version at the tp = 2 shard shapes of qwen2.5-14b and
-  mixtral-8x22b; and in that world the reduced qwen2.5-14b (padded heads)
+  mixtral-8x22b, and it and ``fused_norm_matmul_bwd`` at the tp training
+  steps' shapes of llama3.2-1b; and in that world the reduced qwen2.5-14b (padded heads)
   and mixtral (a shared expert) at tp = 2 against tp = 1 (prefill and
   three decode steps in float32, the same routing and bins), and the
   (2, 1) ZeRO-1 step against the plain step.
@@ -1159,11 +1160,17 @@ def test_family_decode_on_card_matches_cpu(card, arch):
 
 
 # ------------------------------------------------------ the training path
-FNMB_SHAPES = [  # tests/test_torch_kernels.py's, a ragged S, a training entry
+# the rows of a tp training step of llama3.2-1b (2 x 512 a rank) at its q,
+# k / v and gate / up columns, split at tp = 2 and whole (ZeRO-1, pods)
+TP_TRAIN_SHAPES = [(1024, 2048, F) for F in (1024, 256, 4096, 2048, 512,
+                                               8192)]
+FNMB_SHAPES = [  # tests/test_torch_kernels.py's, a ragged S, a training
+    # entry, the tp training steps' shapes
     (256, 512, 1024, "float32"), (512, 256, 512, "float32"),
     (128, 1024, 512, "bfloat16"), (7, 200, 100, "float32"),
     (9, 64, 131, "bfloat16"), (7, 2048, 1000, "bfloat16"),
-    (2048, 2048, 512, "bfloat16"), (2048, 2048, 512, "float32")]
+    (2048, 2048, 512, "bfloat16"), (2048, 2048, 512, "float32"),
+    *[(*sh, "bfloat16") for sh in TP_TRAIN_SHAPES]]
 
 
 def _rel(got, want) -> float:
@@ -1352,10 +1359,11 @@ TP_SHARD_PAIRS = [(5120, 2560), (5120, 512), (5120, 6912), (6144, 3072),
                   (6144, 512)]
 
 
-@pytest.mark.parametrize("S", [4, 8])
-@pytest.mark.parametrize("d,F", TP_SHARD_PAIRS)
+@pytest.mark.parametrize("S,d,F", [(S, d, F) for d, F in TP_SHARD_PAIRS
+                                   for S in (4, 8)] + TP_TRAIN_SHAPES)
 def test_fused_norm_matmul_at_tp_shard_shapes_on_card(card, S, d, F):
-    """Row 5 at each rank's q, k / v and gate / up columns at tp = 2."""
+    """Row 5 at each rank's q, k / v and gate / up columns at tp = 2 in
+    decode, and at the tp training steps' shapes."""
     x, g, w, got = _check_fnm(S, d, F, "bfloat16")
     assert torch.equal(got, ops.fused_norm_matmul(x, g, w))
 

@@ -9,7 +9,8 @@ process, without a world of ranks.
 * ``state_pspecs`` (data size 16, ZeRO-1 on and off, with the int8
   exchange's ``ef``) and ``abstract_state``, ``expand_pod`` and
   ``tree_expand_pod`` over the same trees;
-* the reference's production and debug shapes;
+* the reference's production and debug shapes, built through
+  ``make_mesh``;
 * ``shard_params``: every rank's shards, put back at their
   ``local_index``, are the whole tree bit for bit (the gather over a world
   is ``tests/test_torch_train_mesh.py``'s);
@@ -118,18 +119,21 @@ def test_expand_pod_matches_reference(spec):
         jax.sharding.PartitionSpec(*spec)))
 
 
-def test_production_and_debug_shapes():
-    """The reference's shapes; without a world of that size they come
-    back as their arithmetic."""
-    for kw, shape, axes in ((dict(), (16, 16), ("data", "model")),
-                            (dict(multi_pod=True), (2, 16, 16),
-                             ("pod", "data", "model"))):
-        m = mesh_mod.make_production_mesh(**kw)
-        assert m.axis_names == axes
-        assert tuple(m.shape.values()) == shape
-        assert m.size == int(np.prod(shape))
-    m = mesh_mod.make_debug_mesh(2, 4)
-    assert m.shape == {"data": 2, "model": 4} and m.size == 8
+def test_production_and_debug_shapes(one_rank_world):
+    """The reference's shapes; each factory builds a mesh through
+    ``make_mesh``, so a world of another size raises."""
+    for multi_pod, shape, axes in ((False, (16, 16), ("data", "model")),
+                                   (True, (2, 16, 16),
+                                    ("pod", "data", "model"))):
+        assert mesh_mod.PRODUCTION_SHAPES[multi_pod] == (shape, axes)
+        with pytest.raises(ValueError,
+                           match=f"needs {int(np.prod(shape))} ranks"):
+            mesh_mod.make_production_mesh(multi_pod=multi_pod, device="cpu")
+    m = mesh_mod.make_debug_mesh(device="cpu")
+    assert isinstance(m, mesh_mod.Mesh)
+    assert m.shape == {"data": 1, "model": 1} and m.size == 1
+    with pytest.raises(ValueError, match="needs 8 ranks"):
+        mesh_mod.make_debug_mesh(2, 4, device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4)])
