@@ -294,7 +294,7 @@ Phases; any failure exits non-zero:
    8 layers, (c) deepseek-v3-671b at its published widths cut to its 3
    dense layers and its first MoE layer, with the MTP block, each with
    random bf16 weights drawn on the card in slices: parameters, bytes,
-   init seconds and peak memory; 8 requests through ``Engine(lanes=4)``
+   init seconds and peak memory; 4 requests through ``Engine(lanes=4)``
    (the launch counters zeroed just before the run and read just after,
    ``fused_norm_matmul`` launched as often a decode_step call as the
    program implies: 5 a llava layer, 3 a mixtral layer, 5 a deepseek
@@ -311,7 +311,7 @@ Phases; any failure exits non-zero:
    1500, no multiple of any tile), two calls bit for bit; timed at S = 8.
    Then (a) jamba-v0.1-52b at its published widths cut to HYBRID_LAYERS of
    its 32 layers and (b) whisper-large-v3 whole (32 encoder and 32
-   decoder layers), random bf16 weights drawn on the card: 8 requests
+   decoder layers), random bf16 weights drawn on the card: 4 requests
    through ``Engine(lanes=4)`` (``fused_norm_matmul`` launched as often a
    decode_step call as the program implies: 18 a jamba period, 6 a
    whisper decoder layer; whisper on the zero encoder stub, as the
@@ -330,19 +330,32 @@ Phases; any failure exits non-zero:
    one device; the mesh says so and takes ``ppermute`` through
    ``all_gather``, gloo's ``send`` of a card tensor aborting).
    ``fused_norm_matmul`` against its plain version at the tp = 2 shard
-   shapes (``TP_FNM_PAIRS``, S = 4 and 8), timed at S = 4.  (a) The probe:
+   shapes (``TP_FNM_PAIRS``, S = 4 and 8; whisper's prefill rows,
+   ``TP_PREFILL_SHAPES``), timed at S = 4.  (a) The probe:
    ``all_reduce``, ``all_gather``, ``send``/``recv`` of bf16, float32 and
    int8 card tensors (the first two must work) and a 40 KB
    ``all_reduce``'s host µs.  (b) qwen2.5-14b whole at tp = 2 (about 14.8
-   GB of bf16 shards a rank, drawn on the card from the seed): 8 requests
+   GB of bf16 shards a rank, drawn on the card from the seed): 4 requests
+   of 1-3 prompt tokens and 8 new ones (one wave)
    through ``Engine(lanes=4, max_seq=64)``, both ranks' tokens equal, row
    5 at exactly the shard shapes, decode-step p50/p99, tokens/s, 8
    profiled steps, the mesh's collectives a call (calls, bytes, host
    time), peak memory; (c) its float32 twin at 2 layers, tp = 2 against
-   tp = 1 within 1e-3 and the same argmax; (d) mixtral-8x22b cut to 4
+   tp = 1 within 1e-4 and the same argmax; (d) mixtral-8x22b cut to 4
    layers through ``moe_spmd``, served likewise, and its float32 twin at 2
    layers (the same routing and the same bins, so the same dropped picks);
-   (e) llama3.2-1b at its published widths trained 2 steps of 2 x 512
+   then deepseek-v3-671b (its 3 dense layers and one MoE layer: MLA by
+   heads, ``moe_spmd`` with sigmoid scores and a shared expert),
+   jamba-v0.1-52b (one 8-layer period: mamba by channels, ``w_in``'s
+   halves exchanged), rwkv6-1.6b and whisper-large-v3 whole (its
+   cross-attention by heads; then a prefill over (2, 1500, 1280) frames
+   through the sharded encoder), served likewise, each with a float32
+   twin (2 layers; the MoE twins with 16 experts, jamba's one "ma"
+   period); mixtral again with ``moe_gather_decode`` and its twin;
+   llama3.2-1b whole over a (2, 1) mesh (8 lanes, 4 a rank; no
+   collective) and its float32 twin on the same lanes; every served
+   config's row-5 launches a call exactly the program's, at shapes checked
+   here; (e) llama3.2-1b at its published widths trained 2 steps of 2 x 512
    tokens a rank over (1, 2) (tp, vocab-parallel cross entropy; its first
    step held to the plain step on the same batch: the loss within 1e-2,
    the embedding's, a wq's and a wo's gradient and update, gathered
@@ -358,7 +371,12 @@ Phases; any failure exits non-zero:
    (``TP_TRAIN_SHAPES``, S = 1024), which the steps must run at; each
    mesh's launches are counted over its own steps alone and must be the
    program's (5 entries a layer: row 5 twice, for the remat, row 6
-   once).  The path's launches of both ranks are summed.
+   once).  (f) One float32 (1, 2) train step of each of the reduced
+   deepseek, jamba, rwkv6 and whisper against the plain step on rank 0
+   (loss, gradients and updates within 1e-5), as many row-5 and row-6
+   launches as the plain step; rows 5 and 6 are then held to their plain
+   versions at the shapes those steps recorded.  The path's launches of
+   both ranks are summed.
 
 The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -415,8 +433,9 @@ WINDOW = 1024
 COLD_SETS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # torch.profiler traces taken for one device time, at most, until one holds
-# every kernel named (a trace late in a long run can hold none of them)
-TRACE_TRIES = 3
+# every kernel named (a trace late in a long run can hold none of them; 3
+# until three in a row held none of row 6's kernels in phase 14 (a))
+TRACE_TRIES = 6
 # H100 SXM peak float32 rate outside the tensor cores (data sheet); the
 # paged kernels do their products as float32 FMAs.
 F32_FLOPS_PER_S = 67e12
@@ -790,7 +809,7 @@ TRAIN_TOKEN = 7
 FAMILIES = (("llava-next-mistral-7b", None), ("mixtral-8x22b", 8),
             ("deepseek-v3-671b", 4))
 FAMILY_LANES, FAMILY_MAX_SEQ = 4, 64
-FAMILY_REQUESTS, FAMILY_NEW = 8, 16
+FAMILY_REQUESTS, FAMILY_NEW = 4, 16  # 8 (two waves) until phase 17 served eight configs
 FAMILY_PROMPT_MIN, FAMILY_PROMPT_MAX = 6, 12
 FAMILY_PROFILED_STEPS = 8
 # the prompt behind llava's 576 patches; the twins' prompts
@@ -802,9 +821,10 @@ FAMILY_TWIN_STEPS = 4
 # fused_norm_matmul entries a layer: GQA's q, k, v; MLA's wq_a, wq_b and
 # wkv_a; mamba's w_in; the cross-attention layer's q, k, v and cq; SwiGLU's
 # gate and up; a MoE ffn's shared expert's gate and up (counted by
-# fused_per_decode_step; its router and routed experts are plain products)
+# fused_per_decode_step; its router and routed experts are plain products);
+# none in rwkv's mixes
 FNM_ENTRIES = {"gqa": 3, "mla": 3, "mamba": 1, "gqa_cross": 4, "mlp": 2,
-               "moe": 0}
+               "moe": 0, "rwkv": 0, "rwkv_cm": 0}
 # row 5's new (d, F) pairs: llava's wq, wk / wv and MLP; mixtral's wq and
 # wk / wv; deepseek's wq_a, wkv_a, dense MLP, shared expert and wq_b;
 # checked at S = 8 and 256, timed at S = 8
@@ -842,19 +862,37 @@ HYBRID_FNM_SHAPES = [(S, d, F, "bfloat16") for S in (8, 256)
 # phase 17: tensor parallelism over a world of two ranks on the one card
 # (tools/tp_rank.py; gloo for card tensors, NCCL refusing two ranks on one
 # device).  Row 5's (d, F) at tp = 2: qwen2.5-14b's q, k / v and gate / up
-# shards, mixtral-8x22b's q and k / v shards; checked at the engine's 4
-# rows and at 8, timed at 4.
+# shards, mixtral-8x22b's q and k / v shards; deepseek-v3-671b's wq_b and
+# dense and shared MLP shards beside its replicated wq_a and wkv_a;
+# jamba-v0.1-52b's w_in, q, k / v and MLP shards; whisper-large-v3's
+# q / k / v / cq and MLP shards; llama3.2-1b's q, k / v and MLP, whole
+# (served over (2, 1)); checked at the engine's 4 rows and at 8, timed at
+# 4.  whisper's prefill runs the q / k / v and MLP shards at its encoder's
+# rows (WHISPER_ROWS x 1500) and its decoder's (WHISPER_ROWS x 16).
 TP_RANKS = 2
 TP_FNM_PAIRS = ((5120, 2560), (5120, 512), (5120, 6912), (6144, 3072),
-                (6144, 512))
+                (6144, 512),
+                (7168, 1536), (7168, 576), (1536, 12288), (7168, 9216),
+                (7168, 1024),
+                (4096, 8192), (4096, 2048), (4096, 512), (4096, 7168),
+                (1280, 640), (1280, 2560),
+                (2048, 2048), (2048, 512), (2048, 8192))
 TP_FNM_SHAPES = [(S, d, F, "bfloat16") for S in (4, 8)
                  for d, F in TP_FNM_PAIRS]
+TP_PREFILL_SHAPES = [(S, 1280, F, "bfloat16")
+                     for S in (WHISPER_ROWS * 1500, WHISPER_ROWS * 16)
+                     for F in (640, 2560)]
 # rows 5 and 6 in the tp training steps: llama3.2-1b's 2 x 512 rows a rank
 # (S = 1024) at d 2048, F its q, k / v and gate / up columns split at
 # tp = 2 over (1, 2) and whole over (2, 1) and (2, 1, 1); the world's
 # steps record theirs, which must be these
 TP_TRAIN_SHAPES = [(1024, 2048, F, "bfloat16")
                    for F in (1024, 256, 4096, 2048, 512, 8192)]
+# the runs of the main world whose records the parent reads (SERVED of
+# tools/tp_rank.py, mixtral with moe_gather_decode, llama3.2-1b over (2, 1))
+TP_SERVED = ("qwen2.5-14b", "mixtral-8x22b", "deepseek-v3-671b",
+             "jamba-v0.1-52b", "rwkv6-1.6b", "whisper-large-v3",
+             "mixtral-8x22b/gather", "llama3.2-1b/data")
 TP_PROBE_DTYPES = ("bfloat16", "float32", "int8")
 TP_PROBE_TIMEOUT = 180
 TP_MAIN_TIMEOUT = 600
@@ -5891,7 +5929,8 @@ def serve_tp_phase(gen) -> tuple:
     # the probe's ranks start up while row 5 is checked, and are done
     # before it is timed
     probe = start_tp_world("probe")
-    res["fnm_check_shapes"] = check_fnm_shapes(gen, TP_FNM_SHAPES)
+    res["fnm_check_shapes"] = check_fnm_shapes(gen, TP_FNM_SHAPES
+                                               + TP_PREFILL_SHAPES)
     res["fnm_train_check_shapes"] = check_fnm_shapes(gen, TP_TRAIN_SHAPES)
     res["fnmb_train_check_shapes"] = check_fnmb_shapes(gen, TP_TRAIN_SHAPES)
     log(f"kernel fused_norm_matmul_bwd: within tolerance of its plain "
@@ -5922,9 +5961,10 @@ def serve_tp_phase(gen) -> tuple:
         log(f"17 rank {r}: mesh backend {out['backend']} (two ranks on "
             f"{out['device']}), ppermute by {out['p2p']}; "
             f"{out['seconds']:.1f} s")
-        for arch in ("qwen2.5-14b", "mixtral-8x22b"):
+        for arch in TP_SERVED:
             a = out[arch]
-            log(f"17 rank {r} {arch} ({a['layers']} layers, tp {a['tp']}): "
+            log(f"17 rank {r} {arch} ({a['layers']} layers, tp {a['tp']}, "
+                f"{a['lanes_local']} lanes a rank): "
                 f"{a['params_local']} parameters a rank ({a['param_bytes_local']}"
                 f" B) drawn in {a['init_s']:.3f} s; decode_step p50 "
                 f"{a['decode_step_ms']['p50']:.4f} ms, p99 "
@@ -5935,8 +5975,12 @@ def serve_tp_phase(gen) -> tuple:
                 f"device ops a step; collectives a call "
                 f"{json.dumps(a['collectives_per_call'])}; peak "
                 f"{a['max_memory_allocated']} B; tokens equal on the ranks "
-                f"{a['tokens_equal_on_ranks']}; row 5 at {a['row5_shapes']}; "
-                f"twin {json.dumps(a['twin'])}")
+                f"{a.get('tokens_equal_on_ranks')}; row 5 at "
+                f"{a['row5_shapes']}, {a['fnm_per_call']} a call; twin "
+                f"{json.dumps(a['twin'])}; {a['seconds']:.1f} s")
+            if "prefill" in a:
+                log(f"17 rank {r} {arch} prefill over frames: "
+                    f"{json.dumps(a['prefill'])}")
         tr = out["train"]
         for m in ("tp_1x2", "zero_2x1", "pod_2x1x1", "pod_reduced"):
             log(f"17 rank {r} train {m}: step ms {tr[m]['step_ms']}, losses "
@@ -5946,12 +5990,38 @@ def serve_tp_phase(gen) -> tuple:
         if "zero_twin_max_abs_err" in tr:
             log(f"17 rank {r} float32 twin of the (2, 1) step: max abs err "
                 f"{tr['zero_twin_max_abs_err']}")
+        tf = out["train_families"]
+        log(f"17 rank {r} (f) float32 (1, 2) steps of the reduced families "
+            f"({tf['seconds']:.1f} s): " + json.dumps(
+                {k: v for k, v in tf.items() if k != "fnm_shapes"}))
     checked = {tuple(sh) for sh in TP_TRAIN_SHAPES}
     for r, out in enumerate(ranks):
         for name, ran in out["train"]["fnm_shapes"].items():
             check({tuple(sh) for sh in ran} == checked,
                   f"rank {r}: {name} ran at {sorted(map(tuple, ran))} in the "
                   f"training steps, checked at {sorted(checked)}")
+    served = {(S, d, F) for S in (4, 8) for d, F in TP_FNM_PAIRS}
+    for r, out in enumerate(ranks):
+        for arch in TP_SERVED:
+            a = out[arch]
+            ran = {(a["lanes_local"], *map(int, sh)) for sh in a["row5_shapes"]}
+            check(ran <= served, f"rank {r} {arch}: row 5 ran at "
+                  f"{sorted(ran - served)}, which were not checked")
+            if "prefill" in a:
+                ran = {tuple(sh) for sh in a["prefill"]["row5_shapes"]}
+                check(ran == {sh[:3] for sh in TP_PREFILL_SHAPES},
+                      f"rank {r} {arch} prefill: row 5 ran at {sorted(ran)}, "
+                      f"checked at {TP_PREFILL_SHAPES}")
+    # (f): rows 5 and 6 against their plain versions at the shapes the
+    # reduced families' float32 steps reached (recorded by both ranks)
+    fam = sorted({tuple(sh) for out in ranks for name in (
+        "fused_norm_matmul", "fused_norm_matmul_bwd")
+        for sh in out["train_families"]["fnm_shapes"][name]})
+    res["fnm_family_train_check_shapes"] = check_fnm_shapes(gen, fam)
+    res["fnmb_family_train_check_shapes"] = check_fnmb_shapes(gen, fam)
+    log(f"kernel fused_norm_matmul_bwd: within tolerance of its plain "
+        f"version, and two calls bit for bit alike, at the {len(fam)} shapes "
+        f"of the reduced families' tp steps {fam}")
     res["ranks"] = ranks
     launches = {k: sum(out["launches"][k] for out in ranks)
                 for k in ranks[0]["launches"]}
@@ -6258,9 +6328,11 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches_tp_path"] = plaunch[name]
     for name, shapes in (("fused_norm_matmul", pres["fnm_check_shapes"]
-                          + pres["fnm_train_check_shapes"]),
+                          + pres["fnm_train_check_shapes"]
+                          + pres["fnm_family_train_check_shapes"]),
                          ("fused_norm_matmul_bwd",
-                          pres["fnmb_train_check_shapes"])):
+                          pres["fnmb_train_check_shapes"]
+                          + pres["fnmb_family_train_check_shapes"])):
         kernels[name]["max_abs_err_tp_shapes"] = max(
             sh["max_abs_err"] for sh in shapes)
     for name in ("fused_norm_matmul", "fused_norm_matmul_bwd"):

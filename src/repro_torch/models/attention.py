@@ -236,7 +236,8 @@ def mla_params_shape(cfg):
     }
 
 
-def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
+def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
+              copy=None):
     """Multi-head latent attention (deepseek-v3).  mode: 'train' | 'prefill'
     (returns the latent cache rows) | 'decode' (uses ``cache``).
 
@@ -244,17 +245,27 @@ def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
     RMSNorm weight.  The cache stores only the compressed latent
     (kv_lora_rank + rope dims a token); decode uses the absorbed-matmul
     form, in float32, so K/V are never expanded.  ``c_kv`` is explicit
-    (the cache stores it), so ``wk_b`` and ``wv_b`` are plain products."""
+    (the cache stores it), so ``wk_b`` and ``wv_b`` are plain products.
+
+    The heads are read from ``wq_b``: on a mesh ``wq_b``, ``wk_b``,
+    ``wv_b`` and ``wo`` are one rank's whole heads (their column and row
+    shards; the projections are head-major), and ``out`` is the rank's
+    partial sum.  ``copy`` (``Mesh.copy_to``) then takes the replicated
+    values where they enter the rank's heads: ``q_a`` and ``q_a_norm`` (the
+    ``wq_b`` entry), the latent ``c_kv`` and the rope key.  The ``wq_a``
+    and ``wkv_a`` entries and the latent run whole on every rank, and every
+    rank writes the same latent to the cache."""
     B, S, d = x.shape
     m = cfg.mla
-    H = cfg.num_heads
     r = m.kv_lora_rank
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    H = p["wq_b"].shape[1] // (dn + dr)
     scale = (dn + dr) ** -0.5
     x2d = x.reshape(B * S, d)
+    f = copy if copy is not None else (lambda t: t)
 
     q_a = ops.fused_norm_matmul(x2d, gamma, p["wq_a"])
-    q = ops.fused_norm_matmul(q_a, p["q_a_norm"], p["wq_b"]).view(
+    q = ops.fused_norm_matmul(f(q_a), f(p["q_a_norm"]), p["wq_b"]).view(
         B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -265,9 +276,10 @@ def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None):
                         cfg.rope_theta)[:, :, 0, :]
 
     if mode in ("train", "prefill"):
-        k_nope = torch.matmul(c_kv, p["wk_b"]).view(B, S, H, dn)
-        v = torch.matmul(c_kv, p["wv_b"]).view(B, S, H, dv)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+        c_in = f(c_kv)
+        k_nope = torch.matmul(c_in, p["wk_b"]).view(B, S, H, dn)
+        v = torch.matmul(c_in, p["wv_b"]).view(B, S, H, dv)
+        k = torch.cat([k_nope, f(k_rope)[:, :, None, :].expand(B, S, H, dr)],
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         o = flash_attention(qq, k, v, causal=True, scale=scale)

@@ -18,13 +18,17 @@ family's program as data:
                              stack) + decoder stage (causal gqa + cross-attn)
 
 Tensor parallelism (``tp > 1``) runs over a ``launch/mesh.py`` mesh for
-the gqa mixers, the MLP and the MoE (``moe_spmd``), with the reference's
-specs (``param_pspecs``; ``pad_attn_heads`` pads the q heads to a multiple
-of tp) and a vocab-parallel embedding, logits and cross entropy: each
-rank runs its share with the collectives where the reference's GSPMD puts
-them (``LM``).  The mla, mamba, rwkv and gqa_cross mixers,
-``cache_seq_shard``, ``moe_gather_decode`` and a data axis above 1 in
-serving raise ``NotImplementedError`` at tp > 1.  Every RMSNorm -> projection
+every mixer (gqa and whisper's encoder and cross-attention by heads, mla
+by heads, mamba by channels, rwkv by heads), the MLP and the MoE
+(``moe_spmd``; ``moe_gather_spmd`` at decode with ``moe_gather_decode``),
+with the reference's specs (``param_pspecs``; ``pad_attn_heads`` pads the
+q heads to a multiple of tp) and a vocab-parallel embedding, logits and
+cross entropy: each rank runs its share with the collectives where the
+reference's GSPMD puts them (``LM``).  In serving, the batch and the cache
+split over a data axis (``cache_template``).  Only the two sequence splits
+of the cache raise ``NotImplementedError`` (ROADMAP item 18d):
+``cache_seq_shard`` at tp > 1, and a batch-1 cache over a data axis above
+1.  Every RMSNorm -> projection
 pair with a continuous output runs through ``ops.fused_norm_matmul``:
 GQA's q, k and v (the encoder's too), MLA's three entries
 (``models/attention.py``), mamba's ``w_in`` (``models/mamba.py``), the
@@ -80,15 +84,14 @@ def _tp(dim: int, tp: int) -> bool:
 
 
 _PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
-# the mixers whose sharded program is ported (gqa: heads over `model`)
-_TP_MIXERS = ("gqa",)
 # each mixer's cache leaves, in the order of its tuple form (whisper's
 # cross-attention K/V are recomputed from the encoder output each step,
 # so only the self-attention cache is stored)
 _MIXER_CACHE = {"gqa": ("k", "v"), "gqa_cross": ("k", "v"),
                 "mla": ("c", "r"), "mamba": ("h", "tail"),
                 "rwkv": ("x", "s")}
-_REFUSED = "is not yet ported at tp > 1 (ROADMAP item 18c)"
+_REFUSED = ("is not yet ported (ROADMAP item 18d: the sequence splits of "
+            "the cache, a softmax combined across ranks)")
 
 
 def _require_family(cfg: ModelConfig) -> None:
@@ -99,20 +102,46 @@ def _require_family(cfg: ModelConfig) -> None:
 
 def _require_ported(cfg: ModelConfig, tp: int) -> None:
     """The family is ported, and at ``tp > 1`` so is its sharded program:
-    every mixer gqa, no ``cache_seq_shard``, no ``moe_gather_decode``."""
+    no ``cache_seq_shard``, and every mixer's specs split whole heads (or
+    channels)."""
     _require_family(cfg)
     if tp == 1:
         return
+    if cfg.cache_seq_shard:
+        raise NotImplementedError(f"cache_seq_shard at tp = {tp} "
+                                  f"({cfg.name}) {_REFUSED}")
     for _, group in make_program(cfg):
         for mixer, _ in group:
-            if mixer not in _TP_MIXERS:
-                raise NotImplementedError(
-                    f"the {mixer!r} mixer ({cfg.name}) {_REFUSED}")
-    if cfg.cache_seq_shard:
-        raise NotImplementedError(f"cache_seq_shard ({cfg.name}) {_REFUSED}")
-    if cfg.moe is not None and cfg.moe_gather_decode:
-        raise NotImplementedError(f"moe_gather_decode ({cfg.name}) "
-                                  f"{_REFUSED}")
+            _splits(mixer, cfg, tp)
+
+
+def _splits(kind: str, cfg: ModelConfig, tp: int) -> bool:
+    """Whether the reference's specs split mixer ``kind`` over ``model`` at
+    ``tp``; ``ValueError`` where they would cut a head (or mamba's ``x``
+    and ``z`` unevenly), which no rank's program can run."""
+    if tp == 1:
+        return False
+    if kind in ("gqa", "gqa_cross"):
+        return _tp(q_heads(cfg, tp), tp)
+    if kind == "mla":
+        m = cfg.mla
+        cuts = {_tp(cfg.num_heads * n, tp) for n in (
+            m.qk_nope_head_dim + m.qk_rope_head_dim, m.qk_nope_head_dim,
+            m.v_head_dim)}
+        split, heads = cuts == {True}, _tp(cfg.num_heads, tp)
+    elif kind == "mamba":
+        di = cfg.mamba.expand * cfg.d_model
+        split = heads = _tp(di, tp)
+        cuts = {_tp(2 * di, tp), split}
+    elif kind == "rwkv":
+        heads = _tp(cfg.d_model // cfg.rwkv_head_size, tp)
+        split, cuts = heads, {_tp(cfg.d_model, tp), heads}
+    else:
+        raise ValueError(kind)
+    if len(cuts) > 1 or split != heads:
+        raise ValueError(f"the {kind!r} mixer of {cfg.name} does not split "
+                         f"into whole heads (or channels) over {tp} ranks")
+    return split
 
 
 # ------------------------------------------------------------ layer descs
@@ -392,17 +421,15 @@ def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
 
 # ------------------------------------------------------------- layer apply
 def _gqa_shard(p, x, cfg, par):
-    """This rank's share of a gqa mixer over ``par``'s ``model`` axis ->
-    (leaves, x, gamma, q0, kv0, split).  With the q heads split, the rank
-    holds heads ``q0..`` (and kv heads ``kv0..`` when they split, else
-    all): the activation and gamma enter through ``copy_to`` (the fused
-    norm's dx and dgamma are partial sums), as does every replicated leaf
-    that only the local heads read (kv weights, ``bq`` of padded heads,
-    which the rank slices, the q/k norms).  Otherwise attention runs
-    replicated, with no collective."""
+    """This rank's share of a gqa mixer whose q heads split over ``par``'s
+    ``model`` axis -> (leaves, x, gamma, q0, kv0).  The rank holds heads
+    ``q0..`` (and kv heads ``kv0..`` when they split, else all): the
+    activation and gamma enter through ``copy_to`` (the fused norm's dx
+    and dgamma are partial sums), as does every replicated leaf that only
+    the local heads read (kv weights, ``bq`` of padded heads, which the
+    rank slices, the q/k norms).  Where the q heads do not split,
+    attention runs replicated, with no collective (``_splits``)."""
     tp = par.shape["model"]
-    if not _tp(q_heads(cfg, tp), tp):
-        return p, x, p["norm"], 0, 0, False
     f = par.copy_to
     r = par.axis_index("model")
     h_loc = p["wq"].shape[1]
@@ -416,7 +443,7 @@ def _gqa_shard(p, x, cfg, par):
             lp[k] = f(lp[k])
     if "bq" in lp and not _tp(cfg.num_heads, tp):  # replicated, padded
         lp["bq"] = f(lp["bq"])[q0:q0 + h_loc]
-    return lp, f(x), f(p["norm"]), q0, kv0, True
+    return lp, f(x), f(p["norm"]), q0, kv0
 
 
 def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
@@ -425,68 +452,80 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
 
     rwkv's residual sum also comes back in float32: the reference's
     compiled layer fuses that add into the channel mix's RMSNorm, which
-    reads the sum before it is rounded to bf16.  ``gqa_cross`` adds the
-    cross-attention to ``enc_out`` after the self-attention.  ``par``:
-    the mesh whose ``model`` axis splits the mixer (gqa only), or None."""
-    if par is not None and kind == "gqa":
-        lp, xin, gamma, q0, kv0, split = _gqa_shard(p, x, cfg, par)
-        new_cache = None
+    reads the sum before it is rounded to bf16 (over a mesh, the sum after
+    the psum).  ``gqa_cross`` adds the cross-attention to ``enc_out`` after
+    the self-attention.  ``par``: the mesh whose ``model`` axis splits the
+    layers, or None; a split mixer returns its partial sum, which one psum
+    completes (``wo``, ``co``, rwkv's ``w_o`` and mamba's ``w_out`` are
+    row-split)."""
+    split = par is not None and _splits(kind, cfg, par.shape["model"])
+    f = par.copy_to if split else None
+
+    def run(fn, *args, **kw):
         if mode == "train":
-            out = att.gqa_apply(lp, xin, cfg, gamma=gamma, positions=positions,
-                                mode="train", q0=q0, kv0=kv0)
-        else:
-            out, new_cache = att.gqa_apply(lp, xin, cfg, gamma=gamma,
-                                           positions=positions, mode=mode,
-                                           cache=cache, q0=q0, kv0=kv0)
-        if split:  # wo is row-split: one psum
-            out = par.reduce_from(out)
-        return x + out, new_cache, None
+            return fn(*args, mode="train", **kw), None
+        return fn(*args, mode=mode, cache=cache, **kw)
+
+    def reduced(out):
+        return par.reduce_from(out) if split else out
+
+    if kind in ("gqa", "gqa_cross"):
+        lp, xin, gamma, q0, kv0 = p, x, p["norm"], 0, 0
+        if split:
+            lp, xin, gamma, q0, kv0 = _gqa_shard(p, x, cfg, par)
+        out, new_cache = run(att.gqa_apply, lp, xin, cfg, gamma=gamma,
+                             positions=positions, q0=q0, kv0=kv0)
+        x = x + reduced(out)
+        if kind == "gqa_cross":
+            x = x + reduced(_cross_attn(p, x, enc_out, cfg,
+                                        par if split else None))
+        return x, new_cache, None
+    if kind == "mla":
+        out, new_cache = run(att.mla_apply, p, x, cfg, gamma=p["norm"],
+                             positions=positions, copy=f)
+        return x + reduced(out), new_cache, None
     if kind == "rwkv":
         h = rms_norm(x, p["norm"])
-        new_cache = None
-        if mode == "train":
-            out = rwkv_mod.time_mix(p, h, cfg, mode="train")
-        else:
-            out, new_cache = rwkv_mod.time_mix(p, h, cfg, mode=mode,
-                                               cache=cache)
+        out, new_cache = run(rwkv_mod.time_mix, p, h, cfg,
+                             mesh=par if split else None)
+        out = reduced(out)
         return x + out, new_cache, x.float() + out.float()
     if kind == "mamba":
-        if mode == "train":
-            return (x + mam.mamba_apply(p, x, cfg, gamma=p["norm"],
-                                        mode="train"), None, None)
-        out, new_cache = mam.mamba_apply(p, x, cfg, gamma=p["norm"],
-                                         mode=mode, cache=cache)
-        return x + out, new_cache, None
-    if kind not in ("gqa", "gqa_cross", "mla"):
-        raise ValueError(kind)
-    apply = att.mla_apply if kind == "mla" else att.gqa_apply
-    new_cache = None
-    if mode == "train":
-        out = apply(p, x, cfg, gamma=p["norm"], positions=positions,
-                    mode="train")
-    else:
-        out, new_cache = apply(p, x, cfg, gamma=p["norm"],
-                               positions=positions, mode=mode, cache=cache)
-    x = x + out
-    if kind == "gqa_cross":
-        x = x + _cross_attn(p, x, enc_out, cfg)
-    return x, new_cache, None
+        out, new_cache = run(mam.mamba_apply, p, x, cfg, gamma=p["norm"],
+                             mesh=par if split else None)
+        return x + reduced(out), new_cache, None
+    raise ValueError(kind)
 
 
-def _cross_attn(p, x, enc_out, cfg):
+def _cross_attn(p, x, enc_out, cfg, par=None):
     """Decoder cross-attention (whisper) of the un-normalized ``x`` to the
     (B, Se, d) encoder output: ``norm_cross`` -> ``cq`` is one fused
     launch; ``ck`` and ``cv`` project the encoder output, which
-    ``enc_final_norm`` has normalized, as plain products."""
+    ``enc_final_norm`` has normalized, as plain products.  With ``par``
+    (the heads split over its ``model`` axis) the rank runs its heads of
+    ``cq``, ``ck``, ``cv`` and ``co`` and returns its partial sum; ``x``,
+    ``norm_cross`` and replicated kv weights enter through ``copy_to``
+    (``enc_out`` has entered already, once for the whole stack)."""
     B, S, d = x.shape
+    gamma, ck, cv = p["norm_cross"], p["ck"], p["cv"]
     H, hd = p["cq"].shape[1], p["cq"].shape[2]
-    q = ops.fused_norm_matmul(x.reshape(B * S, d), p["norm_cross"],
+    q0 = kv0 = 0
+    if par is not None:
+        f = par.copy_to
+        x, gamma = f(x), f(gamma)
+        q0 = par.axis_index("model") * H
+        if _tp(cfg.num_kv_heads, par.shape["model"]):
+            kv0 = par.axis_index("model") * ck.shape[1]
+        else:
+            ck, cv = f(ck), f(cv)
+    q = ops.fused_norm_matmul(x.reshape(B * S, d), gamma,
                               p["cq"].reshape(d, H * hd)).view(B, S, H, hd)
     e = enc_out.to(x.dtype)
-    k = torch.einsum("bsd,dhk->bshk", e, p["ck"])
-    v = torch.einsum("bsd,dhk->bshk", e, p["cv"])
-    o = att.flash_attention(q, att.repeat_kv(k, H), att.repeat_kv(v, H),
-                            causal=False)
+    k = torch.einsum("bsd,dhk->bshk", e, ck)
+    v = torch.einsum("bsd,dhk->bshk", e, cv)
+    heads = att.gqa_kv_heads(cfg, H, q0, kv0)
+    o = att.flash_attention(q, att.expand_kv(k, heads),
+                            att.expand_kv(v, heads), causal=False)
     return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["co"])
 
 
@@ -506,13 +545,18 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None,
 
     ``par``: the mesh whose ``model`` axis splits the ffn, or None.  The
     MLP splits gate and up by columns and ``w_down`` by rows (one psum)
-    when ``d_ff`` divides; the MoE runs ``moe_spmd``."""
+    when ``d_ff`` divides, and so does rwkv's channel mix (``c_k``,
+    ``c_v``); the MoE runs ``moe_spmd`` (``moe_gather_spmd`` at decode
+    with ``moe_gather_decode``)."""
     if kind == "rwkv_cm":
         h = rms_norm(x_sum, mixer_p["ln_x"]).to(x.dtype)
+        mesh = par if par is not None and _tp(cfg.d_ff, par.shape["model"]) \
+            else None
         if mode == "train":
-            return (x + rwkv_mod.channel_mix(mixer_p, h, mode="train"), None,
-                    None)
-        out, new_c = rwkv_mod.channel_mix(mixer_p, h, mode=mode, cache=cache)
+            return (x + rwkv_mod.channel_mix(mixer_p, h, mode="train",
+                                             mesh=mesh), None, None)
+        out, new_c = rwkv_mod.channel_mix(mixer_p, h, mode=mode, cache=cache,
+                                          mesh=mesh)
         return x + out, new_c, None
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
@@ -520,7 +564,10 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None,
         h = rms_norm(x, p["norm"])
         norm_in = (x2d, p["norm"])
         if cfg.moe_gather_decode and B * S <= 64 and mode == "decode":
-            out, aux = moe_mod.moe_gather_apply(p, h, cfg, norm_in=norm_in)
+            out, aux = (moe_mod.moe_gather_spmd(p, h, cfg, par,
+                                                norm_in=norm_in)
+                        if par is not None else
+                        moe_mod.moe_gather_apply(p, h, cfg, norm_in=norm_in))
         elif par is not None:
             out, aux = moe_mod.moe_spmd(p, h, cfg, par, norm_in=norm_in)
         else:
@@ -598,13 +645,17 @@ class LM:
     functions of the parameters and the cache, as in the reference.
 
     With ``mesh`` (``launch/mesh.py``), ``tp`` is its ``model`` size and
-    the model is this rank's program: its parameters are the rank's
-    shards (``init`` draws them, ``launch.mesh.shard_params`` carries the
-    reference's across), its inputs the rank's share of the batch (the
-    whole batch on every ``model`` rank), and it calls the collectives
-    where the reference's GSPMD puts them.  Without a mesh, ``tp > 1``
-    only shapes the parameters (``pad_attn_heads``) and the program runs
-    whole, as the reference's does without one."""
+    the model is this rank's program, for every family: its parameters are
+    the rank's shards (``init`` draws them, ``launch.mesh.shard_params``
+    carries the reference's across), its inputs the rank's share of the
+    batch (the whole batch on every ``model`` rank; its lanes of the cache
+    over a data axis, ``init_cache`` taking the whole mesh's batch), and it
+    calls the collectives where the reference's GSPMD puts them.  Only the
+    cache's sequence splits raise ``NotImplementedError`` (ROADMAP item
+    18d): ``cache_seq_shard`` at tp > 1, and a batch-1 cache over a data
+    axis above 1.  Without a mesh, ``tp > 1`` only shapes the parameters
+    (``pad_attn_heads``) and the program runs whole, as the reference's
+    does without one."""
 
     def __init__(self, cfg: ModelConfig, tp: int = 1, mesh=None, *,
                  device=None):
@@ -669,31 +720,39 @@ class LM:
         then each layer's bidirectional attention without RoPE (whisper
         learns its positions; the stub frontend carries them) and its MLP,
         then ``enc_final_norm``.  q, k and v, and the gate and up, are
-        fused launches."""
+        fused launches.  Over a mesh the attention and the MLP split as
+        the decoder's do (``_gqa_shard``, one psum each)."""
         cfg = self.cfg
+        par = self._par
         x = torch.matmul(frames.to(_dtype(cfg)), params["frame_proj"])
         B, S, d = x.shape
-        H, hd = cfg.num_heads, cfg.head_dim
+        hd = cfg.head_dim
+        split = par is not None and _splits("gqa", cfg, self.tp)
         enc = params["encoder"]
         views = {part: {k: v.unbind(0) for k, v in enc[part].items()}
                  for part in ("mixer", "ffn")}
         for i in range(cfg.encoder_layers):
             mp = {k: v[i] for k, v in views["mixer"].items()}
             fp = {k: v[i] for k, v in views["ffn"].items()}
-            x2d = x.reshape(B * S, d)
+            lp, xin, gamma, q0, kv0 = mp, x, mp["norm"], 0, 0
+            if split:
+                lp, xin, gamma, q0, kv0 = _gqa_shard(mp, x, cfg, par)
+            x2d = xin.reshape(B * S, d)
 
             def proj(w):
                 heads = w.shape[1]
                 return ops.fused_norm_matmul(
-                    x2d, mp["norm"], w.reshape(d, heads * hd)).view(
+                    x2d, gamma, w.reshape(d, heads * hd)).view(
                         B, S, heads, hd)
 
-            q, k, v = proj(mp["wq"]), proj(mp["wk"]), proj(mp["wv"])
-            o = att.flash_attention(q, att.repeat_kv(k, H),
-                                    att.repeat_kv(v, H), causal=False)
-            x = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), mp["wo"])
+            q, k, v = proj(lp["wq"]), proj(lp["wk"]), proj(lp["wv"])
+            heads = att.gqa_kv_heads(cfg, q.shape[2], q0, kv0)
+            o = att.flash_attention(q, att.expand_kv(k, heads),
+                                    att.expand_kv(v, heads), causal=False)
+            out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), lp["wo"])
+            x = x + (par.reduce_from(out) if split else out)
             x, _, _ = _apply_ffn("mlp", fp, x, cfg, mp, mode="train",
-                                 cache=None)
+                                 cache=None, par=par)
         return rms_norm(x, params["enc_final_norm"])
 
     # ---- the layer stack
@@ -711,6 +770,11 @@ class LM:
         layer), new_caches)."""
         cfg = self.cfg
         ckpt = remat and mode == "train" and torch.is_grad_enabled()
+        if enc_out is not None and self._par is not None \
+                and _splits("gqa_cross", cfg, self.tp):
+            # every layer's cross-attention reads only its heads: one psum
+            # of the encoder output's gradient for the whole stack
+            enc_out = self._par.copy_to(enc_out)
         new_caches = []
         aux_total = None
         for s_idx, ((repeat, group), sp) in enumerate(
@@ -835,62 +899,97 @@ class LM:
         pos = torch.arange(S - 1, device=h.device)[None]
         z, _, _ = _apply_mixer("mla" if cfg.attn_kind == "mla" else "gqa",
                                mp["mixer"], z, cfg, positions=pos,
-                               mode="train", cache=None)
+                               mode="train", cache=None, par=self._par)
         z, _, _ = _apply_ffn("mlp", mp["ffn"], z, cfg, mp["mixer"],
-                             mode="train", cache=None)
+                             mode="train", cache=None, par=self._par)
         return self._ce(params, z, labels[:, 1:])
 
     # ---- serving -----------------------------------------------------------
     def cache_template(self, batch: int, max_seq: int):
         """Tree of (shape, dtype, spec) Leafs describing the decode cache
-        (whole shapes; over a mesh a rank holds its kv heads when they
-        split with the q heads, else all of them)."""
+        of ``batch`` sequences in all (whole shapes).  Over a mesh the
+        batch splits over ``data`` (``("pod", "data")`` on a pod mesh: the
+        specs say ``data``, which ``shardings_for`` expands), as the
+        reference's ``b_axis``: a rank holds its lanes' cache and
+        ``length``.  Over ``model`` a rank holds its kv heads when they
+        split with the q heads (else all of them), its mamba channels
+        (``h``, ``tail``) and its rwkv heads (``s``); the mla latent and
+        the token-shift caches are replicated.
+
+        The gqa layout differs from the reference's, whose cache splits
+        ``head_dim`` over ``model``: the decode function is the same, the
+        spec trees are not.  A batch that does not divide over the data
+        axis raises ``ValueError``; a batch of 1 over a data axis above 1
+        (the reference's sequence split of a long context) raises
+        ``NotImplementedError``, as ``cache_seq_shard`` does at tp > 1."""
         cfg = self.cfg
-        if self._data_size > 1:
+        D = self._data_size
+        if batch == 1 and D > 1:
             raise NotImplementedError(
-                f"serving over a data axis of {self._data_size} (and the "
-                f"batch-1 sequence split of the cache) {_REFUSED}")
-        kv_split = self._par is not None and _tp(cfg.num_kv_heads, self.tp) \
-            and _tp(q_heads(cfg, self.tp), self.tp)
-        kv_spec = Spec(None, None, None, "model", None) if kv_split else _REP
+                f"the batch-1 cache over a data axis of {D} (its sequence "
+                f"split over data) {_REFUSED}")
+        if batch % D:
+            raise ValueError(f"a batch of {batch} does not split over a data "
+                             f"axis of {D}")
+        b, seq = (None, "data") if batch == 1 else ("data", None)
+        tp, par = self.tp, self._par
+        kv_split = par is not None and _tp(cfg.num_kv_heads, tp) \
+            and _splits("gqa", cfg, tp)
+
+        def model_if(split):
+            return "model" if par is not None and split else None
 
         def mixer_cache(kind, repeat):
             if kind in ("gqa", "gqa_cross"):
                 kv = Leaf((repeat, batch, max_seq, cfg.num_kv_heads,
-                           cfg.head_dim), dtype=cfg.dtype, spec=kv_spec)
+                           cfg.head_dim), dtype=cfg.dtype,
+                          spec=Spec(None, b, seq, model_if(kv_split), None))
                 return {"k": kv, "v": kv}
             if kind == "mamba":  # the float32 SSM state and the conv tail
                 mc = cfg.mamba
                 di = mc.expand * cfg.d_model
+                ch = model_if(_splits("mamba", cfg, tp))
                 return {"h": Leaf((repeat, batch, di, mc.d_state),
-                                  dtype="float32"),
+                                  dtype="float32", spec=Spec(None, b, ch,
+                                                             None)),
                         "tail": Leaf((repeat, batch, mc.d_conv - 1, di),
-                                     dtype=cfg.dtype)}
+                                     dtype=cfg.dtype,
+                                     spec=Spec(None, b, None, ch))}
             if kind == "mla":  # the compressed latent and the rope key
                 m = cfg.mla
+                spec = Spec(None, b, seq, None)
                 return {"c": Leaf((repeat, batch, max_seq, m.kv_lora_rank),
-                                  dtype=cfg.dtype),
+                                  dtype=cfg.dtype, spec=spec),
                         "r": Leaf((repeat, batch, max_seq,
-                                   m.qk_rope_head_dim), dtype=cfg.dtype)}
+                                   m.qk_rope_head_dim), dtype=cfg.dtype,
+                                  spec=spec)}
             hs = cfg.rwkv_head_size
             H = cfg.d_model // hs
-            return {"x": Leaf((repeat, batch, cfg.d_model), dtype=cfg.dtype),
-                    "s": Leaf((repeat, batch, H, hs, hs), dtype="float32")}
+            return {"x": Leaf((repeat, batch, cfg.d_model), dtype=cfg.dtype,
+                              spec=Spec(None, b, None)),
+                    "s": Leaf((repeat, batch, H, hs, hs), dtype="float32",
+                              spec=Spec(None, b, model_if(
+                                  _splits("rwkv", cfg, tp)), None, None))}
 
         stages = []
         for repeat, group in self.program:
             stages.append([
                 {"mixer": mixer_cache(mixer, repeat),
-                 "ffn": (Leaf((repeat, batch, cfg.d_model), dtype=cfg.dtype)
+                 "ffn": (Leaf((repeat, batch, cfg.d_model), dtype=cfg.dtype,
+                              spec=Spec(None, b, None))
                          if ffn == "rwkv_cm" else None)}
                 for mixer, ffn in group])
-        return {"stages": stages, "length": Leaf((batch,), dtype="int32")}
+        return {"stages": stages,
+                "length": Leaf((batch,), dtype="int32", spec=Spec(b))}
 
     def init_cache(self, batch: int, max_seq: int):
-        """Zeros of the rank's share of :meth:`cache_template`."""
+        """Zeros of the rank's share of :meth:`cache_template` (``batch``:
+        the sequences of the whole mesh)."""
         def shape(lf):
-            return lf.shape if self.mesh is None else \
-                mesh_mod.local_shape(lf.shape, lf.spec, self.mesh)
+            if self.mesh is None:
+                return lf.shape
+            spec = mesh_mod.shardings_for(self.mesh, lf.spec)
+            return mesh_mod.local_shape(lf.shape, spec, self.mesh)
 
         return tree_map(
             lambda lf: torch.zeros(shape(lf), dtype=_DTYPES[lf.dtype],

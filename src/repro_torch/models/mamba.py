@@ -24,6 +24,22 @@ output (``tests/test_torch_mamba.py``).  The RMSNorm -> ``w_in`` pair is
 one ``ops.fused_norm_matmul`` launch of (d, 2 d_inner); ``w_bcdt``,
 ``w_dt`` and ``w_out`` are plain products, as they are outside Pallas in
 the reference.
+
+On a mesh (``mesh``, whose ``model`` axis splits ``d_inner``), the rank
+runs its block of channels with the reference's specs unchanged.  Those
+specs split ``w_in``'s 2 ``d_inner`` columns as one axis, so at tp = 2
+rank 0's shard is all of ``x`` and rank 1's all of ``z``: no rank holds
+both halves for its channels.  Gathering ``w_in`` would move 134 MB a
+layer at jamba's width; the rank instead runs row 5 on its own shard and
+the ranks exchange the (B, S, 2 d_inner / tp) outputs
+(:class:`_ExchangeHalves`: an ``all_gather`` over ``model``, each rank
+keeping its channels of ``x`` and of ``z``; the backward gathers the
+halves' gradients and each rank keeps its shard's, a permutation with no
+sum).  The conv, ``w_dt``, ``dt_bias``, ``A_log``, ``D``, the scan and
+the cache are the rank's channels; ``xc @ w_bcdt`` is row-parallel, and
+its psum makes B, C and the dt input replicated (they enter the rank's
+channels through ``copy_to``); ``w_out`` is row-parallel too, its psum
+the caller's.
 """
 
 from __future__ import annotations
@@ -121,37 +137,78 @@ def _conv(rows, conv_w, conv_b, d_conv: int):
     return acc + conv_b
 
 
-def _bcdt(p, xc, N: int, *, dt_unrounded: bool):
+class _ExchangeHalves(torch.autograd.Function):
+    """The rank's columns of ``w_in``'s output (..., 2 di / tp) -> its
+    channels' ``x`` and ``z`` (..., di / tp each), by an ``all_gather``
+    over ``model``; the backward gathers every rank's (dx, dz) and keeps
+    the gradient of this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, xz, mesh):
+        ctx.mesh = mesh
+        tp, r = mesh.shape["model"], mesh.axis_index("model")
+        full = mesh.all_gather(xz, "model", dim=-1)
+        di = full.shape[-1] // 2
+        w = di // tp
+        return (full[..., r * w:(r + 1) * w].contiguous(),
+                full[..., di + r * w:di + (r + 1) * w].contiguous())
+
+    @staticmethod
+    def backward(ctx, dx, dz):
+        mesh = ctx.mesh
+        tp, r = mesh.shape["model"], mesh.axis_index("model")
+        dx = torch.zeros_like(dz) if dx is None else dx
+        dz = torch.zeros_like(dx) if dz is None else dz
+        g = mesh.all_gather(torch.cat([dx, dz], dim=-1), "model", dim=-1)
+        w = dx.shape[-1]
+        parts = g.split(w, dim=-1)  # dx_0, dz_0, dx_1, dz_1, ...
+        full = torch.cat(parts[0::2] + parts[1::2], dim=-1)
+        return full[..., 2 * r * w:2 * (r + 1) * w], None
+
+
+def _bcdt(p, xc, N: int, *, dt_unrounded: bool, mesh=None):
     """B, C and the float32 ``dt`` from the conv's output; with
     ``dt_unrounded`` the ``w_dt`` product reaches ``+ dt_bias`` in
-    float32."""
+    float32.  On a mesh the product with ``w_bcdt``'s rows is summed over
+    ``model``, and the replicated sum enters the rank's channels through
+    ``copy_to``."""
     bcdt = xc @ p["w_bcdt"]
+    if mesh is not None:
+        bcdt = mesh.copy_to(mesh.reduce_from(bcdt))
     r = bcdt[..., 2 * N:]
     pre = (r.float() @ p["w_dt"].float() if dt_unrounded
            else r @ p["w_dt"])
     return bcdt[..., :N], bcdt[..., N:2 * N], softplus(pre + p["dt_bias"])
 
 
-def mamba_apply(p, x, cfg, *, gamma, mode: str, cache=None):
+def mamba_apply(p, x, cfg, *, gamma, mode: str, cache=None, mesh=None):
     """mode 'train' -> y; 'prefill' -> (y, state); 'decode' -> (y, state).
 
     ``x`` (B,S,d) is the un-normalized residual stream and ``gamma`` the
     mixer's RMSNorm weight: the norm and ``w_in`` are one
-    ``ops.fused_norm_matmul`` launch."""
+    ``ops.fused_norm_matmul`` launch.  With ``mesh`` the leaves are the
+    rank's channels (see the module docstring) and ``y`` its partial
+    sum."""
     B, S, d = x.shape
     mc = cfg.mamba
-    di = mc.expand * d
+    di = p["D"].shape[0]  # the rank's channels on a mesh
     N = mc.d_state
-    xz = ops.fused_norm_matmul(x.reshape(B * S, d), gamma,
-                               p["w_in"]).view(B, S, 2 * di)
-    xi, z = xz[..., :di], xz[..., di:]
+    if mesh is not None:  # the fused norm's dx and dgamma are partial
+        x, gamma = mesh.copy_to(x), mesh.copy_to(gamma)
+    xz = ops.fused_norm_matmul(x.reshape(B * S, d), gamma, p["w_in"])
+    if mesh is not None:
+        xi, z = _ExchangeHalves.apply(xz.view(B, S, -1), mesh)
+    else:
+        xz = xz.view(B, S, 2 * di)
+        xi, z = xz[..., :di], xz[..., di:]
     A = -torch.exp(p["A_log"].float())
 
     if mode in ("train", "prefill"):
         pad = torch.nn.functional.pad(xi, (0, 0, mc.d_conv - 1, 0))
         xc32 = _silu_f32(_conv(lambda i: pad[:, i:i + S], p["conv_w"],
                                p["conv_b"], mc.d_conv))
-        Bm, Cm, dt = _bcdt(p, xc32.to(x.dtype), N, dt_unrounded=False)
+        Bm, Cm, dt = _bcdt(p, xc32.to(x.dtype), N, dt_unrounded=False,
+                           mesh=mesh)
         y, last_h = _ssm_scan(xc32, dt, A, Bm.float(), Cm.float(),
                               p["D"].float())
         out = (silu(z) * y.to(x.dtype)) @ p["w_out"]
@@ -168,7 +225,7 @@ def mamba_apply(p, x, cfg, *, gamma, mode: str, cache=None):
     xc32 = _silu_f32(_conv(lambda i: window[:, i], p["conv_w"], p["conv_b"],
                            mc.d_conv))  # (B,di)
     xc = xc32.to(x.dtype)
-    Bm, Cm, dt = _bcdt(p, xc, N, dt_unrounded=True)
+    Bm, Cm, dt = _bcdt(p, xc, N, dt_unrounded=True, mesh=mesh)
     Ab = torch.exp(dt[..., None] * A[None])                  # (B,di,N)
     h = Ab * h_prev + dt[..., None] * Bm[:, None, :] * xc[..., None]
     y = torch.einsum("bdn,bn->bd", h, Cm.float()) + p["D"][None] * xc32

@@ -6,7 +6,8 @@ one (d, E) matmul + top-k) runs where the tokens live, like the CN locator;
 the **expert weights** (memory-heavy) are the MN pool.  Under tensor
 parallelism the experts shard over the ``model`` axis and one collective
 recombines the weighted outputs, a single round trip a layer
-(:func:`moe_spmd`, over a ``launch/mesh.py`` mesh).
+(:func:`moe_spmd`, over a ``launch/mesh.py`` mesh; at decode with
+``moe_gather_decode``, :func:`moe_gather_spmd`).
 The dispatch/combine arithmetic is the sharded KVS router's binning trick
 (``core/sharded_kvs.py``).
 
@@ -243,6 +244,62 @@ def moe_gather_apply(p, x, cfg, stacks=None, layer_idx=None, *,
     return out.reshape(B, S, d), aux
 
 
+def _shared_spmd(p, out, xf, cfg, mesh, split: bool, norm_in):
+    """``out``, this rank's routed sum, completed over ``mesh``'s ``model``
+    axis with the shared expert, as the reference's ``moe_spmd`` does: the
+    shared expert's partial sum folded into the one psum when its weights
+    are row-split (added after it otherwise); ``split``: the banks are
+    split, so ``out`` is partial."""
+    m = cfg.moe
+    tp = mesh.shape["model"]
+    if m.num_shared:
+        fs = m.d_ff_expert * m.num_shared
+        if fs % tp == 0:  # row-split: its partial sum joins the psum
+            part = shared_expert(
+                p, mesh.copy_to(xf), None if norm_in is None else
+                tuple(mesh.copy_to(t) for t in norm_in))
+            return mesh.reduce_from(out + part, "model") if split else \
+                out + mesh.reduce_from(part, "model")
+        return (mesh.reduce_from(out, "model") if split else out) + \
+            shared_expert(p, xf, norm_in)
+    return mesh.reduce_from(out, "model") if split else out
+
+
+def moe_gather_spmd(p, x, cfg, mesh, *, norm_in=None):
+    """:func:`moe_gather_apply` as one ``model`` rank's program (decode,
+    a few tokens): ``p``'s banks are the rank's ``E / tp`` experts, so the
+    rank runs only the routed picks that fall in them, reading only those
+    experts' slices, and one psum over ``model`` completes the sum (with
+    the shared expert as in :func:`moe_spmd`).  Each pick's output lands
+    on its (token, choice) row, zeros for the other ranks' picks, and a
+    token's k rows are summed in order: no atomics.  The local picks are
+    found on the host (one sync a layer).  With ``E % tp != 0`` the banks
+    are whole and the rank runs every pick."""
+    B, S, d = x.shape
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    tp = mesh.shape["model"]
+    split = E % tp == 0
+    E_loc = E // tp if split else E
+    T = B * S
+    w, idx, scores = router_probs(p, x, cfg)  # (B,S,k)
+    f = mesh.copy_to if split else (lambda t: t)
+    xf = x.reshape(T, d)
+    rel = idx.reshape(T * k) - (mesh.axis_index("model") * E_loc
+                                if split else 0)
+    sel = torch.nonzero((rel >= 0) & (rel < E_loc))[:, 0]
+    e = rel[sel]
+    xe = f(xf).repeat_interleave(k, dim=0)[sel][:, None]  # (n, 1, d)
+    h = silu(torch.bmm(xe, p["w_gate"][e])) * torch.bmm(xe, p["w_up"][e])
+    w_f = f(w).reshape(T * k).to(x.dtype)[sel]
+    y = torch.bmm(h, p["w_down"][e])[:, 0] * w_f[:, None]
+    rows = y.new_zeros((T * k, d)).index_put((sel,), y)
+    out = rows.view(T, k, d).sum(dim=1)
+    out = _shared_spmd(p, out, xf, cfg, mesh, split, norm_in)
+    aux = load_balance_loss(scores, idx, E)
+    return out.reshape(B, S, d), aux
+
+
 def spmd_bins(idx, E: int, E_loc: int, m_idx: int, C: int):
     """:func:`bins` of one ``model`` rank of :func:`moe_spmd`: the picks
     of experts ``m_idx * E_loc ..`` go to local bins, every other pick to
@@ -289,18 +346,6 @@ def moe_spmd(p, x, cfg, mesh, *, norm_in=None):
     h = silu(torch.bmm(xin, p["w_gate"])) * torch.bmm(xin, p["w_up"])
     y = torch.bmm(h, p["w_down"]).reshape(E_loc * C, d)
     out = _Combine.apply(y * lane_w[:, None], lanes, lane_tok)
-    if m.num_shared:
-        fs = m.d_ff_expert * m.num_shared
-        if fs % tp == 0:  # row-split: its partial sum joins the psum
-            part = shared_expert(
-                p, mesh.copy_to(xf), None if norm_in is None else
-                tuple(mesh.copy_to(t) for t in norm_in))
-            out = mesh.reduce_from(out + part, "model") if split else \
-                out + mesh.reduce_from(part, "model")
-        else:
-            out = (mesh.reduce_from(out, "model") if split else out) + \
-                shared_expert(p, xf, norm_in)
-    elif split:
-        out = mesh.reduce_from(out, "model")
+    out = _shared_spmd(p, out, xf, cfg, mesh, split, norm_in)
     aux = load_balance_loss(scores, idx.reshape(B, S, k), E)
     return out.reshape(B, S, d), aux

@@ -17,6 +17,17 @@ and the recurrence are float32.  Token shift is a static learned lerp and
 the norms are RMSNorm, as in the reference.  There is no norm -> projection
 entry here (the mixer norms, then shifts, then projects), so nothing goes
 through ``ops.fused_norm_matmul``.
+
+On a mesh (``mesh``: a ``launch/mesh.py`` mesh whose ``model`` axis
+splits the heads), the time mix runs the rank's heads: ``w_r``, ``w_k``,
+``w_v`` and ``w_g`` are its column shards, ``w0``, ``u`` and the state its
+heads, ``w_o`` its row shard, and it returns its partial sum (the caller
+adds the psum).  The decay LoRA is replicated: the rank takes its heads'
+columns of ``wl_b``.  The channel mix splits ``c_k`` by columns and ``c_v``
+by rows, with one psum before the replicated ``c_r`` gate.  Every
+replicated value that only the rank's share reads enters through
+``Mesh.copy_to``, so its gradient sums over ``model``; the token-shift
+caches stay replicated.
 """
 
 from __future__ import annotations
@@ -63,16 +74,24 @@ def _shift(x, x_prev):
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
 
 
-def time_mix(p, x, cfg, *, mode, cache=None, chunk: int = 16):
-    B, S, d = x.shape
+def time_mix(p, x, cfg, *, mode, cache=None, chunk: int = 16, mesh=None):
+    B, S, d_all = x.shape
     hs = cfg.rwkv_head_size
-    H = d // hs
+    H = p["w0"].shape[0]  # the rank's heads on a mesh
+    d = H * hs
+    if mesh is not None:  # replicated values that only our heads read
+        f = mesh.copy_to
+        c0 = mesh.axis_index("model") * d
+        p = dict(p, **{k: f(p[k]) for k in ("mu_r", "mu_k", "mu_v", "mu_w",
+                                            "mu_g", "wl_a")},
+                 wl_b=f(p["wl_b"])[:, c0:c0 + d])
+        x = f(x)
 
     if mode == "decode":
         x_prev, state = cache  # (B,d), (B,H,hs,hs)
         xs = x_prev[:, None]
     else:
-        x_prev = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+        x_prev = torch.zeros((B, d_all), dtype=x.dtype, device=x.device)
         state = torch.zeros((B, H, hs, hs), dtype=torch.float32,
                             device=x.device)
         xs = _shift(x, x_prev)
@@ -144,15 +163,25 @@ def time_mix(p, x, cfg, *, mode, cache=None, chunk: int = 16):
     return out
 
 
-def channel_mix(p, x, *, mode, cache=None):
+def channel_mix(p, x, *, mode, cache=None, mesh=None):
     B, S, d = x.shape
-    if mode == "decode":
-        xs = cache[:, None]
-    else:
-        xs = _shift(x, torch.zeros((B, d), dtype=x.dtype, device=x.device))
-    xk = x + (xs - x) * p["mu_ck"]
+
+    def shifted(x):
+        if mode == "decode":
+            return cache[:, None]
+        return _shift(x, torch.zeros((B, d), dtype=x.dtype, device=x.device))
+
+    xs = shifted(x)
     xr = x + (xs - x) * p["mu_cr"]
+    mu_ck = p["mu_ck"]
+    if mesh is not None:  # c_k's columns and c_v's rows are the rank's
+        xk_in, mu_ck = mesh.copy_to(x), mesh.copy_to(mu_ck)
+        xk = xk_in + (shifted(xk_in) - xk_in) * mu_ck
+    else:
+        xk = x + (xs - x) * mu_ck
     h = torch.square(torch.relu(xk @ p["c_k"])) @ p["c_v"]
+    if mesh is not None:
+        h = mesh.reduce_from(h)
     out = xla_sigmoid(xr @ p["c_r"]) * h
     if mode == "train":
         return out

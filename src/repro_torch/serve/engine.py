@@ -60,12 +60,14 @@ class Engine:
                  eos_id: int | None = None, session_store=None):
         self.model = model
         self.params = params
-        self.lanes = lanes
         self.max_seq = max_seq
         self.eos = eos_id
         self.sampler = sampler or (lambda logits: torch.argmax(logits, -1))
+        # over a mesh with a data axis, ``lanes`` are the whole mesh's and
+        # this rank serves its share of them
         self.cache = model.init_cache(lanes, max_seq)
-        self.active: list[Request | None] = [None] * lanes
+        self.lanes = int(self.cache["length"].shape[0])
+        self.active: list[Request | None] = [None] * self.lanes
         self.pending: list[Request] = []
         self.to_prefill: list[tuple[int, list[int]]] = []  # (lane, tokens)
         self.stats = EngineStats()

@@ -1,5 +1,6 @@
-"""One rank of a CPU gloo world for ``tests/test_torch_tp.py`` and
-``tests/test_torch_train_mesh.py``.
+"""One rank of a CPU gloo world for ``tests/test_torch_tp.py``,
+``tests/test_torch_tp_families.py``, ``tests/test_torch_tp_serving.py``
+and ``tests/test_torch_train_mesh.py``, and the helpers those tests share.
 
     python tests/_torch_tp_rank.py MODE CASES INIT RANK WORLD OUT
 
@@ -11,14 +12,19 @@ joins a gloo world and, for each case, builds the case's mesh
 (``launch.mesh.shard_params``) and runs the port:
 
 * ``tp``: prefill logits, three decode steps, ``train_loss`` and every
-  leaf's gradient of the rank's shards, and the mesh's collective counts;
+  leaf's gradient of the rank's shards, and the mesh's collective counts,
+  all on the rank's rows of the batch (its share over ``data``; whisper's
+  ``frames`` too); and whether ``gather_params`` of its shards gives the
+  whole weights back bit for bit;
 * ``train``: two steps of ``train.make_train_step`` over the case's mesh
   from the rank's share of each global batch (its params gathered whole,
   its ZeRO-1 slices of ``m`` / ``v`` / ``ef``, the mesh's counts), and
   ``_int8_pod_exchange`` on the pod's gradients.
 
 It writes its outputs to ``OUT`` and imports only torch, numpy and
-``repro_torch``.
+``repro_torch``.  :data:`REF_SCRIPT` (the reference's side, a text run in a
+subprocess over 4 host devices) and :func:`run_cases` serve the test files
+that compare a world of ranks with ``repro``.
 """
 
 import dataclasses
@@ -26,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +48,7 @@ from repro_torch.train import step as t_step
 
 MAX_SEQ = 32
 DECODE_STEPS = 3
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def case_config(case: dict):
@@ -82,20 +90,31 @@ def run_tp(data, case: dict, rank: int, out: dict) -> None:
     model = lm.LM(cfg, mesh=mesh)
     full = weights_of(data, name, lm.param_template(cfg, model.tp))
     params = mesh_mod.shard_params(full, model.pspecs(), mesh)
-    toks = _tensor(data[f"{name}/tokens"])
-    labels = _tensor(data[f"{name}/labels"])
+    back = mesh_mod.gather_params(params, model.pspecs(), mesh)
+    out[f"{name}/round_trip"] = np.asarray(all(
+        np.array_equal(b.numpy(), f) for (_, b), (_, f) in
+        zip(sorted_leaves(back), sorted_leaves(full))))
+    # the rank's rows of the batch: its share over the data axes
+    n_batch = data[f"{name}/tokens"].shape[0]
+    b = n_batch // mesh.axis_size(mesh_mod.BATCH_AXES)
+    rows = slice(mesh.axis_index(mesh_mod.BATCH_AXES) * b,
+                 (mesh.axis_index(mesh_mod.BATCH_AXES) + 1) * b)
+    toks = _tensor(data[f"{name}/tokens"][rows])
+    labels = _tensor(data[f"{name}/labels"][rows])
+    inputs = {"tokens": toks}
+    if f"{name}/frames" in data:
+        inputs["frames"] = _tensor(data[f"{name}/frames"][rows])
     mesh.reset_stats()
     with torch.no_grad():
-        out[f"{name}/prefill"] = model.prefill(params, {"tokens": toks})
-        cache = model.init_cache(toks.shape[0], MAX_SEQ)
+        out[f"{name}/prefill"] = model.prefill(params, inputs)
+        cache = model.init_cache(n_batch, MAX_SEQ)
         for i in range(DECODE_STEPS):
             logits, cache = model.decode_step(params, toks[:, i:i + 1],
                                               cache)
             out[f"{name}/decode{i}"] = logits
     out[f"{name}/stats_serve"] = np.asarray(json.dumps(mesh.stats_json()))
     loss, grads = t_step.value_and_grad(
-        t_step.make_loss_fn(model), params,
-        {"tokens": toks, "labels": labels})
+        t_step.make_loss_fn(model), params, dict(inputs, labels=labels))
     out[f"{name}/loss"] = loss
     for path, g in sorted_leaves(grads):
         out[f"{name}/g/{path_key(path)}"] = g
@@ -149,6 +168,127 @@ def run_train(data, case: dict, rank: int, out: dict) -> None:
             continue
         for path, x in sorted_leaves(tree):
             out[f"{name}/{part}/{path_key(path)}"] = x
+
+
+# The reference's side of the tp cases: each case's LM over a mesh of
+# GSPMD-auto axes (jax.make_mesh now makes Explicit ones, under which its LM
+# fails), its weights placed by shardings_for(mesh, model.pspecs()); the
+# prefill, three decode steps and the loss and gradients, jitted.  A case
+# with a MoE takes the gradients of the unsharded model: the reference's
+# moe_spmd under a mesh does not sum the cotangents of its model-replicated
+# inputs (router, x) over model.
+REF_SCRIPT = textwrap.dedent("""
+    import dataclasses, json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import numpy as np, jax, jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.launch.mesh import shardings_for
+    from repro.models.lm import LM
+    data = np.load(sys.argv[1])
+    out = {}
+
+    def key(path):
+        return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in path)
+
+    for case in json.loads(str(data["cases"])):
+        name = case["name"]
+        cfg = dataclasses.replace(get_config(case["arch"], reduced=True),
+                                  dtype="float32", **case.get("replace", {}))
+        if "moe" in case:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, **case["moe"]))
+        n = int(np.prod(case["mesh"]))
+        mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:n]).reshape(
+            case["mesh"]), ("data", "model"))
+        model = LM(cfg, mesh=mesh)
+        flat, tdef = jax.tree_util.tree_flatten_with_path(model.abstract())
+        params = jax.tree_util.tree_unflatten(tdef, [
+            jnp.asarray(data[name + "/w/" + key(p)]) for p, _ in flat])
+        params = jax.device_put(params, shardings_for(mesh, model.pspecs()))
+        toks = jnp.asarray(data[name + "/tokens"])
+        inputs = {"tokens": toks}
+        if name + "/frames" in data:
+            inputs["frames"] = jnp.asarray(data[name + "/frames"])
+        batch = dict(inputs, labels=jnp.asarray(data[name + "/labels"]))
+        out[name + "/prefill"] = jax.jit(model.prefill)(params, inputs)
+        cache = model.init_cache(toks.shape[0], int(data["max_seq"]))
+        step = jax.jit(model.decode_step)
+        for i in range(int(data["decode_steps"])):
+            logits, cache = step(params, toks[:, i:i + 1], cache)
+            out[name + "/decode" + str(i)] = logits
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: model.train_loss(p, b, remat=True),
+            has_aux=True))(params, batch)
+        out[name + "/loss"] = loss
+        if cfg.moe is not None:
+            whole = LM(cfg)
+            params = jax.device_get(params)
+            (_, _), grads = jax.jit(jax.value_and_grad(
+                lambda p, b: whole.train_loss(p, b, remat=True),
+                has_aux=True))(params, batch)
+        for p, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
+            out[name + "/g/" + key(p)] = g
+    np.savez(sys.argv[2], **{k: np.asarray(v, np.float32)
+                             for k, v in out.items()})
+    print("REF_OK")
+""")
+
+
+def run_cases(root, cases: list, world: int, *, batch: int = 2,
+              seq: int = 16, timeout: float = 300) -> tuple:
+    """Seeded float32 weights (``init_params`` on the CPU at the case
+    mesh's tp) and inputs for ``cases``, run at once through
+    :data:`REF_SCRIPT` and a world of ``world`` gloo ranks in ``tp`` mode
+    -> (the reference's outputs, [each rank's]), each a loaded
+    ``.npz``."""
+    root = Path(root)
+    arrays = dict(cases=np.asarray(json.dumps(cases)), max_seq=MAX_SEQ,
+                  decode_steps=DECODE_STEPS)
+    rng = np.random.default_rng(5)
+    for i, case in enumerate(cases):
+        cfg = case_config(case)
+        params = lm.init_params(cfg, i, device="cpu", dtype=torch.float32,
+                                tp=case["mesh"][-1])
+        for path, t in sorted_leaves(params):
+            arrays[f"{case['name']}/w/{path_key(path)}"] = t.numpy()
+        for f in ("tokens", "labels"):
+            arrays[f"{case['name']}/{f}"] = rng.integers(
+                0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        if cfg.is_encdec:
+            arrays[f"{case['name']}/frames"] = rng.standard_normal(
+                (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    cases_file = root / "cases.npz"
+    np.savez(cases_file, **arrays)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    env.pop("XLA_FLAGS", None)
+    ref = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
+                            str(cases_file), str(root / "ref.npz")], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    procs = []
+    try:
+        procs = start_world("tp", cases_file, root, world, env)
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, err[-3000:]
+        out, err = ref.communicate(timeout=timeout)
+        assert "REF_OK" in out, err[-3000:]
+    finally:
+        ref.kill()
+        for p in procs:
+            p.kill()
+    return (dict(np.load(root / "ref.npz")),
+            [dict(np.load(root / f"tp_rank{r}.npz")) for r in range(world)])
+
+
+def rank_mesh(shape, rank: int):
+    """A ``(data, model)`` mesh's arithmetic for one rank, without a
+    world."""
+    return mesh_mod.Mesh(("data", "model"),
+                         dict(zip(("data", "model"), shape)), rank,
+                         torch.device("cpu"), {}, "gloo", "send_recv")
 
 
 def start_world(mode: str, cases_file, root, world: int, env: dict) -> list:

@@ -58,6 +58,7 @@ from repro.configs import get_config as r_get_config
 from repro.models import common as r_common
 from repro.models import lm as r_lm
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import common, lm
 from repro_torch.train import step as t_step
 
@@ -241,37 +242,30 @@ def test_param_template_matches_reference_full_new_families(arch):
     assert n == sum(int(np.prod(w.shape)) for _, w in want)
 
 
-# the families whose sharded program is not ported, and the mixer named
-TP_REFUSED = {"deepseek-v3-671b": "mla", "jamba-v0.1-52b": "mamba",
-              "rwkv6-1.6b": "rwkv", "whisper-large-v3": "gqa_cross"}
-
-
 def test_other_families_and_tp_raise():
-    """Every family is ported; at tp = 2 the mla, mamba, rwkv and
-    gqa_cross mixers are not (nor ``cache_seq_shard`` or
-    ``moe_gather_decode``), and name themselves; dense, vlm and
-    moe-with-gqa build."""
+    """Every family is ported, and every one builds at tp = 2 (``LM`` and
+    ``init_params`` alike, with its shards' specs); only the two sequence
+    splits of the cache raise, naming item 18d: ``cache_seq_shard`` at
+    tp = 2, and a batch-1 cache over a data axis above 1."""
     assert set(lm._PORTED_FAMILIES) == set(PORTED)
     for arch in ARCH_IDS:
         cfg = get_config(arch, reduced=True)
         assert cfg.family in PORTED
-        if arch in TP_REFUSED:
-            match = f"{TP_REFUSED[arch]!r} mixer.*not yet ported.*18c"
-            with pytest.raises(NotImplementedError, match=match):
-                lm.LM(cfg, tp=2, device="cpu")
-            with pytest.raises(NotImplementedError, match=match):
-                lm.init_params(cfg, device="cpu", tp=2)
-        else:
-            assert lm.LM(cfg, tp=2, device="cpu").tp == 2
-            lm.init_params(cfg, device="cpu", tp=2)
+        assert lm.LM(cfg, tp=2, device="cpu").tp == 2
+        params = lm.init_params(cfg, device="cpu", tp=2)
+        assert [t.shape for _, t in common.sorted_leaves(params)] == [
+            lf.shape for _, lf in common.sorted_leaves(
+                lm.param_template(cfg, 2))]
     llama = get_config("llama3.2-1b", reduced=True)
-    for flag in ("cache_seq_shard", "moe_gather_decode"):
-        cfg = dataclasses.replace(llama, **{flag: True})
-        if flag == "moe_gather_decode":
-            cfg = get_config("mixtral-8x22b", reduced=True)
-            cfg = dataclasses.replace(cfg, moe_gather_decode=True)
-        with pytest.raises(NotImplementedError, match=f"{flag}.*18c"):
-            lm.LM(cfg, tp=2, device="cpu")
+    seq = dataclasses.replace(llama, cache_seq_shard=True)
+    with pytest.raises(NotImplementedError, match="cache_seq_shard.*18d"):
+        lm.LM(seq, tp=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="cache_seq_shard.*18d"):
+        lm.init_params(seq, device="cpu", tp=2)
+    data = mesh_mod.Mesh(("data", "model"), {"data": 2, "model": 1}, 0,
+                         torch.device("cpu"), {}, "gloo", "send_recv")
+    with pytest.raises(NotImplementedError, match="batch-1.*18d"):
+        lm.LM(llama, mesh=data, device="cpu").cache_template(1, 16)
 
 
 # ------------------------------------------------------------------- blocks

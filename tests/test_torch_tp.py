@@ -7,8 +7,8 @@ tp = 2, drawn by ``init_params`` on the CPU) and inputs for five reduced
 cases, then runs at once the reference in one subprocess over 4 host
 devices (jitted, the weights placed by ``shardings_for(mesh,
 model.pspecs())``) and the port in one spawned gloo world of two CPU ranks
-(``tests/_torch_tp_rank.py``, which takes each rank's shards through
-``launch.mesh.shard_params``).  The cases:
+(``tests/_torch_tp_rank.py``'s ``run_cases``, whose ranks take their
+shards through ``launch.mesh.shard_params``).  The cases:
 
 * llama3.2-1b: q and kv heads split, the MLP split, vocab-parallel
   embedding, logits and cross entropy;
@@ -23,18 +23,15 @@ gradient (each rank's shard against the reference's slice) agree within
 ``TOL``.  For the MoE cases the gradients are the reference's without a
 mesh: its ``moe_spmd`` under a mesh does not sum the cotangents of its
 ``model``-replicated inputs (the router's gradient comes out at 0.48x
-of the unsharded one), while its loss and logits are the function's.  In process: the padded model equals the unpadded one, the
-spmd bins hold exactly the whole binning's lanes, and the mixers whose
-sharded program is not ported refuse tp = 2.
+of the unsharded one), while its loss and logits are the function's.  In process: the padded model equals the unpadded one, and
+the spmd bins hold exactly the whole binning's lanes.  The other mixers
+at tp = 2 (mla, mamba, rwkv, whisper's cross-attention and encoder),
+``moe_gather_decode`` and a data axis in serving are held to the
+reference in ``test_torch_tp_families.py`` and
+``test_torch_tp_serving.py``.
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,9 +43,9 @@ from repro_torch.models import lm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import sorted_leaves
 
-from _torch_tp_rank import case_config, counts, path_key, start_world
+from _torch_tp_rank import case_config, counts, path_key, rank_mesh, \
+    run_cases
 
-ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 B, S = 2, 16
 CASES = [
@@ -63,121 +60,20 @@ CASES = [
 ]
 NAMES = [c["name"] for c in CASES]
 
-REF_SCRIPT = textwrap.dedent("""
-    import dataclasses, json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import numpy as np, jax, jax.numpy as jnp
-    from repro.configs import get_config
-    from repro.launch.mesh import shardings_for
-    from repro.models.lm import LM
-    data = np.load(sys.argv[1])
-    out = {}
-
-    def key(path):
-        return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                        for k in path)
-
-    for case in json.loads(str(data["cases"])):
-        name = case["name"]
-        cfg = dataclasses.replace(get_config(case["arch"], reduced=True),
-                                  dtype="float32", **case.get("replace", {}))
-        if "moe" in case:
-            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                cfg.moe, **case["moe"]))
-        # Auto axes (GSPMD), as the reference's LM is written for;
-        # jax.make_mesh now makes Explicit ones
-        mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:2]).reshape(
-            case["mesh"]), ("data", "model"))
-        model = LM(cfg, mesh=mesh)
-        flat, tdef = jax.tree_util.tree_flatten_with_path(model.abstract())
-        params = jax.tree_util.tree_unflatten(tdef, [
-            jnp.asarray(data[name + "/w/" + key(p)]) for p, _ in flat])
-        params = jax.device_put(params, shardings_for(mesh, model.pspecs()))
-        toks = jnp.asarray(data[name + "/tokens"])
-        batch = {"tokens": toks, "labels": jnp.asarray(data[name + "/labels"])}
-        out[name + "/prefill"] = jax.jit(model.prefill)(params,
-                                                         {"tokens": toks})
-        cache = model.init_cache(toks.shape[0], int(data["max_seq"]))
-        step = jax.jit(model.decode_step)
-        for i in range(int(data["decode_steps"])):
-            logits, cache = step(params, toks[:, i:i + 1], cache)
-            out[name + "/decode" + str(i)] = logits
-        (loss, _), grads = jax.jit(jax.value_and_grad(
-            lambda p, b: model.train_loss(p, b, remat=True),
-            has_aux=True))(params, batch)
-        out[name + "/loss"] = loss
-        if cfg.moe is not None:
-            # moe_spmd's shard_map does not sum the cotangents of its
-            # model-replicated inputs (router, x) over model: its
-            # gradients are not the function's; take the unsharded ones
-            whole = LM(cfg)
-            params = jax.device_get(params)
-            (_, _), grads = jax.jit(jax.value_and_grad(
-                lambda p, b: whole.train_loss(p, b, remat=True),
-                has_aux=True))(params, batch)
-        for p, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
-            out[name + "/g/" + key(p)] = g
-    np.savez(sys.argv[2], **{k: np.asarray(v, np.float32)
-                             for k, v in out.items()})
-    print("REF_OK")
-""")
-
-
-def _weights(cfg, seed: int) -> dict:
-    """The case's whole float32 weights at tp = 2 (padded heads too)."""
-    params = lm.init_params(cfg, seed, device="cpu", dtype=torch.float32,
-                            tp=2)
-    return {path_key(p): t.numpy() for p, t in sorted_leaves(params)}
-
 
 @pytest.fixture(scope="module")
 def tp_runs(tmp_path_factory):
     """The five cases once through the reference (one subprocess) and the
     port (one world of two gloo ranks), at once.  -> (ref, [rank 0, rank
     1]) of loaded ``.npz`` outputs."""
-    root = tmp_path_factory.mktemp("tp")
-    arrays = dict(cases=np.asarray(json.dumps(CASES)), max_seq=32,
-                  decode_steps=3)
-    rng = np.random.default_rng(5)
-    for i, case in enumerate(CASES):
-        for k, v in _weights(case_config(case), i).items():
-            arrays[f"{case['name']}/w/{k}"] = v
-        for f in ("tokens", "labels"):
-            arrays[f"{case['name']}/{f}"] = rng.integers(
-                0, 512, (B, S)).astype(np.int32)
-    cases = root / "cases.npz"
-    np.savez(cases, **arrays)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT / "tests")]))
-    env.pop("XLA_FLAGS", None)
-    ref = subprocess.Popen([sys.executable, "-c", REF_SCRIPT, str(cases),
-                            str(root / "ref.npz")], env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
-    try:
-        procs = start_world("tp", cases, root, 2, env)
-        for p in procs:
-            _, err = p.communicate(timeout=300)
-            assert p.returncode == 0, err[-3000:]
-        out, err = ref.communicate(timeout=300)
-        assert "REF_OK" in out, err[-3000:]
-    finally:
-        ref.kill()
-    return (dict(np.load(root / "ref.npz")),
-            [dict(np.load(root / f"tp_rank{r}.npz")) for r in range(2)])
+    return run_cases(tmp_path_factory.mktemp("tp"), CASES, 2, batch=B,
+                     seq=S)
 
 
 def _close(got, want, what: str) -> None:
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), rtol=TOL,
                                atol=TOL, err_msg=what)
-
-
-def _rank_mesh(shape, rank: int):
-    """A mesh's arithmetic for one rank, without a world."""
-    return mesh_mod.Mesh(("data", "model"), dict(zip(("data", "model"),
-                                                     shape)),
-                         rank, torch.device("cpu"), {}, "gloo", "send_recv")
 
 
 @pytest.mark.mesh
@@ -204,7 +100,7 @@ def test_tp_loss_and_sharded_grads_vs_reference(tp_runs, name):
                  sorted_leaves(lm.param_pspecs(cfg, 2)))
     for r, out in enumerate(ranks):
         _close(out[f"{name}/loss"], ref[f"{name}/loss"], f"rank {r} loss")
-        mesh = _rank_mesh(case["mesh"], r)
+        mesh = rank_mesh(case["mesh"], r)
         n = 0
         for k, spec in specs.items():
             want = ref[f"{name}/g/{k}"]
@@ -299,15 +195,3 @@ def test_spmd_bins_hold_the_whole_binnings_lanes(tp):
         torch.testing.assert_close(de[mine], dest[mine] - lo, rtol=0,
                                    atol=0)
         assert (de[~mine] == e_loc * C).all()
-
-
-@pytest.mark.parametrize("arch,mixer", [
-    ("deepseek-v3-671b", "mla"), ("jamba-v0.1-52b", "mamba"),
-    ("rwkv6-1.6b", "rwkv"), ("whisper-large-v3", "gqa_cross")])
-def test_unported_mixers_refuse_tp(arch, mixer):
-    cfg = get_config(arch, reduced=True)
-    for make in (lambda: lm.LM(cfg, tp=2, device="cpu"),
-                 lambda: lm.init_params(cfg, device="cpu", tp=2)):
-        with pytest.raises(NotImplementedError,
-                           match=f"'{mixer}' mixer.*item 18c"):
-            make()

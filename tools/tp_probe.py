@@ -6,9 +6,13 @@
 Prints the card's name and power limit, builds the kernels, then runs
 ``chip_smoke.serve_tp_phase``: row 5 at the tp = 2 shard shapes, the gloo
 probe of two ranks on the card, then the world of two ranks of
-``tools/tp_rank.py main`` (qwen2.5-14b and mixtral-8x22b served at tp = 2
-with their float32 twins, llama3.2-1b trained over three meshes).  Prints
-the numbers as one JSON line.  Without a card it exits 1.
+``tools/tp_rank.py main`` (qwen2.5-14b, mixtral-8x22b, deepseek-v3-671b,
+jamba-v0.1-52b, rwkv6-1.6b and whisper-large-v3 served at tp = 2 with
+their float32 twins, mixtral again with ``moe_gather_decode``,
+llama3.2-1b served over (2, 1) and trained over three meshes, the reduced
+families' float32 train steps), then rows 5 and 6 at those steps'
+shapes.  Prints the numbers as one JSON line.  Without a card it exits
+1.
 """
 
 from __future__ import annotations

@@ -18,18 +18,26 @@ bfloat16, float32 and int8 card tensors, writing what worked (and the host
 a try still leaves what came before.
 
 ``main`` runs the phase over a ``(1, 2)`` mesh (``launch.mesh``; gloo,
-``ppermute`` as an ``all_gather``): (b) qwen2.5-14b whole at tp = 2
-through ``Engine``, (c) its float32 twin at 2 layers against tp = 1 on
-rank 0, (d) mixtral-8x22b cut to 4 layers through ``moe_spmd`` and its
-float32 twin at 2 layers (the same routing and the same dropped picks),
-(e) llama3.2-1b trained 2 steps over each of ``(1, 2)`` (tp, vocab-parallel
+``ppermute`` as an ``all_gather``): (b) each SERVED config at tp = 2
+through ``Engine`` (qwen2.5-14b whole, mixtral-8x22b cut to 4 layers
+through ``moe_spmd``, deepseek-v3-671b cut to its 3 dense layers and one
+MoE layer, jamba-v0.1-52b cut to one period of 8 layers, rwkv6-1.6b and
+whisper-large-v3 whole; whisper also prefills over encoder frames, which
+runs the sharded encoder), (c) each one's float32 twin (TWIN_LAYERS
+layers; the MoE twins with the same routing and the same dropped picks)
+against tp = 1 on rank 0, (d) mixtral-8x22b again with
+``moe_gather_decode`` and its twin, llama3.2-1b served over ``(2, 1)`` (8
+lanes, 4 a rank) and its twin on the same lanes, (e) llama3.2-1b trained
+2 steps over each of ``(1, 2)`` (tp, vocab-parallel
 cross entropy, its first step held to the plain step on the same batch),
 ``(2, 1)`` (ZeRO-1) and ``(2, 1, 1)`` (the int8 pod exchange, POD_LAYERS of
 its layers, held to the plain step on the global batch, and again at the
 reference's own test's size), each mesh's launches counted over its own
 steps and checked against the program, and a float32 twin of the
-``(2, 1)`` step against the plain step.  ``reduced`` runs the twins at
-the reduced configs (the on-card tests' world).
+``(2, 1)`` step against the plain step, (f) one float32 ``(1, 2)`` train
+step of each of the four families of (b) whose mixers are not gqa, at its
+reduced config, against the plain step on rank 0.  ``reduced`` runs the
+twins and (f) at the reduced configs (the on-card tests' world).
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
+from chip_smoke import fused_per_decode_step, fused_per_prefill  # noqa: E402
 from repro_torch.models.common import sorted_leaves  # noqa: E402
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -125,9 +135,14 @@ def probe(init: str, rank: int, out: str) -> int:
 
 # ----------------------------------------------------------------- main
 SEED = 0
-LANES, MAX_SEQ, REQUESTS, PROMPT, NEW = 4, 64, 8, (6, 12), 16
+# the engine prefills a prompt token by token, each a whole-batch decode
+# step, so a run makes about REQUESTS / LANES x (LANES x mean prompt + NEW)
+# calls: one wave of short prompts, about 16 calls (8 requests of 6-12 +
+# 16 tokens until the phase served eight configs: 106 calls a run, 310 s
+# of world)
+LANES, MAX_SEQ, REQUESTS, PROMPT, NEW = 4, 64, 4, (1, 3), 8
 PROFILED_STEPS = 4
-TWIN_LAYERS, TWIN_TOL, TWIN_STEPS = 2, 1e-3, 3
+TWIN_LAYERS, TWIN_TOL, TWIN_STEPS = 2, 1e-4, 3
 TRAIN_B, TRAIN_SEQ, TRAIN_LR = 2, 512, 1e-3  # B a rank
 TRAIN_TWIN_SEQ, TRAIN_TWIN_TOL = 128, 1e-5
 # the (2, 1, 1) mesh trains 8 of llama3.2-1b's 16 layers: each rank keeps a
@@ -156,10 +171,38 @@ UPDATE_COSINE_MIN = 0.8
 # softmax gradients that Adam's first step moves by lr), the others' gated
 POD_LEAVES = (("embed",), ("stages", 0, 0, "mixer", "wq"))
 POD_GATED = POD_LEAVES[1:]
-# (d, F) of each row-5 launch of a decode step at tp = 2
+# (d, F) of each row-5 launch of a decode step at tp = 2 (deepseek's
+# wq_a and wkv_a are replicated, whole; rwkv has no fused entry), and of
+# llama3.2-1b's over (2, 1), whole
 SHARD_SHAPES = {"qwen2.5-14b": {(5120, 2560), (5120, 512), (5120, 6912)},
-                "mixtral-8x22b": {(6144, 3072), (6144, 512)}}
-SERVED = (("qwen2.5-14b", None), ("mixtral-8x22b", 4))
+                "mixtral-8x22b": {(6144, 3072), (6144, 512)},
+                "deepseek-v3-671b": {(7168, 1536), (7168, 576),
+                                     (1536, 12288), (7168, 9216),
+                                     (7168, 1024)},
+                "jamba-v0.1-52b": {(4096, 8192), (4096, 2048), (4096, 512),
+                                   (4096, 7168)},
+                "rwkv6-1.6b": set(),
+                "whisper-large-v3": {(1280, 640), (1280, 2560)},
+                "llama3.2-1b": {(2048, 2048), (2048, 512), (2048, 8192)}}
+# deepseek: its 3 dense layers and one MoE layer (the MTP block's leaves
+# are drawn; serving does not run it); jamba: one 8-layer period
+SERVED = (("qwen2.5-14b", None), ("mixtral-8x22b", 4),
+          ("deepseek-v3-671b", 4), ("jamba-v0.1-52b", 8),
+          ("rwkv6-1.6b", None), ("whisper-large-v3", None))
+# the twins of the MoE families at full width cut the experts to
+# TWIN_EXPERTS (a float32 deepseek MoE layer of 256 experts is 45 GB, and
+# the twin holds the tp = 2 shards, then the whole program); jamba's twin
+# is one "ma" period (mamba + MLP, attention + MoE): 8 layers is a period
+TWIN_EXPERTS = 16
+# whisper's prefill: WHISPER_ROWS rows of WHISPER_PROMPT tokens behind
+# frames of (WHISPER_ROWS, encoder_seq, d)
+WHISPER_ROWS, WHISPER_PROMPT = 2, 16
+# the (2, 1) serving run: DATA_LANES lanes over the mesh, each rank its
+# half, each rank REQUESTS requests of its own
+DATA_LANES = 8
+TRAIN_FAMILIES = ("deepseek-v3-671b", "jamba-v0.1-52b", "rwkv6-1.6b",
+                  "whisper-large-v3")
+TRAIN_FAMILY_B, TRAIN_FAMILY_SEQ = 2, 32
 
 
 def check(cond, what: str) -> None:
@@ -181,9 +224,29 @@ def _config(arch: str, layers=None):
                                                           num_layers=layers)
 
 
-def _requests(vocab: int) -> list:
+def _twin_config(arch: str, **replace):
+    """``arch`` cut for its float32 twin: TWIN_LAYERS layers (deepseek one
+    dense and one MoE layer, jamba one "ma" period, whisper as many
+    encoder layers), at most TWIN_EXPERTS experts."""
+    import dataclasses
+    cfg = _config(arch, TWIN_LAYERS)
+    kw = dict(dtype="float32", **replace)
+    if cfg.layer_pattern:
+        kw["layer_pattern"] = "ma"
+    if cfg.is_encdec:
+        kw["encoder_layers"] = TWIN_LAYERS
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=min(cfg.moe.num_experts, TWIN_EXPERTS),
+            first_k_dense=min(cfg.moe.first_k_dense, TWIN_LAYERS - 1))
+    return dataclasses.replace(cfg, **kw)
+
+
+
+
+def _requests(vocab: int, seed_offset: int = 0) -> list:
     from repro_torch.serve import Request
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED + seed_offset)
     return [Request(rid=i, prompt=[int(t) for t in rng.integers(
         1, vocab, int(rng.integers(PROMPT[0], PROMPT[1] + 1)))],
         max_new=NEW) for i in range(REQUESTS)]
@@ -204,7 +267,8 @@ def _busy_us(prof) -> tuple:
 
 def _profile_decode(model, params, cache) -> dict:
     from torch.profiler import ProfilerActivity, profile
-    tokens = torch.ones((LANES, 1), dtype=torch.int32, device=model.device)
+    tokens = torch.ones((cache["length"].shape[0], 1), dtype=torch.int32,
+                        device=model.device)
     model.decode_step(params, tokens, cache)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -221,17 +285,23 @@ def _profile_decode(model, params, cache) -> dict:
                 device_ops_per_step=n / PROFILED_STEPS)
 
 
-def serve_tp(arch: str, layers, mesh) -> dict:
-    """One model at tp = 2 through ``Engine``: random bf16 weights drawn on
-    the card (each rank keeps its shards), REQUESTS requests, every
-    decode_step call timed, row 5's (d, F) recorded, the launch counters
-    and the mesh's counts zeroed just before the run and read after."""
+def serve_tp(arch: str, layers, mesh, *, lanes: int = LANES,
+             **replace) -> dict:
+    """One model over ``mesh`` through ``Engine``: random bf16 weights
+    drawn on the card (each rank keeps its shards), REQUESTS requests a
+    rank (each rank its own over a data axis, its ``lanes`` share of the
+    lanes), every decode_step call timed, row 5's (d, F) recorded, the
+    launch counters and the mesh's counts zeroed just before the run and
+    read after; whisper then prefills over encoder frames (its sharded
+    encoder), counted likewise."""
+    import dataclasses
     import gc
     from repro_torch.kernels import ops
     from repro_torch.models.common import count_params, tree_leaves
     from repro_torch.models.lm import LM
     from repro_torch.serve import Engine
-    cfg = _config(arch, layers)
+    cfg = dataclasses.replace(_config(arch, layers), **replace)
+    data = mesh.axis_index(("pod", "data"))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -248,8 +318,8 @@ def serve_tp(arch: str, layers, mesh) -> dict:
     check(all(t.device == mesh.device and t.is_contiguous()
               for t in tree_leaves(params)),
           f"{arch}: a shard is not a contiguous tensor on the card")
-    eng = Engine(model, params, lanes=LANES, max_seq=MAX_SEQ)
-    reqs = _requests(cfg.vocab_size)
+    eng = Engine(model, params, lanes=lanes, max_seq=MAX_SEQ)
+    reqs = _requests(cfg.vocab_size, data)
     for r in reqs:
         eng.submit(r)
     step, fnm = eng._step, ops.fused_norm_matmul
@@ -286,15 +356,17 @@ def serve_tp(arch: str, layers, mesh) -> dict:
     check(shapes == SHARD_SHAPES[arch],
           f"{arch}: row 5 ran at (d, F) {sorted(shapes)}, not the shard "
           f"shapes {sorted(SHARD_SHAPES[arch])}")
-    per_call = {"qwen2.5-14b": 5, "mixtral-8x22b": 3}[arch] * cfg.num_layers
+    per_call = fused_per_decode_step(cfg)
     check(launches["fused_norm_matmul"] == per_call * calls,
           f"{arch}: {launches['fused_norm_matmul']} row-5 launches in "
           f"{calls} decode_step calls, not {per_call} a call")
     out = torch.tensor([r.out for r in reqs], device=mesh.device)
-    both = mesh.all_gather(out[None], "model", dim=0)
-    res["tokens_equal_on_ranks"] = bool(torch.equal(both[0], both[1]))
-    check(res["tokens_equal_on_ranks"],
-          f"{arch}: the two ranks generated different tokens")
+    if mesh.shape["model"] > 1:
+        both = mesh.all_gather(out[None], "model", dim=0)
+        res["tokens_equal_on_ranks"] = bool(torch.equal(both[0], both[1]))
+        check(res["tokens_equal_on_ranks"],
+              f"{arch}: the two ranks generated different tokens")
+    res.update(fnm_per_call=per_call, lanes_local=eng.lanes)
     generated = sum(len(r.out) for r in reqs)
     res.update(
         requests=REQUESTS, decode_step_calls=calls,
@@ -308,6 +380,8 @@ def serve_tp(arch: str, layers, mesh) -> dict:
                                       host_ms=v["s"] * 1e3 / calls)
                               for k, v in stats.items()})
     res.update(_profile_decode(model, params, eng.cache))
+    if cfg.is_encdec:
+        res["prefill"] = encdec_prefill(model, params, mesh)
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     del eng, model, params
     gc.collect()
@@ -315,21 +389,77 @@ def serve_tp(arch: str, layers, mesh) -> dict:
     return res
 
 
-def twin(arch: str, mesh) -> dict:
-    """``arch`` cut to TWIN_LAYERS at full width in float32: the tp = 2
-    model's prefill logits and TWIN_STEPS decode steps against the tp = 1
-    model's from the same seed on rank 0, within TWIN_TOL and with the
-    same argmax; for MoE, the same routing and the same bins (rank 0's
-    tp = 1 bins against both ranks' spmd bins, gathered)."""
+def encdec_prefill(model, params, mesh) -> dict:
+    """whisper's ``LM.prefill`` of WHISPER_ROWS x WHISPER_PROMPT tokens over
+    seeded bf16 frames of (WHISPER_ROWS, encoder_seq, d): the sharded
+    encoder, then the decoder.  Once to warm up, then timed with the
+    launch counters and the mesh's counts zeroed just before and read
+    after; row 5's launches must be the program's (the encoder's gqa and
+    MLP entries a layer, and the decoder's), its (S, d, F) recorded."""
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(SEED)
+    frames = torch.randn((WHISPER_ROWS, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device=mesh.device,
+                         dtype=torch.bfloat16)
+    tokens = torch.randint(1, cfg.vocab_size, (WHISPER_ROWS, WHISPER_PROMPT),
+                           generator=gen, device=mesh.device,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "frames": frames}
+    fnm, shapes = ops.fused_norm_matmul, set()
+
+    def recording_fnm(x, gamma, w):
+        shapes.add((x.numel() // x.shape[-1], int(x.shape[-1]),
+                    int(w.shape[-1])))
+        return fnm(x, gamma, w)
+
+    with torch.no_grad():
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+        ops.fused_norm_matmul = recording_fnm
+        try:
+            ops.reset_launch_counts()
+            mesh.reset_stats()
+            t0 = time.perf_counter()
+            logits = model.prefill(params, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ops.fused_norm_matmul = fnm
+    launches = dict(ops.LAUNCHES)
+    want = fused_per_prefill(cfg)
+    check(launches["fused_norm_matmul"] == want,
+          f"{cfg.name} prefill: {launches['fused_norm_matmul']} row-5 "
+          f"launches, not the program's {want}")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (WHISPER_ROWS, cfg.vocab_size),
+          f"{cfg.name} prefill: logits {tuple(logits.shape)} not finite")
+    return dict(ms=ms, rows=WHISPER_ROWS, prompt=WHISPER_PROMPT,
+                frames=list(frames.shape), launches=launches,
+                row5_shapes=sorted(shapes), collectives=mesh.stats_json())
+
+
+def twin(arch: str, mesh, **replace) -> dict:
+    """``arch`` cut for its twin (:func:`_twin_config`) at full width in
+    float32: the tp = 2 model's prefill logits (whisper's over seeded
+    frames) and TWIN_STEPS decode steps against the tp = 1 model's from
+    the same seed on rank 0, within TWIN_TOL and with the same argmax; for
+    MoE, the same routing and the same bins (rank 0's tp = 1 bins against
+    both ranks' spmd bins, gathered)."""
     import gc
     from repro_torch.models import moe as moe_mod
-    import dataclasses
     from repro_torch.models.lm import LM, init_params
-    cfg = dataclasses.replace(_config(arch, TWIN_LAYERS), dtype="float32")
+    cfg = _twin_config(arch, **replace)
     rank0 = mesh.axis_index("model") == 0
     rng = np.random.default_rng(SEED + 1)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (LANES, 8))
                             .astype(np.int32)).to(mesh.device)
+    inputs = {"tokens": toks}
+    if cfg.is_encdec:
+        inputs["frames"] = torch.from_numpy(rng.standard_normal(
+            (LANES, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(
+                mesh.device)
     router, spmd, whole = moe_mod.router_probs, moe_mod.spmd_bins, \
         moe_mod.bins
     routed, lanes = {"tp2": [], "tp1": []}, {"tp2": [], "tp1": []}
@@ -352,7 +482,7 @@ def twin(arch: str, mesh) -> dict:
 
     def run(model, params):
         with torch.no_grad():
-            outs = [model.prefill(params, {"tokens": toks})]
+            outs = [model.prefill(params, inputs)]
             cache = model.init_cache(LANES, 16)
             for i in range(TWIN_STEPS):
                 logits, cache = model.decode_step(params, toks[:, i:i + 1],
@@ -368,7 +498,8 @@ def twin(arch: str, mesh) -> dict:
         moe_mod.router_probs, moe_mod.spmd_bins = router, spmd
     gc.collect()
     torch.cuda.empty_cache()
-    res = {"layers": TWIN_LAYERS}
+    res = {"layers": cfg.num_layers, "experts": (
+        cfg.moe.num_experts if cfg.moe is not None else None)}
     if cfg.moe is not None:  # both ranks' bins, whole, on every rank
         lanes["tp2"] = [mesh.all_gather(t, "model") for t in lanes["tp2"]]
     if rank0:
@@ -390,10 +521,11 @@ def twin(arch: str, mesh) -> dict:
               f"{max(errs)} (argmax equal: {same})")
         if cfg.moe is not None:
             n = len(routed["tp1"])
-            check(n == len(routed["tp2"]) == len(lanes["tp1"])
-                  == len(lanes["tp2"]) > 0,
-                  f"{arch} twin: {n} router calls at tp = 1, "
-                  f"{len(routed['tp2'])} at tp = 2")
+            check(n == len(routed["tp2"]) > 0
+                  and len(lanes["tp1"]) == len(lanes["tp2"]) > 0,
+                  f"{arch} twin: {n} router calls and {len(lanes['tp1'])} "
+                  f"binnings at tp = 1, {len(routed['tp2'])} and "
+                  f"{len(lanes['tp2'])} at tp = 2")
             res["routing_equal"] = all(torch.equal(a, b) for a, b in zip(
                 routed["tp1"], routed["tp2"]))
             res["bins_equal"] = all(torch.equal(a, b) for a, b in zip(
@@ -407,6 +539,156 @@ def twin(arch: str, mesh) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def data_twin(arch: str, mesh) -> dict:
+    """The (D, 1) serving twin: ``arch`` at TWIN_LAYERS in float32 over
+    ``mesh``, each rank its rows of DATA_LANES seeded prompts (its lanes of
+    the cache), prefill logits and TWIN_STEPS decode steps gathered over
+    ``data``, against the whole program on all DATA_LANES rows on rank 0,
+    within TWIN_TOL and with the same argmax."""
+    import dataclasses
+    import gc
+    from repro_torch.models.lm import LM, init_params
+    cfg = dataclasses.replace(_config(arch, TWIN_LAYERS), dtype="float32")
+    n = mesh.axis_size(("pod", "data"))
+    k = mesh.axis_index(("pod", "data"))
+    rng = np.random.default_rng(SEED + 2)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (DATA_LANES, 8))
+                            .astype(np.int32)).to(mesh.device)
+    b = DATA_LANES // n
+
+    def run(model, params, rows):
+        with torch.no_grad():
+            outs = [model.prefill(params, {"tokens": rows})]
+            cache = model.init_cache(DATA_LANES, 16)
+            for i in range(TWIN_STEPS):
+                logits, cache = model.decode_step(params, rows[:, i:i + 1],
+                                                  cache)
+                outs.append(logits)
+        return outs
+
+    model = LM(cfg, mesh=mesh)
+    mine = run(model, init_params(cfg, SEED, dtype=torch.float32, mesh=mesh),
+               toks[k * b:(k + 1) * b])
+    got = [mesh.all_gather(t, ("pod", "data")) for t in mine]
+    res = {"layers": TWIN_LAYERS, "lanes": DATA_LANES, "lanes_local": b,
+           "lanes_of_cache": int(model.init_cache(DATA_LANES, 16)[
+               "length"].shape[0])}
+    check(res["lanes_of_cache"] == b, f"{arch}: the rank's cache holds "
+          f"{res['lanes_of_cache']} lanes, not {b}")
+    del model, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if k == 0:
+        m1 = LM(cfg, device=mesh.device)
+        want = run(m1, init_params(cfg, SEED, device=mesh.device,
+                                   dtype=torch.float32), toks)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(got, want))
+        res.update(max_abs_err=max(errs), errs=errs, same_argmax=same)
+        check(max(errs) <= TWIN_TOL and same,
+              f"{arch} (D, 1) twin: the data-split program differs from the "
+              f"whole one by {max(errs)} (argmax equal: {same})")
+        del m1, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_train_twins(mesh12) -> dict:
+    """(f): one float32 ``(1, 2)`` train step of each TRAIN_FAMILIES config
+    at its reduced size (``get_config(reduced=True)``, whatever ``_config``
+    is), both ranks on one seeded batch of TRAIN_FAMILY_B x
+    TRAIN_FAMILY_SEQ tokens (whisper's with seeded frames), against the
+    plain step on rank 0: the loss within TRAIN_TWIN_TOL, and every
+    leaf's gradient (Adam's first moment, (1 - b1) g) and update, gathered
+    whole, within TRAIN_TWIN_TOL of the leaf's scale.  The launch counters
+    are zeroed just before the mesh's step and read after: each rank's
+    count must equal the plain step's (the same entries, each rank with
+    its shards), and the (S, d, F, dtype) of row 5's and row 6's calls are
+    recorded."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import gather_params
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.train import init_state, make_train_step
+    tcfg = TrainConfig(learning_rate=TRAIN_LR)
+    rank0 = mesh12.axis_index("model") == 0
+    dev = mesh12.device
+    out, launches = {}, {}
+    shapes = {"fused_norm_matmul": set(), "fused_norm_matmul_bwd": set()}
+    for arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  dtype="float32")
+        rng = np.random.default_rng(SEED + 3)
+        batch = _global_batch(cfg.vocab_size, TRAIN_FAMILY_B,
+                              TRAIN_FAMILY_SEQ, SEED + 3, dev)
+        if cfg.is_encdec:
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (TRAIN_FAMILY_B, cfg.encoder_seq, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        model = LM(cfg, mesh=mesh12)
+        params = init_params(cfg, SEED, dtype=torch.float32, mesh=mesh12)
+        pspecs = model.pspecs()
+        state = init_state(params, mesh=mesh12, pspecs=pspecs)
+        step = make_train_step(model, tcfg)
+        torch.cuda.synchronize()
+        state, r = _train_steps(step, state, batch, mesh12, 1)
+        whole = gather_params({"p": state.params, "m": state.m}, {
+            "p": pspecs, "m": pspecs}, mesh12)
+        res = dict(loss=r["losses"][0], step_ms=r["step_ms"][0],
+                   launches=r["launches"], collectives=r["collectives"])
+        for name, sh in r["fnm_shapes"].items():
+            shapes[name] |= set(map(tuple, sh))
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        del model, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank0:
+            m0 = LM(cfg, device=dev)
+            p0 = init_params(cfg, SEED, device=dev, dtype=torch.float32)
+            ops.reset_launch_counts()
+            s0, met = make_train_step(m0, tcfg)(init_state(p0), batch)
+            torch.cuda.synchronize()
+            plain = dict(ops.LAUNCHES)
+            errs = {"m": 0.0, "update": 0.0}
+            # the parameters start equal (one seed), so their difference
+            # after the step is the updates'
+            for (_, a), (_, b), (_, p1), (_, p2) in zip(
+                    sorted_leaves(whole["m"]), sorted_leaves(s0.m),
+                    sorted_leaves(whole["p"]), sorted_leaves(s0.params)):
+                scale = max(1.0, float(b.abs().max()))
+                errs["m"] = max(errs["m"], float((a - b).abs().max()) / scale)
+                errs["update"] = max(errs["update"],
+                                     float((p1 - p2).abs().max()))
+            res.update(plain_loss=float(met["loss"]),
+                       loss_diff=abs(res["loss"] - float(met["loss"])),
+                       grad_err=errs["m"], update_err=errs["update"],
+                       plain_launches=plain)
+            check(res["loss_diff"] <= TRAIN_TWIN_TOL
+                  and errs["m"] <= TRAIN_TWIN_TOL
+                  and errs["update"] <= TRAIN_TWIN_TOL,
+                  f"{arch} (1, 2) float32 step against the plain step: loss "
+                  f"{res['loss_diff']}, gradient {errs['m']}, update "
+                  f"{errs['update']}")
+            check(all(r["launches"][k] == plain.get(k, 0)
+                      for k in ("fused_norm_matmul",
+                                "fused_norm_matmul_bwd")),
+                  f"{arch}: the (1, 2) step launched {r['launches']}, the "
+                  f"plain step {plain}")
+            del m0, p0, s0
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = res
+    out["launches"] = launches
+    out["fnm_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    return out
 
 
 def _global_batch(vocab: int, n: int, seq: int, seed: int, device) -> dict:
@@ -764,8 +1046,9 @@ def train_meshes(mesh12, res: dict) -> dict:
 
 def reduced(init: str, rank: int, out: str) -> int:
     """The twins at the configs' reduced sizes (qwen2.5-14b with padded
-    heads, mixtral-8x22b with a shared expert), and the float32 (2, 1)
-    step against the plain step: the on-card tests' world."""
+    heads, the MoE configs with a shared expert; mixtral also with
+    ``moe_gather_decode``; llama3.2-1b over (2, 1)), (f), and the float32
+    (2, 1) step against the plain step: the on-card tests' world."""
     import dataclasses
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.launch import mesh as mesh_mod
@@ -791,9 +1074,14 @@ def reduced(init: str, rank: int, out: str) -> int:
         mesh = mesh_mod.make_mesh((1, 2))
         for arch, _ in SERVED:
             res[arch] = twin(arch, mesh)
+        res["mixtral-8x22b/gather"] = twin("mixtral-8x22b", mesh,
+                                           moe_gather_decode=True)
+        res["train_families"] = family_train_twins(mesh)
+        mesh21 = mesh_mod.make_mesh((2, 1))
+        res["llama3.2-1b/data"] = data_twin("llama3.2-1b", mesh21)
         res["zero_twin_max_abs_err"] = zero_twin(
             small("llama3.2-1b"), TrainConfig(learning_rate=TRAIN_LR),
-            mesh_mod.make_mesh((2, 1)))
+            mesh21)
     except Exception as e:  # the test reads it
         import traceback
         res["error"] = f"{type(e).__name__}: {e}"
@@ -819,19 +1107,36 @@ def main(init: str, rank: int, out: str) -> int:
         res.update(backend=mesh.backend, p2p=mesh.p2p,
                    device=str(mesh.device))
         launches = {k: 0 for k in ops.LAUNCHES}
-        for arch, layers in SERVED:
-            t = time.perf_counter()
-            res[arch] = serve_tp(arch, layers, mesh)
-            res[arch]["twin"] = twin(arch, mesh)
-            res[arch]["seconds"] = time.perf_counter() - t
-            for k, v in res[arch]["launches"].items():
+
+        def add(counts):
+            for k, v in counts.items():
                 launches[k] += v
+
+        mesh21 = mesh_mod.make_mesh((2, 1))
+        runs = [(arch, arch, layers, mesh, {}) for arch, layers in SERVED]
+        runs += [("mixtral-8x22b/gather", "mixtral-8x22b", 4, mesh,
+                  {"moe_gather_decode": True}),
+                 ("llama3.2-1b/data", "llama3.2-1b", None, mesh21, {})]
+        for key, arch, layers, m, replace in runs:
+            t = time.perf_counter()
+            data = m is mesh21
+            res[key] = serve_tp(arch, layers, m, lanes=DATA_LANES if data
+                                else LANES, **replace)
+            res[key]["twin"] = data_twin(arch, m) if data \
+                else twin(arch, m, **replace)
+            res[key]["seconds"] = time.perf_counter() - t
+            add(res[key]["launches"])
+            if "prefill" in res[key]:
+                add(res[key]["prefill"]["launches"])
         t = time.perf_counter()
         res["train"] = {}
         train_meshes(mesh, res["train"])
         res["train"]["seconds"] = time.perf_counter() - t
-        for k, v in res["train"]["launches"].items():
-            launches[k] += v
+        add(res["train"]["launches"])
+        t = time.perf_counter()
+        res["train_families"] = family_train_twins(mesh)
+        res["train_families"]["seconds"] = time.perf_counter() - t
+        add(res["train_families"]["launches"])
         res["launches"] = launches
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t_start
