@@ -10,7 +10,9 @@
                             # llama3.2-1b trained, llava, mixtral,
                             # deepseek, jamba and whisper served, and
                             # qwen2.5-14b and mixtral served and llama
-                            # trained by two ranks at tp = 2; one card
+                            # trained by two ranks at tp = 2, and jamba
+                            # decoding a 524,288-token cache over two
+                            # ranks; one card
 
 Phases; any failure exits non-zero:
 
@@ -377,6 +379,27 @@ Phases; any failure exits non-zero:
    launches as the plain step; rows 5 and 6 are then held to their plain
    versions at the shapes those steps recorded.  The path's launches of
    both ranks are summed.
+18. the sequence splits of the decode cache: the world of two ranks again
+   (``tools/tp_rank.py seq``).  (a) jamba-v0.1-52b at its published
+   widths, one 8-layer period (mamba, MoE and its attention layer, about
+   25 GB of bf16 a rank), over ``(2, 1)``: a batch-1 cache of 524,288
+   tokens (``long_500k``), the attention layer's sequence split over
+   ``data`` (1.07 GB of k and v a rank), filled from the seed to 524,272
+   and taken in by ``Engine.resume``, then 8 tokens decoded through
+   ``Engine(lanes=1, max_seq=524288)``, both ranks' tokens equal;
+   (b) llama3.2-1b whole at ``(1, 2)`` under ``cache_seq_shard``: 4 lanes
+   of 32,768 (2.15 GB of cache a rank) filled to 32760, 20000, 9000 and
+   100 (no live position on rank 1), decoded likewise.  Each prints
+   decode-step p50/p99, tokens/s, profiled steps with the busy share, the
+   collectives a call (calls, bytes, host time), the peak memory a rank
+   and row 5's launches a call, which must be the program's; row 5 is
+   then held to its plain version at every (S, d, F) the two runs
+   recorded.  (c) float32 twins at 2 layers, each split decode against
+   the same model and seeded cache unsplit on rank 0 within 1e-4 and with
+   the same argmax: (a) and (b), mixtral-8x22b at batch 1 over ``(2, 1)``
+   with its 4096-slot rolling window filled to 524,280 (the decode
+   crosses from rank 1's slots to rank 0's), and deepseek-v3-671b's MLA
+   under ``cache_seq_shard`` at ``(1, 2)`` (the MoE twins at 16 experts).
 
 The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -896,6 +919,8 @@ TP_SERVED = ("qwen2.5-14b", "mixtral-8x22b", "deepseek-v3-671b",
 TP_PROBE_DTYPES = ("bfloat16", "float32", "int8")
 TP_PROBE_TIMEOUT = 180
 TP_MAIN_TIMEOUT = 600
+# phase 18: the world of tools/tp_rank.py seq (its runs' sizes are there)
+SEQ_TIMEOUT = 420
 
 
 def log(*a) -> None:
@@ -5889,6 +5914,22 @@ def wait_tp_world(handle, timeout: float) -> tuple:
     return res, rcs, [(lg or "")[-3000:] for lg in logs]
 
 
+def checked_tp_world(mode: str, timeout: float, phase: int) -> list:
+    """The ranks' JSONs of a world of ``tools/tp_rank.py MODE``; a failed
+    rank's traceback, output and what it finished are logged, and the
+    phase fails."""
+    ranks, rcs, logs = wait_tp_world(start_tp_world(mode), timeout)
+    failed = [r for r, out in enumerate(ranks)
+              if rcs[r] != 0 or out is None or "error" in out]
+    for r in failed:
+        out = ranks[r] or {}
+        log(f"{phase} rank {r} (exit {rcs[r]}): {out.get('traceback', '')}\n"
+            f"{logs[r]}\nwhat it finished: "
+            f"{json.dumps({k: v for k, v in out.items() if k != 'traceback'})}")
+    check(not failed, f"phase {phase}: ranks {failed} failed (above)")
+    return ranks
+
+
 def tp_probe(world) -> dict:
     """17 (a), the probe world ``world`` (:func:`start_tp_world`): which
     collectives gloo serves on card tensors of each dtype in a world of
@@ -5944,17 +5985,8 @@ def serve_tp_phase(gen) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    ranks, rcs, logs = wait_tp_world(start_tp_world("main"),
-                                     TP_MAIN_TIMEOUT)
+    ranks = checked_tp_world("main", TP_MAIN_TIMEOUT, 17)
     res["world_s"] = time.perf_counter() - t
-    failed = [r for r, out in enumerate(ranks)
-              if rcs[r] != 0 or out is None or "error" in out]
-    for r in failed:
-        out = ranks[r] or {}
-        log(f"17 rank {r} (exit {rcs[r]}): {out.get('traceback', '')}\n"
-            f"{logs[r]}\nwhat it finished: "
-            f"{json.dumps({k: v for k, v in out.items() if k != 'traceback'})}")
-    check(not failed, f"phase 17: ranks {failed} failed (above)")
     for r, out in enumerate(ranks):
         check(out["backend"] == "gloo" and out["p2p"] == "all_gather",
               f"rank {r}: backend {out['backend']}, ppermute {out['p2p']}")
@@ -6027,6 +6059,57 @@ def serve_tp_phase(gen) -> tuple:
                 for k in ranks[0]["launches"]}
     log("phase 17: row 5's shapes and the probe {:.1f} s, the world "
         "{:.1f} s".format(res["fnm_probe_s"], res["world_s"]))
+    return res, launches
+
+
+# ------------------------------------------------------------ phase 18
+def serve_seq_phase(gen) -> tuple:
+    """Phase 18: the world of two ranks (``tools/tp_rank.py seq``: jamba's
+    batch-1 cache of 524,288 tokens over data, llama3.2-1b under
+    ``cache_seq_shard`` at tp = 2, the float32 twins), then row 5 against
+    its plain version at every (S, d, F) the ranks' runs recorded.
+    Returns the numbers and the launch counts summed over both ranks."""
+    res, t = {}, time.perf_counter()
+    ranks = checked_tp_world("seq", SEQ_TIMEOUT, 18)
+    res["world_s"] = time.perf_counter() - t
+    shapes = set()
+    for r, out in enumerate(ranks):
+        log(f"18 rank {r}: mesh backend {out['backend']} (two ranks on "
+            f"{out['device']}), {out['seconds']:.1f} s")
+        for key in ("long", "seqshard"):
+            a = out[key]
+            log(f"18 rank {r} {key}: {a['model']} ({a['layers']} layers, mesh "
+                f"{a['mesh']}, sequence over {a['seq_axes']}, max_seq "
+                f"{a['max_seq']}, lengths {a['lengths']}): "
+                f"{a['param_bytes_local']} B of parameters and "
+                f"{a['cache_bytes_local']} B of cache a rank, drawn in "
+                f"{a['init_s']:.3f} s and {a['fill_s']:.3f} s; decode_step "
+                f"p50 {a['decode_step_ms']['p50']:.4f} ms, p99 "
+                f"{a['decode_step_ms']['p99']:.4f} ms over "
+                f"{a['decode_step_calls']} calls; "
+                f"{a['generated_tokens_per_s']:.2f} generated tokens/s "
+                f"({a['generated']} a lane); profiled step "
+                f"{a['profiled_step_ms']:.4f} ms, busy "
+                f"{a['device_busy_share']}, {a['device_ops_per_step']:.1f} "
+                f"device ops a step; collectives a call "
+                f"{json.dumps(a['collectives_per_call'])}; peak "
+                f"{a['max_memory_allocated']} B; tokens equal on the ranks "
+                f"{a['tokens_equal_on_ranks']}; row 5 "
+                f"{a['launches']['fused_norm_matmul']} launches, "
+                f"{a['fnm_per_call']} a call, at {a['row5_shapes']}; "
+                f"{a['seconds']:.1f} s")
+            shapes |= {tuple(sh) for sh in a["row5_shapes"]}
+    for key, twin in ranks[0]["twins"].items():
+        log(f"18 (c) float32 twin {key}: {json.dumps(twin)}")
+        if key != "seconds":
+            check(twin["max_abs_err"] <= 1e-4 and twin["same_argmax"],
+                  f"phase 18 twin {key}: {json.dumps(twin)}")
+    res["fnm_check_shapes"] = check_fnm_shapes(
+        gen, [(S, d, F, "bfloat16") for S, d, F in sorted(shapes)])
+    res["ranks"] = ranks
+    launches = {k: sum(out["launches"][k] for out in ranks)
+                for k in ranks[0]["launches"]}
+    log("phase 18: the world {:.1f} s".format(res["world_s"]))
     return res, launches
 
 
@@ -6341,6 +6424,19 @@ def main() -> int:
     log(f"launches on the tensor-parallel path (both ranks): {plaunch}")
     log(f"tensor-parallel path: {json.dumps(pres)}")
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
+    # ---- phase 18: the sequence splits of the decode cache, two ranks ----
+    t18 = time.perf_counter()
+    qres, qlaunch = serve_seq_phase(gen)
+    for name, k in kernels.items():
+        k["launches_seq_path"] = qlaunch[name]
+    kernels["fused_norm_matmul"]["max_abs_err_seq_shapes"] = max(
+        sh["max_abs_err"] for sh in qres["fnm_check_shapes"])
+    check(qlaunch["fused_norm_matmul"] > 0, "fused_norm_matmul never "
+          "launched on the split-cache path")
+    log(f"launches on the split-cache path (both ranks): {qlaunch}")
+    log(f"split-cache path: {json.dumps(qres)}")
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

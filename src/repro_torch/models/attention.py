@@ -8,10 +8,23 @@ weight, with no copy.  MLA has three such entries (the mixer's norm into
 ``wq_a`` and into ``wkv_a``, ``q_a_norm`` into ``wq_b``).
 ``flash_attention``, ``decode_attention`` and MLA's absorbed decode are
 plain PyTorch, as the reference computes them outside any Pallas kernel.
+
+A decode cache whose sequence splits over mesh axes (:class:`SeqSplit`:
+the batch-1 long-context cache over ``data``, or ``cache_seq_shard`` over
+``model``) holds global positions ``[r * S_loc, (r + 1) * S_loc)`` on the
+rank at index ``r`` of those axes.  Only the owner of the new token's
+position writes it; each rank computes the float32 flash partials ``(o, m,
+l)`` of its range (:func:`decode_partials`, the masks of
+:func:`decode_attention`), and one ``all_gather`` over the axes and
+``ops.flash_combine`` in rank order give every rank the same softmax
+(:meth:`SeqSplit.combine`).  A range with no live position weighs
+``exp(NEG_INF - m_max) = 0``.  What GSPMD partitions in the reference, the
+rank's program does by hand.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 
 import torch
@@ -94,14 +107,122 @@ def decode_attention(q, k_cache, v_cache, length, *, window: int | None = None,
         vf = repeat_kv(v_cache, H).float()
     qf = q.reshape(B, H, d).float() * (d ** -0.5)
     s = torch.einsum("bhd,bshd->bhs", qf, kf)
-    pos = torch.arange(k_cache.shape[1], device=q.device)[None, None, :]
-    mask = pos < length[:, None, None]
-    if window is not None:
-        mask &= pos > (length[:, None, None] - 1 - window)
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_decode_mask(s, length, 0, window), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhs,bshd->bhd", p, vf)
     return o.reshape(B, 1, H, d).to(q.dtype)
+
+
+def _kv_group(heads, H: int, Hkv: int):
+    """The q heads' group size when ``heads`` (q head -> kv head, None:
+    the plain GQA pattern) is the plain pattern over all ``Hkv`` kv heads,
+    else None."""
+    if heads is None:
+        return H // Hkv
+    runs = [(h, len(list(grp))) for h, grp in itertools.groupby(heads)]
+    if [h for h, _ in runs] == list(range(Hkv)) \
+            and len({n for _, n in runs}) == 1:
+        return runs[0][1]
+    return None
+
+
+def decode_partials(q, k_cache, v_cache, length, *, window=None, heads=None,
+                    pos0=0):
+    """The float32 flash partials of a single-token decode against a chunk
+    (B, S_loc, Hkv, d) of the cache that holds global positions ``pos0 ..
+    pos0 + S_loc``, with :func:`decode_attention`'s masks at those global
+    positions (``length`` valid positions, ``window``) and its ``NEG_INF``;
+    q (B,1,H,d); ``heads`` maps each q head to its kv head (None: the plain
+    GQA pattern).  -> (o (B,H,d) normalized by its own l, m (B,H), l
+    (B,H)).  A chunk with no live position gives m = NEG_INF, which
+    ``ops.flash_combine`` weighs 0.  The plain pattern reads each kv head
+    once for its group of q heads (no repeat of the chunk)."""
+    B, _, H, d = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qf = q.reshape(B, H, d).float() * (d ** -0.5)
+    kf, vf = k_cache.float(), v_cache.float()
+    g = _kv_group(heads, H, Hkv)
+    if g is not None:
+        s = torch.einsum("bkgd,bskd->bkgs", qf.view(B, Hkv, g, d),
+                         kf).reshape(B, H, S)
+    else:
+        idx = torch.tensor(heads, device=q.device)
+        kf, vf = kf.index_select(2, idx), vf.index_select(2, idx)
+        s = torch.einsum("bhd,bshd->bhs", qf, kf)
+    p, m, l = _masked_exp(s, length, pos0, window)
+    if g is not None:
+        o = torch.einsum("bkgs,bskd->bkgd", p.view(B, Hkv, g, S),
+                         vf).reshape(B, H, -1)
+    else:
+        o = torch.einsum("bhs,bshd->bhd", p, vf)
+    return o / l[..., None], m, l
+
+
+def _decode_mask(s, length, pos0: int, window=None):
+    """Which of the scores (B, H, S) of positions ``pos0 ..`` a decode
+    reads: those below the row's ``length``, and with ``window`` only the
+    last ``window`` of them."""
+    pos = pos0 + torch.arange(s.shape[-1], device=s.device)[None, None, :]
+    mask = pos < length[:, None, None]
+    if window is not None:
+        mask &= pos > (length[:, None, None] - 1 - window)
+    return mask
+
+
+def _masked_exp(s, length, pos0: int, window=None):
+    """Scores (B, H, S) of positions ``pos0 ..``, masked as
+    :func:`decode_attention` masks them -> (exp(s - m), m, l)."""
+    s = torch.where(_decode_mask(s, length, pos0, window), s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return p, m, p.sum(dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """The decode cache's sequence split over ``axes`` of ``mesh`` (one
+    name or a tuple, the first major, as ``Mesh.axis_index``): the rank
+    holds ``S_loc`` positions from ``index * S_loc``.  ``gather_heads``:
+    the mixer's heads split over ``model``, one of ``axes``, so the rank
+    gathers the new token's q (and its k, v when the kv heads split) over
+    ``model``, computes every head's partials on its chunk, and keeps its
+    own heads of the combine."""
+    mesh: object
+    axes: tuple
+    gather_heads: bool = False
+
+    def pos0(self, s_loc: int) -> int:
+        return self.mesh.axis_index(self.axes) * s_loc
+
+    def size(self) -> int:
+        return self.mesh.axis_size(self.axes)
+
+    def combine(self, o, m, l) -> torch.Tensor:
+        """The whole softmax from this rank's partials: one ``all_gather``
+        of ``(o, m, l)`` packed on the last axis over :attr:`axes`, then
+        ``ops.flash_combine`` in rank order, so every rank holds the same
+        bits."""
+        d = o.shape[-1]
+        packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)
+        parts = self.mesh.all_gather(packed[None], self.axes, dim=0)
+        return ops.flash_combine(list(parts[..., :d]), list(parts[..., d]),
+                                 list(parts[..., d + 1]))
+
+    def gather_heads_of(self, *xs) -> list:
+        """Each (B, 1, n_i, e_i) of ``xs`` (one dtype) with the heads of
+        every ``model`` rank, in rank order: one ``all_gather`` of the
+        rank's heads, packed flat."""
+        B = xs[0].shape[0]
+        flat = torch.cat([x.reshape(B, 1, -1) for x in xs], dim=-1)
+        parts = self.mesh.all_gather(flat[None], "model", dim=0)
+        out, at = [], 0
+        for x in xs:
+            n, e = x.shape[2], x.shape[3]
+            h = parts[..., at:at + n * e]  # (tp, B, 1, n * e)
+            out.append(h.reshape(-1, B, 1, n, e).permute(1, 2, 0, 3, 4)
+                       .reshape(B, 1, -1, e))
+            at += n * e
+        return out
 
 
 # ------------------------------------------------------------------- GQA box
@@ -135,16 +256,15 @@ def expand_kv(k, heads: list):
     expand, so the backward sums each group in a fixed order; the plain
     GQA pattern is :func:`repeat_kv`."""
     B, S, Hkv, d = k.shape
-    runs = [(h, len(list(grp))) for h, grp in itertools.groupby(heads)]
-    if [h for h, _ in runs] == list(range(Hkv)) \
-            and len({n for _, n in runs}) == 1:
+    if _kv_group(heads, len(heads), Hkv) is not None:
         return repeat_kv(k, len(heads))
+    runs = [(h, len(list(grp))) for h, grp in itertools.groupby(heads)]
     return torch.cat([k[:, :, h:h + 1].expand(B, S, n, d) for h, n in runs],
                      dim=2)
 
 
 def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
-              q0: int = 0, kv0: int = 0):
+              q0: int = 0, kv0: int = 0, seq: SeqSplit | None = None):
     """mode: 'train' (the full sequence, no cache) | 'decode' (one token
     against ``cache``, returns the new cache).
 
@@ -154,7 +274,8 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     ``pad_attn_heads``'s padded q heads flow through: heads at or past
     ``cfg.num_heads`` read the last real head's kv and contribute zero.
     On a mesh the weights are one rank's heads, the first of them global
-    q head ``q0`` and kv head ``kv0``."""
+    q head ``q0`` and kv head ``kv0``; ``seq``: the cache's sequence split
+    (see the module docstring), or None."""
     B, S, d = x.shape
     H, hd = p["wq"].shape[1], cfg.head_dim
     Hkv = p["wk"].shape[1]
@@ -188,19 +309,37 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     # decode: cache = (k_cache, v_cache, length); the new token is written at
     # per-row `length` (positions = length for RoPE). SWA uses a rolling
     # cache: slot = length % window_size, all-written-slots valid.
+    # Over a split sequence the global cache is the ranks' chunks end to
+    # end: the rolling slot's owner is slot // S_loc.
     _, _, length = cache
-    W = cache[0].shape[1]
+    S_loc = cache[0].shape[1]
+    W = S_loc * (seq.size() if seq is not None else 1)
     rolling = window is not None and W <= window
     slot = length % W if rolling else length
-    k_cache = _write_at(cache[0], k, slot)
-    v_cache = _write_at(cache[1], v, slot)
-    if rolling:
-        valid = torch.clamp(length + 1, max=W)
-        o = decode_attention(q, k_cache, v_cache, valid, window=None,
+    valid, win = ((torch.clamp(length + 1, max=W), None) if rolling
+                  else (length + 1, window))
+    if seq is None:
+        k_cache = _write_at(cache[0], k, slot)
+        v_cache = _write_at(cache[1], v, slot)
+        o = decode_attention(q, k_cache, v_cache, valid, window=win,
                              kv_idx=kv_idx)
     else:
-        o = decode_attention(q, k_cache, v_cache, length + 1, window=window,
-                             kv_idx=kv_idx)
+        qa, ka, va, heads_a = q, k, v, heads
+        if seq.gather_heads:  # the chunk holds every kv head
+            if Hkv < cfg.num_kv_heads:
+                qa, ka, va = seq.gather_heads_of(q, k, v)
+            else:
+                qa, = seq.gather_heads_of(q)
+            heads_a = gqa_kv_heads(cfg, qa.shape[2])
+        pos0 = seq.pos0(S_loc)
+        k_cache = _write_at(cache[0], ka, slot - pos0)
+        v_cache = _write_at(cache[1], va, slot - pos0)
+        o = seq.combine(*decode_partials(qa, k_cache, v_cache, valid,
+                                         window=win, heads=heads_a,
+                                         pos0=pos0))
+        if seq.gather_heads:
+            o = o[:, q0:q0 + H]
+        o = o.reshape(B, 1, H, hd).to(q.dtype)
     if pad_mask is not None:
         o = o * pad_mask[None, None, :, None].to(o.dtype)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
@@ -237,7 +376,7 @@ def mla_params_shape(cfg):
 
 
 def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
-              copy=None):
+              copy=None, seq: SeqSplit | None = None):
     """Multi-head latent attention (deepseek-v3).  mode: 'train' | 'prefill'
     (returns the latent cache rows) | 'decode' (uses ``cache``).
 
@@ -254,7 +393,13 @@ def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     values where they enter the rank's heads: ``q_a`` and ``q_a_norm`` (the
     ``wq_b`` entry), the latent ``c_kv`` and the rope key.  The ``wq_a``
     and ``wkv_a`` entries and the latent run whole on every rank, and every
-    rank writes the same latent to the cache."""
+    rank writes the same latent to the cache.
+
+    ``seq``: the cache's sequence split, or None.  The scores go over the
+    rank's chunk of the latent and rope key; their partials in latent
+    space (``o_lat``, m, l) are combined across the split, and with
+    ``seq.gather_heads`` the absorbed q of every ``model`` rank's heads is
+    gathered first and the rank keeps its own heads of the combine."""
     B, S, d = x.shape
     m = cfg.mla
     r = m.kv_lora_rank
@@ -290,18 +435,38 @@ def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
 
     # ---- decode (absorbed): scores over the latent cache directly --------
     c_cache, r_cache, length = cache
-    c_cache = _write_at2(c_cache, c_kv, length)
-    r_cache = _write_at2(r_cache, k_rope, length)
     wk_b = p["wk_b"].reshape(r, H, dn).float()
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_b)  # (B,1,H,r)
-    c_f = c_cache.float()
-    s = torch.einsum("bshr,btr->bhst", q_abs, c_f)
-    s = s + torch.einsum("bshd,btd->bhst", q_rope.float(), r_cache.float())
-    s = s * scale
-    pos = torch.arange(c_cache.shape[1], device=x.device)[None, None, None, :]
-    s = torch.where(pos < (length + 1)[:, None, None, None], s, NEG_INF)
-    attn = torch.softmax(s, dim=-1)  # (B,H,1,T)
-    o_lat = torch.einsum("bhst,btr->bshr", attn, c_f)
+    if seq is None:
+        c_cache = _write_at2(c_cache, c_kv, length)
+        r_cache = _write_at2(r_cache, k_rope, length)
+        c_f = c_cache.float()
+        s = torch.einsum("bshr,btr->bhst", q_abs, c_f)
+        s = s + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                             r_cache.float())
+        s = s * scale
+        pos = torch.arange(c_cache.shape[1],
+                           device=x.device)[None, None, None, :]
+        s = torch.where(pos < (length + 1)[:, None, None, None], s, NEG_INF)
+        attn = torch.softmax(s, dim=-1)  # (B,H,1,T)
+        o_lat = torch.einsum("bhst,btr->bshr", attn, c_f)
+    else:
+        qa, qr = q_abs, q_rope.float()
+        if seq.gather_heads:
+            qa, qr = seq.gather_heads_of(qa, qr)
+        pos0 = seq.pos0(c_cache.shape[1])
+        c_cache = _write_at2(c_cache, c_kv, length - pos0)
+        r_cache = _write_at2(r_cache, k_rope, length - pos0)
+        c_f = c_cache.float()
+        s = torch.einsum("bshr,btr->bhst", qa, c_f)
+        s = (s + torch.einsum("bshd,btd->bhst", qr, r_cache.float())) * scale
+        e, m, l = _masked_exp(s[:, :, 0], length + 1, pos0)
+        o_lat = seq.combine(torch.einsum("bht,btr->bhr", e, c_f)
+                            / l[..., None], m, l)  # (B, heads, r)
+        if seq.gather_heads:
+            h0 = seq.mesh.axis_index("model") * H
+            o_lat = o_lat[:, h0:h0 + H]
+        o_lat = o_lat[:, None]
     o = torch.einsum("bshr,rhd->bshd", o_lat,
                      p["wv_b"].reshape(r, H, dv).float())
     out = o.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]

@@ -25,11 +25,13 @@ with the reference's specs (``param_pspecs``; ``pad_attn_heads`` pads the
 q heads to a multiple of tp) and a vocab-parallel embedding, logits and
 cross entropy: each rank runs its share with the collectives where the
 reference's GSPMD puts them (``LM``).  In serving, the batch and the cache
-split over a data axis (``cache_template``).  Only the two sequence splits
-of the cache raise ``NotImplementedError`` (ROADMAP item 18d):
-``cache_seq_shard`` at tp > 1, and a batch-1 cache over a data axis above
-1.  Every RMSNorm -> projection
-pair with a continuous output runs through ``ops.fused_norm_matmul``:
+split over a data axis, and the cache's sequence splits where the
+reference's specs split it (``cache_template``): over ``data`` (``("pod",
+"data")`` on a pod mesh) for a batch-1 cache, the ``long_500k`` shape,
+and over ``model`` under ``cache_seq_shard``; attention then combines the
+ranks' flash partials (``attention.SeqSplit``).  Every RMSNorm ->
+projection pair with a continuous output runs through
+``ops.fused_norm_matmul``:
 GQA's q, k and v (the encoder's too), MLA's three entries
 (``models/attention.py``), mamba's ``w_in`` (``models/mamba.py``), the
 cross-attention's ``cq``, the SwiGLU gate and up, and the shared expert's
@@ -90,8 +92,6 @@ _PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 _MIXER_CACHE = {"gqa": ("k", "v"), "gqa_cross": ("k", "v"),
                 "mla": ("c", "r"), "mamba": ("h", "tail"),
                 "rwkv": ("x", "s")}
-_REFUSED = ("is not yet ported (ROADMAP item 18d: the sequence splits of "
-            "the cache, a softmax combined across ranks)")
 
 
 def _require_family(cfg: ModelConfig) -> None:
@@ -101,15 +101,11 @@ def _require_family(cfg: ModelConfig) -> None:
 
 
 def _require_ported(cfg: ModelConfig, tp: int) -> None:
-    """The family is ported, and at ``tp > 1`` so is its sharded program:
-    no ``cache_seq_shard``, and every mixer's specs split whole heads (or
-    channels)."""
+    """The family is ported, and at ``tp > 1`` every mixer's specs split
+    whole heads (or channels)."""
     _require_family(cfg)
     if tp == 1:
         return
-    if cfg.cache_seq_shard:
-        raise NotImplementedError(f"cache_seq_shard at tp = {tp} "
-                                  f"({cfg.name}) {_REFUSED}")
     for _, group in make_program(cfg):
         for mixer, _ in group:
             _splits(mixer, cfg, tp)
@@ -447,7 +443,7 @@ def _gqa_shard(p, x, cfg, par):
 
 
 def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
-                 par=None):
+                 par=None, seq=None):
     """-> (x + mixer(x), new mixer cache, the sum unrounded or None).
 
     rwkv's residual sum also comes back in float32: the reference's
@@ -457,9 +453,15 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
     the self-attention.  ``par``: the mesh whose ``model`` axis splits the
     layers, or None; a split mixer returns its partial sum, which one psum
     completes (``wo``, ``co``, rwkv's ``w_o`` and mamba's ``w_out`` are
-    row-split)."""
+    row-split).  ``seq``: the decode cache's sequence split
+    (``attention.SeqSplit``), or None; it reaches the mixers that keep a
+    sequence cache (gqa and mla), which gather their heads over ``model``
+    when the sequence splits over it too."""
     split = par is not None and _splits(kind, cfg, par.shape["model"])
     f = par.copy_to if split else None
+    if seq is not None:
+        seq = dataclasses.replace(seq, gather_heads=split
+                                  and "model" in seq.axes)
 
     def run(fn, *args, **kw):
         if mode == "train":
@@ -474,7 +476,7 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
         if split:
             lp, xin, gamma, q0, kv0 = _gqa_shard(p, x, cfg, par)
         out, new_cache = run(att.gqa_apply, lp, xin, cfg, gamma=gamma,
-                             positions=positions, q0=q0, kv0=kv0)
+                             positions=positions, q0=q0, kv0=kv0, seq=seq)
         x = x + reduced(out)
         if kind == "gqa_cross":
             x = x + reduced(_cross_attn(p, x, enc_out, cfg,
@@ -482,7 +484,7 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
         return x, new_cache, None
     if kind == "mla":
         out, new_cache = run(att.mla_apply, p, x, cfg, gamma=p["norm"],
-                             positions=positions, copy=f)
+                             positions=positions, copy=f, seq=seq)
         return x + reduced(out), new_cache, None
     if kind == "rwkv":
         h = rms_norm(x, p["norm"])
@@ -590,7 +592,7 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None,
 
 
 def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None,
-                par=None):
+                par=None, seq=None):
     """One group of layers (``lp``: their parameters; ``cache_g``: each
     layer's ``(c_m, c_f)``, or None in train mode; ``enc_out``: the
     encoder output a ``gqa_cross`` layer reads) -> (x, the group's MoE
@@ -603,7 +605,7 @@ def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None,
         c_m, c_f = (None, None) if cache_g is None else cache_g[li]
         x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg, positions=positions,
                                       mode=mode, cache=c_m, enc_out=enc_out,
-                                      par=par)
+                                      par=par, seq=seq)
         x, nc_f, aux = _apply_ffn(ffn, fp, x, cfg, mp, mode=mode, cache=c_f,
                                   x_sum=x_sum, par=par)
         if aux is not None:
@@ -650,10 +652,12 @@ class LM:
     carries the reference's across), its inputs the rank's share of the
     batch (the whole batch on every ``model`` rank; its lanes of the cache
     over a data axis, ``init_cache`` taking the whole mesh's batch), and it
-    calls the collectives where the reference's GSPMD puts them.  Only the
-    cache's sequence splits raise ``NotImplementedError`` (ROADMAP item
-    18d): ``cache_seq_shard`` at tp > 1, and a batch-1 cache over a data
-    axis above 1.  Without a mesh, ``tp > 1`` only shapes the parameters
+    calls the collectives where the reference's GSPMD puts them.  A batch
+    that does not split over the data axis, one sequence (the reference's
+    ``_batch_shardable`` false), is the whole batch on every data rank:
+    each computes the same token with the same bits, and the cache's
+    sequence splits over the data axis instead (``cache_template``).
+    Without a mesh, ``tp > 1`` only shapes the parameters
     (``pad_attn_heads``) and the program runs whole, as the reference's
     does without one."""
 
@@ -671,12 +675,19 @@ class LM:
         self.program = make_program(cfg)
         # the mesh the layers split over (None: every layer whole)
         self._par = mesh if mesh is not None and self.tp > 1 else None
+        # the whole mesh's batch of the last cache ``init_cache`` made: a
+        # rank's one lane is then either one of D lanes or the one lane of
+        # a batch-1 cache, which its shapes do not tell apart
+        self.cache_batch: int | None = None
 
     @property
     def _vocab_parallel(self) -> bool:
         """Embedding, logits and CE over this rank's rows of the
         vocabulary.  The reference also asks that the batch divide the
-        data size; the port's batch is already the rank's share."""
+        data size (``_batch_shardable``); the port's batch is already the
+        rank's share, or, for one sequence, the whole batch on every data
+        rank, where the embedding's psum adds only zeros to the owning
+        rank's row: the bits of the reference's plain gather."""
         return self._par is not None and self.cfg.vocab_size % self.tp == 0
 
     @property
@@ -757,12 +768,13 @@ class LM:
 
     # ---- the layer stack
     def _stack(self, params, x, *, positions, mode, caches=None, length=None,
-               remat=False, enc_out=None):
+               remat=False, enc_out=None, seq=None):
         """Run all stages.  ``caches``: the cache's per-stage trees, stacked
         on the layer axis (None in train mode); ``length`` is the shared
         per-row cache write position (decode); ``enc_out`` the encoder
-        output (encdec).  With ``remat``, in train
-        mode and with a gradient asked for, each group of layers runs under
+        output (encdec); ``seq`` the cache's sequence split (decode).
+        With ``remat``, in train mode and with a gradient asked for, each
+        group of layers runs under
         ``torch.utils.checkpoint`` (non-reentrant): its activations are
         recomputed in the backward, as the reference's
         ``jax.checkpoint(nothing_saveable)`` does.  Returns (x, the MoE
@@ -799,7 +811,7 @@ class LM:
                         cache_g.append(
                             (c_m, None if c["ffn"] is None else c["ffn"][i]))
                 args = (group, lp, x, cfg, positions, mode, cache_g, enc_out,
-                        self._par)
+                        self._par, seq)
                 x, aux_g, new_cache_g = (checkpoint(_group_body, *args,
                                                     use_reentrant=False)
                                          if ckpt else _group_body(*args))
@@ -916,25 +928,28 @@ class LM:
         (``h``, ``tail``) and its rwkv heads (``s``); the mla latent and
         the token-shift caches are replicated.
 
-        The gqa layout differs from the reference's, whose cache splits
-        ``head_dim`` over ``model``: the decode function is the same, the
-        spec trees are not.  A batch that does not divide over the data
-        axis raises ``ValueError``; a batch of 1 over a data axis above 1
-        (the reference's sequence split of a long context) raises
-        ``NotImplementedError``, as ``cache_seq_shard`` does at tp > 1."""
+        The sequence splits as the reference's ``seq_axis``: over ``data``
+        at batch 1 (``long_500k``: every leaf without a sequence, and
+        ``length``, replicated over ``data``), else over ``model`` under
+        ``cache_seq_shard``, where the gqa ``k``/``v`` then hold every kv
+        head (the reference's ``hd_axis`` drops off likewise).  The gqa
+        layout otherwise differs from the reference's, whose cache splits
+        ``head_dim`` over ``model`` where the port splits the kv heads:
+        the decode function is the same, the spec trees are not, and the
+        sequence and batch entries are the reference's.  A batch that does
+        not divide over the data axis raises ``ValueError``."""
         cfg = self.cfg
         D = self._data_size
-        if batch == 1 and D > 1:
-            raise NotImplementedError(
-                f"the batch-1 cache over a data axis of {D} (its sequence "
-                f"split over data) {_REFUSED}")
-        if batch % D:
+        if batch % D and batch != 1:
             raise ValueError(f"a batch of {batch} does not split over a data "
                              f"axis of {D}")
-        b, seq = (None, "data") if batch == 1 else ("data", None)
+        long_ctx = batch == 1  # the sequence splits, not the batch
+        b = None if long_ctx else "data"
+        seq = "data" if long_ctx else (
+            "model" if cfg.cache_seq_shard else None)
         tp, par = self.tp, self._par
         kv_split = par is not None and _tp(cfg.num_kv_heads, tp) \
-            and _splits("gqa", cfg, tp)
+            and _splits("gqa", cfg, tp) and seq != "model"
 
         def model_if(split):
             return "model" if par is not None and split else None
@@ -982,9 +997,24 @@ class LM:
         return {"stages": stages,
                 "length": Leaf((batch,), dtype="int32", spec=Spec(b))}
 
+    def seq_split(self, batch: int):
+        """The split of the decode cache's sequence for ``batch`` sequences
+        of the whole mesh (:meth:`cache_template`'s ``seq``), as an
+        ``attention.SeqSplit`` over the axes of size above 1, or None."""
+        if self.mesh is None:
+            return None
+        axes = (self.batch_axes if batch == 1 else
+                ("model",) if self.cfg.cache_seq_shard else ())
+        if self.mesh.axis_size(axes) == 1:
+            return None
+        return att.SeqSplit(self.mesh, axes)
+
     def init_cache(self, batch: int, max_seq: int):
         """Zeros of the rank's share of :meth:`cache_template` (``batch``:
-        the sequences of the whole mesh)."""
+        the sequences of the whole mesh; each rank's chunk of a split
+        sequence)."""
+        self.cache_batch = batch
+
         def shape(lf):
             if self.mesh is None:
                 return lf.shape
@@ -995,6 +1025,15 @@ class LM:
             lambda lf: torch.zeros(shape(lf), dtype=_DTYPES[lf.dtype],
                                    device=self.device),
             self.cache_template(batch, max_seq))
+
+    def _global_batch(self, local: int) -> int:
+        """The whole mesh's batch of a decode step whose rank holds
+        ``local`` lanes: one lane of D is told from the one lane of a
+        batch-1 cache by :attr:`cache_batch`."""
+        D = self._data_size
+        if local == 1 and (D == 1 or self.cache_batch == 1):
+            return 1
+        return local * D
 
     def decode_step(self, params, tokens, cache, *, enc_out=None):
         """One token for every sequence. tokens (B,1) -> (logits (B,V),
@@ -1009,9 +1048,10 @@ class LM:
             enc_out = torch.zeros((tokens.shape[0], cfg.encoder_seq,
                                    cfg.d_model), dtype=_dtype(cfg),
                                   device=x.device)
-        x, _, new_stages = self._stack(params, x, positions=length[:, None],
-                                       mode="decode", caches=cache["stages"],
-                                       length=length, enc_out=enc_out)
+        x, _, new_stages = self._stack(
+            params, x, positions=length[:, None], mode="decode",
+            caches=cache["stages"], length=length, enc_out=enc_out,
+            seq=self.seq_split(self._global_batch(tokens.shape[0])))
         x = rms_norm(x, params["final_norm"])
         logits = self._unembed_logits(params, x[:, 0])
         return logits, {"stages": new_stages, "length": length + 1}

@@ -323,7 +323,10 @@ def moe_spmd(p, x, cfg, mesh, *, norm_in=None):
     row-split (added after it otherwise).  The activation and the routing
     weights enter the local experts through ``copy_to``, so the router's
     gradient sums over ranks.  With ``E % tp != 0`` the banks are whole
-    and nothing is reduced.  Nothing adds with atomics."""
+    and nothing is reduced.  Nothing adds with atomics.  A batch that does
+    not split over the data axis (one sequence) is the whole batch on
+    every data rank, which each bins alike: the reference's branch for
+    it, the binned MoE over the whole batch, with the same capacity."""
     B, S, d = x.shape
     m = cfg.moe
     E, k = m.num_experts, m.top_k

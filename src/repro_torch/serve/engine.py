@@ -64,7 +64,8 @@ class Engine:
         self.eos = eos_id
         self.sampler = sampler or (lambda logits: torch.argmax(logits, -1))
         # over a mesh with a data axis, ``lanes`` are the whole mesh's and
-        # this rank serves its share of them
+        # this rank serves its share of them; one lane does not split, so
+        # every data rank serves it (its cache's sequence split over data)
         self.cache = model.init_cache(lanes, max_seq)
         self.lanes = int(self.cache["length"].shape[0])
         self.active: list[Request | None] = [None] * self.lanes

@@ -1,6 +1,7 @@
 """One rank of a CPU gloo world for ``tests/test_torch_tp.py``,
-``tests/test_torch_tp_families.py``, ``tests/test_torch_tp_serving.py``
-and ``tests/test_torch_train_mesh.py``, and the helpers those tests share.
+``tests/test_torch_tp_families.py``, ``tests/test_torch_tp_serving.py``,
+``tests/test_torch_tp_seqcache.py`` and ``tests/test_torch_train_mesh.py``,
+and the helpers those tests share.
 
     python tests/_torch_tp_rank.py MODE CASES INIT RANK WORLD OUT
 
@@ -16,6 +17,10 @@ joins a gloo world and, for each case, builds the case's mesh
   all on the rank's rows of the batch (its share over ``data``; whisper's
   ``frames`` too); and whether ``gather_params`` of its shards gives the
   whole weights back bit for bit;
+* ``seq``: decode steps from a seeded cache (``<case>/c/<path>``, whole,
+  each rank taking its slice under the cache's specs) of ``<case>/tokens``
+  (the whole batch's), each step's logits on the rank's rows, the mesh's
+  collective counts of the steps, and the cache's specs as JSON;
 * ``train``: two steps of ``train.make_train_step`` over the case's mesh
   from the rank's share of each global batch (its params gathered whole,
   its ZeRO-1 slices of ``m`` / ``v`` / ``ef``, the mesh's counts), and
@@ -42,7 +47,8 @@ import torch.distributed as dist
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import lm
-from repro_torch.models.common import sorted_leaves, tree_from_sorted_leaves
+from repro_torch.models.common import sorted_leaves, tree_from_sorted_leaves, \
+    tree_map
 from repro_torch.train import init_state, make_train_step
 from repro_torch.train import step as t_step
 
@@ -119,6 +125,47 @@ def run_tp(data, case: dict, rank: int, out: dict) -> None:
     for path, g in sorted_leaves(grads):
         out[f"{name}/g/{path_key(path)}"] = g
     out[f"{name}/stats"] = np.asarray(json.dumps(mesh.stats_json()))
+
+
+def spec_json(spec) -> str:
+    return json.dumps([list(e) if isinstance(e, tuple) else e
+                       for e in spec])
+
+
+def run_seq(data, case: dict, rank: int, out: dict) -> None:
+    name = case["name"]
+    cfg = case_config(case)
+    mesh = mesh_mod.make_mesh(case["mesh"], case.get("axes", mesh_mod.AXES_2D),
+                              device="cpu")
+    model = lm.LM(cfg, mesh=mesh)
+    full = weights_of(data, name, lm.param_template(cfg, model.tp))
+    params = mesh_mod.shard_params(full, model.pspecs(), mesh)
+    toks = data[f"{name}/tokens"]
+    batch, max_seq = toks.shape[0], int(case["max_seq"])
+    tmpl = model.cache_template(batch, max_seq)
+    specs = mesh_mod.shardings_for(mesh, tree_map(lambda lf: lf.spec, tmpl))
+    cache = model.init_cache(batch, max_seq)
+    for (path, c), (_, spec) in zip(sorted_leaves(cache),
+                                    sorted_leaves(specs)):
+        whole = data[f"{name}/c/{path_key(path)}"]
+        c.copy_(_tensor(whole[mesh_mod.local_index(whole.shape, spec,
+                                                   mesh)]))
+    out[f"{name}/specs"] = np.asarray(json.dumps(
+        {path_key(p): spec_json(lf.spec) for p, lf in sorted_leaves(tmpl)}))
+    out[f"{name}/local_shapes"] = np.asarray(json.dumps(
+        {path_key(p): list(c.shape) for p, c in sorted_leaves(cache)}))
+    # the rank's rows: all of a batch-1 cache's, else its share over data
+    b = cache["length"].shape[0]
+    k = 0 if batch == 1 else mesh.axis_index(mesh_mod.BATCH_AXES)
+    rows = _tensor(toks[k * b:(k + 1) * b])
+    mesh.reset_stats()
+    with torch.no_grad():
+        for i in range(rows.shape[1]):
+            logits, cache = model.decode_step(params, rows[:, i:i + 1],
+                                              cache)
+            out[f"{name}/decode{i}"] = logits
+    out[f"{name}/stats_serve"] = np.asarray(json.dumps(mesh.stats_json()))
+    out[f"{name}/length"] = cache["length"]
 
 
 def run_train(data, case: dict, rank: int, out: dict) -> None:
@@ -312,7 +359,8 @@ def main(mode: str, cases_file: str, init_file: str, rank: int, world: int,
     out = {}
     try:
         for case in json.loads(str(data["cases"])):
-            (run_tp if mode == "tp" else run_train)(data, case, rank, out)
+            {"tp": run_tp, "seq": run_seq,
+             "train": run_train}[mode](data, case, rank, out)
     finally:
         dist.destroy_process_group()
     np.savez(out_file, **{k: (v.detach().numpy() if torch.is_tensor(v)

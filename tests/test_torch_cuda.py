@@ -97,7 +97,15 @@ card and skips without one.  It holds:
   llama3.2-1b served over (2, 1) against the whole program on the same
   lanes, one float32 (1, 2) train step of each of deepseek, jamba, rwkv6
   and whisper against the plain step, and the (2, 1) ZeRO-1 step against
-  the plain step.
+  the plain step;
+* the sequence splits of the decode cache: in a world of two ranks on the
+  card (``tools/tp_rank.py seq_reduced``) the reduced llama3.2-1b and
+  deepseek-v3-671b (MLA) under ``cache_seq_shard`` at (1, 2), and
+  mixtral-8x22b (its rolling window across the wrap), jamba-v0.1-52b and
+  rwkv6-1.6b with a batch-1 cache over (2, 1), each from a seeded cache
+  whose decode crosses rank 1's first position, against the same model
+  and cache unsplit (ten float32 decode steps within 1e-4, the same
+  argmax).
 """
 
 import numpy as np
@@ -1459,3 +1467,30 @@ def test_tp_reduced_family_train_steps_on_card(card, reduced_world, arch):
     assert step["update_err"] <= 1e-5
     for k in ("fused_norm_matmul", "fused_norm_matmul_bwd"):
         assert step["launches"][k] == step["plain_launches"][k]
+
+
+@pytest.fixture(scope="module")
+def seq_world(tmp_path_factory):
+    """The ``seq_reduced`` world of two ranks on the card, once for the
+    module -> rank 0's JSON."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    outs = _tp_world("seq_reduced", tmp_path_factory.mktemp("tp_seq"))
+    for out in outs:
+        assert "error" not in out, out.get("traceback", out["error"])
+    return outs[0]
+
+
+@pytest.mark.parametrize("key", ["llama3.2-1b", "deepseek-v3-671b",
+                                 "mixtral-8x22b", "jamba-v0.1-52b",
+                                 "rwkv6-1.6b"])
+def test_tp_split_cache_twins_on_card(card, seq_world, key):
+    """A decode over a split sequence (over ``model`` under
+    ``cache_seq_shard``, over ``data`` for a batch-1 cache) against the
+    same model and seeded cache unsplit on the card: ten float32 steps
+    within 1e-4 and the same argmax."""
+    twin = seq_world["twins"][key]
+    assert twin["seq_axes"] == (["model"] if twin["mesh"] == [1, 2]
+                                else ["data"])
+    assert twin["same_argmax"]
+    assert twin["max_abs_err"] <= 1e-4

@@ -7,7 +7,10 @@
   of the
   on-card tests (``tests/test_torch_cuda.py``, which must run on the GPU
   machine, and its fault specs, ``tests/_torch_fault_specs.py``), of
-  ``tests/test_torch_ludo_plan.py`` and of the spawned mesh ranks
+  ``tests/test_torch_ludo_plan.py``, of the split decode's tests
+  (``tests/test_torch_decode_partials.py``, and
+  ``tests/test_torch_tp_seqcache.py``, whose reference runs from a text in
+  a subprocess) and of the spawned mesh ranks
   (``tests/_torch_mesh_rank.py``, ``tests/_torch_tp_rank.py``,
   ``tools/tp_rank.py``) finds no import of ``jax`` or of ``repro``;
 * a fresh interpreter that imports ``repro_torch.launch.mesh`` (and
@@ -61,6 +64,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "test_torch_ludo_plan.py",
+    ROOT / "tests" / "test_torch_decode_partials.py",
+    ROOT / "tests" / "test_torch_tp_seqcache.py",
     ROOT / "tests" / "_torch_mesh_rank.py",
     ROOT / "tests" / "_torch_tp_rank.py", ROOT / "tools" / "tp_rank.py",
     ROOT / "tools" / "tp_probe.py",

@@ -244,9 +244,11 @@ def test_param_template_matches_reference_full_new_families(arch):
 
 def test_other_families_and_tp_raise():
     """Every family is ported, and every one builds at tp = 2 (``LM`` and
-    ``init_params`` alike, with its shards' specs); only the two sequence
-    splits of the cache raise, naming item 18d: ``cache_seq_shard`` at
-    tp = 2, and a batch-1 cache over a data axis above 1."""
+    ``init_params`` alike, with its shards' specs); so do the two sequence
+    splits of the cache: ``cache_seq_shard`` at tp = 2 (its gqa cache
+    split over ``model`` on the sequence, with no head axis), and a
+    batch-1 cache over a data axis above 1 (split over ``data`` on the
+    sequence, ``length`` replicated)."""
     assert set(lm._PORTED_FAMILIES) == set(PORTED)
     for arch in ARCH_IDS:
         cfg = get_config(arch, reduced=True)
@@ -258,14 +260,26 @@ def test_other_families_and_tp_raise():
                 lm.param_template(cfg, 2))]
     llama = get_config("llama3.2-1b", reduced=True)
     seq = dataclasses.replace(llama, cache_seq_shard=True)
-    with pytest.raises(NotImplementedError, match="cache_seq_shard.*18d"):
-        lm.LM(seq, tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="cache_seq_shard.*18d"):
-        lm.init_params(seq, device="cpu", tp=2)
+    assert lm.LM(seq, tp=2, device="cpu").tp == 2
+    assert [t.shape for _, t in common.sorted_leaves(
+        lm.init_params(seq, device="cpu", tp=2))] == [
+            lf.shape for _, lf in common.sorted_leaves(
+                lm.param_template(seq, 2))]
+    split = mesh_mod.Mesh(("data", "model"), {"data": 1, "model": 2}, 1,
+                          torch.device("cpu"), {}, "gloo", "send_recv")
+    kv = lm.LM(seq, mesh=split, device="cpu").init_cache(4, 16)[
+        "stages"][0][0]["mixer"]["k"]
+    assert kv.shape == (llama.num_layers, 4, 8, llama.num_kv_heads,
+                        llama.head_dim)
     data = mesh_mod.Mesh(("data", "model"), {"data": 2, "model": 1}, 0,
                          torch.device("cpu"), {}, "gloo", "send_recv")
-    with pytest.raises(NotImplementedError, match="batch-1.*18d"):
-        lm.LM(llama, mesh=data, device="cpu").cache_template(1, 16)
+    long = lm.LM(llama, mesh=data, device="cpu")
+    tmpl = long.cache_template(1, 16)
+    assert tmpl["stages"][0][0]["mixer"]["k"].spec == common.Spec(
+        None, None, "data", None, None)
+    cache = long.init_cache(1, 16)
+    assert cache["length"].shape == (1,)
+    assert cache["stages"][0][0]["mixer"]["v"].shape[1:3] == (1, 8)
 
 
 # ------------------------------------------------------------------- blocks

@@ -15,8 +15,9 @@ case and one of two for the others (``_torch_tp_rank.run_cases``).  Each
 rank's prefill logits and three decode steps equal the reference's rows
 of its lanes, the mean of the data ranks' losses and gradient shards the
 reference's, within 1e-5; the collectives are counted.  In process: the
-sequence splits of the cache refuse, naming item 18d, and a batch that
-does not divide over ``data`` raises.
+sequence splits of the cache build, with each rank's chunk, and a batch
+that does not divide over ``data`` raises (the splits are held to the
+reference in ``test_torch_tp_seqcache.py``).
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ import pytest
 
 from repro_torch.configs import get_config
 from repro_torch.models import lm
+from repro_torch.models.common import Spec
 
 from _torch_tp_checks import check_grads, check_serve_collectives, \
     check_serving, round_trips
@@ -82,22 +84,35 @@ def _llama(**kw):
     return dataclasses.replace(get_config("llama3.2-1b", reduced=True), **kw)
 
 
-def test_sequence_splits_refuse_naming_item_18d():
+def test_sequence_splits_build():
     """``cache_seq_shard`` at tp > 1 and a batch-1 cache over a data axis
-    above 1 raise ``NotImplementedError`` naming item 18d; a batch of 1
-    without a data axis, and ``cache_seq_shard`` at tp = 1, build."""
-    with pytest.raises(NotImplementedError, match="cache_seq_shard.*18d"):
-        lm.LM(_llama(cache_seq_shard=True), mesh=rank_mesh((1, 2), 0),
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="cache_seq_shard.*18d"):
-        lm.init_params(_llama(cache_seq_shard=True), device="cpu", tp=2)
-    lm.LM(_llama(cache_seq_shard=True), mesh=rank_mesh((2, 1), 0),
-          device="cpu")
+    above 1 build, with each rank's chunk of the sequence (the split
+    leaves' local shapes); a batch of 1 without a data axis, and
+    ``cache_seq_shard`` at tp = 1, build whole; a batch that does not
+    divide over ``data`` still raises."""
+    seq = _llama(cache_seq_shard=True)
+    model = lm.LM(seq, mesh=rank_mesh((1, 2), 0), device="cpu")
+    assert model.seq_split(4).axes == ("model",)
+    assert lm.init_params(seq, device="cpu", tp=2)["embed"].shape == (
+        seq.vocab_size, seq.d_model)
+    k = model.init_cache(4, 16)["stages"][0][0]["mixer"]["k"]
+    assert k.shape == (seq.num_layers, 4, 8, seq.num_kv_heads, seq.head_dim)
+    whole = lm.LM(seq, mesh=rank_mesh((2, 1), 0), device="cpu")
+    assert whole.seq_split(4) is None
+    assert whole.init_cache(4, 16)["stages"][0][0]["mixer"]["k"].shape[
+        1:3] == (2, 16)
     model = lm.LM(_llama(), mesh=rank_mesh((2, 2), 3), device="cpu")
-    with pytest.raises(NotImplementedError, match="batch-1.*data.*18d"):
-        model.cache_template(1, 16)
+    tmpl = model.cache_template(1, 16)
+    assert tmpl["length"].spec == Spec(None)
+    cache = model.init_cache(1, 16)
+    assert cache["length"].shape == (1,)
+    assert cache["stages"][0][0]["mixer"]["k"].shape[1:4] == (1, 8, 1)
+    assert model.seq_split(1).axes == ("data",)
+    with pytest.raises(ValueError, match="batch of 3.*data axis of 2"):
+        model.init_cache(3, 16)
     one = lm.LM(_llama(), mesh=rank_mesh((1, 2), 1), device="cpu")
     assert one.init_cache(1, 16)["length"].shape == (1,)
+    assert one.seq_split(1) is None
 
 
 def test_batch_must_divide_over_data():

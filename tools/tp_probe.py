@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Phase 17 of ``chip_smoke.py`` alone, on one NVIDIA card.
+"""Phase 17 or 18 of ``chip_smoke.py`` alone, on one NVIDIA card.
 
-    python3 tools/tp_probe.py
+    python3 tools/tp_probe.py         # phase 17
+    python3 tools/tp_probe.py --seq   # phase 18
 
 Prints the card's name and power limit, builds the kernels, then runs
 ``chip_smoke.serve_tp_phase``: row 5 at the tp = 2 shard shapes, the gloo
@@ -11,8 +12,12 @@ jamba-v0.1-52b, rwkv6-1.6b and whisper-large-v3 served at tp = 2 with
 their float32 twins, mixtral again with ``moe_gather_decode``,
 llama3.2-1b served over (2, 1) and trained over three meshes, the reduced
 families' float32 train steps), then rows 5 and 6 at those steps'
-shapes.  Prints the numbers as one JSON line.  Without a card it exits
-1.
+shapes.  With ``--seq``, ``chip_smoke.serve_seq_phase`` instead: the
+world of ``tools/tp_rank.py seq`` (jamba-v0.1-52b decoding a batch-1
+cache of 524,288 tokens over (2, 1), llama3.2-1b under
+``cache_seq_shard`` at (1, 2), the float32 twins), then row 5 at the
+shapes those runs recorded.  Prints the numbers as one JSON line.
+Without a card it exits 1.
 """
 
 from __future__ import annotations
@@ -46,8 +51,10 @@ def main() -> int:
     cs.log(f"kernel build: {build.build_all():.3f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
-    res, launches = cs.serve_tp_phase(gen)
-    cs.log(f"launches on the tensor-parallel path (both ranks): {launches}")
+    phase = cs.serve_seq_phase if "--seq" in sys.argv[1:] \
+        else cs.serve_tp_phase
+    res, launches = phase(gen)
+    cs.log(f"launches on the path (both ranks): {launches}")
     print(json.dumps(dict(tp=res, launches=launches)))
     cs.log(f"total: {time.perf_counter() - t_start:.1f} s")
     return 0

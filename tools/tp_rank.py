@@ -5,6 +5,8 @@ NVIDIA card.
     python3 tools/tp_rank.py probe INIT RANK OUT
     python3 tools/tp_rank.py main INIT RANK OUT
     python3 tools/tp_rank.py reduced INIT RANK OUT
+    python3 tools/tp_rank.py seq INIT RANK OUT
+    python3 tools/tp_rank.py seq_reduced INIT RANK OUT
 
 Each joins a world of two ranks (a ``file://`` rendezvous at ``INIT``)
 whose process group serves both CPU and card tensors with gloo, both ranks
@@ -38,6 +40,17 @@ steps and checked against the program, and a float32 twin of the
 step of each of the four families of (b) whose mixers are not gqa, at its
 reduced config, against the plain step on rank 0.  ``reduced`` runs the
 twins and (f) at the reduced configs (the on-card tests' world).
+
+``seq`` runs phase 18, the sequence splits of the decode cache: (a)
+jamba-v0.1-52b, one 8-layer period at its published widths, a batch-1
+cache of SEQ_MAX (524,288) tokens over ``(2, 1)``, its sequence split over
+``data``, filled from the seed to SEQ_FILL and SEQ_NEW tokens decoded
+through ``Engine(lanes=1)``; (b) llama3.2-1b whole at ``(1, 2)`` under
+``cache_seq_shard``, SHARD_LANES lanes of SHARD_MAX filled to
+SHARD_LENGTHS (the last with no live position on rank 1), decoded through
+``Engine``; (c) the float32 twins of SEQ_TWINS, each split run against the
+same model and seeded cache unsplit on rank 0.  ``seq_reduced`` runs the
+twins at the reduced configs (the on-card tests' world).
 """
 
 from __future__ import annotations
@@ -1044,6 +1057,324 @@ def train_meshes(mesh12, res: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 18
+# (a): jamba-v0.1-52b, one period, batch 1 at long_500k's length, its
+# sequence over data; positions [0, SEQ_FILL) filled, SEQ_NEW decoded
+SEQ_MAX, SEQ_FILL, SEQ_NEW = 524288, 524288 - 16, 8
+# (b): llama3.2-1b whole at (1, 2) under cache_seq_shard; the last lane's
+# 100 positions all lie in rank 0's chunk
+SHARD_LANES, SHARD_MAX = 4, 32768
+SHARD_LENGTHS = (32760, 20000, 9000, 100)
+# (c): the float32 twins, TWIN_LAYERS layers each (the MoE twins at
+# TWIN_EXPERTS experts): (key, arch, mesh, replace, max_seq, lengths).
+# The decode crosses rank 1's first position (mixtral's rolling window of
+# 4096 slots, filled to 524,280, from slot 4088 on rank 1 across the wrap
+# to slot 0 on rank 0); SEQ_TWIN_STEPS steps each
+SEQ_TWIN_STEPS = 10
+SEQ_TWINS = (
+    ("jamba-v0.1-52b", "jamba-v0.1-52b", (2, 1), {}, 8192, (4091,)),
+    ("llama3.2-1b", "llama3.2-1b", (1, 2), {"cache_seq_shard": True}, 8192,
+     (4091, 3000, 8000, 5)),
+    ("mixtral-8x22b", "mixtral-8x22b", (2, 1), {}, 4096, (524288 - 8,)),
+    ("deepseek-v3-671b", "deepseek-v3-671b", (1, 2),
+     {"cache_seq_shard": True}, 8192, (4091, 10)))
+# the same at the reduced configs (window 32: max_seq 32, 16 a chunk)
+SEQ_TWINS_REDUCED = (
+    ("jamba-v0.1-52b", "jamba-v0.1-52b", (2, 1), {}, 32, (11,)),
+    ("llama3.2-1b", "llama3.2-1b", (1, 2), {"cache_seq_shard": True}, 32,
+     (11, 3, 27, 0)),
+    ("mixtral-8x22b", "mixtral-8x22b", (2, 1), {}, 32, (59,)),
+    ("deepseek-v3-671b", "deepseek-v3-671b", (1, 2),
+     {"cache_seq_shard": True}, 32, (11, 5)),
+    ("rwkv6-1.6b", "rwkv6-1.6b", (2, 1), {}, 32, (11,)))
+
+
+def seeded_cache(model, batch: int, max_seq: int, lengths, seed: int):
+    """The rank's share of a decode cache of ``batch`` sequences whose
+    leaves are drawn whole from ``seed`` (0.5 x normal, in the leaf's
+    dtype, one leaf after another in ``sorted_leaves`` order) and sliced
+    under the leaf's spec, ``length`` set to ``lengths``: one global cache
+    on every mesh (and without one), of which the rank holds its share.
+    Positions at or past a lane's length are drawn too; the decode masks
+    them."""
+    from repro_torch.launch import mesh as mesh_mod
+    tmpl = model.cache_template(batch, max_seq)
+    cache = model.init_cache(batch, max_seq)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    for (path, c), (_, lf) in zip(sorted_leaves(cache), sorted_leaves(tmpl)):
+        if path == ("length",):
+            whole = torch.tensor(lengths, dtype=torch.int32,
+                                 device=model.device)
+        else:
+            whole = torch.randn(lf.shape, generator=gen, device=model.device,
+                                dtype=c.dtype) * 0.5
+        if model.mesh is not None:
+            spec = mesh_mod.shardings_for(model.mesh, lf.spec)
+            whole = whole[mesh_mod.local_index(whole.shape, spec,
+                                               model.mesh)]
+        c.copy_(whole)
+        del whole
+    return cache
+
+
+def _lane(cache, lane: int):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda c: c[:, lane] if c.dim() >= 2 else c[lane], cache)
+
+
+def serve_seq(arch: str, layers, mesh, *, lanes: int, max_seq: int, lengths,
+              **replace) -> dict:
+    """``arch`` over ``mesh`` through ``Engine(lanes, max_seq)`` with its
+    cache's sequence split: random bf16 weights drawn on the card, each
+    lane's state from :func:`seeded_cache` taken in by ``Engine.resume``
+    (a session whose cache was filled elsewhere, so no prefill), one
+    request a lane of SEQ_NEW tokens; every decode_step call timed, row
+    5's (S, d, F) recorded, the launch counters and the mesh's counts
+    zeroed just before the run and read after; the tokens gathered over
+    the mesh must be equal on every rank."""
+    import dataclasses
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import count_params, tree_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import Engine, Request
+    cfg = dataclasses.replace(_config(arch, layers), **replace)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, mesh=mesh)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    res = dict(model=arch, layers=cfg.num_layers,
+               mesh=list(mesh.shape.values()), max_seq=max_seq,
+               lengths=list(lengths), init_s=time.perf_counter() - t0,
+               params_local=count_params(params),
+               param_bytes_local=sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(params)))
+    split = model.seq_split(lanes)
+    check(split is not None, f"{arch}: the cache's sequence does not split")
+    res["seq_axes"] = list(split.axes)
+    t0 = time.perf_counter()
+    eng = Engine(model, params, lanes=lanes, max_seq=max_seq)
+    filled = seeded_cache(model, lanes, max_seq, lengths, SEED + 3)
+    res["cache_bytes_local"] = sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(eng.cache))
+    rng = np.random.default_rng(SEED + 3)
+    reqs = [Request(rid=i, prompt=[int(rng.integers(1, cfg.vocab_size))],
+                    max_new=SEQ_NEW) for i in range(eng.lanes)]
+    for lane, r in enumerate(reqs):
+        eng.parked_states[r.rid] = {"state": _lane(filled, lane), "req": r}
+        check(eng.resume(r.rid) == lane, f"{arch}: lane {lane} taken")
+    del filled
+    gc.collect()
+    torch.cuda.synchronize()
+    res["fill_s"] = time.perf_counter() - t0
+    step, fnm = eng._step, ops.fused_norm_matmul
+    times, shapes = [], set()
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    def recording_fnm(x, gamma, w):
+        shapes.add((int(x.shape[0]), int(x.shape[-1]), int(w.shape[-1])))
+        return fnm(x, gamma, w)
+
+    eng._step, ops.fused_norm_matmul = timed_step, recording_fnm
+    try:
+        ops.reset_launch_counts()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        eng._step, ops.fused_norm_matmul = step, fnm
+    launches = dict(ops.LAUNCHES)
+    stats = mesh.stats_json()
+    calls = len(times)
+    # a lane finishes at max_seq - 1, as the reference's Engine does
+    want_new = [min(SEQ_NEW, max_seq - 1 - int(n)) for n in lengths]
+    got_new = [len(r.out) for r in reqs]
+    check(eng.stats.finished == len(reqs) and got_new == want_new,
+          f"{arch}: the lanes generated {got_new} tokens, not {want_new}")
+    per_call = fused_per_decode_step(cfg)
+    check(launches["fused_norm_matmul"] == per_call * calls,
+          f"{arch}: {launches['fused_norm_matmul']} row-5 launches in "
+          f"{calls} decode_step calls, not {per_call} a call")
+    out = torch.tensor([r.out + [-1] * (SEQ_NEW - len(r.out)) for r in reqs],
+                       device=mesh.device)
+    every = mesh.all_gather(out[None], ("data", "model"), dim=0)
+    res["tokens_equal_on_ranks"] = all(torch.equal(every[0], t)
+                                       for t in every)
+    check(res["tokens_equal_on_ranks"],
+          f"{arch}: the ranks generated different tokens")
+    generated = sum(got_new)
+    res.update(
+        fnm_per_call=per_call, lanes_local=eng.lanes, decode_step_calls=calls,
+        generated=got_new, run_s=run_s,
+        generated_tokens_per_s=generated / run_s,
+        decode_step_ms=_pcts(np.asarray(times) * 1e3),
+        row5_shapes=sorted(shapes), launches=launches, collectives=stats,
+        collectives_per_call={k: dict(calls=v["calls"] / calls,
+                                      bytes=v["bytes"] / calls,
+                                      host_ms=v["s"] * 1e3 / calls)
+                              for k, v in stats.items()})
+    res.update(_profile_decode(model, params, eng.cache))
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def seq_twin(arch: str, mesh, max_seq: int, lengths, config=None,
+             **replace) -> dict:
+    """The float32 twin of a split decode: ``arch`` cut as
+    :func:`_twin_config` over ``mesh`` (its cache's sequence split) from
+    :func:`seeded_cache`, SEQ_TWIN_STEPS decode steps of seeded tokens (all
+    the lanes on every rank: the mesh's data axis splits no batch here),
+    against the same model and cache unsplit on rank 0, within TWIN_TOL
+    and with the same argmax."""
+    import gc
+    from repro_torch.models.lm import LM, init_params
+    cfg = (config or _twin_config)(arch, **replace)
+    batch = len(lengths)
+    rng = np.random.default_rng(SEED + 4)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (batch, SEQ_TWIN_STEPS))
+                            .astype(np.int32)).to(mesh.device)
+
+    def run(model, params):
+        cache = seeded_cache(model, batch, max_seq, lengths, SEED + 4)
+        outs = []
+        with torch.no_grad():
+            for i in range(SEQ_TWIN_STEPS):
+                logits, cache = model.decode_step(params, toks[:, i:i + 1],
+                                                  cache)
+                outs.append(logits)
+        return outs
+
+    m2 = LM(cfg, mesh=mesh)
+    split = m2.seq_split(batch)
+    check(split is not None, f"{arch} twin: the cache's sequence does not "
+          f"split")
+    check(batch == 1 or mesh.axis_size(("pod", "data")) == 1,
+          f"{arch} twin: a batch of {batch} over a data axis")
+    got = run(m2, init_params(cfg, SEED, dtype=torch.float32, mesh=mesh))
+    res = {"layers": cfg.num_layers, "mesh": list(mesh.shape.values()),
+           "seq_axes": list(split.axes), "max_seq": max_seq,
+           "lengths": list(lengths), "steps": SEQ_TWIN_STEPS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        m1 = LM(cfg, tp=m2.tp, device=mesh.device)
+        want = run(m1, init_params(cfg, SEED, device=mesh.device,
+                                   dtype=torch.float32, tp=m2.tp))
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(got, want))
+        res.update(max_abs_err=max(errs), errs=errs, same_argmax=same)
+        check(max(errs) <= TWIN_TOL and same,
+              f"{arch} split-cache twin: the split decode differs from the "
+              f"whole one by {max(errs)} (argmax equal: {same})")
+        del m1, want
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _seq_meshes() -> dict:
+    from repro_torch.launch import mesh as mesh_mod
+    return {(2, 1): mesh_mod.make_mesh((2, 1)),
+            (1, 2): mesh_mod.make_mesh((1, 2))}
+
+
+def _seq_world(init: str, rank: int, out: str, body) -> int:
+    """Join the world of two ranks, run ``body(res)``, write ``res`` (with
+    the error and traceback of a failure) to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    t_start = time.perf_counter()
+    try:
+        body(res)
+        res["seconds"] = time.perf_counter() - t_start
+    except Exception as e:  # the parent reads it and fails the phase
+        import traceback
+        res["error"] = f"{type(e).__name__}: {e}"
+        res["traceback"] = traceback.format_exc()[-4000:]
+        raise
+    finally:
+        _write(out, res)
+        dist.destroy_process_group()
+    return 0
+
+
+def seq(init: str, rank: int, out: str) -> int:
+    """Phase 18's world: (a), (b), then the twins (c)."""
+    from repro_torch.kernels import ops
+
+    def body(res):
+        meshes = _seq_meshes()
+        res.update(backend=meshes[(2, 1)].backend, p2p=meshes[(2, 1)].p2p,
+                   device=str(meshes[(2, 1)].device))
+        launches = {k: 0 for k in ops.LAUNCHES}
+        t = time.perf_counter()
+        res["long"] = serve_seq("jamba-v0.1-52b", 8, meshes[(2, 1)],
+                                lanes=1, max_seq=SEQ_MAX,
+                                lengths=(SEQ_FILL,))
+        res["long"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["seqshard"] = serve_seq("llama3.2-1b", None, meshes[(1, 2)],
+                                    lanes=SHARD_LANES, max_seq=SHARD_MAX,
+                                    lengths=SHARD_LENGTHS,
+                                    cache_seq_shard=True)
+        res["seqshard"]["seconds"] = time.perf_counter() - t
+        for key in ("long", "seqshard"):
+            for k, v in res[key]["launches"].items():
+                launches[k] += v
+        res["launches"] = launches
+        t = time.perf_counter()
+        res["twins"] = {key: seq_twin(arch, meshes[m], max_seq, lengths,
+                                      **replace)
+                        for key, arch, m, replace, max_seq, lengths
+                        in SEQ_TWINS}
+        res["twins"]["seconds"] = time.perf_counter() - t
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    return _seq_world(init, rank, out, body)
+
+
+def seq_reduced(init: str, rank: int, out: str) -> int:
+    """The twins of SEQ_TWINS_REDUCED at the reduced configs in float32:
+    the on-card tests' world of the split decodes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    def small(arch, **replace):
+        return dataclasses.replace(get_config(arch, reduced=True),
+                                   dtype="float32", **replace)
+
+    def body(res):
+        meshes = _seq_meshes()
+        res["twins"] = {key: seq_twin(arch, meshes[m], max_seq, lengths,
+                                      config=small, **replace)
+                        for key, arch, m, replace, max_seq, lengths
+                        in SEQ_TWINS_REDUCED}
+
+    return _seq_world(init, rank, out, body)
+
+
 def reduced(init: str, rank: int, out: str) -> int:
     """The twins at the configs' reduced sizes (qwen2.5-14b with padded
     heads, the MoE configs with a shared expert; mixtral also with
@@ -1155,7 +1486,8 @@ def main(init: str, rank: int, out: str) -> int:
 if __name__ == "__main__":
     mode, init, rank, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
         sys.argv[4]
-    modes = {"probe": probe, "main": main, "reduced": reduced}
+    modes = {"probe": probe, "main": main, "reduced": reduced, "seq": seq,
+             "seq_reduced": seq_reduced}
     if mode not in modes:
         raise SystemExit(f"unknown mode {mode!r}")
     sys.exit(modes[mode](init, rank, out))
