@@ -57,7 +57,7 @@ Phases; any failure exits non-zero:
    its byte bound, its plain version and a gather +
    ``scaled_dot_product_attention`` yardstick;
 5. drive the Ludo-paged decode path: ``LudoPageTable`` and
-   ``CuckooPageTable`` of 2^17 pages on the card, 32 sequences of 977 to
+   ``CuckooPageTable`` of 2^17 pages on the card, 16 sequences of 1954 to
    31264 tokens appended page by page, then 4 decode steps each through
    ``lookup_batch`` -> ``ops.paged_attention`` and ``lookup2_batch`` ->
    ``ops.cuckoo_paged_attention``, every matched page-map entry checked
@@ -247,7 +247,7 @@ Phases; any failure exits non-zero:
    and the cache's state equal; the reduced rwkv6 in float32: 6 decode steps
    and a prefill within 1e-5.  (b) The slo suite's timing store (``outback``,
    load factor 0.85, window 512, a transport) over the first 2^20 of phase 3's
-   keys: the knee from the suite's capacity probe, then 2^18 offers of its
+   keys: the knee from the suite's capacity probe, then 2^17 offers of its
    singleflight, isolation and acked-writes streams through ``FrontDoor.run``:
    every answer held against a host oracle of the latest acknowledged values,
    every acknowledged write read back (0 lost), no refused update applied;
@@ -400,6 +400,31 @@ Phases; any failure exits non-zero:
    with its 4096-slot rolling window filled to 524,280 (the decode
    crosses from rank 1's slots to rank 0's), and deepseek-v3-671b's MLA
    under ``cache_seq_shard`` at ``(1, 2)`` (the MoE twins at 16 experts).
+19. the compile-time tools (``launch/{dryrun,hlo_analysis,roofline}.py``).
+   (a) On the host, the dry run of five cells at the ``(16, 16)``
+   production mesh, one rank's program traced on ``meta`` (with its
+   neighbours along each axis, whose collectives must agree), in a pool
+   of ``DRYRUN_JOBS`` processes: llama3.2-1b ``train_4k``, jamba-v0.1-52b
+   ``long_500k``, llama3.2-1b ``decode_32k`` under ``seqcache``,
+   mixtral-8x22b ``decode_32k`` under ``moegather``, and qwen2.5-14b
+   ``long_500k``, which must be skipped (full attention); each prints its
+   argument bytes, roofline terms on the H100's constants and kernel
+   calls.  (b) One llama3.2-1b train step at phase 14 (c)'s shape (B = 4
+   x 512, bf16, published widths) and one decode step at phase 7's (8
+   lanes, max_seq 256), each built by the dry run's builders at mesh
+   ``(1, 1)``: counted once live on the card (a world of this one
+   process) and once traced on ``meta``.  Their FLOPs, bytes,
+   bytes_upper and kernel calls must be equal, and the kernel calls must
+   equal the launch counters' delta on the card.  Each prints the
+   roofline step time and ``model_flops`` beside the steady-state step
+   time on the card (CUDA events over ``COUNT_TIMED_STEPS`` steps after a
+   warm one, and the profiled busy time) and the model-FLOPs share of the
+   peak.  (c) The examples' counterparts on the card
+   (``examples/quickstart_torch.py`` and ``examples/serve_kvs_torch.py``
+   with ``--device cuda``, in process): their launches (``ludo_lookup``
+   and ``slot_unpack``; ``fused_norm_matmul``, ``paged_attention`` and
+   ``cuckoo_paged_attention``) are counted, and serve_kvs's paged outputs
+   must match.
 
 The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -514,14 +539,18 @@ LUDO_TIMED = (1, WINDOW, 1 << 20)
 # (src/repro/configs/llama3_2_1b.py: 32 query heads over 8 KV heads, head
 # width 64), with a bf16 page pool of 2^17 pages of 16 tokens: 2 GiB for K
 # and 2 GiB for V, one layer's pool for 2M tokens.  N_SEQS sequences of
-# SEQ_TOKENS * (i + 1) tokens (977 to 31264, ragged last pages), about 32.2k
-# pages, 24.6% of the pool: under the 36% at which the sentinel-seeded
-# index's overflow cache breaches.  Each sequence then takes DECODE_STEPS
-# decode steps, and N_RELEASE sequences are released at the end.
+# SEQ_TOKENS * (i + 1) tokens (1954 to 31264, ragged last pages), about
+# 16.6k pages, 12.7% of the pool: under the 36% at which the
+# sentinel-seeded index's overflow cache breaches.  Each sequence then
+# takes DECODE_STEPS decode steps, and N_RELEASE sequences are released at
+# the end.  32 sequences of 977 * (i + 1) tokens (32.2k pages) until phase
+# 19 came: the Ludo appends took 77 s of a 1150.2 s run on a slow host
+# (NVIDIA H100 80GB HBM3, 700 W); the longest sequence, and so the kernels'
+# timed shape, is the same.
 PAGE_POOL_LOG2 = 17
 N_KV, GROUP, HEAD_DIM, PAGE_SIZE = 8, 4, 64, 16
-N_SEQS = 32
-SEQ_TOKENS = 977
+N_SEQS = 16
+SEQ_TOKENS = 1954
 DECODE_STEPS = 4
 N_RELEASE = 4
 # The page-map length of the longest sequence, the kernels' timed shape.
@@ -718,8 +747,8 @@ CLUSTER_BURST = 1 << 14
 CLUSTER_PROFILED_CALLS = 64
 CLUSTER_SIM = dict(clients_per_cn=2, window=8, mn_threads=4)
 CHAOS_SEEDS = (1, 2, 3)
-CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 16, batch=256,
-                   telemetry=True)
+CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 15, batch=256,
+                   telemetry=True)  # 2^16 ops until phase 19 came
 # phase 13: the serving ingress, session parking through the KVS and the rwkv6
 # family.  The agreement runs the front door's policies over an 8000-key store
 # (tests/test_frontdoor.py's size), a session-store stream and the reduced
@@ -729,7 +758,7 @@ CHAOS_LARGE = dict(seed=3, n_keys=1 << 16, n_ops=1 << 16, batch=256,
 # 2^LATER_KEYS_LOG2 of phase 3's keys; its knee is taken at FD_KNEE_FRAC of the
 # suite's capacity probe (slo_bench.py:136-147: 4000 zipf Gets posted at t=0
 # over 8 QPs), with the knee's p999 from a pass-through run there (the suite
-# sweeps ten loads for it); then 2^18 offers from the suite's singleflight,
+# sweeps ten loads for it); then 2^17 offers from the suite's singleflight,
 # isolation (the contended arm) and acked-writes specs and policies
 # (slo_bench.py:205-214, 259-370).  Session parking runs llama3.2-1b at its
 # published widths through KVSessionStore(cn_cache_budget_bytes=256 KiB)
@@ -742,8 +771,8 @@ FD_AGREE_KEYS = 8000
 FD_WINDOW = 512
 FD_QPS = 8
 FD_C = 8
-FD_OFFERS = {"singleflight": 1 << 17, "isolation": 1 << 16,
-             "acked_writes": 1 << 16}  # halved when phase 17 came
+FD_OFFERS = {"singleflight": 1 << 16, "isolation": 1 << 15,
+             "acked_writes": 1 << 15}  # halved when phases 17 and 19 came
 FD_PROBE_GETS = 4000
 FD_KNEE_FRAC = 0.85
 FD_PROFILED_OFFERS = 1 << 14
@@ -921,6 +950,16 @@ TP_PROBE_TIMEOUT = 180
 TP_MAIN_TIMEOUT = 600
 # phase 18: the world of tools/tp_rank.py seq (its runs' sizes are there)
 SEQ_TIMEOUT = 420
+# phase 19: the dry run's cells (arch, shape, multi_pod, variant), traced
+# by DRYRUN_JOBS processes; the counted steps' timed steps
+DRYRUN_CELLS = [("llama3.2-1b", "train_4k", False, None),
+                ("jamba-v0.1-52b", "long_500k", False, None),
+                ("llama3.2-1b", "decode_32k", False, "seqcache"),
+                ("mixtral-8x22b", "decode_32k", False, "moegather"),
+                ("qwen2.5-14b", "long_500k", False, None)]
+DRYRUN_JOBS = 8
+COUNT_TIMED_STEPS = 5
+COUNT_PROFILED_STEPS = 2
 
 
 def log(*a) -> None:
@@ -4934,11 +4973,15 @@ def serve_rwkv(seed: int) -> dict:
           "finish")
     check(all(0 <= t < cfg.vocab_size for t in toks), "rwkv6: a token out "
           "of range")
+    # the first engine step (it warms the allocator and the caches) apart:
+    # the percentiles and tokens/s are over the steps after it
     ms = np.asarray(steps) * 1e3
     res.update(requests=len(reqs), tokens=len(toks), run_seconds=run_s,
-               tokens_per_s=len(toks) / run_s, engine_steps=len(steps),
-               step_p50_ms=float(np.percentile(ms, 50)),
-               step_p99_ms=float(np.percentile(ms, 99)),
+               tokens_per_s=len(toks) / (run_s - steps[0]),
+               tokens_per_s_with_first=len(toks) / run_s,
+               engine_steps=len(steps), first_step_ms=float(ms[0]),
+               step_p50_ms=float(np.percentile(ms[1:], 50)),
+               step_p99_ms=float(np.percentile(ms[1:], 99)),
                stats=dataclasses.asdict(eng.stats))
     from torch.profiler import ProfilerActivity, profile
     tok = torch.zeros((RWKV_LANES, 1), dtype=torch.int32,
@@ -4970,9 +5013,11 @@ def serve_rwkv(seed: int) -> dict:
     res.update(lane_bytes=len(blob), put_refusal=refused,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     log(f"rwkv6-1.6b: {len(reqs)} requests, {len(toks)} tokens in "
-        f"{run_s:.3f} s ({res['tokens_per_s']:.2f} tokens/s); engine step "
-        f"p50 {res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms "
-        f"over {len(steps)} steps; decode step {res['profiled_step_ms']:.3f} "
+        f"{run_s:.3f} s ({res['tokens_per_s']:.2f} tokens/s after the first "
+        f"engine step, {res['tokens_per_s_with_first']:.2f} with it); "
+        f"first engine step {res['first_step_ms']:.3f} ms, then p50 "
+        f"{res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms over "
+        f"the other {len(steps) - 1} steps; decode step {res['profiled_step_ms']:.3f} "
         f"ms profiled, {res['device_ops_per_step']:.1f} device ops, busy "
         f"share {res['device_busy_share']}; a lane is {len(blob)} B and "
         f"KVSessionStore.put refuses it: {refused!r}")
@@ -5998,11 +6043,14 @@ def serve_tp_phase(gen) -> tuple:
             log(f"17 rank {r} {arch} ({a['layers']} layers, tp {a['tp']}, "
                 f"{a['lanes_local']} lanes a rank): "
                 f"{a['params_local']} parameters a rank ({a['param_bytes_local']}"
-                f" B) drawn in {a['init_s']:.3f} s; decode_step p50 "
+                f" B) drawn in {a['init_s']:.3f} s; decode_step first call"
+                f" {a['first_call_ms']:.4f} ms, then p50 "
                 f"{a['decode_step_ms']['p50']:.4f} ms, p99 "
-                f"{a['decode_step_ms']['p99']:.4f} ms over "
-                f"{a['decode_step_calls']} calls; "
-                f"{a['generated_tokens_per_s']:.2f} generated tokens/s; busy "
+                f"{a['decode_step_ms']['p99']:.4f} ms over the other "
+                f"{a['decode_step_calls'] - 1} calls; "
+                f"{a['generated_tokens_per_s']:.2f} generated tokens/s after "
+                f"the first call ({a['generated_tokens_per_s_with_first']:.2f}"
+                f" with it); busy "
                 f"{a['device_busy_share']}, {a['device_ops_per_step']:.1f} "
                 f"device ops a step; collectives a call "
                 f"{json.dumps(a['collectives_per_call'])}; peak "
@@ -6084,10 +6132,13 @@ def serve_seq_phase(gen) -> tuple:
                 f"{a['param_bytes_local']} B of parameters and "
                 f"{a['cache_bytes_local']} B of cache a rank, drawn in "
                 f"{a['init_s']:.3f} s and {a['fill_s']:.3f} s; decode_step "
-                f"p50 {a['decode_step_ms']['p50']:.4f} ms, p99 "
-                f"{a['decode_step_ms']['p99']:.4f} ms over "
-                f"{a['decode_step_calls']} calls; "
-                f"{a['generated_tokens_per_s']:.2f} generated tokens/s "
+                f"first call {a['first_call_ms']:.4f} ms, then p50 "
+                f"{a['decode_step_ms']['p50']:.4f} ms, p99 "
+                f"{a['decode_step_ms']['p99']:.4f} ms over the other "
+                f"{a['decode_step_calls'] - 1} calls; "
+                f"{a['generated_tokens_per_s']:.2f} generated tokens/s after "
+                f"the first call "
+                f"({a['generated_tokens_per_s_with_first']:.2f} with it) "
                 f"({a['generated']} a lane); profiled step "
                 f"{a['profiled_step_ms']:.4f} ms, busy "
                 f"{a['device_busy_share']}, {a['device_ops_per_step']:.1f} "
@@ -6111,6 +6162,218 @@ def serve_seq_phase(gen) -> tuple:
                 for k in ranks[0]["launches"]}
     log("phase 18: the world {:.1f} s".format(res["world_s"]))
     return res, launches
+
+
+# ------------------------------------------------------------ phase 19
+def dryrun_cells() -> list:
+    """Phase 19 (a): ``DRYRUN_CELLS`` through ``launch/dryrun.py`` on the
+    host; each must end ``ok`` with its collectives agreeing, or ``skip``
+    for full attention at ``long_500k``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = dryrun.run_cells(DRYRUN_CELLS, jobs=DRYRUN_JOBS)
+    for (arch, shape, _, variant), rec in zip(DRYRUN_CELLS, recs):
+        tag = f"{arch} {shape}" + (f" {variant}" if variant else "")
+        if shape == "long_500k" and not get_config(arch).sub_quadratic:
+            check(rec["status"] == "skip", f"dry run {tag}: not skipped")
+            log(f"dry run {tag}: skip ({rec['reason']})")
+            continue
+        check(rec["status"] == "ok" and rec["collectives_agree"],
+              f"dry run {tag}: {rec['status']} {rec.get('error')} "
+              f"{rec.get('traceback', '')[-1500:]}")
+        rl, mem = rec["roofline"], rec["memory_analysis"]
+        log(f"dry run {tag} on {rec['mesh']} ({rec['chips']} ranks): traced "
+            f"in {rec['trace_s']} s (ranks {rec['trace_s_ranks']}); "
+            f"{rec['collectives']} collectives a step, agreeing with the "
+            f"neighbours {rec['ranks_traced']}; arguments "
+            f"{mem['argument_size_in_bytes']} B a rank (estimate "
+            f"{mem['arguments_per_device_estimate']}), temp "
+            f"{mem['temp_size_in_bytes']} B; FLOPs {rl['flops_per_device']}, "
+            f"bytes {rl['hbm_bytes_per_device']} (upper "
+            f"{rl['hbm_bytes_upper']}), collective bytes "
+            f"{rl['coll_by_kind']}; compute {rl['compute_s']:.6f} s, memory "
+            f"{rl['memory_s']:.6f} s, collective {rl['collective_s']:.6f} s "
+            f"(H100 constants), {rl['dominant']}; model_flops "
+            f"{rl['model_flops']}, mfu {rl['mfu']:.4f}; kernels "
+            f"{json.dumps(rec['kernels'])}"
+            + (f"; assumed {rec['assumed']}" if "assumed" in rec else ""))
+    return recs, time.perf_counter() - t0
+
+
+def counted_step(kind: str, cell, args, mesh, device: str):
+    """One step of ``cell`` under a ``CostMode`` -> (its outputs, the
+    mode, the launch counters' delta)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.hlo_analysis import CostMode
+    ops.reset_launch_counts()
+    with CostMode(mesh=mesh, device=device) as mode:
+        out = cell.fn(*args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, mode, dict(ops.LAUNCHES)
+
+
+def count_against_card(seed: int) -> dict:
+    """Phase 19 (b): llama3.2-1b's train step at phase 14 (c)'s shape and
+    its decode step at phase 7's, through the dry run's builders at mesh
+    ``(1, 1)``, counted live on the card and traced on ``meta``; the
+    counts must be equal and the kernel calls the launches.  Then the
+    steady-state step time on the card beside the roofline on the H100
+    constants."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    arch = "llama3.2-1b"
+    shapes = {"train": ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_B,
+                                   "train"),
+              "decode": ShapeConfig("chip_decode", MAX_SEQ, LANES,
+                                    "decode")}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(str(Path(tmp) / "rdv"))
+        try:
+            live = mesh_mod.make_debug_mesh(1, 1)
+            meta = mesh_mod.make_meta_mesh(axis_shapes=(1, 1))
+            # warm meta's per-device tables (rope) once, as the card's warm
+            # step does there
+            warm = dryrun.build_cell(arch, None, meta, shape=shapes["decode"])
+            warm.fn(*warm.args)
+            for kind, shape in shapes.items():
+                out[kind] = count_one(kind, arch, shape, live, meta, seed)
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _diff_ops(a, b) -> dict:
+    return {k: (a.by_op.get(k), b.by_op.get(k))
+            for k in sorted(set(a.by_op) | set(b.by_op))
+            if a.by_op.get(k) != b.by_op.get(k)}
+
+
+def count_one(kind, arch, shape, live, meta, seed) -> dict:
+    """:func:`count_against_card` for one step kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as roof
+    from repro_torch.models import lm
+    cm = dryrun.build_cell(arch, None, meta, shape=shape)
+    _, mm, _ = counted_step(kind, cm, cm.args, meta, "meta")
+    cl = dryrun.build_cell(arch, None, live, shape=shape)
+    args = dryrun.materialize(cl, seed)
+    res0 = cl.fn(*args)  # warm: the allocator, the rope table
+    if kind == "train":  # the state advances: the next step reads it
+        args = (res0[0], args[1])
+    del res0
+    torch.cuda.synchronize()
+    res, ml, launches = counted_step(kind, cl, args, live, "cuda")
+    a, b = mm.summary(), ml.summary()
+    same = {k: a[k] == b[k] for k in ("flops", "bytes", "bytes_upper",
+                                      "coll_bytes", "dot_flops")}
+    calls = {k: v["calls"] for k, v in b["kernels"].items()}
+    check(all(same.values()) and a["kernels"] == b["kernels"],
+          f"{kind} step: the meta count {a} differs from the card's {b}: "
+          f"{json.dumps(_diff_ops(mm, ml))[:3000]}")
+    check(all(launches[k] == calls.get(k, 0) for k in launches),
+          f"{kind} step: kernel calls {calls} are not the launches "
+          f"{launches}")
+    # the steady state: steps after the warm and the counted ones
+    if kind == "train":
+        args = (res[0], args[1])
+        step = lambda a: (cl.fn(*a)[0], a[1])
+    else:
+        args = (args[0], args[1], res[1])
+        step = lambda a: (a[0], a[1], cl.fn(*a)[1])
+    del res
+    times = []
+    for _ in range(COUNT_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        args = step(args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(COUNT_PROFILED_STEPS):
+            args = step(args)
+        torch.cuda.synchronize()
+    busy_us, spans = device_busy_us(prof)
+    del args
+    cfg = cl.cfg
+    n_dense, n_expert = roof.count_params_split(lm.param_template(cfg),
+                                                lm.Leaf)
+    mf = roof.model_flops_for(cfg, shape, n_dense, n_expert)
+    rl = roof.analyse(ml.cost, chips=1, model_flops=mf)
+    p50 = float(np.percentile(times, 50))
+    busy_ms = busy_us / 1e3 / COUNT_PROFILED_STEPS
+    r = dict(shape=dataclasses.asdict(shape), counts=b, launches=launches,
+             roofline=rl.to_dict(), step_ms_events=times,
+             step_p50_ms=p50, busy_ms_a_step=busy_ms,
+             device_ops_a_step=spans / COUNT_PROFILED_STEPS,
+             model_flops_share_of_peak=mf / (roof.PEAK_FLOPS * p50 / 1e3),
+             counted_flops_share_of_peak=b["flops"]
+             / (roof.PEAK_FLOPS * p50 / 1e3),
+             roofline_over_step=rl.step_time_s / (p50 / 1e3))
+    log(f"count of one {arch} {kind} step ({shape.global_batch} x "
+        f"{shape.seq_len}, bf16, mesh (1, 1)), meta = card: FLOPs "
+        f"{b['flops']} (dots {b['dot_flops']}), bytes {b['bytes']}, "
+        f"bytes_upper {b['bytes_upper']}, peak live {b['peak_live_bytes']} "
+        f"B on the card ({a['peak_live_bytes']} on meta); kernel calls "
+        f"{calls} = launches; roofline (H100 constants) compute "
+        f"{rl.compute_s * 1e3:.4f} ms, memory {rl.memory_s * 1e3:.4f} ms, "
+        f"step {rl.step_time_s * 1e3:.4f} ms ({rl.dominant}); model_flops "
+        f"{mf}; steady step on the card p50 {p50:.4f} ms by events over "
+        f"{COUNT_TIMED_STEPS} steps ({', '.join(f'{t:.4f}' for t in times)}),"
+        f" busy {busy_ms:.4f} ms a step at {r['device_ops_a_step']:.1f} "
+        f"device ops; model-FLOPs share of the peak "
+        f"{r['model_flops_share_of_peak']:.6f}, counted-FLOPs share "
+        f"{r['counted_flops_share_of_peak']:.6f}; roofline / step "
+        f"{r['roofline_over_step']:.6f}")
+    return r
+
+
+def examples_on_card() -> dict:
+    """Phase 19 (c): the examples' counterparts with ``--device cuda``,
+    in process, each with the launch counters zeroed just before it and
+    read just after."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+    out = {}
+    for name in ("quickstart_torch", "serve_kvs_torch"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(["--device", "cuda"])
+        out[name] = dict(result=res, launches=dict(ops.LAUNCHES),
+                         seconds=time.perf_counter() - t0)
+    q, s = out["quickstart_torch"], out["serve_kvs_torch"]
+    check(q["result"]["match_rate"] == 1.0, "quickstart: a Get missed")
+    for k in ("ludo_lookup", "slot_unpack"):
+        check(q["launches"][k] > 0, f"quickstart never launched {k}")
+    check(s["result"]["outputs_match"] and s["result"]["pages_found"]
+          and s["result"]["finished"] == 10,
+          f"serve_kvs: {s['result']}")
+    for k in ("fused_norm_matmul", "paged_attention",
+              "cuckoo_paged_attention"):
+        check(s["launches"][k] > 0, f"serve_kvs never launched {k}")
+    log(f"examples on the card: {json.dumps(out)}")
+    return out
 
 
 _KEY_OFFSET = 0x5EED << 40
@@ -6437,6 +6700,20 @@ def main() -> int:
     log(f"launches on the split-cache path (both ranks): {qlaunch}")
     log(f"split-cache path: {json.dumps(qres)}")
     log(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # ---- phase 19: the compile-time tools, checked against the card ----
+    t19 = time.perf_counter()
+    _, dry_s = dryrun_cells()
+    log(f"phase 19 (a): {dry_s:.1f} s")
+    cres = count_against_card(SEED)
+    for name, k in kernels.items():
+        k["launches_count_path"] = sum(c["launches"][name]
+                                       for c in cres.values())
+    xres = examples_on_card()
+    for name, k in kernels.items():
+        k["launches_examples_path"] = {
+            ex: x["launches"][name] for ex, x in xres.items()}
+    log(f"phase 19: {time.perf_counter() - t19:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,16 @@ as before.
 The checks that only the CUDA kernels need (the paged kernels' head
 widths, shared memory, grid and alignment) run on the CUDA branch alone:
 a CPU tensor gets the plain version at any width the reference computes.
+
+The dry run (``launch/dryrun.py``) traces a rank's program on the
+``meta`` device, which has shapes and no values: :func:`fused_norm_matmul`
+and its backward, the only wrappers on the model's path, take meta
+tensors and return empty outputs of the right shapes and dtypes.  On
+every device, each of their calls reports its kernel's work (FLOPs and
+the bytes it must move) to the active counter of :data:`COUNTERS`
+(``launch/hlo_analysis.py::CostMode``), which counts none of the torch
+ops the wrapper runs itself; so a kernel's work counts the same on
+``meta``, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -121,6 +131,9 @@ FNM_BWD_KERNELS = ("fused_norm_matmul_bwd_warp_rows_kernel",
 # blocks of LUDO_MIN_THREADS to LUDO_MAX_THREADS threads
 LUDO_MIN_THREADS, LUDO_MAX_THREADS = 32, 256
 _M32, _M64 = (1 << 32) - 1, (1 << 64) - 1
+# the active work counters (launch/hlo_analysis.py's CostMode), innermost
+# last: a wrapper call reports its kernel's work to the last
+COUNTERS: list = []
 
 
 def reset_launch_counts() -> None:
@@ -517,8 +530,8 @@ def _check_fnm(x, gamma, w) -> None:
                          f"{tuple(gamma.shape)}, w {tuple(w.shape)}")
     if max(S * d, d * F, S * F) >= 2**31 or S > 65535 * FNM_ROW_GROUP:
         raise ValueError("a size exceeds the kernel's int index or grid")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_norm_matmul runs on cuda or cpu, not "
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"fused_norm_matmul runs on cuda, cpu or meta, not "
                          f"{x.device}")
 
 
@@ -538,12 +551,27 @@ def fused_norm_matmul(x, gamma, w):
 
 
 def _fused_norm_matmul(x, gamma, w):
-    """:func:`fused_norm_matmul` on checked inputs: the plain version for a
-    CPU tensor, the kernel for a CUDA one."""
+    """:func:`fused_norm_matmul` on checked inputs, its work reported to
+    the active counter: 2·S·d·F FLOPs, x, gamma and w read once and the
+    output written once."""
+    if COUNTERS:
+        (S, d), F = x.shape, w.shape[1]
+        return COUNTERS[-1].kernel_call(
+            "fused_norm_matmul", 2.0 * S * d * F,
+            float((S * d + d + d * F + S * F) * x.element_size()),
+            _fused_norm_matmul_run, x, gamma, w)
+    return _fused_norm_matmul_run(x, gamma, w)
+
+
+def _fused_norm_matmul_run(x, gamma, w):
+    """The plain version for a CPU tensor, the kernel for a CUDA one, an
+    empty output for a meta one."""
     (S, d), F = x.shape, w.shape[1]
     device = x.device
     if device.type == "cpu":
         return ref.fused_norm_matmul_ref(x, gamma, w, eps=NORM_EPS)
+    if device.type == "meta":
+        return torch.empty((S, F), dtype=x.dtype, device=device)
     out = torch.empty((S, F), dtype=x.dtype, device=device)
     if S and F:
         elt = x.element_size()
@@ -649,7 +677,12 @@ def fused_norm_matmul_bwd(x, gamma, w, dy):
     plain version; a CUDA one ``dN = dy @ w^T`` by ``torch.matmul`` (in the
     input type), then the kernels of ``csrc/fused_norm_matmul_bwd.cu`` in
     the regime of :func:`fused_norm_matmul_bwd_dw_plan`, which recompute
-    the normalized rows, write dx, dgamma and dw, and count one launch."""
+    the normalized rows, write dx, dgamma and dw, and count one launch.
+    A meta one gets ``dN``'s product and empty gradients.  The active
+    counter counts ``dN`` as the aten ``mm`` it is on the card (on the
+    CPU, where the plain version computes it, as that op on meta
+    stand-ins) and the rest as the kernel's work: dw's 2·S·d·F FLOPs,
+    x, gamma, dy and dN read once, dx, dgamma and dw written once."""
     _check_fnm(x, gamma, w)
     (S, d), F = x.shape, w.shape[1]
     if not isinstance(dy, torch.Tensor):
@@ -663,18 +696,39 @@ def fused_norm_matmul_bwd(x, gamma, w, dy):
                          f"shape {tuple(dy.shape)} "
                          f"(contiguous={dy.is_contiguous()})")
     device = x.device
-    if device.type == "cpu":
-        return ref.fused_norm_matmul_bwd_ref(x, gamma, w, dy, eps=NORM_EPS)
-    if d > FNM_BWD_MAX_D:
+    if device.type == "cuda" and d > FNM_BWD_MAX_D:
         raise ValueError(f"d={d} exceeds the {FNM_BWD_MAX_D} columns of a "
                          f"dgamma partial in a block's shared memory")
-    if S == 0 or F == 0:  # no term: every gradient is zero
+    if device.type == "cuda" and (S == 0 or F == 0):
+        # no term: every gradient is zero
         return (torch.zeros_like(x), torch.zeros_like(gamma),
                 torch.zeros_like(w))
+    if device.type == "cpu":
+        dn = None
+        if COUNTERS:
+            COUNTERS[-1].count_on_meta(lambda a, b: torch.matmul(a, b.t()),
+                                       dy, w)
+    else:
+        dn = torch.matmul(dy, w.t())
+    if not COUNTERS:
+        return _fused_norm_matmul_bwd_run(x, gamma, w, dy, dn)
+    return COUNTERS[-1].kernel_call(
+        "fused_norm_matmul_bwd", 2.0 * S * d * F,
+        float((3 * S * d + 2 * d + S * F + d * F) * x.element_size()),
+        _fused_norm_matmul_bwd_run, x, gamma, w, dy, dn)
+
+
+def _fused_norm_matmul_bwd_run(x, gamma, w, dy, dn):
+    """:func:`fused_norm_matmul_bwd` after ``dN`` (None on the CPU)."""
+    (S, d), F = x.shape, w.shape[1]
+    device = x.device
+    if device.type == "cpu":
+        return ref.fused_norm_matmul_bwd_ref(x, gamma, w, dy, eps=NORM_EPS)
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     dw = torch.empty_like(w)
-    dn = torch.matmul(dy, w.t())
+    if device.type == "meta":
+        return dx, dgamma, dw
     n_sm = _sm_count(device)
     rows = fused_norm_matmul_bwd_plan(S, n_sm)
     plan = fused_norm_matmul_bwd_dw_plan(S, d, F, x.element_size(), n_sm,

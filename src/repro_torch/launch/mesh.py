@@ -33,10 +33,15 @@ Specs are :class:`~repro_torch.models.common.Spec` tuples.
 are Megatron's pair of autograd functions: the identity with a ``psum``
 in the backward where a replicated activation enters split weights, and
 a ``psum`` with the identity backward after a split product.
+
+:func:`make_meta_mesh` is the dry run's stand-in (``launch/dryrun.py``):
+one rank of a production mesh with no process group, whose collectives
+return ``meta`` tensors of the real shapes and record each call.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 from collections import defaultdict
@@ -303,6 +308,119 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 
 def make_debug_mesh(data: int = 1, model: int = 1, *, device=None) -> Mesh:
     return make_mesh((data, model), AXES_2D, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's stand-in
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective a :class:`MetaMesh` rank called: ``op`` (``psum``,
+    ``pmax``, ``all_gather``, ``ppermute``), the axes of size above 1 it
+    ran over (``+``-joined), the shape and dtype this rank put in, and the
+    bytes in and out."""
+
+    op: str
+    axes: str
+    shape: tuple
+    dtype: str
+    in_bytes: int
+    out_bytes: int
+
+
+class MetaMesh(Mesh):
+    """One rank of a mesh, with no process group: the dry run's stand-in
+    for a world of 256 or 512 ranks (``launch/dryrun.py``).  It has the
+    rank's coordinates and runs the same torch ops around each collective
+    as :class:`Mesh` does with ``p2p == "send_recv"`` (one rank a card over
+    NCCL: the copy a ``psum`` reduces into, the parts an ``all_gather``
+    concatenates, the zeros a ``ppermute`` receives into); only the
+    transfer is missing, so a result has the real collective's shape and
+    dtype and no values.  Each call is counted in :attr:`stats` as
+    :meth:`Mesh._count` counts it, with 0 host seconds, and recorded in
+    order in :attr:`records` (:class:`Collective`).  A tensor that is not
+    on ``meta`` raises: a stand-in that returned values would return wrong
+    ones."""
+
+    def __init__(self, axis_names, shape: dict, rank: int):
+        super().__init__(axis_names, shape, rank, torch.device("meta"), {},
+                         "meta", "send_recv")
+        self.records: list[Collective] = []
+
+    def _meta(self, op: str, axes, x: torch.Tensor):
+        if not (isinstance(x, torch.Tensor) and x.is_meta):
+            raise ValueError(f"MetaMesh.{op} takes meta tensors, got "
+                             f"{getattr(x, 'device', type(x).__name__)}")
+        axes, _ = self._group(axes)
+        return axes
+
+    def _record(self, op: str, axes, x: torch.Tensor, out_bytes: int):
+        n = x.numel() * x.element_size()
+        dtype = str(x.dtype).split(".")[-1]
+        self.records.append(Collective(op, "+".join(axes), tuple(x.shape),
+                                       dtype, n, out_bytes))
+        rec = self.stats[(op, "+".join(axes), dtype)]
+        rec[0] += 1
+        rec[1] += n
+
+    def _reduce(self, op: str, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = self._meta(op, axes, x)
+        if not axes:
+            return x
+        y = x.contiguous().clone()
+        self._record(op, axes, x, y.numel() * y.element_size())
+        return y
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self._reduce("psum", x, axes)
+
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self._reduce("pmax", x, axes)
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        axes = self._meta("all_gather", axes, x)
+        if not axes:
+            return x
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.axis_size(axes))]
+        y = torch.cat(parts, dim=dim)
+        self._record("all_gather", axes, x, y.numel() * y.element_size())
+        return y
+
+    def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        axes = self._meta("ppermute", axis, x)
+        if not axes:
+            return x if (0, 0) in perm else torch.zeros_like(x)
+        x = x.contiguous()
+        out = torch.zeros_like(x)
+        self._record("ppermute", axes, x, out.numel() * out.element_size())
+        return out
+
+
+def make_meta_mesh(*, multi_pod: bool = False, rank: int = 0,
+                   axis_shapes=None) -> MetaMesh:
+    """Rank ``rank`` of the production mesh (``PRODUCTION_SHAPES``:
+    ``(16, 16)``, or ``(2, 16, 16)`` over pods), as a :class:`MetaMesh`;
+    ``axis_shapes`` gives another shape over the same axes (``(1, 1)``:
+    the program of one rank alone)."""
+    sizes, names = PRODUCTION_SHAPES[multi_pod]
+    sizes = tuple(int(s) for s in (axis_shapes or sizes))
+    if len(sizes) != len(names) or min(sizes) < 1:
+        raise ValueError(f"mesh shape {sizes} does not fit axes {names}")
+    if not 0 <= rank < int(np.prod(sizes)):
+        raise ValueError(f"rank {rank} is not in a mesh of {sizes}")
+    return MetaMesh(names, dict(zip(names, sizes)), rank)
+
+
+def neighbour(mesh: Mesh, axis: str) -> int:
+    """The rank one step along ``axis`` from ``mesh``'s rank (wrapping)."""
+    coords = dict(mesh.coords)
+    coords[axis] = (coords[axis] + 1) % mesh.shape[axis]
+    rank = 0
+    for a in mesh.axis_names:
+        rank = rank * mesh.shape[a] + coords[a]
+    return rank
 
 
 # ---------------------------------------------------------------------------

@@ -273,7 +273,8 @@ def moe_gather_spmd(p, x, cfg, mesh, *, norm_in=None):
     the shared expert as in :func:`moe_spmd`).  Each pick's output lands
     on its (token, choice) row, zeros for the other ranks' picks, and a
     token's k rows are summed in order: no atomics.  The local picks are
-    found on the host (one sync a layer).  With ``E % tp != 0`` the banks
+    found on the host (one sync a layer); on ``meta`` they are all T*k
+    picks.  With ``E % tp != 0`` the banks
     are whole and the rank runs every pick."""
     B, S, d = x.shape
     m = cfg.moe
@@ -287,7 +288,11 @@ def moe_gather_spmd(p, x, cfg, mesh, *, norm_in=None):
     xf = x.reshape(T, d)
     rel = idx.reshape(T * k) - (mesh.axis_index("model") * E_loc
                                 if split else 0)
-    sel = torch.nonzero((rel >= 0) & (rel < E_loc))[:, 0]
+    local = (rel >= 0) & (rel < E_loc)
+    # a meta tensor (the dry run) has no values: all T*k picks, the
+    # reference's static count of gathered slices
+    sel = (torch.arange(T * k, device=x.device) if local.is_meta
+           else torch.nonzero(local)[:, 0])
     e = rel[sel]
     xe = f(xf).repeat_interleave(k, dim=0)[sel][:, None]  # (n, 1, d)
     h = silu(torch.bmm(xe, p["w_gate"][e])) * torch.bmm(xe, p["w_up"][e])

@@ -3,7 +3,7 @@
 * an AST scan of every module under ``src/repro_torch/``, of
   ``chip_smoke.py``, of
   ``tools/{fnm,step,ludo,store,baselines,mesh,faults,cluster,session,
-  train,families}_probe.py``,
+  train,families,dryrun}_probe.py``,
   of the
   on-card tests (``tests/test_torch_cuda.py``, which must run on the GPU
   machine, and its fault specs, ``tests/_torch_fault_specs.py``), of
@@ -12,7 +12,9 @@
   ``tests/test_torch_tp_seqcache.py``, whose reference runs from a text in
   a subprocess) and of the spawned mesh ranks
   (``tests/_torch_mesh_rank.py``, ``tests/_torch_tp_rank.py``,
-  ``tools/tp_rank.py``) finds no import of ``jax`` or of ``repro``;
+  ``tools/tp_rank.py``) and the examples' counterparts
+  (``examples/{train_lm,quickstart,serve_kvs}_torch.py``) finds no
+  import of ``jax`` or of ``repro``;
 * a fresh interpreter that imports ``repro_torch.launch.mesh`` (and
   decodes and trains a reduced llama over a one-rank CPU mesh) has
   neither ``jax`` nor ``repro`` in ``sys.modules``;
@@ -76,7 +78,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "faults_probe.py",
     ROOT / "tools" / "cluster_probe.py", ROOT / "tools" / "session_probe.py",
     ROOT / "tools" / "train_probe.py", ROOT / "tools" / "families_probe.py",
-    ROOT / "examples" / "train_lm_torch.py"]
+    ROOT / "tools" / "dryrun_probe.py",
+    ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "serve_kvs_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -398,6 +398,10 @@ def test_fused_norm_matmul_wrapper_rejects_what_the_kernel_does_not_take():
         ops.fused_norm_matmul(x, g[:32].contiguous(), w)
     with pytest.raises(ValueError):  # one device
         ops.fused_norm_matmul(x, g, w.to("meta"))
-    with pytest.raises(ValueError):
-        ops.fused_norm_matmul(x.to("meta"), g.to("meta"), w.to("meta"))
+    # meta (the dry run's device) takes the shapes and launches nothing
+    before = dict(ops.LAUNCHES)
+    y = ops.fused_norm_matmul(x.to("meta"), g.to("meta"), w.to("meta"))
+    assert (y.is_meta, tuple(y.shape), y.dtype) == (True, (8, 96),
+                                                     torch.float32)
+    assert ops.LAUNCHES == before
     assert ops.fused_norm_matmul(x[:0], g, w).shape == (0, 96)

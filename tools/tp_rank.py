@@ -229,6 +229,56 @@ def _pcts(ms) -> dict:
                 p99=float(np.percentile(ms, 99)))
 
 
+def _timed_run(eng, mesh, shape_of) -> dict:
+    """``eng.run()`` with every ``_step`` call synced and timed and row
+    5's shapes recorded (``shape_of(x, w)``), the launch counters and the
+    mesh's counts zeroed just before and read just after.  The first call
+    (the first prompt token's, which warms the allocator and the caches)
+    is reported apart, as ``first_call_ms``; the p50 and p99 of
+    ``decode_step_ms`` and ``generated_tokens_per_s`` are over the calls
+    after it (``generated_tokens_per_s_with_first`` over the whole
+    run)."""
+    from repro_torch.kernels import ops
+    step, fnm = eng._step, ops.fused_norm_matmul
+    times, shapes = [], set()
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    def recording_fnm(x, gamma, w):
+        shapes.add(shape_of(x, w))
+        return fnm(x, gamma, w)
+
+    eng._step, ops.fused_norm_matmul = timed_step, recording_fnm
+    try:
+        ops.reset_launch_counts()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        eng._step, ops.fused_norm_matmul = step, fnm
+    ms = np.asarray(times) * 1e3
+    return dict(times=times, shapes=shapes, launches=dict(ops.LAUNCHES),
+                stats=mesh.stats_json(), run_s=run_s,
+                first_call_ms=float(ms[0]),
+                decode_step_ms=_pcts(ms[1:] if len(ms) > 1 else ms),
+                steady_s=run_s - times[0])
+
+
+def _rates(generated: int, run: dict) -> dict:
+    return dict(generated_tokens_per_s=generated / run["steady_s"],
+                generated_tokens_per_s_with_first=generated / run["run_s"],
+                first_call_ms=run["first_call_ms"],
+                decode_step_ms=run["decode_step_ms"])
+
+
 def _config(arch: str, layers=None):
     import dataclasses
     from repro_torch.configs import get_config
@@ -335,34 +385,10 @@ def serve_tp(arch: str, layers, mesh, *, lanes: int = LANES,
     reqs = _requests(cfg.vocab_size, data)
     for r in reqs:
         eng.submit(r)
-    step, fnm = eng._step, ops.fused_norm_matmul
-    times, shapes = [], set()
-
-    def timed_step(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step(*a)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        return out
-
-    def recording_fnm(x, gamma, w):
-        shapes.add((int(x.shape[-1]), int(w.shape[-1])))
-        return fnm(x, gamma, w)
-
-    eng._step, ops.fused_norm_matmul = timed_step, recording_fnm
-    try:
-        ops.reset_launch_counts()
-        mesh.reset_stats()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-    finally:
-        eng._step, ops.fused_norm_matmul = step, fnm
-    launches = dict(ops.LAUNCHES)
-    stats = mesh.stats_json()
-    calls = len(times)
+    run = _timed_run(eng, mesh,
+                     lambda x, w: (int(x.shape[-1]), int(w.shape[-1])))
+    launches, stats, shapes = run["launches"], run["stats"], run["shapes"]
+    calls = len(run["times"])
     check(eng.stats.finished == REQUESTS
           and all(len(r.out) == NEW for r in reqs),
           f"{arch}: a request did not finish with its {NEW} tokens")
@@ -383,9 +409,8 @@ def serve_tp(arch: str, layers, mesh, *, lanes: int = LANES,
     generated = sum(len(r.out) for r in reqs)
     res.update(
         requests=REQUESTS, decode_step_calls=calls,
-        decode_steps=eng.stats.decode_steps, run_s=run_s,
-        generated_tokens_per_s=generated / run_s,
-        decode_step_ms=_pcts(np.asarray(times) * 1e3),
+        decode_steps=eng.stats.decode_steps, run_s=run["run_s"],
+        **_rates(generated, run),
         row5_shapes=sorted(shapes), launches=launches,
         collectives=stats,
         collectives_per_call={k: dict(calls=v["calls"] / calls,
@@ -1171,34 +1196,10 @@ def serve_seq(arch: str, layers, mesh, *, lanes: int, max_seq: int, lengths,
     gc.collect()
     torch.cuda.synchronize()
     res["fill_s"] = time.perf_counter() - t0
-    step, fnm = eng._step, ops.fused_norm_matmul
-    times, shapes = [], set()
-
-    def timed_step(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step(*a)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        return out
-
-    def recording_fnm(x, gamma, w):
-        shapes.add((int(x.shape[0]), int(x.shape[-1]), int(w.shape[-1])))
-        return fnm(x, gamma, w)
-
-    eng._step, ops.fused_norm_matmul = timed_step, recording_fnm
-    try:
-        ops.reset_launch_counts()
-        mesh.reset_stats()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-    finally:
-        eng._step, ops.fused_norm_matmul = step, fnm
-    launches = dict(ops.LAUNCHES)
-    stats = mesh.stats_json()
-    calls = len(times)
+    run = _timed_run(eng, mesh, lambda x, w: (
+        int(x.shape[0]), int(x.shape[-1]), int(w.shape[-1])))
+    launches, stats, shapes = run["launches"], run["stats"], run["shapes"]
+    calls = len(run["times"])
     # a lane finishes at max_seq - 1, as the reference's Engine does
     want_new = [min(SEQ_NEW, max_seq - 1 - int(n)) for n in lengths]
     got_new = [len(r.out) for r in reqs]
@@ -1218,9 +1219,7 @@ def serve_seq(arch: str, layers, mesh, *, lanes: int, max_seq: int, lengths,
     generated = sum(got_new)
     res.update(
         fnm_per_call=per_call, lanes_local=eng.lanes, decode_step_calls=calls,
-        generated=got_new, run_s=run_s,
-        generated_tokens_per_s=generated / run_s,
-        decode_step_ms=_pcts(np.asarray(times) * 1e3),
+        generated=got_new, run_s=run["run_s"], **_rates(generated, run),
         row5_shapes=sorted(shapes), launches=launches, collectives=stats,
         collectives_per_call={k: dict(calls=v["calls"] / calls,
                                       bytes=v["bytes"] / calls,
