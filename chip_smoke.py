@@ -10,9 +10,11 @@
                             # llama3.2-1b trained, llava, mixtral,
                             # deepseek, jamba and whisper served, and
                             # qwen2.5-14b and mixtral served and llama
-                            # trained by two ranks at tp = 2, and jamba
+                            # trained by two ranks at tp = 2, jamba
                             # decoding a 524,288-token cache over two
-                            # ranks; one card
+                            # ranks, and llama3.2-1b decoding its
+                            # decode_32k share of a production rank over
+                            # sixteen ranks at tp = 16; one card
 
 Phases; any failure exits non-zero:
 
@@ -57,7 +59,7 @@ Phases; any failure exits non-zero:
    its byte bound, its plain version and a gather +
    ``scaled_dot_product_attention`` yardstick;
 5. drive the Ludo-paged decode path: ``LudoPageTable`` and
-   ``CuckooPageTable`` of 2^17 pages on the card, 16 sequences of 1954 to
+   ``CuckooPageTable`` of 2^17 pages on the card, 8 sequences of 3908 to
    31264 tokens appended page by page, then 4 decode steps each through
    ``lookup_batch`` -> ``ops.paged_attention`` and ``lookup2_batch`` ->
    ``ops.cuckoo_paged_attention``, every matched page-map entry checked
@@ -257,7 +259,7 @@ Phases; any failure exits non-zero:
    ``simulate_open`` (the reference's model of the fabric, not the card).  The
    launch counters are zeroed just before the three streams and read just
    after.  (c) llama3.2-1b at its published widths with random bf16 weights in
-   ``Engine(lanes=4, max_seq=16,
+   ``Engine(lanes=4, max_seq=8,
    session_store=KVSessionStore(cn_cache_budget_bytes=256 KiB))``: a few steps,
    then a lane parks, resumes, parks and resumes again (each timed), its state
    equal bit for bit to the parked state each time, its length kept, CN cache
@@ -336,8 +338,9 @@ Phases; any failure exits non-zero:
    ``TP_PREFILL_SHAPES``), timed at S = 4.  (a) The probe:
    ``all_reduce``, ``all_gather``, ``send``/``recv`` of bf16, float32 and
    int8 card tensors (the first two must work) and a 40 KB
-   ``all_reduce``'s host µs.  (b) qwen2.5-14b whole at tp = 2 (about 14.8
-   GB of bf16 shards a rank, drawn on the card from the seed): 4 requests
+   ``all_reduce``'s host µs.  (b) qwen2.5-14b at tp = 2, 24 of its 48
+   layers (about 7.7 GB of bf16 shards a rank, drawn on the card from the
+   seed): 4 requests
    of 1-3 prompt tokens and 8 new ones (one wave)
    through ``Engine(lanes=4, max_seq=64)``, both ranks' tokens equal, row
    5 at exactly the shard shapes, decode-step p50/p99, tokens/s, 8
@@ -349,9 +352,10 @@ Phases; any failure exits non-zero:
    then deepseek-v3-671b (its 3 dense layers and one MoE layer: MLA by
    heads, ``moe_spmd`` with sigmoid scores and a shared expert),
    jamba-v0.1-52b (one 8-layer period: mamba by channels, ``w_in``'s
-   halves exchanged), rwkv6-1.6b and whisper-large-v3 whole (its
-   cross-attention by heads; then a prefill over (2, 1500, 1280) frames
-   through the sharded encoder), served likewise, each with a float32
+   halves exchanged), rwkv6-1.6b (12 of 24 layers) and whisper-large-v3
+   (16 of 32 decoder layers, its cross-attention by heads; then a prefill
+   over (2, 1500, 1280) frames through the sharded encoder, all 32
+   layers), served likewise, each with a float32
    twin (2 layers; the MoE twins with 16 experts, jamba's one "ma"
    period); mixtral again with ``moe_gather_decode`` and its twin;
    llama3.2-1b whole over a (2, 1) mesh (8 lanes, 4 a rank; no
@@ -401,10 +405,11 @@ Phases; any failure exits non-zero:
    crosses from rank 1's slots to rank 0's), and deepseek-v3-671b's MLA
    under ``cache_seq_shard`` at ``(1, 2)`` (the MoE twins at 16 experts).
 19. the compile-time tools (``launch/{dryrun,hlo_analysis,roofline}.py``).
-   (a) On the host, the dry run of five cells at the ``(16, 16)``
+   (a) On the host, the dry run of six cells at the ``(16, 16)``
    production mesh, one rank's program traced on ``meta`` (with its
    neighbours along each axis, whose collectives must agree), in a pool
-   of ``DRYRUN_JOBS`` processes: llama3.2-1b ``train_4k``, jamba-v0.1-52b
+   of ``DRYRUN_JOBS`` processes started before phase 1 (:class:`Background`)
+   and read here: llama3.2-1b ``train_4k``, jamba-v0.1-52b
    ``long_500k``, llama3.2-1b ``decode_32k`` under ``seqcache``,
    mixtral-8x22b ``decode_32k`` under ``moegather``, and qwen2.5-14b
    ``long_500k``, which must be skipped (full attention); each prints its
@@ -424,7 +429,32 @@ Phases; any failure exits non-zero:
    with ``--device cuda``, in process): their launches (``ludo_lookup``
    and ``slot_unpack``; ``fused_norm_matmul``, ``paged_attention`` and
    ``cuckoo_paged_attention``) are counted, and serve_kvs's paged outputs
-   must match.
+   must match.  The dry run's cells add qwen2.5-14b ``decode_32k``: its
+   gqa cache splits ``head_dim`` over ``model`` (3,221,225,472 B a rank)
+   and its serve step writes the cache in place.
+20. the gqa decode cache split over ``head_dim``: a world of sixteen
+   ranks on the one card over gloo at ``(1, 16)`` (``tools/tp_rank.py
+   hd``).  llama3.2-1b at its published widths and depth in bf16: 8 kv
+   heads do not split over 16, so each rank holds head_dim 64 / 16 = 4
+   columns of every kv head, the reference's spec, and ``decode_32k``'s
+   share of one rank of the ``(16, 16)`` production mesh: 8 lanes of
+   32,768 positions from the seed (536,870,912 B of cache a rank), at
+   lengths spread over the range.  It decodes ``HD_STEPS`` greedy steps
+   in place (``decode_step(inplace=True)``), each summing the partial
+   scores over ``model`` (a psum of 8 x 32 x 32768 float32 a layer), and
+   prints the first call apart, then the step p50/p99, tokens/s, the
+   cache's bytes and the peak memory a rank, and the collectives a call
+   (calls, bytes by op, host ms); every rank's tokens must be equal and
+   row 5's launches the program's.  Row 5 is then held to its plain
+   version at the (S, d, F) the ranks recorded.  The float32 twin: the
+   same world at 2 layers and a cut cache (``HD_TWIN_*`` of
+   ``tools/tp_rank.py``),
+   whose rank 0 logits of each teacher-forced step must equal, within
+   1e-4 and with the same argmax, the same model and seeded cache whole at
+   ``(1, 1)``, run here in the parent.  The old layout could not hold this
+   world on one card (16 x 8.59 GB of cache).  The sixteen ranks start at
+   the beginning of phase 19 and import there, gated: they touch neither
+   the card nor the world until phase 20 releases them.
 
 The line before the last is the kernels' JSON record (all six kernels);
 the last line is ``{"ok": true, "device": {...}}``.  Without a card the
@@ -440,6 +470,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -465,10 +496,11 @@ LATER_KEYS_LOG2 = 20
 # 4700-18000 ops/s a 2^18-op stream took 15-56 s a store on that machine's
 # host, and the whole run with phase 14 took 913.4-1093.7 s at 2^17 ops on
 # two hosts, each with one NVIDIA H100 80GB HBM3 at 700 W
-LATER_YCSB_A_LOG2 = 15  # 2^16 until phase 17 came
+LATER_YCSB_A_LOG2 = 14  # 2^16 until phase 17 came, 2^15 until phase 20
 # phase 8's YCSB-C Gets (2^N_GETS_LOG2 until phase 17 came: about 19 s at
-# the cached store's 56,000 Gets/s)
-DIR_GETS_LOG2 = 19
+# the cached store's 56,000 Gets/s; 2^19 until phase 20 came: 14.5 s at
+# 36,219.5 Gets/s on a slow host)
+DIR_GETS_LOG2 = 18
 N_GETS_LOG2 = 20
 N_YCSB_A_LOG2 = 18
 N_WRITES_LOG2 = 14
@@ -539,18 +571,19 @@ LUDO_TIMED = (1, WINDOW, 1 << 20)
 # (src/repro/configs/llama3_2_1b.py: 32 query heads over 8 KV heads, head
 # width 64), with a bf16 page pool of 2^17 pages of 16 tokens: 2 GiB for K
 # and 2 GiB for V, one layer's pool for 2M tokens.  N_SEQS sequences of
-# SEQ_TOKENS * (i + 1) tokens (1954 to 31264, ragged last pages), about
-# 16.6k pages, 12.7% of the pool: under the 36% at which the
+# SEQ_TOKENS * (i + 1) tokens (3908 to 31264, ragged last pages), about
+# 8.8k pages, 6.7% of the pool: under the 36% at which the
 # sentinel-seeded index's overflow cache breaches.  Each sequence then
 # takes DECODE_STEPS decode steps, and N_RELEASE sequences are released at
 # the end.  32 sequences of 977 * (i + 1) tokens (32.2k pages) until phase
 # 19 came: the Ludo appends took 77 s of a 1150.2 s run on a slow host
-# (NVIDIA H100 80GB HBM3, 700 W); the longest sequence, and so the kernels'
-# timed shape, is the same.
+# (NVIDIA H100 80GB HBM3, 700 W); 16 of 1954 * (i + 1) (16.6k pages) until
+# phase 20 came: 3006.6 us a page, 50 s, on a slower host; the longest
+# sequence, and so the kernels' timed shape, is the same.
 PAGE_POOL_LOG2 = 17
 N_KV, GROUP, HEAD_DIM, PAGE_SIZE = 8, 4, 64, 16
-N_SEQS = 16
-SEQ_TOKENS = 1954
+N_SEQS = 8
+SEQ_TOKENS = 3908
 DECODE_STEPS = 4
 N_RELEASE = 4
 # The page-map length of the longest sequence, the kernels' timed shape.
@@ -670,7 +703,7 @@ BASE_AGREE_LOAD = 0.5
 BASE_DELETES_LOG2 = 12
 MN_BATCH = 1 << 16
 SIM_KEYS_LOG2 = 20
-SIM_GETS_LOG2 = 16
+SIM_GETS_LOG2 = 15  # 2^16 until phase 20 came
 SIM_CLIENTS = (1, 8, 64)
 # Phase 10: the mesh at (1, 1) on the one card.  The agreement store has 2^14
 # keys; the full-size store takes the first 2^LATER_KEYS_LOG2 of phase 3's keys
@@ -700,9 +733,9 @@ MESH_WARM_LOG2 = 15
 FAULT_AGREE_KEYS_LOG2 = 14
 FAULT_AGREE_OPS_LOG2 = 12
 FAULT_LOAD_FACTOR = 0.85
-FAULT_N_GETS_LOG2 = 18
-FAULT_N_A_LOG2 = 15  # 2^16 until phase 17 came
-FAULT_N_INS_LOG2 = 13
+FAULT_N_GETS_LOG2 = 17  # 2^18 until phase 20 came
+FAULT_N_A_LOG2 = 14  # 2^16 until phase 17 came, 2^15 until phase 20
+FAULT_N_INS_LOG2 = 12  # 2^13 until phase 20 came
 FAULT_CRASH_AT = (1 << FAULT_N_GETS_LOG2) + (1 << (FAULT_N_A_LOG2 - 2))
 FAULT_CRASH_OPS = 1 << (FAULT_N_A_LOG2 - 2)
 FAULT_LEASE_OPS = 4096
@@ -777,10 +810,15 @@ FD_PROBE_GETS = 4000
 FD_KNEE_FRAC = 0.85
 FD_PROFILED_OFFERS = 1 << 14
 SESSION_LANES = 4
-SESSION_MAX_SEQ = 16  # 32 until phase 17 came (a first park took 46-60 s)
+# max_seq 32 until phase 17 came (a first park took 46-60 s), then 16
+# with 8 prompt and 6 new tokens until phase 20 came (phase 13 (c) 37.4 s
+# on a slow host): a park's time follows the lane's size.  The engine
+# takes a prompt in one step, so SESSION_NEW exceeds SESSION_STEPS: the
+# parked lane is still serving
+SESSION_MAX_SEQ = 8
 SESSION_CACHE_BYTES = 256 << 10
-SESSION_PROMPT = 8
-SESSION_NEW = 6
+SESSION_PROMPT = 2
+SESSION_NEW = 5
 SESSION_STEPS = 3
 RWKV_LANES = 8
 RWKV_REQUESTS = 8
@@ -951,15 +989,24 @@ TP_MAIN_TIMEOUT = 600
 # phase 18: the world of tools/tp_rank.py seq (its runs' sizes are there)
 SEQ_TIMEOUT = 420
 # phase 19: the dry run's cells (arch, shape, multi_pod, variant), traced
-# by DRYRUN_JOBS processes; the counted steps' timed steps
+# by DRYRUN_JOBS processes beside phases 1-18 (8 when they ran in phase 19:
+# fewer leave the cores to the store's build); the counted steps' timed
+# steps
 DRYRUN_CELLS = [("llama3.2-1b", "train_4k", False, None),
                 ("jamba-v0.1-52b", "long_500k", False, None),
                 ("llama3.2-1b", "decode_32k", False, "seqcache"),
                 ("mixtral-8x22b", "decode_32k", False, "moegather"),
-                ("qwen2.5-14b", "long_500k", False, None)]
-DRYRUN_JOBS = 8
+                ("qwen2.5-14b", "long_500k", False, None),
+                ("qwen2.5-14b", "decode_32k", False, None)]
+DRYRUN_JOBS = 3
 COUNT_TIMED_STEPS = 5
 COUNT_PROFILED_STEPS = 2
+# the niceness of the host work started before phase 1 (Background)
+BG_NICE = 10
+# phase 20: the world of tools/tp_rank.py hd (its sizes are there)
+HD_RANKS = 16
+HD_TIMEOUT = 420
+HD_TWIN_TOL = 1e-4
 
 
 def log(*a) -> None:
@@ -5910,22 +5957,27 @@ def serve_hybrid_phase(gen) -> tuple:
 
 
 # ------------------------------------------------------------ phase 17
-def start_tp_world(mode: str) -> tuple:
-    """Start TP_RANKS processes of ``tools/tp_rank.py MODE`` in one world
+def start_tp_world(mode: str, ranks: int = TP_RANKS,
+                   gated: bool = False) -> tuple:
+    """Start ``ranks`` processes of ``tools/tp_rank.py MODE`` in one world
     (a ``file://`` rendezvous in a temporary directory) -> the handle
-    :func:`wait_tp_world` takes."""
+    :func:`wait_tp_world` takes.  ``gated``: the ranks import, then wait
+    for :func:`wait_tp_world` to release them before they touch the card
+    (a world started early, its imports under an earlier phase)."""
     import tempfile
     tmp = Path(tempfile.mkdtemp(prefix="tp_world_"))
-    outs = [tmp / f"rank{r}.json" for r in range(TP_RANKS)]
+    outs = [tmp / f"rank{r}.json" for r in range(ranks)]
     # two processes share the card's memory: segments that grow in place
     # keep the allocators' fragments from adding up
     env = dict(os.environ, PYTHONUNBUFFERED="1",
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    if gated:
+        env["TP_WORLD_GATE"] = str(tmp / "go")
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tools" / "tp_rank.py"), mode,
          str(tmp / "rdv"), str(r), str(outs[r])], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(TP_RANKS)]
+        for r in range(ranks)]
     return tmp, outs, procs
 
 
@@ -5933,10 +5985,12 @@ def wait_tp_world(handle, timeout: float) -> tuple:
     """Wait up to ``timeout`` s in all for a world of
     :func:`start_tp_world`, killing its processes after it -> (each rank's
     JSON or None, exit codes, each rank's last 3000 characters of
-    output)."""
-    import shutil
+    output).  A rank's tensors saved beside its JSON (``.pt``) come back
+    under the JSON's ``"tensors"``.  A gated world is released first."""
+    import torch
     tmp, outs, procs = handle
-    logs, rcs = [""] * TP_RANKS, [None] * TP_RANKS
+    (tmp / "go").touch()
+    logs, rcs = [""] * len(procs), [None] * len(procs)
     deadline = time.perf_counter() + timeout
     try:
         for r, p in enumerate(procs):
@@ -5950,20 +6004,34 @@ def wait_tp_world(handle, timeout: float) -> tuple:
             rcs[r] = p.returncode
         res = [json.loads(o.read_text()) if o.exists() else None
                for o in outs]
+        for r, o in zip(res, outs):
+            if r is not None and o.with_suffix(".pt").exists():
+                r["tensors"] = torch.load(o.with_suffix(".pt"))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        stop_tp_world(handle)
     return res, rcs, [(lg or "")[-3000:] for lg in logs]
 
 
-def checked_tp_world(mode: str, timeout: float, phase: int) -> list:
-    """The ranks' JSONs of a world of ``tools/tp_rank.py MODE``; a failed
+def stop_tp_world(handle) -> None:
+    """Kill what is left of a world of :func:`start_tp_world` and remove
+    its directory."""
+    import shutil
+    tmp, _, procs = handle
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checked_tp_world(mode: str, timeout: float, phase: int,
+                     size: int = TP_RANKS, world=None) -> list:
+    """The ranks' JSONs of a world of ``size`` processes of
+    ``tools/tp_rank.py MODE`` (``world``: one started already); a failed
     rank's traceback, output and what it finished are logged, and the
     phase fails."""
-    ranks, rcs, logs = wait_tp_world(start_tp_world(mode), timeout)
+    world = world or start_tp_world(mode, size)
+    ranks, rcs, logs = wait_tp_world(world, timeout)
     failed = [r for r, out in enumerate(ranks)
               if rcs[r] != 0 or out is None or "error" in out]
     for r in failed:
@@ -6004,9 +6072,10 @@ def tp_probe(world) -> dict:
     return res
 
 
-def serve_tp_phase(gen) -> tuple:
+def serve_tp_phase(gen, world=None) -> tuple:
     """Phase 17: row 5 at the tp = 2 shard shapes, the gloo probe, then the
-    world of two ranks (``tools/tp_rank.py main``: qwen2.5-14b served, its
+    world of two ranks (``tools/tp_rank.py main``, or ``world``, started
+    gated: qwen2.5-14b served, its
     float32 twin, mixtral-8x22b cut to 4 layers served, its float32 twin,
     llama3.2-1b trained over three meshes).  Returns the numbers and the
     launch counts summed over both ranks."""
@@ -6030,7 +6099,7 @@ def serve_tp_phase(gen) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    ranks = checked_tp_world("main", TP_MAIN_TIMEOUT, 17)
+    ranks = checked_tp_world("main", TP_MAIN_TIMEOUT, 17, world=world)
     res["world_s"] = time.perf_counter() - t
     for r, out in enumerate(ranks):
         check(out["backend"] == "gloo" and out["p2p"] == "all_gather",
@@ -6111,14 +6180,15 @@ def serve_tp_phase(gen) -> tuple:
 
 
 # ------------------------------------------------------------ phase 18
-def serve_seq_phase(gen) -> tuple:
-    """Phase 18: the world of two ranks (``tools/tp_rank.py seq``: jamba's
+def serve_seq_phase(gen, world=None) -> tuple:
+    """Phase 18: the world of two ranks (``tools/tp_rank.py seq``, or
+    ``world``, started gated: jamba's
     batch-1 cache of 524,288 tokens over data, llama3.2-1b under
     ``cache_seq_shard`` at tp = 2, the float32 twins), then row 5 against
     its plain version at every (S, d, F) the ranks' runs recorded.
     Returns the numbers and the launch counts summed over both ranks."""
     res, t = {}, time.perf_counter()
-    ranks = checked_tp_world("seq", SEQ_TIMEOUT, 18)
+    ranks = checked_tp_world("seq", SEQ_TIMEOUT, 18, world=world)
     res["world_s"] = time.perf_counter() - t
     shapes = set()
     for r, out in enumerate(ranks):
@@ -6164,15 +6234,116 @@ def serve_seq_phase(gen) -> tuple:
     return res, launches
 
 
+def hd_twin_whole(split_logits) -> dict:
+    """Phase 20's float32 twin here at ``(1, 1)``: the same llama3.2-1b
+    (``init_params`` from the seed, whole) and seeded cache as the world's
+    split twin, teacher-forced by the same tokens; rank 0's logits
+    ``split_logits`` of each step within HD_TWIN_TOL and with the same
+    argmax."""
+    import torch
+
+    from repro_torch.models.lm import LM, init_params
+    sys.path.insert(0, str(ROOT / "tools"))
+    import tp_rank
+    cfg = tp_rank._hd_config("float32", tp_rank.TWIN_LAYERS)
+    model = LM(cfg, tp=HD_RANKS, device="cuda")
+    want = tp_rank.hd_twin_logits(model, init_params(
+        cfg, tp_rank.SEED, device="cuda", dtype=torch.float32, tp=HD_RANKS))
+    got = split_logits.to(want.device)
+    check(got.shape == want.shape, f"phase 20 twin: rank 0's logits "
+          f"{tuple(got.shape)}, the whole run's {tuple(want.shape)}")
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    res = dict(max_abs_err=max(errs), errs=errs, same_argmax=same,
+               layers=cfg.num_layers, lanes=tp_rank.HD_TWIN_LANES,
+               max_seq=tp_rank.HD_TWIN_MAX,
+               lengths=list(tp_rank.HD_TWIN_LENGTHS))
+    check(max(errs) <= HD_TWIN_TOL and same,
+          f"phase 20 twin: the head_dim split over {HD_RANKS} ranks differs "
+          f"from the whole decode: {json.dumps(res)}")
+    del model, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_hd_phase(gen, world=None) -> tuple:
+    """Phase 20: the world of sixteen ranks (``tools/tp_rank.py hd``, or
+    ``world``, started gated by :func:`start_tp_world`:
+    llama3.2-1b's decode over a gqa cache split over ``head_dim`` at
+    ``(1, 16)``, then its float32 twin split), the twin held to the whole
+    decode here, then row 5 against its plain version at every (S, d, F)
+    the ranks recorded.  Returns the numbers and the launch counts summed
+    over the ranks."""
+    res, t, t_wall = {}, time.perf_counter(), time.time()
+    ranks = checked_tp_world("hd", HD_TIMEOUT, 20, size=HD_RANKS,
+                             world=world)
+    res["world_s"] = time.perf_counter() - t
+    # the world's time outside the ranks' bodies: the slowest rank's
+    # imports (under phase 19 when the world was started early), the last
+    # join after the release, and from the last body's end to the exit
+    res["world_phases_s"] = dict(
+        imports=max(o["imported_at"] - o["started_at"] for o in ranks),
+        join=max(o["joined_at"] for o in ranks) - t_wall,
+        teardown=t_wall + res["world_s"] - max(o["ended_at"] for o in ranks))
+    shapes = set()
+    for r, out in enumerate(ranks):
+        a = out["serve"]
+        check(out["backend"] == "gloo" and a["tokens"] == ranks[0]["serve"][
+            "tokens"], f"phase 20 rank {r}: backend {out['backend']}, "
+              f"tokens {a['tokens']} against rank 0's")
+        shapes |= {tuple(sh) for sh in a["row5_shapes"]}
+        if r:
+            log(f"20 rank {r}: cache {a['cache_bytes_local']} B, decode_step "
+                f"first call {a['first_call_ms']:.4f} ms, p50 "
+                f"{a['decode_step_ms']['p50']:.4f} ms, p99 "
+                f"{a['decode_step_ms']['p99']:.4f} ms, peak "
+                f"{a['max_memory_allocated']} B; {out['seconds']:.1f} s")
+            continue
+        log(f"20 rank 0: mesh backend {out['backend']} ({HD_RANKS} ranks on "
+            f"{out['device']}); {a['model']} ({a['layers']} layers, mesh "
+            f"{a['mesh']}, {a['lanes']} lanes of {a['max_seq']} at "
+            f"{a['lengths']}): {a['param_bytes_local']} B of parameters a "
+            f"rank drawn in {a['init_s']:.3f} s; k spec {a['k_spec']}, local "
+            f"k {a['k_local_shape']}, cache {a['cache_bytes_local']} B a rank "
+            f"(memory_allocated grew {a['cache_memory_allocated']} B), filled "
+            f"in {a['fill_s']:.3f} s; decode_step (in place) first call "
+            f"{a['first_call_ms']:.4f} ms, then p50 "
+            f"{a['decode_step_ms']['p50']:.4f} ms, p99 "
+            f"{a['decode_step_ms']['p99']:.4f} ms over the other "
+            f"{len(a['step_ms']) - 1} steps ({a['step_ms']}); "
+            f"{a['tokens_per_s']:.3f} tokens/s after the first call "
+            f"({a['tokens_per_s_with_first']:.3f} with it); collectives a "
+            f"call {json.dumps(a['collectives_per_call'])}; peak "
+            f"{a['max_memory_allocated']} B; tokens equal on the ranks "
+            f"{a['tokens_equal_on_ranks']}; row 5 "
+            f"{a['launches']['fused_norm_matmul']} launches, "
+            f"{a['fnm_per_call']} a call, at {a['row5_shapes']}; the served "
+            f"run {a['seconds']:.1f} s, the split twin "
+            f"{out['twin']['seconds']:.1f} s, the rank {out['seconds']:.1f} s")
+    res["twin"] = hd_twin_whole(ranks[0]["tensors"])
+    log(f"20 float32 twin, {HD_RANKS} ranks against (1, 1): "
+        f"{json.dumps(res['twin'])}")
+    res["fnm_check_shapes"] = check_fnm_shapes(
+        gen, [(S, d, F, "bfloat16") for S, d, F in sorted(shapes)])
+    res["ranks"] = [{k: v for k, v in out.items() if k != "tensors"}
+                    for out in ranks]
+    launches = {k: sum(out["launches"][k] for out in ranks)
+                for k in ranks[0]["launches"]}
+    log("phase 20: the world {:.1f} s ({})".format(
+        res["world_s"], json.dumps(res["world_phases_s"])))
+    return res, launches
+
+
 # ------------------------------------------------------------ phase 19
-def dryrun_cells() -> list:
-    """Phase 19 (a): ``DRYRUN_CELLS`` through ``launch/dryrun.py`` on the
-    host; each must end ``ok`` with its collectives agreeing, or ``skip``
-    for full attention at ``long_500k``."""
+def dryrun_cells(recs: list, seconds: float) -> None:
+    """Phase 19 (a): the records of ``DRYRUN_CELLS`` through
+    ``launch/dryrun.py`` on the host (:class:`Background` runs them, in
+    ``seconds``); each must end ``ok`` with its collectives agreeing, or
+    ``skip`` for full attention at ``long_500k``."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
-    t0 = time.perf_counter()
-    recs = dryrun.run_cells(DRYRUN_CELLS, jobs=DRYRUN_JOBS)
+    log(f"dry run of {len(recs)} cells: {seconds:.1f} s in a pool of "
+        f"{DRYRUN_JOBS}")
     for (arch, shape, _, variant), rec in zip(DRYRUN_CELLS, recs):
         tag = f"{arch} {shape}" + (f" {variant}" if variant else "")
         if shape == "long_500k" and not get_config(arch).sub_quadratic:
@@ -6198,7 +6369,6 @@ def dryrun_cells() -> list:
             f"{rl['model_flops']}, mfu {rl['mfu']:.4f}; kernels "
             f"{json.dumps(rec['kernels'])}"
             + (f"; assumed {rec['assumed']}" if "assumed" in rec else ""))
-    return recs, time.perf_counter() - t0
 
 
 def counted_step(kind: str, cell, args, mesh, device: str):
@@ -6379,15 +6549,73 @@ def examples_on_card() -> dict:
 _KEY_OFFSET = 0x5EED << 40
 
 
+class Background:
+    """The host work that needs no card, started before phase 1 so that it
+    runs beside the store's single-threaded host build: the kernels' nvcc
+    (one process a source), phase 19 (a)'s dry run in its pool, and the
+    imports of phases 17, 18 and 20's worlds, started gated
+    (:func:`start_tp_world`) until their phases release them.  All of it
+    runs at niceness BG_NICE (a thread's niceness passes to the processes
+    it starts; a gated rank sets its own, ``tools/tp_rank.py``), so the
+    store's build keeps its core."""
+
+    def __init__(self):
+        from repro_torch.kernels import build
+        from repro_torch.launch import dryrun
+        self.out: dict = {}
+        self.threads = {
+            "build": threading.Thread(target=self._run, daemon=True,
+                                      args=("build", build.build_all)),
+            "dryrun": threading.Thread(target=self._run, daemon=True, args=(
+                "dryrun", lambda: dryrun.run_cells(DRYRUN_CELLS,
+                                                   jobs=DRYRUN_JOBS)))}
+        for t in self.threads.values():
+            t.start()
+        self.worlds = {mode: start_tp_world(mode, size, gated=True)
+                       for mode, size in (("main", TP_RANKS),
+                                          ("seq", TP_RANKS),
+                                          ("hd", HD_RANKS))}
+
+    def _run(self, name: str, fn) -> None:
+        os.nice(BG_NICE)  # this thread's, on Linux, and its children's
+        t0 = time.perf_counter()
+        try:
+            self.out[name] = (fn(), time.perf_counter() - t0)
+        except BaseException as e:  # raised where the result is read
+            self.out[name] = e
+
+    def result(self, name: str):
+        """(what ``name`` returned, its seconds), once it has ended."""
+        self.threads[name].join()
+        r = self.out[name]
+        if isinstance(r, BaseException):
+            raise r
+        return r
+
+    def stop(self) -> None:
+        for w in self.worlds.values():
+            stop_tp_world(w)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
         return 1
+    bg = Background()
+    try:
+        return run(bg)
+    finally:
+        bg.stop()
+
+
+def run(bg: Background) -> int:
+    """The phases, with ``bg``'s work started."""
+    import torch
     from repro_torch.api import BatchPolicy, StoreSpec, open_store
     from repro_torch.core.hashing import splitmix64
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     # the plain versions' float32 products run in full float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -6398,10 +6626,6 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     log(smi)
     log(sys.version.split()[0], torch.__version__, torch.version.cuda)
-
-    # ---- phase 1: build ----
-    log(f"kernel build: {build.build_all():.3f} s (nvcc, sm_90a, one process "
-        f"per source)")
 
     # ---- set-up: data from the seed, the store on the card ----
     rng = np.random.default_rng(SEED)
@@ -6423,6 +6647,9 @@ def main() -> int:
         f"CN {eng.cn_memory_bytes()} B")
     check(eng.device.type == "cuda" and eng.slots_lo.is_cuda
           and eng.cn.seeds.is_cuda, "the store is not on the card")
+    # ---- phase 1: the build, begun beside the store's ----
+    log(f"kernel build: {bg.result('build')[0]:.3f} s (nvcc, sm_90a, one "
+        f"process per source, beside the store's build)")
 
     log(f"phase 1 and the store: {time.perf_counter() - t_start:.1f} s")
 
@@ -6670,7 +6897,7 @@ def main() -> int:
 
     # ---- phase 17: tensor parallelism, two ranks on the card ----
     t17 = time.perf_counter()
-    pres, plaunch = serve_tp_phase(gen)
+    pres, plaunch = serve_tp_phase(gen, bg.worlds["main"])
     for name, k in kernels.items():
         k["launches_tp_path"] = plaunch[name]
     for name, shapes in (("fused_norm_matmul", pres["fnm_check_shapes"]
@@ -6690,7 +6917,7 @@ def main() -> int:
 
     # ---- phase 18: the sequence splits of the decode cache, two ranks ----
     t18 = time.perf_counter()
-    qres, qlaunch = serve_seq_phase(gen)
+    qres, qlaunch = serve_seq_phase(gen, bg.worlds["seq"])
     for name, k in kernels.items():
         k["launches_seq_path"] = qlaunch[name]
     kernels["fused_norm_matmul"]["max_abs_err_seq_shapes"] = max(
@@ -6703,8 +6930,9 @@ def main() -> int:
 
     # ---- phase 19: the compile-time tools, checked against the card ----
     t19 = time.perf_counter()
-    _, dry_s = dryrun_cells()
-    log(f"phase 19 (a): {dry_s:.1f} s")
+    dryrun_cells(*bg.result("dryrun"))
+    log(f"phase 19 (a): {time.perf_counter() - t19:.1f} s (the dry run "
+        f"took {bg.result('dryrun')[1]:.1f} s beside phases 1-18)")
     cres = count_against_card(SEED)
     for name, k in kernels.items():
         k["launches_count_path"] = sum(c["launches"][name]
@@ -6714,6 +6942,19 @@ def main() -> int:
         k["launches_examples_path"] = {
             ex: x["launches"][name] for ex, x in xres.items()}
     log(f"phase 19: {time.perf_counter() - t19:.1f} s")
+
+    # ---- phase 20: the gqa decode cache over head_dim, sixteen ranks ----
+    t20 = time.perf_counter()
+    hres, hlaunch = serve_hd_phase(gen, bg.worlds["hd"])
+    for name, k in kernels.items():
+        k["launches_hd_path"] = hlaunch[name]
+    kernels["fused_norm_matmul"]["max_abs_err_hd_shapes"] = max(
+        sh["max_abs_err"] for sh in hres["fnm_check_shapes"])
+    check(hlaunch["fused_norm_matmul"] > 0, "fused_norm_matmul never "
+          "launched on the head_dim-split path")
+    log(f"launches on the head_dim-split path (all ranks): {hlaunch}")
+    log(f"head_dim-split path: {json.dumps(hres)}")
+    log(f"phase 20: {time.perf_counter() - t20:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -64,6 +65,7 @@ SIGNATURES = {
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
+_BUILD_LOCK = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  # library -> loaded library
 _loaded: dict[str, object] = {}  # kernel -> launch function
 
@@ -84,7 +86,13 @@ def _lib_path(name: str) -> Path:
 
 def _compile(names) -> None:
     """Run one nvcc per missing library (``names`` are library names), all
-    at once; raise on any failure."""
+    at once; raise on any failure.  One build at a time in a process, so a
+    kernel's first launch waits for a build another thread started."""
+    with _BUILD_LOCK:
+        _compile_missing(names)
+
+
+def _compile_missing(names) -> None:
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return

@@ -24,14 +24,17 @@ rank runs its share and calls the collectives itself), and a world of
   4. writes the counts, the exact argument bytes of the rank, the
      roofline's three terms on the H100's constants
      (``launch/roofline.py``), the kernel calls and, for a decode cell,
-     the cache's spec a leaf, into ``experiments/dryrun_torch/<cell>.json``.
+     the cache's bytes a rank and spec a leaf, into
+     ``experiments/dryrun_torch/<cell>.json``.
 
 What differs from the reference: ``build_cell`` returns a :class:`Cell`
 (the step, the rank's meta arguments and their specs) and takes another
 shape than ``SHAPES``'s; a record has ``trace_s`` where the reference has
 ``lower_s`` and ``compile_s``, ``temp_size_in_bytes`` is the peak of the
 bytes the step creates (outputs included) above its arguments, and there
-is no generated code or HLO.  The ``moegather`` variant's local picks
+is no generated code or HLO.  The serve step writes the cache in place
+(``decode_step(inplace=True)``), the counterpart of the reference's
+donated cache, so its outputs hold no second cache.  The ``moegather`` variant's local picks
 depend on the routing; on ``meta`` they are all T*k picks (the
 reference's static count of gathered slices,
 ``src/repro/models/moe.py:147-159``), which a cell records as
@@ -198,7 +201,9 @@ def build_cell(arch: str, shape_name: str, mesh, variant: str | None = None,
     model.cache_batch = shape.global_batch  # as init_cache sets it
 
     def serve_step(params, tokens, cache):
-        return model.decode_step(params, tokens, cache)
+        # the reference donates the cache (donate_argnums=(2,)): the step
+        # writes the new token into it and hands the same tensors back
+        return model.decode_step(params, tokens, cache, inplace=True)
 
     whole = (tmpl, batch["tokens"], cache_tmpl)
     args = (params, _local(batch["tokens"], mesh), cache)
@@ -306,6 +311,7 @@ def trace_rank(arch: str, shape_name: str, multi_pod: bool,
         "dot_flops_per_device": mode.dot_flops,
     }
     if shape.kind == "decode":
+        res["rec"]["cache_bytes"] = _nbytes(cell.args[2])
         res["rec"]["cache_specs"] = {
             "/".join(str(p) for p in path): list(sp)
             for path, sp in sorted_leaves(tree_map(

@@ -20,6 +20,21 @@ l)`` of its range (:func:`decode_partials`, the masks of
 (:meth:`SeqSplit.combine`).  A range with no live position weighs
 ``exp(NEG_INF - m_max) = 0``.  What GSPMD partitions in the reference, the
 rank's program does by hand.
+
+A gqa decode cache whose ``head_dim`` splits over ``model``
+(:class:`HeadDimSplit`, the reference's ``hd_axis``) holds columns ``[r *
+hd / tp, (r + 1) * hd / tp)`` of every kv head on the rank at index ``r``.
+The rank writes its columns of the new token, takes its columns of every
+q head's query, and computes float32 partial scores over them; one
+``psum`` over ``model`` completes the scores, which are masked and
+softmaxed as :func:`decode_attention` does it (with a batch-1 sequence
+split over ``data`` too, they become the chunk's flash partials, combined
+over ``data``).  ``p @ v`` over the rank's columns, then one ``all_gather``
+over ``model``, gives the rank its own heads' whole output.
+
+``inplace``: the decode writes the new token into the cache's tensors
+(:func:`_write_into`) and hands them back, the counterpart of the
+reference's donated cache; else it returns new tensors (:func:`_write_at`).
 """
 
 from __future__ import annotations
@@ -138,24 +153,38 @@ def decode_partials(q, k_cache, v_cache, length, *, window=None, heads=None,
     ``ops.flash_combine`` weighs 0.  The plain pattern reads each kv head
     once for its group of q heads (no repeat of the chunk)."""
     B, _, H, d = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
     qf = q.reshape(B, H, d).float() * (d ** -0.5)
-    kf, vf = k_cache.float(), v_cache.float()
+    s = _scores(qf, k_cache.float(), heads)
+    p, m, l = _masked_exp(s, length, pos0, window)
+    return _weighted(p, v_cache.float(), heads) / l[..., None], m, l
+
+
+def _scores(qf, kf, heads):
+    """Float32 scores (B, H, S) of the scaled queries ``qf`` (B, H, e)
+    against a float32 cache chunk ``kf`` (B, S, Hkv, e); ``heads`` maps
+    each q head to its kv head (None: the plain GQA pattern), which reads
+    each kv head once for its group of q heads (no repeat of the
+    chunk)."""
+    B, H, e = qf.shape
+    S, Hkv = kf.shape[1], kf.shape[2]
     g = _kv_group(heads, H, Hkv)
     if g is not None:
-        s = torch.einsum("bkgd,bskd->bkgs", qf.view(B, Hkv, g, d),
-                         kf).reshape(B, H, S)
-    else:
-        idx = torch.tensor(heads, device=q.device)
-        kf, vf = kf.index_select(2, idx), vf.index_select(2, idx)
-        s = torch.einsum("bhd,bshd->bhs", qf, kf)
-    p, m, l = _masked_exp(s, length, pos0, window)
+        return torch.einsum("bkgd,bskd->bkgs", qf.view(B, Hkv, g, e),
+                            kf).reshape(B, H, S)
+    kf = kf.index_select(2, torch.tensor(heads, device=qf.device))
+    return torch.einsum("bhd,bshd->bhs", qf, kf)
+
+
+def _weighted(p, vf, heads):
+    """The weights ``p`` (B, H, S) over a float32 cache chunk ``vf`` (B,
+    S, Hkv, e) -> (B, H, e), q heads mapped as in :func:`_scores`."""
+    B, H, S = p.shape
+    g = _kv_group(heads, H, vf.shape[2])
     if g is not None:
-        o = torch.einsum("bkgs,bskd->bkgd", p.view(B, Hkv, g, S),
-                         vf).reshape(B, H, -1)
-    else:
-        o = torch.einsum("bhs,bshd->bhd", p, vf)
-    return o / l[..., None], m, l
+        return torch.einsum("bkgs,bskd->bkgd", p.view(B, -1, g, S),
+                            vf).reshape(B, H, -1)
+    vf = vf.index_select(2, torch.tensor(heads, device=p.device))
+    return torch.einsum("bhs,bshd->bhd", p, vf)
 
 
 def _decode_mask(s, length, pos0: int, window=None):
@@ -208,21 +237,46 @@ class SeqSplit:
         return ops.flash_combine(list(parts[..., :d]), list(parts[..., d]),
                                  list(parts[..., d + 1]))
 
-    def gather_heads_of(self, *xs) -> list:
-        """Each (B, 1, n_i, e_i) of ``xs`` (one dtype) with the heads of
-        every ``model`` rank, in rank order: one ``all_gather`` of the
-        rank's heads, packed flat."""
-        B = xs[0].shape[0]
-        flat = torch.cat([x.reshape(B, 1, -1) for x in xs], dim=-1)
-        parts = self.mesh.all_gather(flat[None], "model", dim=0)
-        out, at = [], 0
-        for x in xs:
-            n, e = x.shape[2], x.shape[3]
-            h = parts[..., at:at + n * e]  # (tp, B, 1, n * e)
-            out.append(h.reshape(-1, B, 1, n, e).permute(1, 2, 0, 3, 4)
-                       .reshape(B, 1, -1, e))
-            at += n * e
-        return out
+
+def gather_heads(mesh, *xs) -> list:
+    """Each (B, 1, n_i, e_i) of ``xs`` (one dtype) with the heads of every
+    ``model`` rank of ``mesh``, in rank order: one ``all_gather`` of the
+    rank's heads, packed flat."""
+    B = xs[0].shape[0]
+    flat = torch.cat([x.reshape(B, 1, -1) for x in xs], dim=-1)
+    parts = mesh.all_gather(flat[None], "model", dim=0)
+    out, at = [], 0
+    for x in xs:
+        n, e = x.shape[2], x.shape[3]
+        h = parts[..., at:at + n * e]  # (tp, B, 1, n * e)
+        out.append(h.reshape(-1, B, 1, n, e).permute(1, 2, 0, 3, 4)
+                   .reshape(B, 1, -1, e))
+        at += n * e
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadDimSplit:
+    """The gqa decode cache's ``head_dim`` split over ``model`` of
+    ``mesh`` (see the module docstring): the rank holds ``head_dim / tp``
+    columns of every kv head.  ``gather_q``: the q heads split over
+    ``model`` too, so the rank gathers every rank's query first (else it
+    holds every q head already, attention being replicated)."""
+    mesh: object
+    gather_q: bool = False
+
+    def columns(self, hd: int) -> slice:
+        n = hd // self.mesh.axis_size("model")
+        r = self.mesh.axis_index("model")
+        return slice(r * n, (r + 1) * n)
+
+    def own_heads(self, o, q0: int, H: int) -> torch.Tensor:
+        """The rank's ``H`` heads from ``q0`` of the whole output, from
+        every rank's columns ``o`` (B, heads, hd / tp) of every head: one
+        ``all_gather`` over ``model``."""
+        B, heads, n = o.shape
+        parts = self.mesh.all_gather(o[None], "model", dim=0)
+        return parts.permute(1, 2, 0, 3).reshape(B, heads, -1)[:, q0:q0 + H]
 
 
 # ------------------------------------------------------------------- GQA box
@@ -264,7 +318,8 @@ def expand_kv(k, heads: list):
 
 
 def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
-              q0: int = 0, kv0: int = 0, seq: SeqSplit | None = None):
+              q0: int = 0, kv0: int = 0, seq: SeqSplit | None = None,
+              hd_split: HeadDimSplit | None = None, inplace: bool = False):
     """mode: 'train' (the full sequence, no cache) | 'decode' (one token
     against ``cache``, returns the new cache).
 
@@ -274,8 +329,9 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     ``pad_attn_heads``'s padded q heads flow through: heads at or past
     ``cfg.num_heads`` read the last real head's kv and contribute zero.
     On a mesh the weights are one rank's heads, the first of them global
-    q head ``q0`` and kv head ``kv0``; ``seq``: the cache's sequence split
-    (see the module docstring), or None."""
+    q head ``q0`` and kv head ``kv0``; ``seq``: the cache's sequence split,
+    ``hd_split`` its ``head_dim`` split, or None each (see the module
+    docstring, also for ``inplace``)."""
     B, S, d = x.shape
     H, hd = p["wq"].shape[1], cfg.head_dim
     Hkv = p["wk"].shape[1]
@@ -311,6 +367,7 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     # cache: slot = length % window_size, all-written-slots valid.
     # Over a split sequence the global cache is the ranks' chunks end to
     # end: the rolling slot's owner is slot // S_loc.
+    write = _write_into if inplace else _write_at
     _, _, length = cache
     S_loc = cache[0].shape[1]
     W = S_loc * (seq.size() if seq is not None else 1)
@@ -318,22 +375,40 @@ def gqa_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     slot = length % W if rolling else length
     valid, win = ((torch.clamp(length + 1, max=W), None) if rolling
                   else (length + 1, window))
-    if seq is None:
-        k_cache = _write_at(cache[0], k, slot)
-        v_cache = _write_at(cache[1], v, slot)
+    if hd_split is not None:  # the rank's columns of every head
+        cols = hd_split.columns(hd)
+        qa = gather_heads(hd_split.mesh, q)[0] if hd_split.gather_q else q
+        heads_a = gqa_kv_heads(cfg, qa.shape[2])
+        pos0 = seq.pos0(S_loc) if seq is not None else 0
+        k_cache = write(cache[0], k[..., cols], slot - pos0)
+        v_cache = write(cache[1], v[..., cols], slot - pos0)
+        qf = qa[:, 0, :, cols].float() * (hd ** -0.5)
+        s = hd_split.mesh.psum(_scores(qf, k_cache.float(), heads_a),
+                               "model")
+        vf = v_cache.float()
+        if seq is None:
+            s = torch.where(_decode_mask(s, valid, 0, win), s, NEG_INF)
+            o = _weighted(torch.softmax(s, dim=-1), vf, heads_a)
+        else:
+            e, m, l = _masked_exp(s, valid, pos0, win)
+            o = seq.combine(_weighted(e, vf, heads_a) / l[..., None], m, l)
+        o = hd_split.own_heads(o, q0, H).reshape(B, 1, H, hd).to(q.dtype)
+    elif seq is None:
+        k_cache = write(cache[0], k, slot)
+        v_cache = write(cache[1], v, slot)
         o = decode_attention(q, k_cache, v_cache, valid, window=win,
                              kv_idx=kv_idx)
     else:
         qa, ka, va, heads_a = q, k, v, heads
         if seq.gather_heads:  # the chunk holds every kv head
             if Hkv < cfg.num_kv_heads:
-                qa, ka, va = seq.gather_heads_of(q, k, v)
+                qa, ka, va = gather_heads(seq.mesh, q, k, v)
             else:
-                qa, = seq.gather_heads_of(q)
+                qa, = gather_heads(seq.mesh, q)
             heads_a = gqa_kv_heads(cfg, qa.shape[2])
         pos0 = seq.pos0(S_loc)
-        k_cache = _write_at(cache[0], ka, slot - pos0)
-        v_cache = _write_at(cache[1], va, slot - pos0)
+        k_cache = write(cache[0], ka, slot - pos0)
+        v_cache = write(cache[1], va, slot - pos0)
         o = seq.combine(*decode_partials(qa, k_cache, v_cache, valid,
                                          window=win, heads=heads_a,
                                          pos0=pos0))
@@ -357,6 +432,21 @@ def _write_at(cache, kv, length):
     return torch.where(hit, kv.to(cache.dtype), cache)
 
 
+def _write_into(cache, row, length):
+    """Write one token ``row`` (B, 1, ...) into ``cache`` (B, Smax, ...)
+    at per-row ``length``, in place, and return ``cache``: the values of
+    :func:`_write_at` (and :func:`_write_at2`), a row whose length lies
+    outside [0, Smax) left as it was.  One ``index_put_`` of B rows: such a
+    row writes back the value it reads."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    at = length.clamp(0, S - 1).long()
+    ok = ((length >= 0) & (length < S)).view(B, *[1] * (row.dim() - 2))
+    cache[rows, at] = torch.where(ok, row[:, 0].to(cache.dtype),
+                                  cache[rows, at])
+    return cache
+
+
 # ------------------------------------------------------------------- MLA box
 def mla_params_shape(cfg):
     d = cfg.d_model
@@ -376,7 +466,7 @@ def mla_params_shape(cfg):
 
 
 def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
-              copy=None, seq: SeqSplit | None = None):
+              copy=None, seq: SeqSplit | None = None, inplace: bool = False):
     """Multi-head latent attention (deepseek-v3).  mode: 'train' | 'prefill'
     (returns the latent cache rows) | 'decode' (uses ``cache``).
 
@@ -399,7 +489,9 @@ def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     rank's chunk of the latent and rope key; their partials in latent
     space (``o_lat``, m, l) are combined across the split, and with
     ``seq.gather_heads`` the absorbed q of every ``model`` rank's heads is
-    gathered first and the rank keeps its own heads of the combine."""
+    gathered first and the rank keeps its own heads of the combine.
+    ``inplace``: the decode writes the new latent row into the cache's
+    tensors (see the module docstring)."""
     B, S, d = x.shape
     m = cfg.mla
     r = m.kv_lora_rank
@@ -435,11 +527,12 @@ def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
 
     # ---- decode (absorbed): scores over the latent cache directly --------
     c_cache, r_cache, length = cache
+    write = _write_into if inplace else _write_at2
     wk_b = p["wk_b"].reshape(r, H, dn).float()
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk_b)  # (B,1,H,r)
     if seq is None:
-        c_cache = _write_at2(c_cache, c_kv, length)
-        r_cache = _write_at2(r_cache, k_rope, length)
+        c_cache = write(c_cache, c_kv, length)
+        r_cache = write(r_cache, k_rope, length)
         c_f = c_cache.float()
         s = torch.einsum("bshr,btr->bhst", q_abs, c_f)
         s = s + torch.einsum("bshd,btd->bhst", q_rope.float(),
@@ -453,10 +546,10 @@ def mla_apply(p, x, cfg, *, gamma, positions, mode: str, cache=None,
     else:
         qa, qr = q_abs, q_rope.float()
         if seq.gather_heads:
-            qa, qr = seq.gather_heads_of(qa, qr)
+            qa, qr = gather_heads(seq.mesh, qa, qr)
         pos0 = seq.pos0(c_cache.shape[1])
-        c_cache = _write_at2(c_cache, c_kv, length - pos0)
-        r_cache = _write_at2(r_cache, k_rope, length - pos0)
+        c_cache = write(c_cache, c_kv, length - pos0)
+        r_cache = write(r_cache, k_rope, length - pos0)
         c_f = c_cache.float()
         s = torch.einsum("bshr,btr->bhst", qa, c_f)
         s = (s + torch.einsum("bshd,btd->bhst", qr, r_cache.float())) * scale

@@ -29,7 +29,10 @@ split over a data axis, and the cache's sequence splits where the
 reference's specs split it (``cache_template``): over ``data`` (``("pod",
 "data")`` on a pod mesh) for a batch-1 cache, the ``long_500k`` shape,
 and over ``model`` under ``cache_seq_shard``; attention then combines the
-ranks' flash partials (``attention.SeqSplit``).  Every RMSNorm ->
+ranks' flash partials (``attention.SeqSplit``).  Elsewhere the gqa cache's
+``head_dim`` splits over ``model`` where its kv heads do not split with
+the q heads (``gqa_cache_split``), and the decode sums the ranks' partial
+scores (``attention.HeadDimSplit``).  Every RMSNorm ->
 projection pair with a continuous output runs through
 ``ops.fused_norm_matmul``:
 GQA's q, k and v (the encoder's too), MLA's three entries
@@ -138,6 +141,20 @@ def _splits(kind: str, cfg: ModelConfig, tp: int) -> bool:
         raise ValueError(f"the {kind!r} mixer of {cfg.name} does not split "
                          f"into whole heads (or channels) over {tp} ranks")
     return split
+
+
+def gqa_cache_split(cfg: ModelConfig, tp: int, seq_on_model: bool):
+    """What a rank holds of the gqa decode cache over ``model`` at ``tp``:
+    ``"heads"`` (its kv heads: they split with the q heads), ``"head_dim"``
+    (``head_dim / tp`` columns of every kv head, the reference's
+    ``hd_axis``) or None (all of it).  Neither split applies when the
+    cache's sequence is on ``model`` (``seq_on_model``), as in the
+    reference."""
+    if tp == 1 or seq_on_model:
+        return None
+    if _tp(cfg.num_kv_heads, tp) and _splits("gqa", cfg, tp):
+        return "heads"
+    return "head_dim" if _tp(cfg.head_dim, tp) else None
 
 
 # ------------------------------------------------------------ layer descs
@@ -443,7 +460,7 @@ def _gqa_shard(p, x, cfg, par):
 
 
 def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
-                 par=None, seq=None):
+                 par=None, seq=None, inplace=False):
     """-> (x + mixer(x), new mixer cache, the sum unrounded or None).
 
     rwkv's residual sum also comes back in float32: the reference's
@@ -456,12 +473,16 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
     row-split).  ``seq``: the decode cache's sequence split
     (``attention.SeqSplit``), or None; it reaches the mixers that keep a
     sequence cache (gqa and mla), which gather their heads over ``model``
-    when the sequence splits over it too."""
+    when the sequence splits over it too.  A gqa decode cache whose
+    ``head_dim`` splits over ``model`` (:func:`gqa_cache_split`) runs
+    ``attention.HeadDimSplit``'s decode, also where attention is
+    replicated.  ``inplace``: the decode writes the caches' tensors
+    (``LM.decode_step``)."""
     split = par is not None and _splits(kind, cfg, par.shape["model"])
     f = par.copy_to if split else None
+    seq_on_model = seq is not None and "model" in seq.axes
     if seq is not None:
-        seq = dataclasses.replace(seq, gather_heads=split
-                                  and "model" in seq.axes)
+        seq = dataclasses.replace(seq, gather_heads=split and seq_on_model)
 
     def run(fn, *args, **kw):
         if mode == "train":
@@ -475,8 +496,13 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
         lp, xin, gamma, q0, kv0 = p, x, p["norm"], 0, 0
         if split:
             lp, xin, gamma, q0, kv0 = _gqa_shard(p, x, cfg, par)
+        hd = None
+        if mode == "decode" and par is not None and gqa_cache_split(
+                cfg, par.shape["model"], seq_on_model) == "head_dim":
+            hd = att.HeadDimSplit(par, gather_q=split)
         out, new_cache = run(att.gqa_apply, lp, xin, cfg, gamma=gamma,
-                             positions=positions, q0=q0, kv0=kv0, seq=seq)
+                             positions=positions, q0=q0, kv0=kv0, seq=seq,
+                             hd_split=hd, inplace=inplace)
         x = x + reduced(out)
         if kind == "gqa_cross":
             x = x + reduced(_cross_attn(p, x, enc_out, cfg,
@@ -484,7 +510,8 @@ def _apply_mixer(kind, p, x, cfg, *, positions, mode, cache, enc_out=None,
         return x, new_cache, None
     if kind == "mla":
         out, new_cache = run(att.mla_apply, p, x, cfg, gamma=p["norm"],
-                             positions=positions, copy=f, seq=seq)
+                             positions=positions, copy=f, seq=seq,
+                             inplace=inplace)
         return x + reduced(out), new_cache, None
     if kind == "rwkv":
         h = rms_norm(x, p["norm"])
@@ -592,7 +619,7 @@ def _apply_ffn(kind, p, x, cfg, mixer_p, *, mode, cache, x_sum=None,
 
 
 def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None,
-                par=None, seq=None):
+                par=None, seq=None, inplace=False):
     """One group of layers (``lp``: their parameters; ``cache_g``: each
     layer's ``(c_m, c_f)``, or None in train mode; ``enc_out``: the
     encoder output a ``gqa_cross`` layer reads) -> (x, the group's MoE
@@ -605,13 +632,25 @@ def _group_body(group, lp, x, cfg, positions, mode, cache_g, enc_out=None,
         c_m, c_f = (None, None) if cache_g is None else cache_g[li]
         x, nc_m, x_sum = _apply_mixer(mixer, mp, x, cfg, positions=positions,
                                       mode=mode, cache=c_m, enc_out=enc_out,
-                                      par=par, seq=seq)
+                                      par=par, seq=seq, inplace=inplace)
         x, nc_f, aux = _apply_ffn(ffn, fp, x, cfg, mp, mode=mode, cache=c_f,
                                   x_sum=x_sum, par=par)
         if aux is not None:
             aux_g = aux if aux_g is None else aux_g + aux
         new_cache_g.append((nc_m, nc_f))
     return x, aux_g, new_cache_g
+
+
+def _store_into(cache_g, new_cache_g) -> None:
+    """Each layer's new cache into its views ``cache_g`` of the stacked
+    cache (an in-place decode): a leaf the mixer wrote in place is the
+    view itself; any other (a recurrent state) is copied in."""
+    for (c_m, c_f), (nc_m, nc_f) in zip(cache_g, new_cache_g):
+        for dst, new in zip(c_m, nc_m):
+            if new is not dst:
+                dst.copy_(new)
+        if c_f is not None and nc_f is not c_f:
+            c_f.copy_(nc_f)
 
 
 def _ce_chunk(hs, ls, emb):
@@ -768,11 +807,14 @@ class LM:
 
     # ---- the layer stack
     def _stack(self, params, x, *, positions, mode, caches=None, length=None,
-               remat=False, enc_out=None, seq=None):
+               remat=False, enc_out=None, seq=None, inplace=False):
         """Run all stages.  ``caches``: the cache's per-stage trees, stacked
         on the layer axis (None in train mode); ``length`` is the shared
         per-row cache write position (decode); ``enc_out`` the encoder
         output (encdec); ``seq`` the cache's sequence split (decode).
+        ``inplace``: each layer writes its new cache into its views of
+        ``caches`` (the sequence caches by the new token's row, the states
+        by a copy), and ``caches`` come back as the new caches.
         With ``remat``, in train mode and with a gradient asked for, each
         group of layers runs under
         ``torch.utils.checkpoint`` (non-reentrant): its activations are
@@ -811,17 +853,21 @@ class LM:
                         cache_g.append(
                             (c_m, None if c["ffn"] is None else c["ffn"][i]))
                 args = (group, lp, x, cfg, positions, mode, cache_g, enc_out,
-                        self._par, seq)
+                        self._par, seq, inplace)
                 x, aux_g, new_cache_g = (checkpoint(_group_body, *args,
                                                     use_reentrant=False)
                                          if ckpt else _group_body(*args))
                 if aux_g is not None:
                     aux_total = aux_g if aux_total is None \
                         else aux_total + aux_g
-                if caches is not None:
+                if inplace:
+                    _store_into(cache_g, new_cache_g)
+                elif caches is not None:
                     for li, nc in enumerate(new_cache_g):
                         new_layers[li].append(nc)
-            if caches is not None:
+            if inplace:
+                new_caches.append(caches[s_idx])
+            elif caches is not None:
                 new_caches.append([
                     {"mixer": {n: torch.stack([m[j] for m, _ in layers])
                                for j, n in enumerate(_MIXER_CACHE[mixer])},
@@ -923,21 +969,25 @@ class LM:
         batch splits over ``data`` (``("pod", "data")`` on a pod mesh: the
         specs say ``data``, which ``shardings_for`` expands), as the
         reference's ``b_axis``: a rank holds its lanes' cache and
-        ``length``.  Over ``model`` a rank holds its kv heads when they
-        split with the q heads (else all of them), its mamba channels
-        (``h``, ``tail``) and its rwkv heads (``s``); the mla latent and
-        the token-shift caches are replicated.
+        ``length``.  Over ``model`` a rank holds its mamba channels (``h``,
+        ``tail``) and its rwkv heads (``s``); the mla latent and the
+        token-shift caches are replicated.  The gqa ``k``/``v`` split as
+        :func:`gqa_cache_split` says: ``head_dim`` over ``model``, the
+        reference's spec ``(None, b, seq, None, "model")``, wherever the kv
+        heads do not split with the q heads (a rank holds ``head_dim / tp``
+        of every kv head, and the decode sums partial scores over
+        ``model``).  One spec differs from the reference's by design: where
+        the kv heads split with the q heads, the port splits the kv heads,
+        ``(None, b, seq, "model", None)``.  A rank then holds the same
+        1/tp of the cache, and its heads' scores need no sum.
 
         The sequence splits as the reference's ``seq_axis``: over ``data``
         at batch 1 (``long_500k``: every leaf without a sequence, and
         ``length``, replicated over ``data``), else over ``model`` under
         ``cache_seq_shard``, where the gqa ``k``/``v`` then hold every kv
-        head (the reference's ``hd_axis`` drops off likewise).  The gqa
-        layout otherwise differs from the reference's, whose cache splits
-        ``head_dim`` over ``model`` where the port splits the kv heads:
-        the decode function is the same, the spec trees are not, and the
-        sequence and batch entries are the reference's.  A batch that does
-        not divide over the data axis raises ``ValueError``."""
+        head and all of ``head_dim`` (the reference's ``hd_axis`` drops off
+        likewise).  A batch that does not divide over the data axis raises
+        ``ValueError``."""
         cfg = self.cfg
         D = self._data_size
         if batch % D and batch != 1:
@@ -948,18 +998,19 @@ class LM:
         seq = "data" if long_ctx else (
             "model" if cfg.cache_seq_shard else None)
         tp, par = self.tp, self._par
-        kv_split = par is not None and _tp(cfg.num_kv_heads, tp) \
-            and _splits("gqa", cfg, tp) and seq != "model"
+        kv = gqa_cache_split(cfg, tp, seq == "model") if par is not None \
+            else None
 
         def model_if(split):
             return "model" if par is not None and split else None
 
         def mixer_cache(kind, repeat):
             if kind in ("gqa", "gqa_cross"):
-                kv = Leaf((repeat, batch, max_seq, cfg.num_kv_heads,
+                lf = Leaf((repeat, batch, max_seq, cfg.num_kv_heads,
                            cfg.head_dim), dtype=cfg.dtype,
-                          spec=Spec(None, b, seq, model_if(kv_split), None))
-                return {"k": kv, "v": kv}
+                          spec=Spec(None, b, seq, model_if(kv == "heads"),
+                                    model_if(kv == "head_dim")))
+                return {"k": lf, "v": lf}
             if kind == "mamba":  # the float32 SSM state and the conv tail
                 mc = cfg.mamba
                 di = mc.expand * cfg.d_model
@@ -1035,12 +1086,16 @@ class LM:
             return 1
         return local * D
 
-    def decode_step(self, params, tokens, cache, *, enc_out=None):
+    def decode_step(self, params, tokens, cache, *, enc_out=None,
+                    inplace: bool = False):
         """One token for every sequence. tokens (B,1) -> (logits (B,V),
-        cache).  The cache is not changed: the step returns a new one.
-        encdec reads ``enc_out`` (B, Se, d); without it, a zero encoder
-        stub of (B, encoder_seq, d), made anew each step, as in the
-        reference (whose ``Engine`` passes none either)."""
+        cache).  The cache is not changed: the step returns a new one;
+        with ``inplace`` the step writes the new token into the cache's
+        tensors and returns them (with a new ``length``), the counterpart
+        of the reference's donated cache (``donate_argnums``), so no second
+        cache is held.  encdec reads ``enc_out`` (B, Se, d); without it, a
+        zero encoder stub of (B, encoder_seq, d), made anew each step, as
+        in the reference (whose ``Engine`` passes none either)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         length = cache["length"]
@@ -1051,7 +1106,8 @@ class LM:
         x, _, new_stages = self._stack(
             params, x, positions=length[:, None], mode="decode",
             caches=cache["stages"], length=length, enc_out=enc_out,
-            seq=self.seq_split(self._global_batch(tokens.shape[0])))
+            seq=self.seq_split(self._global_batch(tokens.shape[0])),
+            inplace=inplace)
         x = rms_norm(x, params["final_norm"])
         logits = self._unembed_logits(params, x[:, 0])
         return logits, {"stages": new_stages, "length": length + 1}

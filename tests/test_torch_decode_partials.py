@@ -107,7 +107,7 @@ class _Ranks:
 
 def test_seq_split_packs_one_gather():
     """``SeqSplit.combine`` gathers (o, m, l) packed in one tensor and
-    combines in rank order; ``gather_heads_of`` packs tensors of other
+    combines in rank order; ``gather_heads`` packs tensors of other
     head counts and widths into one gather and gives each back with every
     rank's heads in rank order."""
     q, k, v = _inputs(4, 2, seed=4)
@@ -128,7 +128,7 @@ def test_seq_split_packs_one_gather():
                                .astype(np.float32))) for r in (0, 1)}
     for r in (0, 1):
         mesh.rank = r
-        a, b = split.gather_heads_of(*xs[r])
+        a, b = att.gather_heads(split.mesh, *xs[r])
     torch.testing.assert_close(a, torch.cat([xs[0][0], xs[1][0]], dim=2),
                                rtol=0, atol=0)
     torch.testing.assert_close(b, torch.cat([xs[0][1], xs[1][1]], dim=2),

@@ -16,11 +16,12 @@ report}.py``) against the reference's, on the CPU.
   for all ten configs and the four ``SHAPES``;
 * a cell's ``argument_size_in_bytes`` equal to the local bytes of the
   reference's parameter, state, batch and cache specs at ``(16, 16)``;
-* the five cells of ``chip_smoke.py`` phase 19 (a) end to end, each
+* the six cells of ``chip_smoke.py`` phase 19 (a) end to end, each
   ``ok`` or ``skip``, with ``collectives_agree``;
 * ``report``'s tables equal the reference's on the same cell dicts;
-* the gqa cache layout over ``model`` in a decode cell's specs (a
-  property of the port against the reference, ROADMAP Queue 3).
+* the gqa cache layout over ``model`` in a decode cell's specs, the
+  reference's ``head_dim`` split, and its bytes a rank; the in-place
+  serve step of qwen2.5-14b at ``decode_32k`` holds no second cache.
 """
 
 import dataclasses
@@ -301,19 +302,41 @@ def test_decode_cell_argument_bytes_equal_reference_specs(arch):
 
 
 def test_decode_cell_pins_the_gqa_cache_layout_over_model():
-    """The port splits a gqa cache's kv heads over ``model`` when they
-    split with the q heads, else keeps them whole; the reference splits
-    ``head_dim``.  llama3.2-1b's 8 kv heads do not split over 16: its
-    cache is whole over ``model`` a rank, 16x the reference's."""
+    """Where a gqa cache's kv heads do not split with the q heads, the
+    port splits ``head_dim`` over ``model``, as the reference does.
+    llama3.2-1b's 8 kv heads do not split over 16: a rank holds 64 / 16 =
+    4 columns of each, the reference's spec and 1/16 of the cache."""
     cell = dryrun.build_cell("llama3.2-1b", "decode_32k",
                              mesh_mod.make_meta_mesh())
     k = cell.whole[2]["stages"][0][0]["mixer"]["k"]
-    assert tuple(k.spec) == (None, "data", None, None, None)
+    assert tuple(k.spec) == (None, "data", None, None, "model")
     assert tuple(cell.args[2]["stages"][0][0]["mixer"]["k"].shape) == (
-        16, 8, 32768, 8, 64)
+        16, 8, 32768, 8, 4)
     ref = r_lm.LM(r_get_config("llama3.2-1b"), tp=16).cache_template(
         128, 32768)["stages"][0][0]["mixer"]["k"]
     assert tuple(ref.spec) == (None, "data", None, None, "model")
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-14b"])
+def test_decode_cell_argument_bytes_with_head_dim_split(arch):
+    """A gqa decode cell's arguments a rank are the reference's local
+    bytes of its parameter, token and cache specs at ``(16, 16)``: a
+    cache of 536,870,912 B a rank for llama3.2-1b and 3,221,225,472 B for
+    qwen2.5-14b at ``decode_32k``."""
+    cell = dryrun.build_cell(arch, "decode_32k", mesh_mod.make_meta_mesh())
+    model = r_lm.LM(r_get_config(arch), tp=16)
+    tmpl = model.cache_template(128, 32768)
+    is_leaf = lambda x: isinstance(x, r_lm.Leaf)
+    cache = jax.tree.map(lambda lf: jax.ShapeDtypeStruct(
+        lf.shape, r_lm._np_dtype(lf.dtype)), tmpl, is_leaf=is_leaf)
+    cspecs = jax.tree.map(lambda lf: lf.spec, tmpl, is_leaf=is_leaf)
+    cache_bytes = _ref_local_bytes(cache, cspecs, MESH)
+    assert dryrun._nbytes(cell.args[2]) == cache_bytes == {
+        "llama3.2-1b": 536870912 + 128 // 16 * 4,
+        "qwen2.5-14b": 3221225472 + 128 // 16 * 4}[arch]
+    assert dryrun._nbytes(cell.args) == (
+        _ref_local_bytes(model.abstract(), model.pspecs(), MESH)
+        + 128 // 16 * 4 + cache_bytes)
 
 
 # ---------------------------------------------------- cells end to end
@@ -321,7 +344,8 @@ PHASE19_CELLS = [("llama3.2-1b", "train_4k", False, None),
                  ("jamba-v0.1-52b", "long_500k", False, None),
                  ("llama3.2-1b", "decode_32k", False, "seqcache"),
                  ("mixtral-8x22b", "decode_32k", False, "moegather"),
-                 ("qwen2.5-14b", "long_500k", False, None)]
+                 ("qwen2.5-14b", "long_500k", False, None),
+                 ("qwen2.5-14b", "decode_32k", False, None)]
 
 
 @pytest.fixture(scope="module")
@@ -358,6 +382,22 @@ def test_phase19_cells_end_to_end(phase19_cells, i):
         assert "moe_gather_local_picks" in rec["assumed"]
     if SHAPES[shape].kind == "decode":
         assert rec["cache_specs"]
+
+
+def test_decode_cell_holds_one_cache(phase19_cells):
+    """qwen2.5-14b's serve step at ``decode_32k`` writes its cache in
+    place, as the reference's donated one: the bytes it creates above its
+    arguments (``temp_size_in_bytes``) are less than one cache of the
+    rank (3,221,225,472 B), and the rank's arguments and temporaries fit
+    an 80 GB card."""
+    rec = phase19_cells[PHASE19_CELLS.index(
+        ("qwen2.5-14b", "decode_32k", False, None))]
+    assert rec["status"] == "ok", rec.get("traceback")
+    mem = rec["memory_analysis"]
+    assert mem["temp_size_in_bytes"] < 3221225472
+    assert mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] < 80e9
+    assert rec["cache_specs"]["stages/0/0/mixer/k"] == [
+        None, "data", None, None, "model"]
 
 
 def test_report_tables_equal_reference(phase19_cells):

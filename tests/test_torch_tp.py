@@ -117,18 +117,28 @@ def test_tp_loss_and_sharded_grads_vs_reference(tp_runs, name):
 def test_tp_collectives_counted(tp_runs, name):
     """What crossed the ``model`` axis in serving: one psum a layer for
     each split mixer and ffn plus the embedding's, and one all_gather of
-    the logits, for the prefill and each decode step; nothing else."""
+    the logits, for the prefill and each decode step; and where the decode
+    cache splits ``head_dim`` (qwen2.5-14b's one kv head), for each layer
+    of each decode step one psum of the partial scores, one all_gather of
+    the outputs' columns (B x heads x head_dim / 2) and, where the q heads
+    split, one of the new token's q; nothing else."""
     ref, ranks = tp_runs
     cfg = case_config(CASES[NAMES.index(name)])
     split_attn = lm._tp(lm.q_heads(cfg, 2), 2)
     per_call = 1 + cfg.num_layers * (1 + int(split_attn))
+    hd_split = lm.gqa_cache_split(cfg, 2, False) == "head_dim"
+    assert hd_split == name.startswith("qwen")
+    heads, n = lm.q_heads(cfg, 2), 3 * cfg.num_layers * hd_split
+    gathers = {"calls": 4 + n * (1 + split_attn),
+               "bytes": 4 * B * (cfg.vocab_size // 2) * 4
+               + n * B * heads * cfg.head_dim // 2 * 4
+               + n * split_attn * B * heads // 2 * cfg.head_dim * 4}
     for out in ranks:
         stats = counts(out[f"{name}/stats_serve"])
         assert set(stats) == {"all_gather/model/float32",
                               "psum/model/float32"}, stats
-        assert stats["all_gather/model/float32"] == {
-            "calls": 4, "bytes": 4 * B * (cfg.vocab_size // 2) * 4}
-        assert stats["psum/model/float32"]["calls"] == 4 * per_call
+        assert stats["all_gather/model/float32"] == gathers
+        assert stats["psum/model/float32"]["calls"] == 4 * per_call + n
 
 
 def test_padded_model_equals_unpadded():

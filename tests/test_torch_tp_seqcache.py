@@ -28,22 +28,15 @@ do too, one ``all_gather`` of the new token's heads.
 """
 
 import json
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import lm
-from repro_torch.models.common import sorted_leaves
 
 from _torch_tp_checks import close, serve_calls
-from _torch_tp_rank import ROOT, case_config, counts, path_key, start_world
+from _torch_tp_rank import case_config, counts, run_seq_worlds
 
 STEPS = 4
 MAX_SEQ = 32
@@ -69,130 +62,11 @@ NAMES = [c["name"] for c in CASES]
 BY_NAME = dict(zip(NAMES, CASES))
 SPLIT_LEAVES = ("k", "v", "c", "r")
 
-# The reference's side: each case's LM over a mesh of GSPMD-auto axes, its
-# weights and its seeded cache placed by shardings_for of its own specs,
-# STEPS jitted decode steps; and its cache_template specs as JSON.
-REF_SEQ_SCRIPT = textwrap.dedent("""
-    import dataclasses, json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import numpy as np, jax, jax.numpy as jnp
-    from repro.configs import get_config
-    from repro.launch.mesh import shardings_for
-    from repro.models.lm import LM, Leaf
-    data = np.load(sys.argv[1])
-    out = {}
-
-    def key(path):
-        return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                        for k in path)
-
-    def entry(e):
-        return list(e) if isinstance(e, tuple) else e
-
-    for case in json.loads(str(data["cases"])):
-        name = case["name"]
-        cfg = dataclasses.replace(get_config(case["arch"], reduced=True),
-                                  dtype="float32", **case.get("replace", {}))
-        n = int(np.prod(case["mesh"]))
-        mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:n]).reshape(
-            case["mesh"]), tuple(case.get("axes", ("data", "model"))))
-        model = LM(cfg, mesh=mesh)
-        flat, tdef = jax.tree_util.tree_flatten_with_path(model.abstract())
-        params = jax.tree_util.tree_unflatten(tdef, [
-            jnp.asarray(data[name + "/w/" + key(p)]) for p, _ in flat])
-        params = jax.device_put(params, shardings_for(mesh, model.pspecs()))
-        toks = jnp.asarray(data[name + "/tokens"])
-        tmpl = model.cache_template(toks.shape[0], case["max_seq"])
-        is_leaf = lambda x: isinstance(x, Leaf)
-        leaves, cdef = jax.tree_util.tree_flatten_with_path(tmpl,
-                                                            is_leaf=is_leaf)
-        out[name + "/specs"] = json.dumps({
-            key(p): json.dumps([entry(e) for e in lf.spec])
-            for p, lf in leaves})
-        cache = jax.tree_util.tree_unflatten(cdef, [
-            jnp.asarray(data[name + "/c/" + key(p)]) for p, _ in leaves])
-        specs = jax.tree.map(lambda lf: lf.spec, tmpl, is_leaf=is_leaf)
-        cache = jax.device_put(cache, shardings_for(mesh, specs))
-        step = jax.jit(model.decode_step)
-        for i in range(toks.shape[1]):
-            logits, cache = step(params, toks[:, i:i + 1], cache)
-            out[name + "/decode" + str(i)] = np.asarray(logits, np.float32)
-    np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
-    print("REF_OK")
-""")
-
-
-def _case_arrays(cases: list) -> dict:
-    """Seeded float32 weights, a whole seeded cache (``length`` the case's
-    lengths) and STEPS tokens a lane for each of ``cases``."""
-    arrays = {}
-    rng = np.random.default_rng(7)
-    for i, case in enumerate(cases):
-        cfg = case_config(case)
-        name = case["name"]
-        tp = case["mesh"][-1]
-        params = lm.init_params(cfg, i, device="cpu", dtype=torch.float32,
-                                tp=tp)
-        for path, t in sorted_leaves(params):
-            arrays[f"{name}/w/{path_key(path)}"] = t.numpy()
-        batch = len(case["lengths"])
-        tmpl = lm.LM(cfg, tp=tp, device="cpu").cache_template(
-            batch, case["max_seq"])
-        for path, lf in sorted_leaves(tmpl):
-            arrays[f"{name}/c/{path_key(path)}"] = (
-                np.asarray(case["lengths"], np.int32) if path == ("length",)
-                else (0.5 * rng.standard_normal(lf.shape)).astype(np.float32))
-        arrays[f"{name}/tokens"] = rng.integers(
-            0, cfg.vocab_size, (batch, STEPS)).astype(np.int32)
-    return arrays
-
-
-def _write(path: Path, arrays: dict, cases: list) -> Path:
-    """``cases`` and their arrays of ``arrays`` in one ``.npz``."""
-    names = {c["name"] for c in cases}
-    np.savez(path, cases=np.asarray(json.dumps(cases)),
-             **{k: v for k, v in arrays.items() if k.split("/")[0] in names})
-    return path
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """-> (the reference's outputs, {case name: [each rank's outputs]})."""
-    root = tmp_path_factory.mktemp("seqcache")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT / "tests")]))
-    env.pop("XLA_FLAGS", None)
-    arrays = _case_arrays(CASES)
-    every = _write(root / "cases.npz", arrays, CASES)
-    worlds = {2: (root / "two", TWO), 4: (root / "four", FOUR)}
-    files = {}
-    for world, (sub, cases) in worlds.items():
-        sub.mkdir()
-        files[world] = _write(sub / "cases.npz", arrays, cases)
-    ref = subprocess.Popen([sys.executable, "-c", REF_SEQ_SCRIPT, str(every),
-                            str(root / "ref.npz")], env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
-    procs = {}
-    try:
-        for world, (sub, _) in worlds.items():
-            procs[world] = start_world("seq", files[world], sub, world, env)
-        for world, ps in procs.items():
-            for p in ps:
-                _, err = p.communicate(timeout=300)
-                assert p.returncode == 0, err[-3000:]
-        out, err = ref.communicate(timeout=300)
-        assert "REF_OK" in out, err[-3000:]
-    finally:
-        ref.kill()
-        for ps in procs.values():
-            for p in ps:
-                p.kill()
-    ranks = {}
-    for world, (sub, cases) in worlds.items():
-        outs = [dict(np.load(sub / f"seq_rank{r}.npz")) for r in range(world)]
-        ranks.update({c["name"]: outs for c in cases})
-    return dict(np.load(root / "ref.npz")), ranks
+    return run_seq_worlds(tmp_path_factory.mktemp("seqcache"),
+                          {2: TWO, 4: FOUR}, STEPS)
 
 
 def _data_rank(case: dict, r: int) -> int:

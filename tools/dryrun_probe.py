@@ -43,8 +43,11 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0])
     cs.log(sys.version.split()[0], torch.__version__, torch.version.cuda)
     cs.log(f"kernel build: {build.build_all():.3f} s")
-    cells, dry_s = cs.dryrun_cells()
-    cs.log(f"(a): {dry_s:.1f} s")
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cs.dryrun_cells(dryrun.run_cells(cs.DRYRUN_CELLS, jobs=cs.DRYRUN_JOBS),
+                    time.perf_counter() - t0)
+    cs.log(f"(a): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts = cs.count_against_card(cs.SEED)
     cs.log(f"(b): {time.perf_counter() - t0:.1f} s")

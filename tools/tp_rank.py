@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""One rank of the two-rank world of ``chip_smoke.py`` phase 17, on one
+"""One rank of a world of ``chip_smoke.py`` phases 17, 18 and 20, on one
 NVIDIA card.
 
     python3 tools/tp_rank.py probe INIT RANK OUT
@@ -7,10 +7,12 @@ NVIDIA card.
     python3 tools/tp_rank.py reduced INIT RANK OUT
     python3 tools/tp_rank.py seq INIT RANK OUT
     python3 tools/tp_rank.py seq_reduced INIT RANK OUT
+    python3 tools/tp_rank.py hd INIT RANK OUT
 
-Each joins a world of two ranks (a ``file://`` rendezvous at ``INIT``)
-whose process group serves both CPU and card tensors with gloo, both ranks
-on ``cuda:0``: NCCL refuses two ranks on one device.  It imports only
+Each joins a world of two ranks (``hd``: sixteen; a ``file://``
+rendezvous at ``INIT``) whose process group serves both CPU and card
+tensors with gloo, every rank on ``cuda:0``: NCCL refuses two ranks on one
+device.  It imports only
 torch, numpy and ``repro_torch``, and writes its results to ``OUT`` as
 JSON (an ``"error"`` key if it failed).
 
@@ -21,11 +23,11 @@ a try still leaves what came before.
 
 ``main`` runs the phase over a ``(1, 2)`` mesh (``launch.mesh``; gloo,
 ``ppermute`` as an ``all_gather``): (b) each SERVED config at tp = 2
-through ``Engine`` (qwen2.5-14b whole, mixtral-8x22b cut to 4 layers
-through ``moe_spmd``, deepseek-v3-671b cut to its 3 dense layers and one
-MoE layer, jamba-v0.1-52b cut to one period of 8 layers, rwkv6-1.6b and
-whisper-large-v3 whole; whisper also prefills over encoder frames, which
-runs the sharded encoder), (c) each one's float32 twin (TWIN_LAYERS
+through ``Engine`` (qwen2.5-14b cut to 24 layers, mixtral-8x22b to 4
+through ``moe_spmd``, deepseek-v3-671b to its 3 dense layers and one MoE
+layer, jamba-v0.1-52b to one period of 8 layers, rwkv6-1.6b to 12 and
+whisper-large-v3's decoder to 16; whisper also prefills over encoder
+frames, which runs the sharded encoder, whole), (c) each one's float32 twin (TWIN_LAYERS
 layers; the MoE twins with the same routing and the same dropped picks)
 against tp = 1 on rank 0, (d) mixtral-8x22b again with
 ``moe_gather_decode`` and its twin, llama3.2-1b served over ``(2, 1)`` (8
@@ -51,20 +53,36 @@ SHARD_LENGTHS (the last with no live position on rank 1), decoded through
 ``Engine``; (c) the float32 twins of SEQ_TWINS, each split run against the
 same model and seeded cache unsplit on rank 0.  ``seq_reduced`` runs the
 twins at the reduced configs (the on-card tests' world).
+
+``hd`` runs phase 20, the gqa decode cache split over ``head_dim``:
+llama3.2-1b at its published widths and depth in bf16 over ``(1, 16)``,
+each rank holding ``decode_32k``'s share of one rank of the reference's
+``(16, 16)`` mesh (8 lanes of 32,768 positions from :func:`seeded_cache`,
+head_dim 64 / 16 = 4 columns of each of the 8 kv heads), decoding a few
+greedy steps in place (``decode_step(inplace=True)``); then the float32
+twin over the same mesh at a cut cache, whose logits rank 0 saves for the
+parent.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
+import os
 import sys
 import time
 
 from pathlib import Path
 
-import numpy as np
-import torch
-import torch.distributed as dist
+_STARTED = time.time()  # the wall clock when this rank's imports began
+_PARENT = os.getppid()
+if os.environ.get("TP_WORLD_GATE"):  # started early, beside other work
+    os.nice(10)  # chip_smoke.BG_NICE
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -198,10 +216,13 @@ SHARD_SHAPES = {"qwen2.5-14b": {(5120, 2560), (5120, 512), (5120, 6912)},
                 "whisper-large-v3": {(1280, 640), (1280, 2560)},
                 "llama3.2-1b": {(2048, 2048), (2048, 512), (2048, 8192)}}
 # deepseek: its 3 dense layers and one MoE layer (the MTP block's leaves
-# are drawn; serving does not run it); jamba: one 8-layer period
-SERVED = (("qwen2.5-14b", None), ("mixtral-8x22b", 4),
+# are drawn; serving does not run it); jamba: one 8-layer period; qwen2.5-14b
+# (48 layers), rwkv6-1.6b (24) and whisper-large-v3's decoder (32, its
+# encoder whole) at half depth since phase 20 came (their decode calls
+# took 471, 403 and 699 ms a step on a slow host)
+SERVED = (("qwen2.5-14b", 24), ("mixtral-8x22b", 4),
           ("deepseek-v3-671b", 4), ("jamba-v0.1-52b", 8),
-          ("rwkv6-1.6b", None), ("whisper-large-v3", None))
+          ("rwkv6-1.6b", 12), ("whisper-large-v3", 16))
 # the twins of the MoE families at full width cut the experts to
 # TWIN_EXPERTS (a float32 deepseek MoE layer of 256 experts is 45 GB, and
 # the twin holds the tp = 2 shards, then the whole program); jamba's twin
@@ -229,6 +250,28 @@ def _pcts(ms) -> dict:
                 p99=float(np.percentile(ms, 99)))
 
 
+@contextlib.contextmanager
+def _recorded(mesh, shape_of):
+    """Row 5's calls recorded into the yielded dict's ``shapes`` (each
+    ``shape_of(x, w)``), the launch counters and ``mesh``'s counts zeroed
+    on entry and read into its ``launches`` and ``stats`` on exit."""
+    from repro_torch.kernels import ops
+    fnm, rec = ops.fused_norm_matmul, {"shapes": set()}
+
+    def recording_fnm(x, gamma, w):
+        rec["shapes"].add(shape_of(x, w))
+        return fnm(x, gamma, w)
+
+    ops.fused_norm_matmul = recording_fnm
+    try:
+        ops.reset_launch_counts()
+        mesh.reset_stats()
+        yield rec
+        rec.update(launches=dict(ops.LAUNCHES), stats=mesh.stats_json())
+    finally:
+        ops.fused_norm_matmul = fnm
+
+
 def _timed_run(eng, mesh, shape_of) -> dict:
     """``eng.run()`` with every ``_step`` call synced and timed and row
     5's shapes recorded (``shape_of(x, w)``), the launch counters and the
@@ -238,9 +281,7 @@ def _timed_run(eng, mesh, shape_of) -> dict:
     ``decode_step_ms`` and ``generated_tokens_per_s`` are over the calls
     after it (``generated_tokens_per_s_with_first`` over the whole
     run)."""
-    from repro_torch.kernels import ops
-    step, fnm = eng._step, ops.fused_norm_matmul
-    times, shapes = [], set()
+    step, times = eng._step, []
 
     def timed_step(*a):
         torch.cuda.synchronize()
@@ -250,23 +291,18 @@ def _timed_run(eng, mesh, shape_of) -> dict:
         times.append(time.perf_counter() - t)
         return out
 
-    def recording_fnm(x, gamma, w):
-        shapes.add(shape_of(x, w))
-        return fnm(x, gamma, w)
-
-    eng._step, ops.fused_norm_matmul = timed_step, recording_fnm
+    eng._step = timed_step
     try:
-        ops.reset_launch_counts()
-        mesh.reset_stats()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
+        with _recorded(mesh, shape_of) as rec:
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
     finally:
-        eng._step, ops.fused_norm_matmul = step, fnm
+        eng._step = step
     ms = np.asarray(times) * 1e3
-    return dict(times=times, shapes=shapes, launches=dict(ops.LAUNCHES),
-                stats=mesh.stats_json(), run_s=run_s,
+    return dict(times=times, shapes=rec["shapes"], launches=rec["launches"],
+                stats=rec["stats"], run_s=run_s,
                 first_call_ms=float(ms[0]),
                 decode_step_ms=_pcts(ms[1:] if len(ms) > 1 else ms),
                 steady_s=run_s - times[0])
@@ -434,7 +470,6 @@ def encdec_prefill(model, params, mesh) -> dict:
     launch counters and the mesh's counts zeroed just before and read
     after; row 5's launches must be the program's (the encoder's gqa and
     MLP entries a layer, and the decoder's), its (S, d, F) recorded."""
-    from repro_torch.kernels import ops
     cfg = model.cfg
     gen = torch.Generator(device=mesh.device)
     gen.manual_seed(SEED)
@@ -445,27 +480,17 @@ def encdec_prefill(model, params, mesh) -> dict:
                            generator=gen, device=mesh.device,
                            dtype=torch.int32)
     batch = {"tokens": tokens, "frames": frames}
-    fnm, shapes = ops.fused_norm_matmul, set()
-
-    def recording_fnm(x, gamma, w):
-        shapes.add((x.numel() // x.shape[-1], int(x.shape[-1]),
-                    int(w.shape[-1])))
-        return fnm(x, gamma, w)
-
     with torch.no_grad():
         model.prefill(params, batch)
         torch.cuda.synchronize()
-        ops.fused_norm_matmul = recording_fnm
-        try:
-            ops.reset_launch_counts()
-            mesh.reset_stats()
+        with _recorded(mesh, lambda x, w: (x.numel() // x.shape[-1],
+                                           int(x.shape[-1]),
+                                           int(w.shape[-1]))) as rec:
             t0 = time.perf_counter()
             logits = model.prefill(params, batch)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            ops.fused_norm_matmul = fnm
-    launches = dict(ops.LAUNCHES)
+    launches, shapes = rec["launches"], rec["shapes"]
     want = fused_per_prefill(cfg)
     check(launches["fused_norm_matmul"] == want,
           f"{cfg.name} prefill: {launches['fused_norm_matmul']} row-5 "
@@ -1117,29 +1142,35 @@ SEQ_TWINS_REDUCED = (
 def seeded_cache(model, batch: int, max_seq: int, lengths, seed: int):
     """The rank's share of a decode cache of ``batch`` sequences whose
     leaves are drawn whole from ``seed`` (0.5 x normal, in the leaf's
-    dtype, one leaf after another in ``sorted_leaves`` order) and sliced
-    under the leaf's spec, ``length`` set to ``lengths``: one global cache
-    on every mesh (and without one), of which the rank holds its share.
-    Positions at or past a lane's length are drawn too; the decode masks
-    them."""
+    dtype, one leaf after another in ``sorted_leaves`` order, a stacked
+    leaf one layer after another) and sliced under the leaf's spec,
+    ``length`` set to ``lengths``: one global cache on every mesh (and
+    without one), of which the rank holds its share.  Positions at or past
+    a lane's length are drawn too; the decode masks them.  A rank holds one
+    whole layer of one leaf at a time beside its share."""
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.common import Spec
     tmpl = model.cache_template(batch, max_seq)
     cache = model.init_cache(batch, max_seq)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
+
+    def local(whole, spec):
+        if model.mesh is None:
+            return whole
+        spec = mesh_mod.shardings_for(model.mesh, spec)
+        return whole[mesh_mod.local_index(whole.shape, spec, model.mesh)]
+
     for (path, c), (_, lf) in zip(sorted_leaves(cache), sorted_leaves(tmpl)):
         if path == ("length",):
-            whole = torch.tensor(lengths, dtype=torch.int32,
-                                 device=model.device)
-        else:
-            whole = torch.randn(lf.shape, generator=gen, device=model.device,
-                                dtype=c.dtype) * 0.5
-        if model.mesh is not None:
-            spec = mesh_mod.shardings_for(model.mesh, lf.spec)
-            whole = whole[mesh_mod.local_index(whole.shape, spec,
-                                               model.mesh)]
-        c.copy_(whole)
-        del whole
+            c.copy_(local(torch.tensor(lengths, dtype=torch.int32,
+                                       device=model.device), lf.spec))
+            continue
+        for i in range(lf.shape[0]):  # the stack axis is never split
+            whole = torch.randn(lf.shape[1:], generator=gen,
+                                device=model.device, dtype=c.dtype) * 0.5
+            c[i].copy_(local(whole, Spec(*lf.spec[1:])))
+            del whole
     return cache
 
 
@@ -1296,18 +1327,36 @@ def _seq_meshes() -> dict:
             (1, 2): mesh_mod.make_mesh((1, 2))}
 
 
-def _seq_world(init: str, rank: int, out: str, body) -> int:
-    """Join the world of two ranks, run ``body(res)``, write ``res`` (with
-    the error and traceback of a failure) to ``out``."""
+def _await_gate() -> None:
+    """With ``TP_WORLD_GATE`` set, wait, after the imports and before the
+    card or the world is touched, until that file exists (the parent
+    starts a world early and releases it later); exit if the parent is
+    gone."""
+    gate = os.environ.get("TP_WORLD_GATE")
+    while gate and not os.path.exists(gate):
+        if os.getppid() != _PARENT:
+            raise SystemExit("tp_rank: the parent is gone")
+        time.sleep(0.1)
+
+
+def _seq_world(init: str, rank: int, out: str, body, world: int = 2) -> int:
+    """Join the world of ``world`` ranks, run ``body(res)``, write ``res``
+    (with the error and traceback of a failure, and the wall clock when
+    the rank's imports began and ended, when it joined the world and when
+    its body ended) to ``out``, after :func:`_await_gate`."""
+    imported_at = time.time()
+    _await_gate()
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("cpu:gloo,cuda:gloo", init_method=f"file://{init}",
-                            rank=rank, world_size=2,
+                            rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300))
-    res = {}
+    res = {"started_at": _STARTED, "imported_at": imported_at,
+           "joined_at": time.time()}
     t_start = time.perf_counter()
     try:
         body(res)
         res["seconds"] = time.perf_counter() - t_start
+        res["ended_at"] = time.time()
     except Exception as e:  # the parent reads it and fails the phase
         import traceback
         res["error"] = f"{type(e).__name__}: {e}"
@@ -1374,6 +1423,168 @@ def seq_reduced(init: str, rank: int, out: str) -> int:
     return _seq_world(init, rank, out, body)
 
 
+# ------------------------------------------------------------ phase 20
+# llama3.2-1b at its published widths and depth in bf16 over (1, HD_RANKS),
+# its gqa cache split over head_dim (8 kv heads do not split over 16): each
+# rank holds decode_32k's share of one rank of the reference's (16, 16)
+# mesh, HD_LANES lanes of HD_MAX positions at HD_LENGTHS (spread over the
+# range), and decodes HD_STEPS greedy steps in place, the first call apart
+# (a step is about 10 s of gloo host staging: 4 steps until the whole
+# script needed the time)
+HD_RANKS = 16
+HD_LANES, HD_MAX, HD_STEPS = 8, 32768, 3
+HD_LENGTHS = (32760, 28672, 24576, 20480, 16384, 12288, 8192, 4096)
+# the float32 twin, cut to TWIN_LAYERS layers (16 took 24 s of the world)
+# and HD_TWIN_LANES lanes of HD_TWIN_MAX: rank 0's logits of HD_TWIN_STEPS
+# teacher-forced steps, held by the parent to the same model and seeded
+# cache at (1, 1) on the card
+HD_TWIN_LANES, HD_TWIN_MAX, HD_TWIN_STEPS = 2, 1024, 4
+HD_TWIN_LENGTHS = (1000, 37)
+
+
+def _hd_config(dtype: str = "bfloat16", layers=None):
+    import dataclasses
+    return dataclasses.replace(_config("llama3.2-1b", layers), dtype=dtype)
+
+
+def hd_twin_logits(model, params) -> torch.Tensor:
+    """The float32 twin's logits (HD_TWIN_STEPS, HD_TWIN_LANES, V) of
+    ``model`` (split over a mesh, or whole) from :func:`seeded_cache` and
+    seeded teacher-forced tokens."""
+    cache = seeded_cache(model, HD_TWIN_LANES, HD_TWIN_MAX, HD_TWIN_LENGTHS,
+                         SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+    toks = torch.from_numpy(rng.integers(
+        1, model.cfg.vocab_size, (HD_TWIN_LANES, HD_TWIN_STEPS))
+        .astype(np.int32)).to(model.device)
+    outs = []
+    with torch.no_grad():
+        for i in range(HD_TWIN_STEPS):
+            logits, cache = model.decode_step(params, toks[:, i:i + 1],
+                                              cache, inplace=True)
+            outs.append(logits.float())
+    return torch.stack(outs)
+
+
+def serve_hd(mesh) -> dict:
+    """Phase 20's served run on this rank: llama3.2-1b over ``mesh`` with
+    random bf16 weights drawn on the card (the rank keeps its shards), the
+    rank's share of a seeded cache of HD_LANES lanes of HD_MAX positions
+    (its head_dim columns), HD_STEPS greedy decode steps in place, each
+    synced and timed, row 5's (S, d, F) recorded, the launch counters and
+    the mesh's counts zeroed just before the steps and read after; the
+    steps hand back the cache's own tensors, and every rank's tokens are
+    equal."""
+    import gc
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    cfg = _hd_config()
+    tp = mesh.shape["model"]
+    check(lm.gqa_cache_split(cfg, tp, False) == "head_dim",
+          f"llama3.2-1b's gqa cache does not split head_dim at tp = {tp}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, mesh=mesh)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    res = dict(model="llama3.2-1b", layers=cfg.num_layers,
+               mesh=list(mesh.shape.values()), lanes=HD_LANES,
+               max_seq=HD_MAX, lengths=list(HD_LENGTHS),
+               init_s=time.perf_counter() - t0,
+               param_bytes_local=sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(params)))
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    cache = seeded_cache(model, HD_LANES, HD_MAX, HD_LENGTHS, SEED + 5)
+    torch.cuda.synchronize()
+    leaves = [c for _, c in sorted_leaves(cache["stages"])]
+    res.update(fill_s=time.perf_counter() - t0,
+               cache_bytes_local=sum(c.numel() * c.element_size()
+                                     for c in leaves),
+               cache_memory_allocated=torch.cuda.memory_allocated() - before,
+               k_local_shape=list(cache["stages"][0][0]["mixer"]["k"].shape),
+               k_spec=list(model.cache_template(HD_LANES, HD_MAX)[
+                   "stages"][0][0]["mixer"]["k"].spec))
+    ptrs = [c.data_ptr() for c in leaves]
+    del leaves
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (HD_LANES, 1))
+                              .astype(np.int32)).to(mesh.device)
+    times, out = [], []
+    with torch.no_grad(), _recorded(mesh, lambda x, w: (
+            int(x.shape[0]), int(x.shape[-1]), int(w.shape[-1]))) as rec:
+        for _ in range(HD_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = model.decode_step(params, tokens, cache,
+                                              inplace=True)
+            tokens = torch.argmax(logits, -1).int()[:, None]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            out.append(tokens)
+    launches, stats, shapes = rec["launches"], rec["stats"], rec["shapes"]
+    check([c.data_ptr() for _, c in sorted_leaves(cache["stages"])] == ptrs,
+          "the in-place decode handed back other tensors than the cache's")
+    per_call = fused_per_decode_step(cfg)
+    check(launches["fused_norm_matmul"] == per_call * HD_STEPS,
+          f"{launches['fused_norm_matmul']} row-5 launches in {HD_STEPS} "
+          f"decode steps, not {per_call} a step")
+    toks = torch.cat(out, dim=1)
+    every = mesh.all_gather(toks[None], ("data", "model"), dim=0)
+    res["tokens_equal_on_ranks"] = all(torch.equal(every[0], t)
+                                       for t in every)
+    check(res["tokens_equal_on_ranks"], "the ranks decoded other tokens")
+    ms = np.asarray(times) * 1e3
+    res.update(
+        first_call_ms=float(ms[0]), decode_step_ms=_pcts(ms[1:]),
+        step_ms=[float(t) for t in ms],
+        tokens_per_s=HD_LANES * (HD_STEPS - 1) / float(np.sum(times[1:])),
+        tokens_per_s_with_first=HD_LANES * HD_STEPS / float(np.sum(times)),
+        fnm_per_call=per_call, row5_shapes=sorted(shapes),
+        launches=launches, collectives=stats,
+        collectives_per_call={k: dict(calls=v["calls"] / HD_STEPS,
+                                      bytes=v["bytes"] / HD_STEPS,
+                                      host_ms=v["s"] * 1e3 / HD_STEPS)
+                              for k, v in stats.items()},
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        tokens=toks.tolist())
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def hd(init: str, rank: int, out: str) -> int:
+    """Phase 20's world of HD_RANKS ranks at (1, HD_RANKS): the served run
+    (:func:`serve_hd`), then the float32 twin split over the same mesh,
+    whose logits rank 0 saves beside ``out`` (``.pt``) for the parent."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.lm import LM, init_params
+
+    def body(res):
+        mesh = mesh_mod.make_mesh((1, HD_RANKS))
+        res.update(backend=mesh.backend, p2p=mesh.p2p, device=str(mesh.device))
+        t = time.perf_counter()
+        res["serve"] = serve_hd(mesh)
+        res["serve"]["seconds"] = time.perf_counter() - t
+        res["launches"] = res["serve"]["launches"]
+        t = time.perf_counter()
+        cfg = _hd_config("float32", TWIN_LAYERS)
+        logits = hd_twin_logits(LM(cfg, mesh=mesh), init_params(
+            cfg, SEED, dtype=torch.float32, mesh=mesh))
+        if mesh.rank == 0:
+            torch.save(logits.cpu(), Path(out).with_suffix(".pt"))
+        res["twin"] = dict(layers=TWIN_LAYERS, lanes=HD_TWIN_LANES,
+                           max_seq=HD_TWIN_MAX,
+                           lengths=list(HD_TWIN_LENGTHS), steps=HD_TWIN_STEPS,
+                           seconds=time.perf_counter() - t)
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    return _seq_world(init, rank, out, body, world=HD_RANKS)
+
+
 def reduced(init: str, rank: int, out: str) -> int:
     """The twins at the configs' reduced sizes (qwen2.5-14b with padded
     heads, the MoE configs with a shared expert; mixtral also with
@@ -1426,6 +1637,7 @@ def reduced(init: str, rank: int, out: str) -> int:
 def main(init: str, rank: int, out: str) -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_mod
+    _await_gate()
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("cpu:gloo,cuda:gloo", init_method=f"file://{init}",
                             rank=rank, world_size=2,
@@ -1486,7 +1698,7 @@ if __name__ == "__main__":
     mode, init, rank, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
         sys.argv[4]
     modes = {"probe": probe, "main": main, "reduced": reduced, "seq": seq,
-             "seq_reduced": seq_reduced}
+             "seq_reduced": seq_reduced, "hd": hd}
     if mode not in modes:
         raise SystemExit(f"unknown mode {mode!r}")
     sys.exit(modes[mode](init, rank, out))
