@@ -125,8 +125,8 @@ Phases; any failure exits non-zero:
    back and ``simulate(trace, clients=8)`` must be equal; (b) each baseline
    over the first 2^23 of phase 3's keys at the reference's default load
    factors (RACE at 0.69: at 0.7 its build cannot place 2^24 keys), one
-   store at a time: YCSB-C (2^20 zipf(0.99) Gets) and YCSB-A
-   (2^15 ops, half updates) at window 1024, then 2^12 deletes and Gets of
+   store at a time: YCSB-C (2^19 zipf(0.99) Gets) and YCSB-A
+   (2^14 ops, half updates) at window 1024, then 2^12 deletes and Gets of
    the deleted keys, every answer checked (for dummy, which verifies no
    key, against the value at index ``key % n``), printing the build's host
    seconds, Gets/s, window p50/p99, YCSB-A ops/s, the device busy share over
@@ -137,7 +137,7 @@ Phases; any failure exits non-zero:
    (``RaceKVS.cn_select``) for ``race``, and for ``outback`` the MN decode
    (slot gather, ``slot_unpack``, heap gather) over phase 3's store, timed
    before that store is freed; (d) the five kinds at 2^20 keys, each
-   recording 2^16 YCSB-C Gets through a window of 1024, replayed with
+   recording 2^14 YCSB-C Gets through a window of 1024, replayed with
    ``simulate`` on ``CX6`` at 1, 8 and 64 clients and one MN thread:
    p50/p99 and Mops printed, the replay checked to be deterministic and to
    hold every Get.  The launch counters are zeroed just before this phase
@@ -283,12 +283,26 @@ Phases; any failure exits non-zero:
    deepseek-v3-671b (row 6 and the MoE aux loss), card against CPU (loss,
    gnorm, every first moment and parameter); a checkpoint restart on the
    card at llama's size, replayed bit for bit.  (c) llama3.2-1b at its
-   published widths with random bf16 weights, 8 steps of 4 x 512 tokens
-   of a constant stream:
-   the loss finite and below its first value, gnorm finite; printed: step
+   published widths with random bf16 weights: one functional and one
+   in-place step (``make_train_step(..., inplace=True)``, the reference's
+   donated state) from fresh states of the seed, each one's peak
+   ``max_memory_allocated`` above the memory allocated before it, the
+   in-place peak below the functional one by at least the state's m and v
+   bytes, the two states after the step equal bit for bit; then 8
+   in-place steps of 4 x 512 ``SyntheticLM`` tokens from the seed: the
+   loss finite and below its first value, gnorm finite; printed: step
    p50/p99, tokens/s, ``max_memory_allocated``, the device busy share over
    2 profiled steps, and the launches of both fused kernels a step (the
-   counters zeroed just before the 8 steps and read just after).
+   counters zeroed just before the 8 steps and read just after).  (d)
+   qwen3-4b at its published widths and depth (36 layers, d 2560, vocab
+   151,936) with random bf16 weights: rows 5 and 6 against their plain
+   versions at its training entries (S = 2048, d = 2560, F = 4096, 1024
+   and 9728), timed beside their bounds; then 4 in-place steps of 4 x 512
+   ``SyntheticLM`` tokens with ``remat="block"`` and one profiled step: the
+   state's bytes and ``max_memory_allocated`` beside the card's memory,
+   the first step and the p50 of the rest, tokens/s, the busy share, the
+   launches of rows 5 and 6 a step (exactly the program's), every loss
+   finite.
 
 15. the vlm, MoE and MLA families.  ``fused_norm_matmul`` against its plain
    version at the (d, F) pairs these configs launch (``FAMILY_FNM_PAIRS``:
@@ -361,18 +375,21 @@ Phases; any failure exits non-zero:
    llama3.2-1b whole over a (2, 1) mesh (8 lanes, 4 a rank; no
    collective) and its float32 twin on the same lanes; every served
    config's row-5 launches a call exactly the program's, at shapes checked
-   here; (e) llama3.2-1b at its published widths trained 2 steps of 2 x 512
-   tokens a rank over (1, 2) (tp, vocab-parallel cross entropy; its first
+   here; (e) llama3.2-1b at its published widths trained 2 in-place steps
+   (``make_train_step(..., inplace=True)``, each rank's peak memory over
+   its mesh's steps recorded) of 2 x 512 tokens a rank over (1, 2) (tp,
+   vocab-parallel cross entropy; its first
    step held to the plain step on the same batch: the loss within 1e-2,
    the embedding's, a wq's and a wo's gradient and update, gathered
-   whole, at cosines of at least 0.99 and above 0.8), (2, 1) (ZeRO-1:
-   the moments' halves, the parameters equal on both ranks after the
-   gather) and (2, 1, 1) (the int8 pod exchange, 8 of the 16 layers for
-   memory: its loss within 1e-3 of the plain step's on the global batch,
+   whole, at cosines of at least 0.99 and above 0.8), (2, 1) (ZeRO-1, 8
+   of the 16 layers: the moments' halves, the parameters equal on both
+   ranks after the gather) and (2, 1, 1) (the int8 pod exchange, 8 of the
+   16 layers: its loss within 1e-3 of the plain step's on the global batch,
    wq's update cosine to the plain step's above 0.8, ``ef`` nonzero, int8
    bytes counted on ``pod``; and at the reference's own test's size, its
    first leaf's update cosine above 0.8), and a float32 twin at 2
-   layers: the (2, 1) step equals the plain step within 1e-5.  Rows 5
+   layers: the (2, 1) step equals the plain step within 1e-5, in place
+   and functional bit for bit.  Rows 5
    and 6 are held to their plain versions at the steps' shapes
    (``TP_TRAIN_SHAPES``, S = 1024), which the steps must run at; each
    mesh's launches are counted over its own steps alone and must be the
@@ -701,9 +718,18 @@ BASE_LOAD_FACTOR = {"race": 0.69}
 BASE_AGREE_KEYS_LOG2 = 14
 BASE_AGREE_LOAD = 0.5
 BASE_DELETES_LOG2 = 12
+# each baseline's YCSB-C Gets (2^N_GETS_LOG2 until qwen3-4b's training came
+# to phase 14), and the build keys its count of keys past the batch rules
+# scans (all 2^BASE_KEYS_LOG2 until then: 9.8, 14.5 and 5.3 s of host
+# numpy for RACE, MICA and Cluster on one host; their counts were 13,
+# 12490 and 552)
+BASE_GETS_LOG2 = 19
+BASE_SCAN_LOG2 = 20
 MN_BATCH = 1 << 16
 SIM_KEYS_LOG2 = 20
-SIM_GETS_LOG2 = 15  # 2^16 until phase 20 came
+# 2^16 until phase 20 came, 2^15 until phase 14 (d) came (the replays took
+# 9.1 of the comparison's 16.1 s on one host)
+SIM_GETS_LOG2 = 14
 SIM_CLIENTS = (1, 8, 64)
 # Phase 10: the mesh at (1, 1) on the one card.  The agreement store has 2^14
 # keys; the full-size store takes the first 2^LATER_KEYS_LOG2 of phase 3's keys
@@ -840,9 +866,12 @@ RWKV_TOL = 1e-5
 # card and on the CPU from the same weights and batch; then a checkpoint
 # restart on the card at that size in bf16: three steps, save, two more,
 # restore and replay the two, bit for bit.  (c) llama3.2-1b at its published
-# widths, random bf16 weights, TRAIN_STEPS steps of B = 4 x 512 positions
-# of a constant token stream (tests/test_train_serve.py:30-44: learning
-# rate 2e-3, 2 warm-up steps here), then TRAIN_PROFILED_STEPS profiled.
+# widths, random bf16 weights, one functional and one in-place step from
+# fresh states (their peaks), then TRAIN_STEPS in-place steps of B = 4 x
+# 512 positions of SyntheticLM batches from the seed (a constant token
+# stream until the in-place step came: its loss fell to 0, so "the loss
+# falls" said little), learning rate TRAIN_LR after 2 warm-up steps, then
+# TRAIN_PROFILED_STEPS profiled.
 TRAIN_B, TRAIN_SEQ = 4, 512
 TRAIN_ROWS = TRAIN_B * TRAIN_SEQ
 FNMB_TIMED_SHAPES = [(TRAIN_ROWS, D_MODEL, F, dt)
@@ -887,7 +916,17 @@ TRAIN_TWIN_ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "llava-next-mistral-7b",
 RESTART_STEPS = (3, 2)
 TRAIN_STEPS = 8
 TRAIN_PROFILED_STEPS = 2
-TRAIN_TOKEN = 7
+TRAIN_LR = 1e-3
+# (d): qwen3-4b whole (configs/qwen3_4b.py: 36 layers, d 2560, 32 q heads
+# and 8 kv heads of 128, d_ff 9728), QWEN_STEPS in-place steps of TRAIN_B x
+# TRAIN_SEQ tokens and QWEN_PROFILED_STEPS profiled; its training entries:
+# q (F = 4096), k and v (1024), gate and up (9728), S = TRAIN_ROWS rows
+QWEN_ARCH = "qwen3-4b"
+QWEN_STEPS = 4
+QWEN_PROFILED_STEPS = 1
+QWEN_D = 2560
+QWEN_TRAIN_SHAPES = [(TRAIN_ROWS, QWEN_D, F, "bfloat16")
+                     for F in (4096, 1024, 9728)]
 # phase 15: the vlm, MoE and MLA families at their published widths
 # (src/repro_torch/configs/), random bf16 weights from SEED: llava-next-
 # mistral-7b at all 32 layers (7.26e9 parameters), mixtral-8x22b cut to
@@ -2843,15 +2882,16 @@ def serve_baseline(kind: str, keys, vals, rng) -> dict:
         return int((~seen).sum())
 
     ops_0 = store.meter_totals().ops
-    idx_c = perm[zipf_ranks(rng, n, 1 << N_GETS_LOG2)]
+    t_c = time.perf_counter()
+    idx_c = perm[zipf_ranks(rng, n, 1 << BASE_GETS_LOG2)]
     t0 = time.perf_counter()
     lat, hs = get_windows(idx_c)
     sec = time.perf_counter() - t0
     res.update(gets_per_s=idx_c.size / sec, p50_ms=float(np.percentile(
         lat, 50)), p99_ms=float(np.percentile(lat, 99)),
         batch_misses=check_gets(idx_c, hs),
-        unreachable_keys=int((~batch_visible(eng, kind, keys,
-                                             np.arange(n))).sum()))
+        unreachable_keys=int((~batch_visible(
+            eng, kind, keys, np.arange(min(n, 1 << BASE_SCAN_LOG2)))).sum()))
     check(store.meter_totals().ops - ops_0 == idx_c.size,
           f"{kind}: the meter missed Gets")
 
@@ -2866,7 +2906,10 @@ def serve_baseline(kind: str, keys, vals, rng) -> dict:
     res.update(device_busy_share=busy / wall_us if spans else None,
                device_ops_per_window=spans / 32)
 
+    res["ycsb_c_s"] = time.perf_counter() - t_c
+
     # ---- YCSB-A: zipf, half reads, half updates, submission order ----
+    t_a = time.perf_counter()
     n_a = 1 << LATER_YCSB_A_LOG2
     idx_a = perm[zipf_ranks(rng, n, n_a)]
     is_upd = rng.random(n_a) < 0.5
@@ -2895,7 +2938,10 @@ def serve_baseline(kind: str, keys, vals, rng) -> dict:
                                          for h in reads], np.uint64), want),
           f"YCSB-A on {kind}: a read did not see the latest value")
 
+    res["ycsb_a_s"] = time.perf_counter() - t_a
+
     # ---- deletes, then Gets of the deleted keys ----
+    t_d = time.perf_counter()
     gone = rng.choice(n, 1 << BASE_DELETES_LOG2, replace=False)
     h = store.submit("delete", keys[gone])
     store.flush()
@@ -2924,24 +2970,29 @@ def serve_baseline(kind: str, keys, vals, rng) -> dict:
               f"{kind}: the MN step's answers disagree with the oracle")
 
     res["mn"] = mn_timing(lambda *q: step(*q, arrays), sets, ok)
+    res["rest_s"] = time.perf_counter() - t_d
     res.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
                meter=store.meter_totals().snapshot())
     log(f"{kind}: build {res['build_seconds']:.3f} s (host), index "
-        f"{res['index_bytes']} B; {res['unreachable_keys']} keys past the "
-        f"batch rules ({res['batch_misses']} of the Gets); YCSB-C "
+        f"{res['index_bytes']} B; {res['unreachable_keys']} of the first "
+        f"{min(n, 1 << BASE_SCAN_LOG2)} keys past the batch rules "
+        f"({res['batch_misses']} of the Gets); YCSB-C "
         f"{res['gets_per_s']:.1f} Gets/s, "
         f"window p50 {res['p50_ms']:.4f} ms, p99 {res['p99_ms']:.4f} ms; "
         f"YCSB-A {res['ycsb_a_ops_per_s']:.1f} ops/s; device busy "
         f"{res['device_busy_share']} over 32 windows; MN step "
         f"{json.dumps(res['mn'])}; max_memory_allocated "
-        f"{res['max_memory_allocated']} B; meter {json.dumps(res['meter'])}")
+        f"{res['max_memory_allocated']} B; meter {json.dumps(res['meter'])}; "
+        f"seconds: YCSB-C with its checks {res['ycsb_c_s']:.1f}, YCSB-A "
+        f"{res['ycsb_a_s']:.1f}, deletes and the MN step "
+        f"{res['rest_s']:.1f}")
     return res
 
 
 def modelled_comparison(seed: int) -> dict:
-    """The five kinds at 2^20 keys, each recording 2^16 YCSB-C Gets through
-    a window of 1024, replayed on CX6 with 1, 8 and 64 clients and one MN
-    thread.  Checks that every Get is in the trace and that the replay is
+    """The five kinds at 2^20 keys, each recording 2^SIM_GETS_LOG2 YCSB-C
+    Gets through a window of 1024, replayed on CX6 with 1, 8 and 64 clients
+    and one MN thread.  Checks that every Get is in the trace and that the replay is
     deterministic; the orderings are printed, not asserted."""
     from repro_torch.api import BatchPolicy, StoreSpec, open_store
     from repro_torch.core.hashing import splitmix64
@@ -5481,35 +5532,127 @@ def train_restart(seed: int, arch: str = "llama3.2-1b") -> dict:
     return res
 
 
-def train_model(seed: int) -> tuple:
-    """Phase 14 (c), the main path: llama3.2-1b at its published widths,
-    random bf16 weights from the seed, TRAIN_STEPS steps of
-    ``make_train_step`` on a constant token stream (launch counters zeroed
-    just before the steps and read just after), then TRAIN_PROFILED_STEPS
-    profiled steps.  Returns the numbers and the launch counts."""
+def _state_bytes(tree) -> int:
+    from repro_torch.models.common import sorted_leaves
+    return sum(t.numel() * t.element_size() for _, t in sorted_leaves(tree))
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    from repro_torch.models.common import sorted_leaves
+    return all(x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y)
+               in zip(sorted_leaves(a.tree()), sorted_leaves(b.tree())))
+
+
+def step_peaks(model, tcfg, batch, seed: int) -> tuple:
+    """Phase 14 (c)'s first step twice, from fresh states of ``seed``: the
+    functional step, then the in-place one, each one's peak
+    ``max_memory_allocated`` above the memory allocated just before it;
+    the in-place step hands back the state it was given, every leaf in its
+    own storage, equal bit for bit to the functional step's.  Returns (the
+    in-place state, the record)."""
+    import torch
+    from repro_torch.models.common import sorted_leaves
+    from repro_torch.train import init_state, make_train_step
+    out = {}
+    state = init_state(model.init(seed))
+    for inplace in (False, True):
+        step = make_train_step(model, tcfg, inplace=inplace)
+        ptrs = [t.data_ptr() for _, t in sorted_leaves(state.tree())]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        new, m = step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out["inplace" if inplace else "functional"] = dict(
+            peak=peak, base=base, above_base=peak - base,
+            loss=float(m["loss"]), same_object=new is state,
+            storage_kept=ptrs == [t.data_ptr() for _, t in
+                                  sorted_leaves(new.tree())])
+        if inplace:
+            equal = _states_equal(functional, new)
+            del functional
+        else:
+            functional = new
+            del state, new, m
+            state = init_state(model.init(seed))
+    f, i = out["functional"], out["inplace"]
+    mv = _state_bytes(new.m) + _state_bytes(new.v)
+    rec = dict(functional=f, inplace=i, state_bytes=_state_bytes(new.tree()),
+               m_v_bytes=mv, fall=f["above_base"] - i["above_base"],
+               bit_for_bit=equal)
+    check(i["same_object"] and i["storage_kept"] and not f["same_object"],
+          f"the in-place step did not hand back the state it was given, "
+          f"in its own storage: {rec}")
+    check(equal and f["loss"] == i["loss"], f"the in-place step's state or "
+          f"loss differs from the functional step's: {rec}")
+    check(rec["fall"] >= mv, f"the in-place step's peak above its start is "
+          f"not below the functional step's by the m and v bytes: {rec}")
+    log(f"{model.cfg.name} one step from fresh states of the seed: "
+        f"functional peak {f['peak']} B ({f['above_base']} B above its "
+        f"start), in place {i['peak']} B ({i['above_base']} B above its "
+        f"start, which holds the functional state): {rec['fall']} B less, "
+        f"against m and v's {mv} B (state {rec['state_bytes']} B); states "
+        f"equal bit for bit, loss {i['loss']}")
+    return new, rec
+
+
+def profiled_steps(step, state, batches) -> tuple:
+    """``step`` over ``batches`` under ``torch.profiler`` -> (the state,
+    the device busy share, device ops a step, each CUDA kernel's device ms
+    a step, the largest first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy, n_ops = device_busy_us(prof)
+    by_name = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        t = getattr(ev, "cuda_time_total", 0) if t is None else t
+        if t:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + t / len(batches) \
+                / 1e3
+    return (state, busy / wall_us if n_ops else None, n_ops / len(batches),
+            dict(sorted(by_name.items(), key=lambda kv: -kv[1])), busy)
+
+
+def train_model(seed: int) -> tuple:
+    """Phase 14 (c), the main path: llama3.2-1b at its published widths,
+    random bf16 weights from the seed; :func:`step_peaks`, then
+    TRAIN_STEPS in-place steps of ``make_train_step`` on ``SyntheticLM``
+    batches from the seed (launch counters zeroed just before the steps
+    and read just after), then TRAIN_PROFILED_STEPS profiled.  Returns the
+    numbers and the launch counts."""
+    import torch
 
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.kernels import ops
     from repro_torch.models.common import count_params
     from repro_torch.models.lm import LM
-    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train import SyntheticLM, make_train_step
     cfg = get_config("llama3.2-1b")
     model = LM(cfg)
-    state = init_state(model.init(seed))
+    tcfg = TrainConfig(total_steps=40, warmup_steps=2,
+                       learning_rate=TRAIN_LR)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=seed)
+    state, peaks = step_peaks(model, tcfg, src.global_batch_at(0), seed)
     n_params = count_params(state.params)
-    step = make_train_step(model, TrainConfig(total_steps=40, warmup_steps=2,
-                                              learning_rate=2e-3))
-    toks = np.full((TRAIN_B, TRAIN_SEQ), TRAIN_TOKEN, np.int32)
-    batch = {"tokens": toks, "labels": toks}
+    step = make_train_step(model, tcfg, inplace=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, gnorms, times = [], [], []
     ops.reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
+    for i in range(1, TRAIN_STEPS + 1):
         t = time.perf_counter()
-        state, m = step(state, batch)
+        state, m = step(state, src.global_batch_at(i))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
         torch.cuda.synchronize()
@@ -5520,22 +5663,14 @@ def train_model(seed: int) -> tuple:
           f"training: a loss or gnorm is not finite ({losses}, {gnorms})")
     check(losses[-1] < losses[0],
           f"training: the loss did not fall below its first value {losses}")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(TRAIN_PROFILED_STEPS):
-            state, m = step(state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    busy, n_ops = device_busy_us(prof)
-    by_name = {}  # device us a step by CUDA kernel, the largest first
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        t = getattr(ev, "cuda_time_total", 0) if t is None else t
-        if t:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + t
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    fused = {k: sum(t for n, t in by_name.items() if any(
-        f in n for f in names)) / busy if busy else None
+    n = TRAIN_STEPS + 1
+    state, share, ops_step, by_name, busy = profiled_steps(
+        step, state, [src.global_batch_at(n + i)
+                      for i in range(TRAIN_PROFILED_STEPS)])
+    top = list(by_name.items())[:8]
+    fused = {k: sum(t for nm, t in by_name.items() if any(
+        f in nm for f in names)) / (busy / TRAIN_PROFILED_STEPS / 1e3)
+        if busy else None
         for k, names in (("fused_norm_matmul", ops.FNM_KERNELS),
                          ("fused_norm_matmul_bwd", ops.FNM_BWD_KERNELS))}
     fwd, bwd = (launches[k] / TRAIN_STEPS
@@ -5543,23 +5678,24 @@ def train_model(seed: int) -> tuple:
     ms = np.asarray(times) * 1e3
     res = dict(
         model=cfg.name, params=n_params, batch=TRAIN_B, seq=TRAIN_SEQ,
-        steps=TRAIN_STEPS, losses=losses, gnorms=gnorms,
+        steps=TRAIN_STEPS, losses=losses, gnorms=gnorms, inplace=True,
+        step_peaks=peaks,
         step_p50_ms=float(np.percentile(ms, 50)),
         step_p99_ms=float(np.percentile(ms, 99)),
         tokens_per_s=TRAIN_STEPS * TRAIN_B * TRAIN_SEQ / float(np.sum(times)),
         max_memory_allocated=peak,
-        device_busy_share=busy / wall_us if n_ops else None,
-        device_ops_per_step=n_ops / TRAIN_PROFILED_STEPS,
+        device_busy_share=share,
+        device_ops_per_step=ops_step,
         share_of_device_time=fused,
-        top_kernels_ms_per_step=[(n[:80], t / TRAIN_PROFILED_STEPS / 1e3)
-                                 for n, t in top],
+        top_kernels_ms_per_step=[(nm[:80], t) for nm, t in top],
         fused_norm_matmul_per_step=fwd, fused_norm_matmul_bwd_per_step=bwd,
         expected_per_step=dict(
             fused_norm_matmul=2 * ENTRIES_PER_LAYER * cfg.num_layers,
             fused_norm_matmul_bwd=ENTRIES_PER_LAYER * cfg.num_layers))
-    log(f"trained {cfg.name} ({n_params} parameters, bf16) {TRAIN_STEPS} "
-        f"steps of {TRAIN_B} x {TRAIN_SEQ} tokens: loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}, gnorm {gnorms[-1]:.4f}; step p50 "
+    log(f"trained {cfg.name} ({n_params} parameters, bf16) in place "
+        f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_SEQ} SyntheticLM "
+        f"tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f} ({losses}), "
+        f"gnorm {gnorms[-1]:.4f}; step p50 "
         f"{res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms, "
         f"{res['tokens_per_s']:.1f} tokens/s; max_memory_allocated {peak} "
         f"B; device busy share {res['device_busy_share']} at "
@@ -5571,10 +5707,171 @@ def train_model(seed: int) -> tuple:
     return res, launches
 
 
+def time_fnmb_shape(gen, S: int, d: int, F: int, dt: str) -> dict:
+    """One shape of ``fused_norm_matmul_bwd`` timed by events and by the
+    profiler's device time (its plan's kernels), beside its bound and its
+    plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dtype = getattr(torch, dt)
+    sets = [(*fnm_inputs(gen, S, d, F, dtype)[0],
+             torch.randn((S, F), generator=gen, device="cuda").to(dtype))
+            for _ in range(2)]
+    kern = cycling(ops.fused_norm_matmul_bwd, sets)
+    plan = fnmb_plan_of(S, d, F, dt)
+    names = fnmb_kernels_of(plan)
+    by_kernel = device_times(kern, 10, *names)
+    check(len(by_kernel) == len(names), f"fused_norm_matmul_bwd S={S} d={d} "
+          f"F={F} {dt}: no trace held all of {names} ({sorted(by_kernel)})")
+    bound, by = fnmb_bound(S, d, F, dtype)
+    row = dict(S=S, d=d, F=F, dtype=dt, plan=plan, ms=time_ms(kern, 20),
+               device_ms=sum(by_kernel.values()),
+               device_ms_by_kernel=by_kernel,
+               plain_ms=time_ms(cycling(ref.fused_norm_matmul_bwd_ref, sets),
+                                20),
+               bound_ms=bound, bound_by=by)
+    row["share_of_bound"] = bound / row["device_ms"]
+    log(f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}, plan {plan}: "
+        f"{row['ms']:.6f} ms (device {row['device_ms']:.6f}, by kernel "
+        f"{by_kernel}), plain {row['plain_ms']:.6f} ms, bound "
+        f"{bound:.6f} ms ({by}), bound/device {row['share_of_bound']}")
+    return row
+
+
+def recording_shapes(shapes: dict):
+    """A context in which each ``fused_norm_matmul`` and
+    ``fused_norm_matmul_bwd`` call adds its (S, d, F, dtype) to
+    ``shapes[name]`` (phase 14 (d)'s steps; ``tools/tp_rank.py``'s
+    training meshes)."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        fnm, fnmb = ops.fused_norm_matmul, ops.fused_norm_matmul_bwd
+
+        def at(x, w) -> tuple:
+            return (x.numel() // x.shape[-1], int(x.shape[-1]),
+                    int(w.shape[-1]), str(x.dtype).split(".")[-1])
+
+        def rec_fnm(x, gamma, w):
+            shapes.setdefault("fused_norm_matmul", set()).add(at(x, w))
+            return fnm(x, gamma, w)
+
+        def rec_fnmb(x, gamma, w, dy):
+            shapes.setdefault("fused_norm_matmul_bwd", set()).add(at(x, w))
+            return fnmb(x, gamma, w, dy)
+        ops.fused_norm_matmul, ops.fused_norm_matmul_bwd = rec_fnm, rec_fnmb
+        try:
+            yield shapes
+        finally:
+            ops.fused_norm_matmul, ops.fused_norm_matmul_bwd = fnm, fnmb
+    return ctx()
+
+
+def train_qwen3(gen, seed: int) -> tuple:
+    """Phase 14 (d): rows 5 and 6 against their plain versions at
+    qwen3-4b's training entries (QWEN_TRAIN_SHAPES), each timed beside its
+    bound; then qwen3-4b at its published widths and depth, random bf16
+    weights from the seed, QWEN_STEPS in-place steps of ``SyntheticLM``
+    batches with ``remat="block"`` (launch counters zeroed just before
+    them and read just after; every row-5 and row-6 call's shape recorded
+    and held to the checked shapes), then QWEN_PROFILED_STEPS profiled.
+    Returns the numbers and the launch counts."""
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import count_params
+    from repro_torch.models.lm import LM
+    from repro_torch.train import SyntheticLM, init_state, make_train_step
+    t0 = time.perf_counter()
+    res = dict(fnm_check_shapes=check_fnm_shapes(gen, QWEN_TRAIN_SHAPES),
+               fnmb_check_shapes=check_fnmb_shapes(gen, QWEN_TRAIN_SHAPES))
+    res["fnm_timed"] = [time_fnm_shape(gen, *sh) for sh in QWEN_TRAIN_SHAPES]
+    res["fnmb_timed"] = [time_fnmb_shape(gen, *sh)
+                         for sh in QWEN_TRAIN_SHAPES]
+    res["kernels_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(QWEN_ARCH)
+    check(cfg.d_model == QWEN_D and cfg.num_layers == 36,
+          f"{QWEN_ARCH}: not the published widths and depth")
+    free0, card = torch.cuda.mem_get_info()
+    model = LM(cfg)
+    state = init_state(model.init(seed))
+    n_params = count_params(state.params)
+    state_bytes = _state_bytes(state.tree())
+    step = make_train_step(model, TrainConfig(
+        total_steps=40, warmup_steps=2, learning_rate=TRAIN_LR,
+        remat="block"), inplace=True)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=seed)
+    held = state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, shapes = [], [], {}
+    ops.reset_launch_counts()
+    with recording_shapes(shapes):
+        for i in range(QWEN_STEPS):
+            t = time.perf_counter()
+            state, m = step(state, src.global_batch_at(i))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(fused_norm_matmul=2 * ENTRIES_PER_LAYER * cfg.num_layers,
+                fused_norm_matmul_bwd=ENTRIES_PER_LAYER * cfg.num_layers)
+    checked = {tuple(sh) for sh in QWEN_TRAIN_SHAPES}
+    check(state is held and all(np.isfinite(losses)),
+          f"{QWEN_ARCH}: a loss is not finite, or the step handed back "
+          f"another state ({losses})")
+    check(peak < card, f"{QWEN_ARCH}: peak {peak} B past the card's {card}")
+    check(all(launches[k] == v * QWEN_STEPS for k, v in want.items()),
+          f"{QWEN_ARCH}: launches {launches} in {QWEN_STEPS} steps, not "
+          f"{want} a step")
+    check(all(shapes.get(k) == checked for k in want),
+          f"{QWEN_ARCH}: the steps called rows 5 and 6 at {shapes}, not at "
+          f"the checked shapes {sorted(checked)}")
+    state, share, ops_step, by_name, _ = profiled_steps(
+        step, state, [src.global_batch_at(QWEN_STEPS + i)
+                      for i in range(QWEN_PROFILED_STEPS)])
+    ms = np.asarray(times[1:]) * 1e3
+    res.update(
+        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, state_bytes=state_bytes, batch=TRAIN_B,
+        seq=TRAIN_SEQ, steps=QWEN_STEPS, losses=losses,
+        first_step_ms=times[0] * 1e3, step_p50_ms=float(np.median(ms)),
+        tokens_per_s=(QWEN_STEPS - 1) * TRAIN_B * TRAIN_SEQ
+        / float(np.sum(times[1:])),
+        max_memory_allocated=peak, card_memory=card,
+        free_before=free0, device_busy_share=share,
+        device_ops_per_step=ops_step,
+        top_kernels_ms_per_step=[(nm[:80], t) for nm, t in
+                                 list(by_name.items())[:8]],
+        launches_per_step={k: launches[k] / QWEN_STEPS for k in want},
+        expected_per_step=want,
+        shapes={k: sorted(v) for k, v in shapes.items()})
+    log(f"trained {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{n_params} parameters, bf16) in place {QWEN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_SEQ} SyntheticLM tokens: state {state_bytes} B, "
+        f"max_memory_allocated {peak} B of the card's {card} B ({free0} B "
+        f"free before); losses {losses}; first step "
+        f"{res['first_step_ms']:.3f} ms, then p50 {res['step_p50_ms']:.3f} "
+        f"ms, {res['tokens_per_s']:.1f} tokens/s; device busy share {share} "
+        f"at {ops_step:.1f} device ops a step; launches a step "
+        f"{res['launches_per_step']} (the program's {want}); the largest "
+        f"kernels, ms a step: {res['top_kernels_ms_per_step']}")
+    del model, state, step, held
+    return res, launches
+
+
 def serve_training_phase(gen) -> tuple:
     """Phase 14: (a) :func:`check_fused_norm_matmul_bwd`, (b) the twins and
-    the restart, (c) :func:`train_model`.  Returns the kernel's record, the
-    numbers and the main path's launch counts."""
+    the restart, (c) :func:`train_model`, (d) :func:`train_qwen3`.
+    Returns the kernel's record, the numbers and the launch counts of (c)
+    (those of (d) are in ``res["qwen3"]["launches"]``)."""
     import torch
     res, t = {}, time.perf_counter()
     record = check_fused_norm_matmul_bwd(gen)
@@ -5592,8 +5889,16 @@ def serve_training_phase(gen) -> tuple:
     res["train_s"] = time.perf_counter() - t
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 14 (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s".format(
-        res["kernel_s"], res["agreement_s"], res["train_s"]))
+    t = time.perf_counter()
+    res["qwen3"], qlaunch = train_qwen3(gen, SEED)
+    res["qwen3"]["launches"] = qlaunch
+    res["qwen3_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 14 (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s, (d) {:.1f} s "
+        "(rows 5 and 6 at its shapes {:.1f} s)".format(
+            res["kernel_s"], res["agreement_s"], res["train_s"],
+            res["qwen3_s"], res["qwen3"]["kernels_s"]))
     return record, res, launches
 
 
@@ -6138,7 +6443,9 @@ def serve_tp_phase(gen, world=None) -> tuple:
                 f"{tr[m]['expected_launches']}); {json.dumps({k: v for k, v in tr[m].items() if k not in ('step_ms', 'losses', 'tokens_per_s', 'launches', 'expected_launches', 'fnm_shapes')})}")
         if "zero_twin_max_abs_err" in tr:
             log(f"17 rank {r} float32 twin of the (2, 1) step: max abs err "
-                f"{tr['zero_twin_max_abs_err']}")
+                f"{tr['zero_twin_max_abs_err']}; in place equal to the "
+                f"functional step bit for bit: "
+                f"{tr['zero_twin_inplace_equal']}")
         tf = out["train_families"]
         log(f"17 rank {r} (f) float32 (1, 2) steps of the reduced families "
             f"({tf['seconds']:.1f} s): " + json.dumps(
@@ -6783,13 +7090,18 @@ def run(bg: Background) -> int:
     t9 = time.perf_counter()
     ops.reset_launch_counts()
     baseline_agreement_check(SEED)
+    t9a = time.perf_counter()
     bres = {}
     for kind in BASELINE_KINDS:  # one full-size store at a time
         bres[kind] = serve_baseline(kind, keys, vals, rng)
         gc.collect()
         torch.cuda.empty_cache()
     bres["outback"] = dict(mn=outback_mn)
+    t9b = time.perf_counter()
     model = modelled_comparison(SEED)
+    log(f"phase 9: the agreement {t9a - t9:.1f} s, the four stores "
+        f"{t9b - t9a:.1f} s, the modelled comparison "
+        f"{time.perf_counter() - t9b:.1f} s")
     blaunch = dict(ops.LAUNCHES)
     for name, k in kernels.items():
         k["launches_baselines_path"] = blaunch[name]
@@ -6862,12 +7174,20 @@ def run(bg: Background) -> int:
         serve_training_phase(gen)
     kernels["fused_norm_matmul_bwd"]["launches"] = \
         tlaunch["fused_norm_matmul_bwd"]
+    qwen = tres["qwen3"]
     for name, k in kernels.items():
         k["launches_train_path"] = tlaunch[name]
+        k["launches_train_qwen3_path"] = qwen["launches"][name]
+    for name, shapes in (("fused_norm_matmul", qwen["fnm_check_shapes"]),
+                         ("fused_norm_matmul_bwd",
+                          qwen["fnmb_check_shapes"])):
+        kernels[name]["max_abs_err_qwen3_train_shapes"] = max(
+            sh["max_abs_err"] for sh in shapes)
     for name in ("fused_norm_matmul", "fused_norm_matmul_bwd"):
-        check(tlaunch[name] > 0, f"{name} never launched on the training "
-              f"path")
-    log(f"launches on the training path: {tlaunch}")
+        check(tlaunch[name] > 0 and qwen["launches"][name] > 0,
+              f"{name} never launched on a training path")
+    log(f"launches on the training path: {tlaunch}; qwen3-4b's: "
+        f"{qwen['launches']}")
     log(f"training path: {json.dumps(tres)}")
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
 

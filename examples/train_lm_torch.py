@@ -2,6 +2,9 @@
 llama-style model, a few hundred steps on synthetic data, with
 checkpoint/restart mid-run (fault tolerance).  The counterpart of
 ``examples/train_lm.py``; it runs on the card unless ``--device cpu``.
+The step updates its state in place, as the reference donates it
+(``donate_argnums=0``), and the restart restores into a fresh state's
+tensors.
 
     PYTHONPATH=src python examples/train_lm_torch.py [--steps 300] \\
         [--d-model 256] [--device cuda]
@@ -17,7 +20,8 @@ from repro_torch.configs import TrainConfig, get_config
 from repro_torch.models.common import count_params
 from repro_torch.models.lm import LM
 from repro_torch.train import (Prefetcher, SyntheticLM, init_state,
-                               latest_step, make_train_step, restore, save)
+                               latest_step, make_train_step, restore_into,
+                               save)
 
 
 def main(argv=None):
@@ -44,7 +48,7 @@ def main(argv=None):
     tcfg = TrainConfig(total_steps=args.steps, warmup_steps=20,
                        learning_rate=3e-4, checkpoint_every=100)
     state = init_state(model.init(0))
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, inplace=True)
     src = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
     pipe = Prefetcher(src)
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
@@ -66,11 +70,8 @@ def main(argv=None):
     save(ckpt_dir, int(state.step), state.tree())
     print(f"-- simulated failure at step {int(state.step)}; restarting from "
           f"checkpoint {latest_step(ckpt_dir)} --")
-    restored = restore(ckpt_dir, state.tree())
     state = init_state(model.init(0))  # fresh process stand-in
-    state = dataclasses.replace(
-        state, params=restored["params"], m=restored["m"], v=restored["v"],
-        step=restored["step"])
+    restore_into(ckpt_dir, state.tree())
     state = run_until(state, args.steps)
     print(f"done at step {int(state.step)}; data pipeline stats: "
           f"{pipe.stats}")

@@ -86,6 +86,13 @@ class LudoCN:
     def device(self) -> torch.device:
         return self.seeds.device
 
+    @property
+    def bits_per_key(self) -> float:
+        """The CN's bits (Othello arrays and 8-bit seeds) over the keys its
+        buckets hold at load factor 0.95, as the reference counts them."""
+        n_keys = max(1, int(round(self.num_buckets * 4 * 0.95)))
+        return (self.othello.bits + 8 * self.num_buckets) / n_keys
+
     def memory_bytes(self) -> int:
         oth = self.othello
         return (oth.words_a.numel() * 4 + oth.words_b.numel() * 4

@@ -13,9 +13,10 @@ rank runs its share and calls the collectives itself), and a world of
      16)``) as ``meta`` tensors of the rank's local shapes (the batch,
      the cache, the parameters and the ZeRO-1 state, each through the
      reference's specs and ``local_shape``); nothing is allocated;
-  2. runs the rank's step (``make_train_step`` with remat, ``prefill`` or
-     ``decode_step``) under ``launch/hlo_analysis.py::CostMode``, which
-     counts its FLOPs, bytes, collective bytes and peak live bytes;
+  2. runs the rank's step (``make_train_step(..., inplace=True)`` with
+     remat, ``prefill`` or ``decode_step(..., inplace=True)``) under
+     ``launch/hlo_analysis.py::CostMode``, which counts its FLOPs, bytes,
+     collective bytes and peak live bytes;
   3. runs the steps of rank 0's neighbours along each axis too and
      requires each pair to issue the same sequence of collectives
      (op, axes, shape, dtype) over the axis they share: where they differ
@@ -32,11 +33,13 @@ What differs from the reference: ``build_cell`` returns a :class:`Cell`
 shape than ``SHAPES``'s; a record has ``trace_s`` where the reference has
 ``lower_s`` and ``compile_s``, ``temp_size_in_bytes`` is the peak of the
 bytes the step creates (outputs included) above its arguments, and there
-is no generated code or HLO.  The serve step writes the cache in place
-(``decode_step(inplace=True)``), the counterpart of the reference's
-donated cache, so its outputs hold no second cache.  The ``moegather`` variant's local picks
-depend on the routing; on ``meta`` they are all T*k picks (the
-reference's static count of gathered slices,
+is no generated code or HLO.  The train step updates its state and the
+serve step writes its cache in place, the counterparts of the reference's
+donated state and cache, so neither holds a second copy;
+``alias_size_in_bytes`` is the bytes of the outputs whose storage is an
+argument's (the state, or the cache), as the reference's.  The
+``moegather`` variant's local picks depend on the routing; on ``meta``
+they are all T*k picks (the reference's static count of gathered slices,
 ``src/repro/models/moe.py:147-159``), which a cell records as
 ``assumed``.
 
@@ -166,7 +169,8 @@ def build_cell(arch: str, shape_name: str, mesh, variant: str | None = None,
     """The cell's step on ``mesh``'s rank (a ``MetaMesh``, or a live
     ``Mesh`` whose step :func:`materialize` feeds); ``shape`` replaces
     ``SHAPES[shape_name]`` and ``cfg`` ``get_config(arch)`` (a reduced
-    config, in the tests)."""
+    config, in the tests).  The train and serve steps update their state
+    and cache in place, as the reference donates them."""
     cfg = cfg or get_config(arch)
     if variant:
         for v in variant.split("+"):
@@ -177,7 +181,9 @@ def build_cell(arch: str, shape_name: str, mesh, variant: str | None = None,
     tmpl = lm_mod.param_template(cfg, model.tp)
 
     if shape.kind == "train":
-        step = make_train_step(model, TrainConfig(remat="block"), mesh=mesh)
+        # the reference donates the state (donate_argnums=(0,))
+        step = make_train_step(model, TrainConfig(remat="block"), mesh=mesh,
+                               inplace=True)
         dsz = mesh.shape["data"] * mesh.shape.get("pod", 1)
         st_specs = state_pspecs(model.pspecs(), model.abstract(),
                                 data_size=dsz, zero1=True)
@@ -251,6 +257,20 @@ def _tensors(tree) -> list:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+def _alias_bytes(args, out) -> int:
+    """The bytes of ``out``'s tensors whose storage is one of ``args``'
+    (each storage once): what the step hands back in its arguments'
+    buffers, the reference's ``alias_size_in_bytes``."""
+    held = {t.untyped_storage()._cdata for t in _tensors(args)}
+    seen, n = set(), 0
+    for t in _tensors(out):
+        key = t.untyped_storage()._cdata
+        if key in held and key not in seen:
+            seen.add(key)
+            n += t.numel() * t.element_size()
+    return n
+
+
 def _arg_bytes_per_device(whole, chips: int) -> int:
     total = 0
     for lf in _leaves(whole):
@@ -299,6 +319,7 @@ def trace_rank(arch: str, shape_name: str, multi_pod: bool,
         "memory_analysis": {
             "argument_size_in_bytes": _nbytes(cell.args),
             "output_size_in_bytes": _nbytes(out),
+            "alias_size_in_bytes": _alias_bytes(cell.args, out),
             "temp_size_in_bytes": int(mode.peak_live_bytes),
             "arguments_per_device_estimate":
                 _arg_bytes_per_device(cell.whole, chips)},

@@ -41,7 +41,8 @@ reference's (its lines 1-22, 47-66, 224-312), carried over to aten:
   not counted, so a kernel's work counts the same on every device.
 * Peak live bytes: each output's storage is added when it is created
   and freed by a finalizer on the storage; a storage counts once, since
-  views share it, and a storage an op read (an argument's) is never
+  views share it, and a storage an op read or wrote in place (an
+  argument's, ``mul_``'s, ``copy_``'s or an ``out=`` tensor's) is never
   new.  Tensors made before the counter started (the arguments) are not
   live bytes.
 
@@ -343,7 +344,8 @@ class CostMode(TorchDispatchMode):
         rec[1] += flops
         rec[2] += b if name in MATERIALIZING else 0.0
         rec[3] += b
-        self._track(outs, ins)
+        # an ``out=`` tensor is written where it lies: no new storage
+        self._track(outs, ins + _tensors(kwargs.get("out")))
 
     # ---- live bytes
     def _track(self, outs, ins) -> None:

@@ -2,7 +2,11 @@
 on one device.
 
 It runs the reduced configs end to end (real steps) on the card, or on the
-CPU with ``--device cpu``.  As in the reference, ``--reduced`` is always on
+CPU with ``--device cpu``.  The step updates its state in place
+(``make_train_step(..., inplace=True)``), as the reference donates the
+state to its jitted step (``donate_argnums=0``); ``--resume`` restores
+into the state's own tensors, and a checkpoint reads every leaf to the
+host before the next step.  As in the reference, ``--reduced`` is always on
 (``store_true`` with ``default=True``), so the full configs are not
 reachable from this entry point.
 
@@ -13,14 +17,14 @@ reachable from this entry point.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import torch
 
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.models.lm import LM
 from repro_torch.train import (Prefetcher, SyntheticLM, init_state,
-                               latest_step, make_train_step, restore, save)
+                               latest_step, make_train_step, restore_into,
+                               save)
 
 
 def main(argv=None):
@@ -46,11 +50,10 @@ def main(argv=None):
                        microbatch=args.microbatch)
     state = init_state(model.init(0))
     if args.resume and args.checkpoint_dir and latest_step(args.checkpoint_dir):
-        t = restore(args.checkpoint_dir, state.tree())
-        state = dataclasses.replace(state, params=t["params"], m=t["m"],
-                                    v=t["v"], step=t["step"])
+        restore_into(args.checkpoint_dir, state.tree())
         print(f"resumed from step {int(state.step)}")
-    step_fn = make_train_step(model, tcfg)
+    # the state is donated to the step, as the reference's
+    step_fn = make_train_step(model, tcfg, inplace=True)
     src = SyntheticLM(cfg.vocab_size, args.seq, args.batch,
                       frontend=("vision" if cfg.vision_tokens else
                                 "audio" if cfg.is_encdec else None),

@@ -1091,11 +1091,12 @@ class LM:
         """One token for every sequence. tokens (B,1) -> (logits (B,V),
         cache).  The cache is not changed: the step returns a new one;
         with ``inplace`` the step writes the new token into the cache's
-        tensors and returns them (with a new ``length``), the counterpart
-        of the reference's donated cache (``donate_argnums``), so no second
-        cache is held.  encdec reads ``enc_out`` (B, Se, d); without it, a
-        zero encoder stub of (B, encoder_seq, d), made anew each step, as
-        in the reference (whose ``Engine`` passes none either)."""
+        tensors and returns them (``length`` advanced in place), the
+        counterpart of the reference's donated cache (``donate_argnums``),
+        so no second cache is held.  encdec reads ``enc_out`` (B, Se, d);
+        without it, a zero encoder stub of (B, encoder_seq, d), made anew
+        each step, as in the reference (whose ``Engine`` passes none
+        either)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         length = cache["length"]
@@ -1110,7 +1111,8 @@ class LM:
             inplace=inplace)
         x = rms_norm(x, params["final_norm"])
         logits = self._unembed_logits(params, x[:, 0])
-        return logits, {"stages": new_stages, "length": length + 1}
+        return logits, {"stages": new_stages,
+                        "length": length.add_(1) if inplace else length + 1}
 
     def prefill(self, params, batch):
         """Full-sequence forward: logits at the last position (``batch``:

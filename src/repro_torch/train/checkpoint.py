@@ -13,8 +13,10 @@ Leaves are saved as host numpy in the reference's flat order
 leaves are stored as float32 (``.npy`` has no bf16) with their dtype in the
 manifest.  ``restore`` rebuilds the structure of ``tree_like`` with each
 leaf on that leaf's device; it never reads ``manifest["treedef"]``, which
-is the port's own description of the tree.  ``save`` is atomic (tmp dir +
-rename) and keeps ``retain`` newest checkpoints.
+is the port's own description of the tree.  ``restore_into`` writes the
+saved leaves into a tree's own tensors instead (a resumed run that updates
+its state in place).  ``save`` is atomic (tmp dir + rename) and keeps
+``retain`` newest checkpoints.
 """
 
 from __future__ import annotations
@@ -91,22 +93,51 @@ def latest_step(ckpt_dir: str) -> int | None:
         return int(f.read().strip().split("_")[1])
 
 
-def restore(ckpt_dir: str, tree_like, *, step: int | None = None):
-    """Restore into the structure of ``tree_like``: each leaf a tensor of
-    the saved dtype on the device of ``tree_like``'s leaf (the CPU for a
-    leaf that is not a tensor)."""
+def _step_dir(ckpt_dir: str, step: int | None) -> tuple:
+    """-> (the step's directory, its manifest); the newest step when
+    ``step`` is None."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
-        manifest = json.load(f)
+        return d, json.load(f)
+
+
+def _load_leaf(d: str, manifest: dict, i: int) -> torch.Tensor:
+    """Leaf ``i`` on the host, in its saved dtype."""
+    t = torch.from_numpy(np.load(os.path.join(d, f"leaf_{i:05d}.npy")))
+    return t.to(torch.bfloat16) if manifest["dtypes"][i] == "bfloat16" \
+        else t
+
+
+def restore(ckpt_dir: str, tree_like, *, step: int | None = None):
+    """Restore into the structure of ``tree_like``: each leaf a tensor of
+    the saved dtype on the device of ``tree_like``'s leaf (the CPU for a
+    leaf that is not a tensor)."""
+    d, manifest = _step_dir(ckpt_dir, step)
     out = []
     for i, (_, ref) in enumerate(sorted_leaves(tree_like)):
-        t = torch.from_numpy(np.load(os.path.join(d, f"leaf_{i:05d}.npy")))
-        if manifest["dtypes"][i] == "bfloat16":
-            t = t.to(torch.bfloat16)
-        out.append(t.to(ref.device if isinstance(ref, torch.Tensor)
-                        else "cpu"))
+        out.append(_load_leaf(d, manifest, i).to(
+            ref.device if isinstance(ref, torch.Tensor) else "cpu"))
     return tree_from_sorted_leaves(tree_like, out)
+
+
+def restore_into(ckpt_dir: str, tree, *, step: int | None = None) -> int:
+    """Restore into ``tree``'s own tensors: each saved leaf read to the
+    host and copied into its tensor (same shape and dtype) before the next
+    is read, so the device never holds a second tree.  Returns the step
+    restored."""
+    d, manifest = _step_dir(ckpt_dir, step)
+    leaves = sorted_leaves(tree)
+    if len(leaves) != manifest["num_leaves"]:
+        raise ValueError(f"the checkpoint has {manifest['num_leaves']} "
+                         f"leaves, the tree {len(leaves)}")
+    for i, (path, t) in enumerate(leaves):
+        src = _load_leaf(d, manifest, i)
+        if src.shape != t.shape or src.dtype != t.dtype:
+            raise ValueError(f"leaf {path}: saved {tuple(src.shape)} "
+                             f"{src.dtype}, tree {tuple(t.shape)} {t.dtype}")
+        t.copy_(src)
+    return manifest["step"]

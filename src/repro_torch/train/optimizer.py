@@ -4,11 +4,12 @@ reference's ``train/optimizer.py`` in PyTorch.
 The update keeps the reference's float32 expressions in their order
 (``b1 ** step``, ``mhat / (sqrt(vhat) + 1e-8) + wd * p``, the global-norm
 clip scale), leaf for leaf over the parameter tree, and is functional as
-there: it returns a new state and changes no tensor of the old one (a
-restarted run replays from a saved state).  ``zero1_spec`` and
-``state_pspecs`` are pure functions over :class:`Spec` trees, as the
-reference's over ``PartitionSpec``'s; ``abstract_state`` is on the
-``meta`` device.
+there by default: it returns a new state and changes no tensor of the old
+one.  ``inplace=True`` writes the same values into the state's own
+tensors, the counterpart of the reference's donated train state.
+``zero1_spec`` and ``state_pspecs`` are pure functions over :class:`Spec`
+trees, as the reference's over ``PartitionSpec``'s; ``abstract_state`` is
+on the ``meta`` device.
 
 ZeRO-1 at run time: over a mesh (``launch/mesh.py``) whose data axes
 (:func:`zero_axes`) hold more than one rank, ``init_state`` gives each
@@ -153,61 +154,102 @@ def lr_schedule(cfg: TrainConfig, step):
     return cfg.learning_rate * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """``sum(square(x.float()))`` with one float32 temporary of ``x``'s
+    size (the square taken in place where ``float()`` made a copy)."""
+    y = x.float()
+    return torch.sum(torch.square(y) if y is x else y.square_())
+
+
 def global_norm(grads):
     """The float32 L2 norm over every leaf of ``grads``."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for _, g in sorted_leaves(grads)))
+    return torch.sqrt(sum(sum_squares(g) for _, g in sorted_leaves(grads)))
+
+
+def adamw_scalars(cfg: TrainConfig, step, gnorm) -> tuple:
+    """-> (clip scale, learning rate, 1 - b1 ** step, 1 - b2 ** step) of
+    the update that makes ``step`` (the advanced step) from a gradient of
+    norm ``gnorm``."""
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    lr = lr_schedule(cfg, step)
+    bc1 = 1.0 - cfg.b1 ** step.float()
+    bc2 = 1.0 - cfg.b2 ** step.float()
+    return scale, lr, bc1, bc2
+
+
+def adamw_leaf(cfg: TrainConfig, scalars: tuple, p, g, m, v, *,
+               inplace: bool = False) -> tuple:
+    """One leaf's update -> (p, m, v): the reference's expressions, each op
+    rounded as there, in two float32 scratch tensors (a 1.24e9-parameter
+    model's update fits beside its state).  With ``inplace`` the new ``m``
+    and ``v`` are written into ``m`` and ``v`` and the new parameter into
+    ``p`` (``b1 * m + t`` as ``m.mul_(b1).add_(t)``, ``new.to(p.dtype)``
+    as ``p.copy_(new)``: the same ops, so the same bits), and those
+    tensors are returned; else three new tensors."""
+    scale, lr, bc1, bc2 = scalars
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * scale
+    t = g * (1 - b1)
+    m = m.mul_(b1) if inplace else b1 * m
+    m += t
+    torch.square(g, out=t)
+    torch.mul(t, 1 - b2, out=g)  # g is the scratch from here on
+    v = v.mul_(b2) if inplace else b2 * v
+    v += g
+    torch.div(v, bc2, out=g)  # vhat
+    g.sqrt_()
+    g += 1e-8
+    torch.div(m, bc1, out=t)  # mhat
+    t /= g
+    g.copy_(p)
+    g *= cfg.weight_decay
+    t += g  # delta
+    t *= lr
+    g.copy_(p)
+    g -= t
+    if inplace:
+        return p.copy_(g), m, v
+    return g.to(p.dtype), m, v
+
+
+def leaf_order(leaves) -> list:
+    """The order in which an update visits ``leaves``: the smallest first
+    (ties in the tree's order), so the largest leaf's float32 scratch is
+    made when the other gradient leaves have been used and freed.  Each
+    leaf's update reads only its own leaves, so the order changes no
+    value."""
+    return sorted(range(len(leaves)), key=lambda i: leaves[i].numel())
 
 
 def adamw_update(cfg: TrainConfig, state: TrainState, grads, *,
-                 gnorm=None) -> TrainState:
+                 gnorm=None, inplace: bool = False) -> TrainState:
     """One AdamW step with global-norm clipping; ``gnorm``, when given, is
     the norm of the whole gradient (of which ``grads`` may be a rank's
     part).  Each gradient leaf is dropped once used, so a caller that
-    passes ``grads`` without keeping it frees them one by one."""
+    passes ``grads`` without keeping it frees them one by one.
+
+    Functional by default, as the reference's: a new state, the old one
+    untouched.  With ``inplace`` the update writes ``params``, ``m`` and
+    ``v`` into the state's own tensors and advances ``state.step`` in
+    place, and returns ``state`` itself, bit for bit the functional
+    step's: the counterpart of the reference's call sites, which donate
+    the state to the jitted step.  The old values are gone then."""
     if gnorm is None:
         gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    step = state.step + 1
-    lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - b1 ** step.float()
-    bc2 = 1.0 - b2 ** step.float()
-
-    def upd(p, g, m, v):
-        """The reference's expressions, each op rounded as there, in two
-        scratch tensors: three float32 leaves alive besides the new m and
-        v (a 1.24e9-parameter model's update fits beside its state)."""
-        g = g.float() * scale
-        t = g * (1 - b1)
-        m = b1 * m
-        m += t
-        torch.square(g, out=t)
-        torch.mul(t, 1 - b2, out=g)  # g is the scratch from here on
-        v = b2 * v
-        v += g
-        torch.div(v, bc2, out=g)  # vhat
-        g.sqrt_()
-        g += 1e-8
-        torch.div(m, bc1, out=t)  # mhat
-        t /= g
-        g.copy_(p)
-        g *= cfg.weight_decay
-        t += g  # delta
-        t *= lr
-        g.copy_(p)
-        g -= t
-        return g.to(p.dtype), m, v
-
+    step = state.step.add_(1) if inplace else state.step + 1
+    scalars = adamw_scalars(cfg, step, gnorm)
     g_leaves = [g for _, g in sorted_leaves(grads)]
     del grads  # a leaf is freed once used when the caller holds no other
-    out = []
-    for i, ((_, p), (_, m), (_, v)) in enumerate(zip(
-            sorted_leaves(state.params), sorted_leaves(state.m),
-            sorted_leaves(state.v))):
-        g, g_leaves[i] = g_leaves[i], None
-        out.append(upd(p, g, m, v))
+    leaves = list(zip(*([t for _, t in sorted_leaves(tree)] for tree in (
+        state.params, state.m, state.v))))
+    out = [None] * len(leaves)
+    for i in leaf_order(g_leaves):
+        box, g_leaves[i] = [g_leaves[i]], None
+        out[i] = adamw_leaf(cfg, scalars, leaves[i][0], box.pop(),
+                            *leaves[i][1:], inplace=inplace)
+    if inplace:
+        return state
     new_p, new_m, new_v = (tree_from_sorted_leaves(t, [o[j] for o in out])
                            for j, t in enumerate((state.params, state.m,
                                                   state.v)))

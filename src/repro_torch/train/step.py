@@ -13,6 +13,10 @@ Composition per step:
   5. the AdamW update (``train.optimizer``), its clip reading the norm of
      the whole gradient, then the updated slices gathered over the ZeRO
      axes.
+
+``make_train_step(..., inplace=True)`` is the counterpart of the
+reference's ``jax.jit(step, donate_argnums=0)``: the step writes the new
+state into the old state's tensors, so one state is alive at a time.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models.common import (sorted_leaves, tree_from_sorted_leaves,
                                        tree_map)
 from repro_torch.models.lm import LM
-from repro_torch.train.optimizer import (TrainState, adamw_update,
-                                         global_norm, zero_axes, zero_slice)
+from repro_torch.train.optimizer import (TrainState, adamw_leaf,
+                                         adamw_scalars, adamw_update,
+                                         global_norm, leaf_order, sum_squares,
+                                         zero_axes, zero_slice)
 
 
 def _split_microbatches(batch, n):
@@ -54,7 +60,8 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_from_sorted_leaves(params, grads)
 
 
-def _int8_pod_exchange(grads, ef, npods: int, mesh, max_axes=None):
+def _int8_pod_exchange(grads, ef, npods: int, mesh, max_axes=None, *,
+                       inplace: bool = False):
     """Quantized inter-pod all-reduce with error feedback, the reference's
     function as this rank's program.  Per leaf, in float32: ``g + e``, a
     scale ``max(max|g| / 127, 1e-12)``, ``q = clip(round(g / scale), -127,
@@ -62,7 +69,8 @@ def _int8_pod_exchange(grads, ef, npods: int, mesh, max_axes=None):
     residual ``g - q * scale``, then for each hop the peer's ``q`` and
     scale moved over the ``pod`` axis and summed in the reference's hop
     order, then ``/ npods``.  ``max_axes`` maps a leaf's path to the axes
-    over which its max is taken (the ranks holding parts of it)."""
+    over which its max is taken (the ranks holding parts of it).  With
+    ``inplace`` the new residual is written into ``ef``'s own leaves."""
     def one(path, g, e):
         g = g.float() + e
         amax = torch.max(torch.abs(g))
@@ -70,7 +78,8 @@ def _int8_pod_exchange(grads, ef, npods: int, mesh, max_axes=None):
             amax = mesh.pmax(amax, max_axes(path))
         scale = torch.clamp(amax / 127.0, min=1e-12)
         q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
-        new_e = g - q.float() * scale
+        new_e = (torch.sub(g, q.float() * scale, out=e) if inplace
+                 else g - q.float() * scale)
         total = q.float() * scale
         for hop in range(1, npods):
             perm = [(i, (i + hop) % npods) for i in range(npods)]
@@ -85,13 +94,25 @@ def _int8_pod_exchange(grads, ef, npods: int, mesh, max_axes=None):
             tree_from_sorted_leaves(ef, [o[1] for o in out]))
 
 
-def make_train_step(model: LM, tcfg: TrainConfig, *, mesh=None):
+def make_train_step(model: LM, tcfg: TrainConfig, *, mesh=None,
+                    inplace: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds (B, S) ``tokens`` and ``labels`` (numpy arrays or tensors) of
     this rank's share of the batch, moved to the model's device.  ``mesh``
     (the model's unless given) is a ``launch.mesh.Mesh``; a mesh-like
     object that is not one is taken only when each of its axes has one
-    rank."""
+    rank.
+
+    The step is functional by default: it returns a new state and leaves
+    the one it was given as it was.  With ``inplace`` it writes the new
+    state into the given one (each leaf keeps its storage) and returns that
+    same :class:`TrainState`, bit for bit the functional step's.  A caller
+    that passes a state to an in-place step must not read the old values
+    afterwards, as the reference's donated buffers are invalid after the
+    call.  Over a mesh it goes leaf by leaf: the rank's ZeRO-1 slice of
+    the leaf is updated with its ``m`` and ``v``, gathered over the ZeRO
+    axes into one temporary and copied into the leaf, so the step holds
+    one leaf's gather beside the state, not a second parameter tree."""
     loss_fn = make_loss_fn(model)
     mesh = model.mesh if mesh is None else mesh
     if mesh is not None and not isinstance(mesh, Mesh):
@@ -112,10 +133,13 @@ def make_train_step(model: LM, tcfg: TrainConfig, *, mesh=None):
             for i in range(tcfg.microbatch):
                 loss, g = value_and_grad(loss_fn, params,
                                          {k: v[i] for k, v in mbs.items()})
-                g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
+                for (_, a), (_, b) in zip(sorted_leaves(g_acc),
+                                          sorted_leaves(g)):
+                    a += b.float()
+                del g
                 l_acc = l_acc + loss
             inv = 1.0 / tcfg.microbatch
-            return tree_map(lambda x: x * inv, g_acc), l_acc * inv
+            return tree_map(lambda x: x.mul_(inv), g_acc), l_acc * inv
         loss, g = value_and_grad(loss_fn, params, batch)
         return g, loss
 
@@ -123,6 +147,13 @@ def make_train_step(model: LM, tcfg: TrainConfig, *, mesh=None):
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
         g, loss = grads_of(state.params, batch)
+        if inplace:
+            gnorm = global_norm(g)
+            box = [g]  # the update frees each gradient leaf once used
+            del g
+            adamw_update(tcfg, state, box.pop(), gnorm=gnorm, inplace=True)
+            return state, {"loss": loss, "gnorm": gnorm,
+                           "step": state.step.clone()}
         new_state = adamw_update(tcfg, state, g)
         return new_state, {"loss": loss, "gnorm": global_norm(g),
                            "step": new_state.step}
@@ -151,27 +182,48 @@ def make_train_step(model: LM, tcfg: TrainConfig, *, mesh=None):
         by_axes = {}
         for path, x in sorted_leaves(grads):
             acc = by_axes.get(owners(path), 0.0)
-            by_axes[owners(path)] = acc + torch.sum(torch.square(x.float()))
+            by_axes[owners(path)] = acc + sum_squares(x)
         return torch.sqrt(sum(mesh.psum(v, axes) if axes else v
                               for axes, v in by_axes.items()))
+
+    def update_in_place(state: TrainState, g_z, dims, gnorm) -> None:
+        """Each leaf in turn (``leaf_order``'s): its ZeRO-1 slice updated
+        with the rank's ``m`` and ``v``, then gathered into one temporary
+        and copied into the state's leaf (a leaf that is not sliced is
+        updated where it lies); each gradient leaf is freed once used."""
+        state.step.add_(1)
+        scalars = adamw_scalars(tcfg, state.step, gnorm)
+        g_leaves = [x for _, x in sorted_leaves(g_z)]
+        del g_z
+        leaves = list(zip(*([t for _, t in sorted_leaves(tree)] for tree in (
+            state.params, state.m, state.v))))
+        for i in leaf_order(g_leaves):
+            p, m, v = leaves[i]
+            box, g_leaves[i] = [g_leaves[i]], None
+            p_z = zero_slice(p, dims[i], mesh, z_axes)
+            adamw_leaf(tcfg, scalars, p_z, box.pop(), m, v, inplace=True)
+            if dims[i] is not None:
+                p.copy_(mesh.all_gather(p_z, z_axes, dim=dims[i]))
+            del p_z
 
     def mesh_step(state: TrainState, batch):
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
         g, loss = grads_of(state.params, batch)
-        n = mesh.axis_size(sum_axes)
-        if n > 1:
-            g = tree_map(lambda x: mesh.psum(x, sum_axes) / n, g)
-        loss = mesh.pmean(loss, batch_axes)
         leaves = sorted_leaves(state.params)
         dims = [zdim(p, m) for (_, p), (_, m) in
                 zip(leaves, sorted_leaves(state.m))]
-        params_z = tree_from_sorted_leaves(state.params, [
-            zero_slice(p, d, mesh, z_axes) for (_, p), d in zip(leaves, dims)])
-        g_z = tree_from_sorted_leaves(g, [
-            zero_slice(x, d, mesh, z_axes)
-            for (_, x), d in zip(sorted_leaves(g), dims)])
-        del g  # the whole gradient, once sliced
+        # leaf by leaf, each summed and sliced leaf replacing the whole one
+        n = mesh.axis_size(sum_axes)
+        xs = [x for _, x in sorted_leaves(g)]
+        del g
+        for i, d in enumerate(dims):
+            if n > 1:
+                xs[i] = mesh.psum(xs[i], sum_axes) / n
+            xs[i] = zero_slice(xs[i], d, mesh, z_axes)
+        g_z = tree_from_sorted_leaves(state.params, xs)
+        del xs
+        loss = mesh.pmean(loss, batch_axes)
         sliced = {path: d is not None for (path, _), d in zip(leaves, dims)}
 
         def owners(path) -> tuple:
@@ -183,8 +235,16 @@ def make_train_step(model: LM, tcfg: TrainConfig, *, mesh=None):
         ef = state.ef
         if use_compress:
             g_z, ef = _int8_pod_exchange(g_z, state.ef, npods, mesh,
-                                         max_axes=owners)
+                                         max_axes=owners, inplace=inplace)
         gnorm = whole_norm(g_z, owners)
+        if inplace:
+            box = [g_z]  # freed leaf by leaf inside
+            del g_z
+            update_in_place(state, box.pop(), dims, gnorm)
+            return state, {"loss": loss, "gnorm": gnorm,
+                           "step": state.step.clone()}
+        params_z = tree_from_sorted_leaves(state.params, [
+            zero_slice(p, d, mesh, z_axes) for (_, p), d in zip(leaves, dims)])
         box = [g_z]  # the update frees each gradient leaf once used
         del g_z
         new = adamw_update(tcfg, dataclasses.replace(

@@ -25,7 +25,10 @@ joins a gloo world and, for each case, builds the case's mesh
 * ``train``: two steps of ``train.make_train_step`` over the case's mesh
   from the rank's share of each global batch (its params gathered whole,
   its ZeRO-1 slices of ``m`` / ``v`` / ``ef``, the mesh's counts), and
-  ``_int8_pod_exchange`` on the pod's gradients.
+  ``_int8_pod_exchange`` on the pod's gradients; a case with ``inplace``
+  runs ``steps`` steps of the functional and of the in-place step from
+  equal states and writes the in-place state too (under ``inplace/``),
+  with whether it is the same object and every leaf kept its storage.
 
 It writes its outputs to ``OUT`` and imports only torch, numpy and
 ``repro_torch``.  :data:`REF_SCRIPT` (the reference's side, a text run in a
@@ -203,20 +206,42 @@ def run_train(data, case: dict, rank: int, out: dict) -> None:
     step = make_train_step(model, tcfg)
     n = mesh.axis_size(("pod", "data"))
     k = mesh.axis_index(("pod", "data"))
+    inplace = None
+    if case.get("inplace"):
+        inplace = init_state(mesh_mod.shard_params(full, pspecs, mesh),
+                             compression=tcfg.grad_compression == "int8",
+                             mesh=mesh, pspecs=pspecs, zero1=tcfg.zero1)
+        held = inplace
+        ptrs = [t.data_ptr() for _, t in sorted_leaves(inplace.tree())]
+        istep = make_train_step(model, tcfg, inplace=True)
     mesh.reset_stats()
-    for i in range(2):
+    for i in range(case.get("steps", 2)):
         batch = {f: data[f"{name}/{f}{i}"] for f in ("tokens", "labels")}
         b = batch["tokens"].shape[0] // n
-        state, met = step(state, {f: _tensor(v[k * b:(k + 1) * b])
-                                  for f, v in batch.items()})
+        share = {f: _tensor(v[k * b:(k + 1) * b]) for f, v in batch.items()}
+        state, met = step(state, share)
         out[f"{name}/loss{i}"] = met["loss"]
-    out[f"{name}/stats"] = np.asarray(json.dumps(mesh.stats_json()))
+        if inplace is not None:
+            inplace, imet = istep(inplace, share)
+            out[f"{name}/inplace/loss{i}"] = imet["loss"]
+            out[f"{name}/inplace/gnorm{i}"] = imet["gnorm"]
+            out[f"{name}/gnorm{i}"] = met["gnorm"]
+    if inplace is None:
+        out[f"{name}/stats"] = np.asarray(json.dumps(mesh.stats_json()))
+    else:
+        out[f"{name}/inplace/same_object"] = np.asarray(inplace is held)
+        out[f"{name}/inplace/storage_kept"] = np.asarray(ptrs == [
+            t.data_ptr() for _, t in sorted_leaves(inplace.tree())])
+    out[f"{name}/step"] = state.step
+    if inplace is not None:
+        out[f"{name}/inplace/step"] = inplace.step
     for part in ("params", "m", "v", "ef"):
-        tree = getattr(state, part)
-        if tree is None:
-            continue
-        for path, x in sorted_leaves(tree):
-            out[f"{name}/{part}/{path_key(path)}"] = x
+        for pre, st in (("", state), ("inplace/", inplace)):
+            tree = None if st is None else getattr(st, part)
+            if tree is None:
+                continue
+            for path, x in sorted_leaves(tree):
+                out[f"{name}/{pre}{part}/{path_key(path)}"] = x
 
 
 # The reference's side of the tp cases: each case's LM over a mesh of

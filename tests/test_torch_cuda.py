@@ -79,7 +79,8 @@ card and skips without one.  It holds:
   of the reduced llama3.2-1b, rwkv6-1.6b, llava-next-mistral-7b,
   mixtral-8x22b and deepseek-v3-671b on the card against the CPU; a
   checkpoint restart on the card replayed bit for bit, for llama3.2-1b
-  and for deepseek (whose binned MoE adds nothing with atomics);
+  and for deepseek (whose binned MoE adds nothing with atomics); the
+  in-place train step equal to the functional one bit for bit;
 * the vlm, MoE and MLA families: the reduced llava, mixtral and deepseek
   in float32 decode (MLA's latent cache, the binned MoE) and prefill
   (llava behind its patches) on the card within 1e-5 of the CPU, with the
@@ -1322,6 +1323,36 @@ def test_train_step_on_card_matches_cpu(card, arch):
         assert ops.LAUNCHES["fused_norm_matmul_bwd"] == 5 * cfg.num_layers
 
 
+@pytest.mark.parametrize("microbatch", [0, 2])
+def test_inplace_train_step_on_card_equals_functional(card, microbatch):
+    """The reduced llama3.2-1b in bf16 on the card: three in-place steps
+    (``make_train_step(..., inplace=True)``) equal three functional steps
+    bit for bit from equal states, the state handed back with every leaf
+    in its own storage."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.common import sorted_leaves, tree_map
+    from repro_torch.models.lm import LM
+    from repro_torch.train import SyntheticLM, init_state, make_train_step
+    model = LM(_train_cfg("llama3.2-1b", "bfloat16"), device="cuda")
+    params = model.init(0)
+    tcfg = TrainConfig(total_steps=20, warmup_steps=2, microbatch=microbatch)
+    fs = init_state(params)
+    held = init_state(tree_map(torch.clone, params))
+    ptrs = [t.data_ptr() for _, t in sorted_leaves(held.tree())]
+    fstep = make_train_step(model, tcfg)
+    istep = make_train_step(model, tcfg, inplace=True)
+    src = SyntheticLM(model.cfg.vocab_size, 32, 4, seed=5)
+    ist = held
+    for i in range(3):
+        fs, fm = fstep(fs, src.global_batch_at(i))
+        ist, im = istep(ist, src.global_batch_at(i))
+        assert ist is held and torch.equal(fm["loss"], im["loss"])
+    assert ptrs == [t.data_ptr() for _, t in sorted_leaves(ist.tree())]
+    for (_, x), (_, y) in zip(sorted_leaves(fs.tree()),
+                              sorted_leaves(ist.tree())):
+        assert x.is_cuda and torch.equal(x, y)
+
+
 def test_checkpoint_restart_on_card_is_bit_exact(card, tmp_path):
     """The reduced llama3.2-1b in bf16 on the card: three steps, a save,
     two more; a restore and a replay of the two give the same state bit
@@ -1429,13 +1460,15 @@ def test_tp_reduced_twins_on_card(card, reduced_world):
     """tp = 2 against the whole program on the card: the reduced qwen2.5-14b
     with padded heads and mixtral with a shared expert (float32 prefill and
     decode within 1e-4, the same argmax, routing and bins), and the (2, 1)
-    ZeRO-1 step against the plain step within 1e-5."""
+    ZeRO-1 step against the plain step within 1e-5, in place equal to the
+    functional step bit for bit."""
     twin = reduced_world
     assert twin["qwen2.5-14b"]["same_argmax"]
     assert twin["qwen2.5-14b"]["max_abs_err"] <= 1e-4
     assert twin["mixtral-8x22b"]["routing_equal"]
     assert twin["mixtral-8x22b"]["bins_equal"]
     assert twin["zero_twin_max_abs_err"] <= 1e-5
+    assert twin["zero_twin_inplace_equal"]
 
 
 @pytest.mark.parametrize("key", ["deepseek-v3-671b", "jamba-v0.1-52b",

@@ -21,7 +21,13 @@ report}.py``) against the reference's, on the CPU.
 * ``report``'s tables equal the reference's on the same cell dicts;
 * the gqa cache layout over ``model`` in a decode cell's specs, the
   reference's ``head_dim`` split, and its bytes a rank; the in-place
-  serve step of qwen2.5-14b at ``decode_32k`` holds no second cache.
+  serve step of qwen2.5-14b at ``decode_32k`` holds no second cache;
+* the in-place train step (the reference's donated state): at a small
+  ZeRO-1 cell its arguments plus temporaries fall, against the functional
+  step's, by at least the rank's ``m`` and ``v`` bytes;
+  ``alias_size_in_bytes`` is the state's bytes for a train cell and the
+  cache's for a decode cell; ``mul_``, ``add_``, ``copy_`` and an
+  ``out=`` form add no storage to the peak.
 """
 
 import dataclasses
@@ -40,11 +46,14 @@ from repro.launch import report as r_report
 from repro.launch import roofline as r_roof
 from repro.models import lm as r_lm
 from repro.train import optimizer as r_opt
-from repro_torch.configs import ARCH_IDS, SHAPES, ShapeConfig, get_config
+from repro_torch.configs import (ARCH_IDS, SHAPES, ShapeConfig, TrainConfig,
+                                  get_config)
 from repro_torch.launch import dryrun, report, roofline
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.hlo_analysis import CostMode
 from repro_torch.models import lm
+from repro_torch.models.common import sorted_leaves
+from repro_torch.train import make_train_step
 
 DEVICES = ("cpu", "meta")
 N = 128
@@ -115,6 +124,23 @@ def test_bytes_fused_below_upper(device):
         torch.tanh(x @ w) * 2.0 + 1.0
     assert 0 < c.cost.bytes <= c.cost.bytes_upper
     assert c.cost.bytes == 3 * 256 * 256 * 4  # the dot alone materializes
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_in_place_and_out_forms_add_no_storage(device):
+    """Writes into tensors made before the counter (a state's leaves) are
+    not new live bytes: in-place ops and ``out=`` forms alike."""
+    a, b = _mats(device, (N, N), (N, N))
+    with CostMode(device=device) as c:
+        a.mul_(2.0).add_(b)
+        a.copy_(b)
+        torch.mul(b, 3.0, out=a)
+        torch.div(a, b, out=a)
+        torch.sub(b, a, out=a)
+    assert c.peak_live_bytes == 0
+    with CostMode(device=device) as c:
+        torch.mul(b, 3.0)
+    assert c.peak_live_bytes == N * N * 4
 
 
 def test_collective_bytes_multiply_by_trips():
@@ -380,6 +406,10 @@ def test_phase19_cells_end_to_end(phase19_cells, i):
             5 * get_config(arch).num_layers
     if variant == "moegather":
         assert "moe_gather_local_picks" in rec["assumed"]
+    # the state (train) and the cache (decode) are handed back in place
+    aliased = {"train": dryrun._nbytes(cell.args[0]), "prefill": 0,
+               "decode": dryrun._nbytes(cell.args[-1])}
+    assert mem["alias_size_in_bytes"] == aliased[SHAPES[shape].kind]
     if SHAPES[shape].kind == "decode":
         assert rec["cache_specs"]
 
@@ -408,3 +438,51 @@ def test_report_tables_equal_reference(phase19_cells):
     assert report.dryrun_table(cells) == ref_dry.replace("compile_s",
                                                          "trace_s")
     assert report.pick_hillclimb(cells) == r_report.pick_hillclimb(cells)
+
+
+# ------------------------------------------------- the donated state
+def _traced(kind: str, inplace: bool, axis_shapes=(2, 1)):
+    """A small cell of the reduced llama3.2-1b traced on meta; with
+    ``inplace`` False its step swapped for the functional one."""
+    cfg = get_config("llama3.2-1b", reduced=True)
+    shape = {"train": ShapeConfig("train_small", 8, 2, "train"),
+             "decode": ShapeConfig("decode_small", 32, 2, "decode")}[kind]
+    cell = dryrun.build_cell("llama3.2-1b", None, mesh_mod.make_meta_mesh(
+        axis_shapes=axis_shapes), shape=shape, cfg=cfg)
+    if not inplace and kind == "train":
+        cell.fn = make_train_step(cell.model, TrainConfig(remat="block"),
+                                  mesh=cell.mesh)
+    elif not inplace:
+        cell.fn = cell.model.decode_step
+    out, mode = dryrun.trace(cell)
+    return cell, out, mode
+
+
+def test_inplace_train_cell_holds_one_state():
+    """The reduced llama3.2-1b's ZeRO-1 train cell at ``(2, 1)``, 2 x 8
+    tokens: the functional trace makes a new state (its parameters whole,
+    the rank's slices of ``m`` and ``v``) above its arguments; the
+    in-place one hands back the state it was given, and its arguments
+    plus temporaries fall by at least the rank's ``m`` and ``v`` bytes."""
+    got = {inplace: _traced("train", inplace) for inplace in (False, True)}
+    (cell, out_f, f), (_, out_i, i) = got[False], got[True]
+    state = cell.args[0]
+    args = dryrun._nbytes(cell.args)
+    mv = dryrun._nbytes(state.m) + dryrun._nbytes(state.v)
+    assert mv > 0 and dryrun._nbytes(state.m) < 4 * sum(
+        t.numel() for _, t in sorted_leaves(state.params))  # sliced
+    assert (args + f.peak_live_bytes) - (args + i.peak_live_bytes) >= mv
+    assert dryrun._alias_bytes(got[True][0].args, out_i) == \
+        dryrun._nbytes(got[True][0].args[0])
+    assert dryrun._alias_bytes(cell.args, out_f) == 0
+    assert out_i[0] is got[True][0].args[0]
+    assert i.summary()["kernels"] == f.summary()["kernels"]
+
+
+def test_alias_bytes_of_a_decode_cell_are_its_cache():
+    for inplace in (True, False):
+        cell, out, _ = _traced("decode", inplace, (1, 1))
+        cache = dryrun._nbytes(cell.args[2])
+        assert cache > 0
+        assert dryrun._alias_bytes(cell.args, out) == (cache if inplace
+                                                       else 0)

@@ -1,6 +1,8 @@
 """Host-side pieces of the ``ludo_lookup`` kernel, on the CPU.
 
-This file imports only torch, numpy, pytest and ``repro_torch``.  It pins:
+This file imports only torch, numpy, pytest and ``repro_torch`` (the
+reference's side of the last test runs from a text in a subprocess).  It
+pins:
 
 * the kernel's modulo (``csrc/ludo_lookup.cu::mod_magic``), modelled in
   Python integers step by step as the kernel takes it (the 64-bit product
@@ -15,10 +17,17 @@ This file imports only torch, numpy, pytest and ``repro_torch``.  It pins:
   exactly once on the plan's grid and on other covering grids;
 * ``ops.ludo_lookup`` refusing CN sizes of 2^32 and more;
 * ``LudoCN.meta``, made once for each CN, equal to a fresh
-  ``ops.cn_meta_from`` after inserts, updates and deletes on a CPU shard.
+  ``ops.cn_meta_from`` after inserts, updates and deletes on a CPU shard;
+* ``LudoCN.bits_per_key`` equal to the reference's for the same keys.
 """
 
+import json
 import math
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -187,3 +196,41 @@ def test_cached_meta_follows_a_new_othello():
     assert cn.meta is not meta and cn.meta == ops.cn_meta_from(cn)
     assert cn.meta["ma"] == meta["ma"] - 1
     assert cn.locate(lo, hi)[0].shape == lo.shape
+
+
+# ------------------------------------------------------------ bits a key
+BITS_CASES = [(50, None), (3000, None), (3000, 1000), (20_000, None)]
+# the reference's side: each case's CN built by repro.core.ludo from the
+# same keys -> its bucket count, Othello bits and bits a key, as JSON
+REF_BITS = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    from repro.core import ludo
+    from repro.core.store import make_uniform_keys
+    out = []
+    for n, buckets in json.loads(sys.argv[1]):
+        keys = make_uniform_keys(n)
+        lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (keys >> np.uint64(32)).astype(np.uint32)
+        cn = ludo.build(lo, hi, num_buckets=buckets).cn
+        out.append([cn.num_buckets, cn.othello.bits, cn.bits_per_key])
+    print(json.dumps(out))
+""")
+
+
+def test_bits_per_key_equals_reference():
+    """The CN's bits a key (``src/repro/core/ludo.py:73-75``) of the same
+    keys and geometry, equal as floats, from built and forced bucket
+    counts; the reference's side built in a subprocess."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    ref = json.loads(subprocess.run(
+        [sys.executable, "-c", REF_BITS, json.dumps(BITS_CASES)], env=env,
+        capture_output=True, text=True, check=True, timeout=300).stdout)
+    for (n, buckets), want in zip(BITS_CASES, ref):
+        lo, hi = split_u64(make_uniform_keys(n))
+        got = ludo.build(lanes(lo, "cpu"), lanes(hi, "cpu"),
+                         num_buckets=buckets).cn
+        assert [got.num_buckets, got.othello.bits] == want[:2], n
+        assert got.bits_per_key == want[2], n
+        assert 0 < got.bits_per_key < 64

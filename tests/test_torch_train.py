@@ -398,10 +398,11 @@ def test_checkpoints_cross_the_packages(pairs, tmp_path):
     assert train.latest_step(r_dir) == r_train.latest_step(t_dir) == 1
 
 
-def test_int8_grad_compression_over_pods_is_not_yet_ported(tiny):
-    """The int8 pod exchange is ported now (``test_torch_train_mesh.py``);
-    it runs over a ``launch.mesh.Mesh`` of ranks, and a mesh-like object
-    with a second pod, which has no collectives, is refused."""
+def test_int8_grad_compression_needs_a_mesh_of_ranks(tiny):
+    """Ported behaviour: the int8 pod exchange (held to the reference in
+    ``test_torch_train_mesh.py``) runs over a ``launch.mesh.Mesh`` of
+    ranks, and a mesh-like object with a second pod, which has no
+    collectives, is refused."""
     _, model, _ = tiny
     tcfg = TrainConfig(grad_compression="int8")
     pods = types.SimpleNamespace(shape={"pod": 2, "data": 1, "model": 1})
@@ -413,12 +414,11 @@ def test_int8_grad_compression_over_pods_is_not_yet_ported(tiny):
         shape={"pod": 1, "data": 1, "model": 1}))
 
 
-def test_unported_loss_terms_raise(tiny):
-    """The loss terms this test once found unported run now (it keeps its
-    name): a vlm's patches branch (only the text positions carry loss),
-    deepseek's MTP term, jamba's mamba scan and MoE aux loss and whisper's
-    encoder over frames give finite losses, checked against the reference
-    in ``tests/test_torch_models.py``."""
+def test_every_family_loss_term_runs(tiny):
+    """Ported behaviour: a vlm's patches branch (only the text positions
+    carry loss), deepseek's MTP term, jamba's mamba scan and MoE aux loss
+    and whisper's encoder over frames give finite losses, checked against
+    the reference in ``tests/test_torch_models.py``."""
     cfg, model, params = tiny
     b = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
     vcfg = dataclasses.replace(cfg, family="vlm", vision_tokens=4)

@@ -88,7 +88,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import fused_per_decode_step, fused_per_prefill  # noqa: E402
+from chip_smoke import (fused_per_decode_step, fused_per_prefill,  # noqa: E402
+                        recording_shapes)
 from repro_torch.models.common import sorted_leaves  # noqa: E402
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -177,10 +178,16 @@ TWIN_LAYERS, TWIN_TOL, TWIN_STEPS = 2, 1e-4, 3
 TRAIN_B, TRAIN_SEQ, TRAIN_LR = 2, 512, 1e-3  # B a rank
 TRAIN_TWIN_SEQ, TRAIN_TWIN_TOL = 128, 1e-5
 # the (2, 1, 1) mesh trains 8 of llama3.2-1b's 16 layers: each rank keeps a
-# whole AdamW state and the exchange's float32 ef, and the functional
-# update holds the old and the new state at once, 38.25 GiB a rank at 16
-# layers, more than two ranks (and the parent process) find on one card
+# whole AdamW state and the exchange's float32 ef; the functional update
+# held the old and the new state at once, 38.25 GiB a rank at 16 layers,
+# more than two ranks (and the parent process) found on one card.  The
+# steps are in place now (one state a rank), and the depth is kept
 POD_LAYERS = 8
+# the (2, 1) ZeRO-1 mesh trains 8 of the 16 layers too since qwen3-4b's
+# training came to phase 14: at 16 its two steps took 13.7 s of the world
+# (7963.8 and 5752.0 ms; gloo stages the gradient's psum and each leaf's
+# all_gather through the host)
+ZERO_LAYERS = 8
 TRAIN_STEPS = 2
 # fused_norm_matmul entries of a llama3.2-1b layer (q, k, v, gate, up): a
 # train step launches row 5 twice for each (the remat of the layer's group
@@ -698,7 +705,7 @@ def family_train_twins(mesh12) -> dict:
         params = init_params(cfg, SEED, dtype=torch.float32, mesh=mesh12)
         pspecs = model.pspecs()
         state = init_state(params, mesh=mesh12, pspecs=pspecs)
-        step = make_train_step(model, tcfg)
+        step = make_train_step(model, tcfg, inplace=True)
         torch.cuda.synchronize()
         state, r = _train_steps(step, state, batch, mesh12, 1)
         whole = gather_params({"p": state.params, "m": state.m}, {
@@ -770,31 +777,21 @@ def _leaf_sums(params) -> torch.Tensor:
 
 
 def _train_steps(step, state, batch, mesh, n: int) -> tuple:
-    """``n`` timed steps of ``step`` -> (state, record).  The launch
-    counters and the mesh's counts are zeroed just before the steps and
-    read just after them, and the (S, d, F, dtype) of every row-5 and
+    """``n`` timed steps of ``step`` (the in-place step, the reference's
+    donated state) -> (state, record).  The launch counters, the mesh's
+    counts, the rank's peak memory and the allocator's retries (a free of
+    its cache to satisfy an allocation) are zeroed just before the steps
+    and read just after them, and the (S, d, F, dtype) of every row-5 and
     row-6 call is recorded."""
     from repro_torch.kernels import ops
-    fnm, fnmb = ops.fused_norm_matmul, ops.fused_norm_matmul_bwd
     shapes = {"fused_norm_matmul": set(), "fused_norm_matmul_bwd": set()}
-
-    def at(x, w) -> tuple:
-        return (x.numel() // x.shape[-1], int(x.shape[-1]),
-                int(w.shape[-1]), str(x.dtype).split(".")[-1])
-
-    def rec_fnm(x, gamma, w):
-        shapes["fused_norm_matmul"].add(at(x, w))
-        return fnm(x, gamma, w)
-
-    def rec_fnmb(x, gamma, w, dy):
-        shapes["fused_norm_matmul_bwd"].add(at(x, w))
-        return fnmb(x, gamma, w, dy)
-
     ms, losses = [], []
-    ops.fused_norm_matmul, ops.fused_norm_matmul_bwd = rec_fnm, rec_fnmb
-    try:
+    with recording_shapes(shapes):
         ops.reset_launch_counts()
         mesh.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -803,9 +800,9 @@ def _train_steps(step, state, batch, mesh, n: int) -> tuple:
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(met["loss"]))
         launches, stats = dict(ops.LAUNCHES), mesh.stats_json()
-    finally:
-        ops.fused_norm_matmul, ops.fused_norm_matmul_bwd = fnm, fnmb
-    return state, dict(step_ms=ms, losses=losses,
+        retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                                0) - retries
+    return state, dict(step_ms=ms, losses=losses, alloc_retries=retries,
                        tokens=batch["tokens"].numel() * n, launches=launches,
                        collectives=stats,
                        fnm_shapes={k: sorted(v) for k, v in shapes.items()},
@@ -817,6 +814,7 @@ def _merge(r: dict, later: dict) -> dict:
     ``r``'s."""
     for k in ("step_ms", "losses"):
         r[k] += later[k]
+    r["alloc_retries"] += later["alloc_retries"]
     r["tokens"] += later["tokens"]
     for k, v in later["launches"].items():
         r["launches"][k] += v
@@ -827,7 +825,8 @@ def _merge(r: dict, later: dict) -> dict:
     for k, v in later["fnm_shapes"].items():
         r["fnm_shapes"][k] = sorted(set(map(tuple, r["fnm_shapes"][k]))
                                     | set(map(tuple, v)))
-    r["max_memory_allocated"] = later["max_memory_allocated"]
+    r["max_memory_allocated"] = max(r["max_memory_allocated"],
+                                    later["max_memory_allocated"])
     return r
 
 
@@ -846,11 +845,14 @@ def _close(r: dict, what: str, layers: int) -> dict:
     return r
 
 
-def zero_twin(cfg, tcfg, mesh21) -> float | None:
+def zero_twin(cfg, tcfg, mesh21) -> tuple:
     """The float32 twin of the (2, 1) step: ``cfg`` cut to TWIN_LAYERS in
-    float32, one ZeRO-1 step of each rank's half of a global batch against
-    the plain step of the whole batch on rank 0, within TRAIN_TWIN_TOL ->
-    rank 0's largest parameter difference (None on rank 1)."""
+    float32, one ZeRO-1 step of each rank's half of a global batch, in
+    place and functional from the same weights, equal bit for bit on each
+    rank (params, ``m``, ``v``, the step, the loss); the in-place step
+    against the plain step of the whole batch on rank 0, within
+    TRAIN_TWIN_TOL -> (rank 0's largest parameter difference (None on rank
+    1), whether the two steps agreed)."""
     import dataclasses
     import gc
     from repro_torch.models.lm import LM, init_params
@@ -860,10 +862,22 @@ def zero_twin(cfg, tcfg, mesh21) -> float | None:
     glob2 = _global_batch(cfg.vocab_size, 2 * TRAIN_B, TRAIN_TWIN_SEQ,
                           SEED + 1, dev)
     model = LM(cfg2, mesh=mesh21)
-    params = init_params(cfg2, SEED, dtype=torch.float32, mesh=mesh21)
-    state = init_state(params, mesh=mesh21, pspecs=model.pspecs())
-    state, _ = make_train_step(model, tcfg)(state, {
-        k: v[rank * TRAIN_B:(rank + 1) * TRAIN_B] for k, v in glob2.items()})
+    share = {k: v[rank * TRAIN_B:(rank + 1) * TRAIN_B]
+             for k, v in glob2.items()}
+    out = {}
+    for inplace in (False, True):
+        params = init_params(cfg2, SEED, dtype=torch.float32, mesh=mesh21)
+        state = init_state(params, mesh=mesh21, pspecs=model.pspecs())
+        out[inplace] = make_train_step(model, tcfg, inplace=inplace)(
+            state, share)
+        del params, state
+    (state, met), (fstate, fmet) = out[True], out[False]
+    same = torch.equal(met["loss"], fmet["loss"]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            sorted_leaves(state.tree()), sorted_leaves(fstate.tree())))
+    check(same, f"float32 twin: rank {rank}'s in-place (2, 1) step differs "
+          f"from the functional one")
+    del out, fstate
     err = None
     if rank == 0:
         m0 = LM(cfg2, device=dev)
@@ -874,10 +888,10 @@ def zero_twin(cfg, tcfg, mesh21) -> float | None:
         check(err <= TRAIN_TWIN_TOL, f"float32 twin: the (2, 1) step "
               f"differs from the plain step by {err}")
         del m0, p0, s0
-    del model, params, state
+    del model, state
     gc.collect()
     torch.cuda.empty_cache()
-    return err
+    return err, same
 
 
 def _leaf_at(tree, path):
@@ -960,7 +974,7 @@ def pod_step_check(cfg, tcfg, mesh211, glob, steps: int,
     state = init_state(params, compression=True, mesh=mesh211,
                        pspecs=model.pspecs())
     step = make_train_step(model, dataclasses.replace(
-        tcfg, grad_compression="int8"))
+        tcfg, grad_compression="int8"), inplace=True)
     b = glob["tokens"].shape[0] // 2
     batch = {k: v[rank * b:(rank + 1) * b] for k, v in glob.items()}
     state, r = _train_steps(step, state, batch, mesh211, 1)
@@ -1000,10 +1014,12 @@ def mesh_pspecs(model, mesh):
 
 def train_meshes(mesh12, res: dict) -> dict:
     """(e): llama3.2-1b at its published widths, bf16, TRAIN_B x
-    TRAIN_SEQ tokens a rank, TRAIN_STEPS steps over each of (1, 2), (2, 1)
-    and (2, 1, 1), each mesh's launches counted over its own steps alone;
-    then the (2, 1, 1) check at the reference test's size and the float32
-    twin of the (2, 1) step, whose launches are not the path's."""
+    TRAIN_SEQ tokens a rank, TRAIN_STEPS in-place steps over each of (1,
+    2) (all 16 layers), (2, 1) (ZERO_LAYERS) and (2, 1, 1) (POD_LAYERS),
+    each mesh's launches and peak memory counted over its own steps
+    alone; then the (2, 1, 1) check at the reference test's size and the
+    float32 twin of the (2, 1) step (in place against functional), whose
+    launches are not the path's."""
     import dataclasses
     import gc
     from repro_torch.configs import TrainConfig, get_config
@@ -1026,7 +1042,7 @@ def train_meshes(mesh12, res: dict) -> dict:
     params = model.init(SEED)
     before = {k: _leaf_at(params, k).clone() for k in TP_LEAVES}
     state = init_state(params, mesh=mesh12, pspecs=model.pspecs())
-    step = make_train_step(model, tcfg)
+    step = make_train_step(model, tcfg, inplace=True)
     state, r = _train_steps(step, state, batch, mesh12, 1)
     cos = _against_plain(state, before, plain, mesh_pspecs(model, mesh12),
                          mesh12)
@@ -1053,9 +1069,11 @@ def train_meshes(mesh12, res: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (2, 1): ZeRO-1; each rank its half of the global batch
+    # (2, 1): ZeRO-1; each rank its half of the global batch, at
+    # ZERO_LAYERS of the config's layers
     mesh21 = mesh_mod.make_mesh((2, 1))
-    model = LM(cfg, mesh=mesh21)
+    zcfg = dataclasses.replace(cfg, num_layers=ZERO_LAYERS)
+    model = LM(zcfg, mesh=mesh21)
     params = model.init(SEED)
     pspecs = model.pspecs()
     state = init_state(params, mesh=mesh21, pspecs=pspecs)
@@ -1067,9 +1085,9 @@ def train_meshes(mesh12, res: dict) -> dict:
                                          sorted_leaves(state.m)))
     batch = {k: v[rank * TRAIN_B:(rank + 1) * TRAIN_B]
              for k, v in glob.items()}
-    state, r = _train_steps(make_train_step(model, tcfg), state, batch,
-                            mesh21, TRAIN_STEPS)
-    _close(r, "(2, 1)", cfg.num_layers)
+    state, r = _train_steps(make_train_step(model, tcfg, inplace=True),
+                            state, batch, mesh21, TRAIN_STEPS)
+    _close(r, "(2, 1)", zcfg.num_layers)
     sums = mesh21.all_gather(_leaf_sums(state.params)[None], "data")
     r.update(zero_sliced_leaves=sliced,
              leaves=len(sorted_leaves(params)),
@@ -1103,7 +1121,8 @@ def train_meshes(mesh12, res: dict) -> dict:
         {k: torch.from_numpy(v).to(dev) for k, v in src.items()}, 1,
         gated=(("embed",),))
 
-    res["zero_twin_max_abs_err"] = zero_twin(cfg, tcfg, mesh21)
+    res["zero_twin_max_abs_err"], res["zero_twin_inplace_equal"] = \
+        zero_twin(cfg, tcfg, mesh21)
     return res
 
 
@@ -1620,9 +1639,9 @@ def reduced(init: str, rank: int, out: str) -> int:
         res["train_families"] = family_train_twins(mesh)
         mesh21 = mesh_mod.make_mesh((2, 1))
         res["llama3.2-1b/data"] = data_twin("llama3.2-1b", mesh21)
-        res["zero_twin_max_abs_err"] = zero_twin(
-            small("llama3.2-1b"), TrainConfig(learning_rate=TRAIN_LR),
-            mesh21)
+        res["zero_twin_max_abs_err"], res["zero_twin_inplace_equal"] = \
+            zero_twin(small("llama3.2-1b"),
+                      TrainConfig(learning_rate=TRAIN_LR), mesh21)
     except Exception as e:  # the test reads it
         import traceback
         res["error"] = f"{type(e).__name__}: {e}"

@@ -8,8 +8,9 @@ card.
 Prints the card's name and power limit, builds the kernels, prints
 ``-Xptxas -v`` for ``csrc/fused_norm_matmul_bwd.cu`` (registers, shared
 memory and spills of each kernel), then runs
-``chip_smoke.serve_training_phase`` and prints the numbers as one JSON
-line.  Without a card it exits 1.
+``chip_smoke.serve_training_phase`` ((a)-(c), and (d): qwen3-4b whole,
+trained in place) and prints the numbers as one JSON line.  Without a
+card it exits 1.
 
 ``--kernel`` runs (a) alone: every check shape against the plain version,
 printed with its plan before any failure is raised, then
