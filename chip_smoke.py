@@ -71,15 +71,17 @@ Phases; any failure exits non-zero:
 6. hold ``fused_norm_matmul`` against its plain version on the card at the
    shapes of ``tests/test_kernels.py``, a ragged shape (S=7, d=2048,
    F=1000), llama3.2-1b's serve entries (S=8, d=2048, F=2048, 512, 8192,
-   bf16), a prefill shape (S=256, F=8192, both types) and the edges of the
+   bf16), a prefill shape (S=256, F=8192, both types), the edges of the
    kernel's regimes (S = 1, 7, 8, 9, 31, 32, 33, 64; d = 1000; F = 1, 100,
-   131, 512, 8192; both types), with TF32 off and the tests' tolerances,
+   131, 512, 8192; both types) and of the wgmma regime's plan
+   (``FNM_WGMMA_EDGE_SHAPES``), with TF32 off and the tests' tolerances,
    each call twice and bit for bit alike, logging each shape's plan
    (``ops.fused_norm_matmul_plan``: regime, tile, splits); time the serve
    and prefill shapes with CUDA events and ``torch.profiler`` (device time
    a call: every CUDA kernel of the call, each kernel's share logged)
    beside the bound, the plain version and an ``F.rms_norm`` +
-   ``torch.matmul`` yardstick, each launch on weights outside L2;
+   ``torch.matmul`` yardstick (at the prefill shape also by device time),
+   each launch on weights outside L2;
 7. serve llama3.2-1b at full width: ``Engine(LM(llama3.2-1b), lanes=8,
    max_seq=256)`` with random bf16 weights drawn on the card from the seed
    takes 8 requests (16-64 prompt tokens, 32 greedy new tokens) and runs
@@ -277,7 +279,10 @@ Phases; any failure exits non-zero:
    8192, bf16 and float32), two calls bit for bit alike; each training
    entry timed (events, device by kernel, with dN's product) beside its
    bound, the plain version and the library's backward (``F.rms_norm`` +
-   ``torch.matmul`` through ``torch.autograd.grad``).  (b) One float32
+   ``torch.matmul`` through ``torch.autograd.grad``); then row 5 at the
+   same bf16 entries (``FNM_TRAIN_SHAPES``, the forward of (c)), checked
+   and timed beside the library's ``rms_norm`` + ``matmul`` like for like
+   by device time.  (b) One float32
    ``make_train_step`` step of llama3.2-1b at full width with 2 layers and
    of the reduced rwkv6-1.6b, llava-next-mistral-7b, mixtral-8x22b and
    deepseek-v3-671b (row 6 and the MoE aux loss), card against CPU (loss,
@@ -297,7 +302,8 @@ Phases; any failure exits non-zero:
    qwen3-4b at its published widths and depth (36 layers, d 2560, vocab
    151,936) with random bf16 weights: rows 5 and 6 against their plain
    versions at its training entries (S = 2048, d = 2560, F = 4096, 1024
-   and 9728), timed beside their bounds; then 4 in-place steps of 4 x 512
+   and 9728), timed beside their bounds and the library's forward and
+   backward, like for like by device time; then 4 in-place steps of 4 x 512
    ``SyntheticLM`` tokens with ``remat="block"`` and one profiled step: the
    state's bytes and ``max_memory_allocated`` beside the card's memory,
    the first step and the p50 of the rest, tokens/s, the busy share, the
@@ -653,10 +659,23 @@ FNM_EDGE_F = (1, 100, 131, 512, 8192)
 FNM_EDGE_D = 1000
 FNM_EDGE_SHAPES = [(S, FNM_EDGE_D, F, dt) for dt in ("float32", "bfloat16")
                    for S in FNM_EDGE_S for F in FNM_EDGE_F]
+# The edges of the wgmma regime's plan (ops.fused_norm_matmul_plan): both
+# tile widths, a cluster whose partner row tile lies wholly (S = 300: three
+# row tiles) or almost wholly (S = 2049) past S, a ragged last column tile
+# (F = 9736: 8 columns), d off 64 (1000, 2568: A's zero columns and w's
+# rows past d), S = 129, two row tiles of one row and 128, and d = 1004,
+# whose rows are not whole 16-byte chunks.
+FNM_WGMMA_EDGE_SHAPES = [(2049, 1000, 1024, "bfloat16"),
+                         (2049, 2568, 9736, "bfloat16"),
+                         (129, 2560, 1024, "bfloat16"),
+                         (300, 1000, 9736, "bfloat16"),
+                         (256, 2568, 2048, "bfloat16"),
+                         (300, 1004, 1024, "bfloat16")]
 FNM_CHECK_SHAPES = [(256, 512, 1024, "float32"), (512, 256, 512, "float32"),
                     (128, 1024, 512, "bfloat16"), (7, 2048, 1000, "float32"),
                     (7, 2048, 1000, "bfloat16"), *FNM_TIMED_SHAPES,
-                    (256, 2048, 8192, "float32"), *FNM_EDGE_SHAPES]
+                    (256, 2048, 8192, "float32"), *FNM_EDGE_SHAPES,
+                    *FNM_WGMMA_EDGE_SHAPES]
 FNM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # H100 SXM dense bf16 tensor-core peak (data sheet), the operation bound of
 # a bf16 product; a float32 product is held to F32_FLOPS_PER_S, since the
@@ -719,11 +738,11 @@ BASE_AGREE_KEYS_LOG2 = 14
 BASE_AGREE_LOAD = 0.5
 BASE_DELETES_LOG2 = 12
 # each baseline's YCSB-C Gets (2^N_GETS_LOG2 until qwen3-4b's training came
-# to phase 14), and the build keys its count of keys past the batch rules
-# scans (all 2^BASE_KEYS_LOG2 until then: 9.8, 14.5 and 5.3 s of host
-# numpy for RACE, MICA and Cluster on one host; their counts were 13,
-# 12490 and 552)
-BASE_GETS_LOG2 = 19
+# to phase 14, 2^19 until row 5's training entries were timed there), and
+# the build keys its count of keys past the batch rules scans (all
+# 2^BASE_KEYS_LOG2 until then: 9.8, 14.5 and 5.3 s of host numpy for RACE,
+# MICA and Cluster on one host; their counts were 13, 12490 and 552)
+BASE_GETS_LOG2 = 18
 BASE_SCAN_LOG2 = 20
 MN_BATCH = 1 << 16
 SIM_KEYS_LOG2 = 20
@@ -877,6 +896,10 @@ TRAIN_ROWS = TRAIN_B * TRAIN_SEQ
 FNMB_TIMED_SHAPES = [(TRAIN_ROWS, D_MODEL, F, dt)
                      for dt in ("bfloat16", "float32")
                      for F in (2048, 512, 8192)]
+# row 5 at llama3.2-1b's training entries (phase 14 (c)'s forward), checked
+# and timed beside the library by device time
+FNM_TRAIN_SHAPES = [(TRAIN_ROWS, D_MODEL, F, "bfloat16")
+                    for F in (2048, 512, 8192)]
 # the bf16 edges of ops.fused_norm_matmul_bwd_dw_plan: d not a multiple of
 # 8 (elementwise loads, A's ragged last box), S not a multiple of 64 and F
 # not of the tile (the tensor maps' zeros) with splits, the same with the
@@ -2040,12 +2063,17 @@ def check_fnm_shapes(gen, check_shapes) -> list:
     return shapes
 
 
-def time_fnm_shape(gen, S: int, d: int, F: int, dt: str) -> dict:
+def time_fnm_shape(gen, S: int, d: int, F: int, dt: str,
+                   library_device: bool = False) -> dict:
     """One shape of ``fused_norm_matmul`` timed by events and by the
     profiler's device time, beside its bound, its plain version and the
     library's ``rms_norm`` + ``matmul``, each launch on one of enough
     weight sets that it finds its w outside the 50 MB L2, as a layer's
-    weights are on the model path."""
+    weights are on the model path.  With ``library_device`` the library is
+    also timed like for like, by the median device time of
+    FNMB_BUSY_TRACES traces (:func:`device_busy_ms`), and
+    ``device_below_library`` compares device with device; else with the
+    library's events."""
     import torch
     from repro_torch.kernels import ops, ref
     dtype = getattr(torch, dt)
@@ -2065,15 +2093,26 @@ def time_fnm_shape(gen, S: int, d: int, F: int, dt: str) -> dict:
                                 iters),
                library_ms=time_ms(cycling(fnm_library, sets), iters),
                bound_ms=bound, bound_by=by)
-    row["device_below_library"] = dev is not None \
-        and dev < row["library_ms"]
+    lib = row["library_ms"]
+    if library_device:
+        traces = device_busy_ms(cycling(fnm_library, sets), 10)
+        check(len(traces) == FNMB_BUSY_TRACES, f"fused_norm_matmul S={S} "
+              f"d={d} F={F}: a trace of the library held no device "
+              f"operation ({traces})")
+        lib = row["library_device_ms"] = float(np.median(traces))
+        row["library_device_ms_traces"] = traces
+    row["device_below_library"] = dev is not None and dev < lib
+    if dev:
+        row["share_of_bound"] = bound / dev
     shares = {k: round(v / dev, 4) for k, v in by_kernel.items()} \
         if dev else {}
     log(f"fused_norm_matmul S={S} d={d} F={F} {dt}, plan {row['plan']}: "
         f"{row['ms']:.6f} ms (device {dev}; share by kernel {shares}), "
         f"plain {row['plain_ms']:.6f} ms, rms_norm + matmul "
-        f"{row['library_ms']:.6f} ms, bound {bound:.6f} ms ({by}); "
-        f"device below library: {row['device_below_library']}")
+        f"{row['library_ms']:.6f} ms (device "
+        f"{row.get('library_device_ms')}), bound {bound:.6f} ms ({by}); "
+        f"device below library ({'device' if library_device else 'events'}"
+        f"): {row['device_below_library']}")
     return row
 
 
@@ -2084,7 +2123,8 @@ def check_fused_norm_matmul(gen) -> dict:
     from repro_torch.kernels import ops
     shapes = check_fnm_shapes(gen, FNM_CHECK_SHAPES)
     err = max(sh["max_abs_err"] for sh in shapes)
-    timed = {sh: time_fnm_shape(gen, *sh) for sh in FNM_TIMED_SHAPES}
+    timed = {sh: time_fnm_shape(gen, *sh, library_device=sh[0] > 32)
+             for sh in FNM_TIMED_SHAPES}
     # the record's numbers: one layer's five entries of a decode step
     layer = [(LANES, D_MODEL, f, "bfloat16") for f in LAYER_ENTRY_FS]
     total = {k: sum(timed[sh][k] for sh in layer)
@@ -5710,13 +5750,22 @@ def train_model(seed: int) -> tuple:
 def time_fnmb_shape(gen, S: int, d: int, F: int, dt: str) -> dict:
     """One shape of ``fused_norm_matmul_bwd`` timed by events and by the
     profiler's device time (its plan's kernels), beside its bound and its
-    plain version."""
+    plain version, and like for like with the library's backward: the
+    call with dN's product against ``torch.autograd.grad`` of
+    ``F.rms_norm`` + ``torch.matmul``, each by the median device time of
+    FNMB_BUSY_TRACES traces."""
     import torch
+    import torch.nn.functional as F_
     from repro_torch.kernels import ops, ref
     dtype = getattr(torch, dt)
     sets = [(*fnm_inputs(gen, S, d, F, dtype)[0],
              torch.randn((S, F), generator=gen, device="cuda").to(dtype))
             for _ in range(2)]
+    graphs = []
+    for x, g, w, dy in sets:
+        ins = tuple(t.detach().clone().requires_grad_() for t in (x, g, w))
+        y = torch.matmul(F_.rms_norm(ins[0], (d,), ins[1], 1e-6), ins[2])
+        graphs.append((y, ins, dy))
     kern = cycling(ops.fused_norm_matmul_bwd, sets)
     plan = fnmb_plan_of(S, d, F, dt)
     names = fnmb_kernels_of(plan)
@@ -5731,10 +5780,27 @@ def time_fnmb_shape(gen, S: int, d: int, F: int, dt: str) -> dict:
                                 20),
                bound_ms=bound, bound_by=by)
     row["share_of_bound"] = bound / row["device_ms"]
+    with_dn = device_busy_ms(kern, 10)
+    lib_dev = device_busy_ms(fnmb_library(graphs), 10)
+    check(len(with_dn) == len(lib_dev) == FNMB_BUSY_TRACES,
+          f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}: a trace held no "
+          f"device operation (hand path {with_dn}, library {lib_dev})")
+    row.update(device_ms_with_dn=float(np.median(with_dn)),
+               device_ms_with_dn_traces=with_dn,
+               library_ms=time_ms(fnmb_library(graphs), 20),
+               library_device_ms=float(np.median(lib_dev)),
+               library_device_ms_traces=lib_dev)
+    row["with_dn_over_library_device"] = \
+        row["device_ms_with_dn"] / row["library_device_ms"]
     log(f"fused_norm_matmul_bwd S={S} d={d} F={F} {dt}, plan {plan}: "
         f"{row['ms']:.6f} ms (device {row['device_ms']:.6f}, by kernel "
-        f"{by_kernel}), plain {row['plain_ms']:.6f} ms, bound "
-        f"{bound:.6f} ms ({by}), bound/device {row['share_of_bound']}")
+        f"{by_kernel}; with dN's product {row['device_ms_with_dn']:.6f}), "
+        f"plain {row['plain_ms']:.6f} ms, rms_norm + matmul backward "
+        f"device {row['library_device_ms']:.6f} ms (events "
+        f"{row['library_ms']:.6f}), bound {bound:.6f} ms ({by}), "
+        f"bound/device {row['share_of_bound']}, with dN / library device "
+        f"{row['with_dn_over_library_device']}")
+    del graphs
     return row
 
 
@@ -5789,7 +5855,8 @@ def train_qwen3(gen, seed: int) -> tuple:
     t0 = time.perf_counter()
     res = dict(fnm_check_shapes=check_fnm_shapes(gen, QWEN_TRAIN_SHAPES),
                fnmb_check_shapes=check_fnmb_shapes(gen, QWEN_TRAIN_SHAPES))
-    res["fnm_timed"] = [time_fnm_shape(gen, *sh) for sh in QWEN_TRAIN_SHAPES]
+    res["fnm_timed"] = [time_fnm_shape(gen, *sh, library_device=True)
+                        for sh in QWEN_TRAIN_SHAPES]
     res["fnmb_timed"] = [time_fnmb_shape(gen, *sh)
                          for sh in QWEN_TRAIN_SHAPES]
     res["kernels_s"] = time.perf_counter() - t0
@@ -5877,6 +5944,11 @@ def serve_training_phase(gen) -> tuple:
     record = check_fused_norm_matmul_bwd(gen)
     res["kernel_s"] = time.perf_counter() - t
     t = time.perf_counter()
+    res["fnm_train_check_shapes"] = check_fnm_shapes(gen, FNM_TRAIN_SHAPES)
+    res["fnm_train_timed"] = [time_fnm_shape(gen, *sh, library_device=True)
+                              for sh in FNM_TRAIN_SHAPES]
+    res["fnm_train_s"] = time.perf_counter() - t
+    t = time.perf_counter()
     res["twins"] = [train_twin(arch, SEED) for arch in TRAIN_TWIN_ARCHS]
     gc.collect()
     torch.cuda.empty_cache()
@@ -5895,10 +5967,11 @@ def serve_training_phase(gen) -> tuple:
     res["qwen3_s"] = time.perf_counter() - t
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 14 (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s, (d) {:.1f} s "
-        "(rows 5 and 6 at its shapes {:.1f} s)".format(
-            res["kernel_s"], res["agreement_s"], res["train_s"],
-            res["qwen3_s"], res["qwen3"]["kernels_s"]))
+    log("phase 14 (a) {:.1f} s (row 5 at (c)'s entries {:.1f} s), (b) "
+        "{:.1f} s, (c) {:.1f} s, (d) {:.1f} s (rows 5 and 6 at its shapes "
+        "{:.1f} s)".format(
+            res["kernel_s"], res["fnm_train_s"], res["agreement_s"],
+            res["train_s"], res["qwen3_s"], res["qwen3"]["kernels_s"]))
     return record, res, launches
 
 
@@ -7183,6 +7256,20 @@ def run(bg: Background) -> int:
                           qwen["fnmb_check_shapes"])):
         kernels[name]["max_abs_err_qwen3_train_shapes"] = max(
             sh["max_abs_err"] for sh in shapes)
+    kernels["fused_norm_matmul"]["max_abs_err_train_shapes"] = max(
+        sh["max_abs_err"] for sh in tres["fnm_train_check_shapes"])
+    # the training entries' device times beside the library's, like for
+    # like: llama3.2-1b's (phase 14 (c)) and qwen3-4b's (d)
+    kernels["fused_norm_matmul"]["train_timed"] = [
+        {k: r.get(k) for k in ("S", "d", "F", "plan", "device_ms",
+                               "device_ms_by_kernel", "library_device_ms",
+                               "bound_ms", "share_of_bound",
+                               "device_below_library")}
+        for r in tres["fnm_train_timed"] + qwen["fnm_timed"]]
+    kernels["fused_norm_matmul_bwd"]["train_qwen3_timed"] = [
+        {k: r[k] for k in ("S", "d", "F", "device_ms", "device_ms_with_dn",
+                           "library_device_ms", "bound_ms")}
+        for r in qwen["fnmb_timed"]]
     for name in ("fused_norm_matmul", "fused_norm_matmul_bwd"):
         check(tlaunch[name] > 0 and qwen["launches"][name] > 0,
               f"{name} never launched on a training path")

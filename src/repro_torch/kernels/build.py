@@ -51,10 +51,10 @@ SIGNATURES = {
                                "cuckoo_paged_attention_launch",
                                [_P, _P, _P, _P, _P, *_PAGED[4:]]),
     # x, gamma, w, out, workspace; S, d, F, dtype, eps, regime, splits,
-    # krange; stream
+    # krange, the wgmma regime's tile columns, cluster and CTAs; stream
     "fused_norm_matmul": ("fused_norm_matmul", "fused_norm_matmul_launch",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                           _I, _P]),
+                           _I, _I, _I, _I, _P]),
     # x, gamma, dy, dn, dx, dgamma, dw, workspace, dw's workspace; S, d,
     # F, dtype, eps, rows a block of the row pass, regime, dw's tile
     # columns, splits, reread; stream

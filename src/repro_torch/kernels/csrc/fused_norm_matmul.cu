@@ -68,12 +68,27 @@
 //    a 3-stage cp.async ring of 16-deep A and B tiles.
 // 2. wgmma (S > 32, bf16, w rows of whole chunks): the rows pass writes
 //    inv_rms and A = x * gamma rounded to bf16 once (padded as above);
-//    fused_norm_matmul_wgmma_kernel runs 128 x 128 output tiles: two consumer
-//    warpgroups of 64 rows, each a wgmma m64n128k16 into float32
-//    accumulators, and a producer warp that keeps a 4-stage ring of 64-deep
-//    tiles full with TMA (128-byte swizzle; full and empty mbarriers; zeros
-//    past S, d and F from the tensor maps).  A is K-major; B is w itself,
-//    MN-major.  The epilogue scales by inv_rms and rounds once.
+//    fused_norm_matmul_wgmma_kernel<BN> is a persistent grid of CTAs (a CTA
+//    an SM) that walk 128 x BN output tiles, BN = 256 or 128 as the plan
+//    picks: two consumer warpgroups of 64 rows, each BN / 128 wgmma
+//    m64n128k16 into float32 accumulators with one stage's products in
+//    flight, and a producer warpgroup that keeps a ring of 64-deep stages
+//    full with TMA (128-byte swizzle; full and empty mbarriers; zeros past
+//    S, d and F from the tensor maps).  Clusters of two CTAs along S share
+//    w's column tile by TMA multicast.  A is K-major; B is w itself,
+//    MN-major.  The epilogue scales by inv_rms, rounds once and leaves
+//    through shared memory by TMA stores, while the producer already loads
+//    the next tile.  Each output is summed as with 128-wide tiles, so the
+//    bits do not depend on the plan.
+//
+//    What bounds it at training shapes (S = 2048, d = 2560, F = 9728:
+//    102 GFLOP, 0.103 ms at the bf16 tensor-core peak) is the feed from L2
+//    to the SMs, not HBM: 128 x 128 tiles, one CTA a tile, pull their A
+//    band and w column through L2 for every tile, 1595 MB a call at
+//    64 FLOP/B, and a copy without the products takes about as long as the
+//    kernel (PERF.md, row 5).  The 128 x 256 tile halves the A bytes a
+//    FLOP and the cluster's multicast halves w's: 797 MB a call at F =
+//    9728.
 // Every ragged edge in S, F and d is masked: staged values outside the
 // tensors are zero, and outputs outside are not written.
 
@@ -115,10 +130,22 @@ constexpr int kMmaSmemMax = kMmaStages * kMmaStageBytes +
 // ---- prefill regimes ----
 constexpr int kPad = 64;              // x * gamma rows padded to this
 constexpr int kFmaBM = 64, kFmaBN = 64, kFmaBK = 16, kFmaStages = 3;
-constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 64, kTcStages = 4;
-constexpr int kTcThreads = 288;       // two consumer warpgroups, a producer
-constexpr int kTcStageBytes = (kTcBM + kTcBN) * kTcBK * 2;  // 32 KB
-constexpr int kTcSmem = kTcStages * kTcStageBytes + 1024;
+// wgmma: CTA tiles of kTcBM rows x 128 or 256 columns, 64-deep stages
+constexpr int kTcBM = 128, kTcBK = 64;
+constexpr int kTcThreads = 384;       // two consumer warpgroups, a producer
+constexpr int kTcConsumerRegs = 232, kTcProducerRegs = 40;  // setmaxnreg
+constexpr int kTcBox = 64 * kTcBK * 2;         // 8 KB: a 64 x 64 bf16 box
+constexpr int kTcABytes = kTcBM * kTcBK * 2;   // 16 KB of A a stage
+constexpr int kTcRingBytes = 196608;  // 4 stages of 48 KB or 6 of 32 KB
+constexpr int kTcOutCols = 128;       // a warpgroup's output staged at a
+                                      // time: 64 rows x 128 columns
+constexpr int kTcOutBytes = kTcOutCols / 64 * kTcBox;
+constexpr int kTcSmem = kTcRingBytes + 2 * kTcOutBytes + 1024;
+__host__ __device__ constexpr int tc_stage_bytes(int bn) {
+  return kTcABytes + bn / 64 * kTcBox;
+}
+// nanoseconds before an mbarrier wait gives up and traps
+constexpr uint64_t kMaxWaitNs = 4000000000ull;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -644,13 +671,28 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       "r"(bytes)
       : "memory");
 }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
+// An arrival on the barrier at bar's offset in the shared memory of the
+// cluster's CTA `cta` (this CTA's own, or its partner's).
+__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(cta)
+      : "memory");
 }
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// Waits for the phase of `parity` to complete; traps (a fault, not a hang)
+// after kMaxWaitNs, which no wait of a working kernel comes near.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
+  uint32_t polls = 0;
+  uint64_t t0 = 0;
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -659,6 +701,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
+    if (!done && (++polls & 1023) == 0) {
+      const uint64_t now = globaltimer_ns();
+      if (t0 == 0)
+        t0 = now;
+      else if (now - t0 > kMaxWaitNs)
+        __trap();
+    }
   } while (!done);
 }
 // One box of a 2-D tensor map (coordinates innermost first) into shared
@@ -672,12 +721,56 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "r"(c1)
       : "memory");
 }
+// The same box into dst of every CTA of the cluster in `mask`, each copy
+// completing its bytes on the barrier at bar's offset in that CTA.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+// One box of shared memory out to a 2-D tensor map (parts outside the
+// tensor are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every CTA of the cluster arrives, then waits.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The 128 threads of warpgroup `wg` (named barrier 1 + wg).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving uses of the accumulators across the
 // asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
+template <int kAcc>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D (64 x 128, float32) += A (64 x 16, K-major) * B (16 x 128, MN-major),
@@ -715,102 +808,195 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// A = bf16(x * gamma) (S, dp), B = w (d, F) bf16 with F % 8 == 0, through
-// 2-D tensor maps with 128-byte swizzle: a stage holds one A box of
-// 64 columns of K x 128 rows (K-major, 128-byte rows) and two B boxes of
-// 64 columns of F x 64 rows of K (MN-major), 32 KB.  Warps 0-7 are two
-// consumer warpgroups of 64 rows each; warp 8 is the producer, one thread
-// of which keeps the ring full: it waits until both warpgroups have
-// released a stage (the stage's empty barrier), then loads it (the full
-// barrier counts its bytes).
+// D (64 x BN) += A (64 x 16, K-major) * B (16 x BN, MN-major), as BN / 128
+// m64n128k16 products, the second on B's boxes 2 and 3 (16 KB on: 1024 in
+// the descriptor's 16-byte units): each output sums the same products in
+// the same order as a 128-wide tile, so the bits do not depend on the tile
+template <int kBN>
+__device__ __forceinline__ void wgmma_k16(float* d, uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int h = 0; h < kBN / 128; ++h)
+    wgmma_m64n128k16(d + 64 * h, da, db + h * (2 * kTcBox >> 4));
+}
+
+// A = bf16(x * gamma) (S, dp), B = w (d, F) bf16 with F % 8 == 0, out
+// (S, F) bf16, through 2-D tensor maps with 128-byte swizzle.  A
+// persistent grid: each CTA walks output tiles of kTcBM rows x kBN
+// columns, the tiles t = cluster id + i * clusters of groups x column
+// tiles, S first (t % groups is the group of `cm` row tiles, t / groups
+// the column tile), so the clusters that run at once share few columns of
+// w and each column tile comes from HBM about once.  A cluster of cm = 2
+// CTAs takes the two row tiles of a group (the partner's may lie past S:
+// zeros in, nothing out) and shares w's column tile: each CTA loads half
+// of its boxes and multicasts them into both CTAs' stages.
+//
+// A stage holds one A box of 64 columns of K x 128 rows (K-major, 16 KB)
+// and kBN / 64 B boxes of 64 columns of F x 64 rows of K (MN-major, 8 KB
+// each).  Warps 0-7 are two consumer warpgroups of 64 rows each
+// (kTcConsumerRegs registers a thread for kBN / 2 accumulators); warps
+// 8-11 the producer warpgroup (kTcProducerRegs), one thread of which keeps
+// the ring full: it waits until every consumer warpgroup of the cluster
+// has released a stage (its empty barrier counts 2 cm arrivals, the
+// partner's through the cluster), then loads it (the full barrier counts
+// the stage's bytes, its own and the partner's).  A consumer keeps one
+// stage's products in flight (wgmma.wait_group 1) and releases a stage
+// when its products are done; after a tile's last step it scales its
+// rows by inv_rms, rounds once to bf16 and stages 64 x 128 at a time
+// (128-byte swizzle, as the out map reads it) for TMA stores, while the
+// producer already fills the ring with the next tile.  The cluster
+// barriers after the barriers' init and before exit keep a CTA from
+// signalling a partner that has not started or has left.
+template <int kBN>
 __global__ void __launch_bounds__(kTcThreads, 1)
     fused_norm_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                                    const __grid_constant__ CUtensorMap map_b,
-                                   const float* __restrict__ inv_rms,
-                                   __nv_bfloat16* __restrict__ out, int S,
-                                   int F, int steps) {
+                                   const __grid_constant__ CUtensorMap map_out,
+                                   const float* __restrict__ inv_rms, int S,
+                                   int F, int steps, int cm) {
+  constexpr int kStageBytes = tc_stage_bytes(kBN);
+  constexpr int kStages = kTcRingBytes / kStageBytes;
+  constexpr int kAcc = kBN / 2, kBoxes = kBN / 64;
   extern __shared__ __align__(1024) uint8_t tc_smem[];
-  __shared__ __align__(8) uint64_t full[kTcStages];
-  __shared__ __align__(8) uint64_t empty[kTcStages];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
   const uint32_t raw = smem_u32(tc_smem);
   uint8_t* base = tc_smem + ((1024 - (raw & 1023)) & 1023);
-  const int tid = threadIdx.x;
-  const int wg = tid / 128, wl = (tid % 128) / 32, lane = tid & 31;
-  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
-  constexpr int kABytes = kTcBM * kTcBK * 2;
-  constexpr int kBBoxBytes = 64 * kTcBK * 2;
+  const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int clusters = gridDim.x / cm, cid = blockIdx.x / cm;
+  const int groups = ((S + kTcBM - 1) / kTcBM + cm - 1) / cm;
+  const int tiles = groups * ((F + kBN - 1) / kBN);
   if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < kTcStages; ++i) {
+    for (int i = 0; i < kStages; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 2);
+      mbar_init(&empty[i], 2 * cm);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();
 
-  if (wg == 2) {  // the producer warp
-    if (lane == 0) {
-      for (int step = 0; step < steps; ++step) {
-        const int st = step % kTcStages;
-        if (step >= kTcStages)
-          mbar_wait(&empty[st], ((step / kTcStages) - 1) & 1);
-        uint8_t* a = base + st * kTcStageBytes;
-        uint8_t* b = a + kABytes;
-        mbar_expect_tx(&full[st], kTcStageBytes);
-        tma_load_2d(a, &map_a, &full[st], step * kTcBK, m0);
-        tma_load_2d(b, &map_b, &full[st], n0, step * kTcBK);
-        tma_load_2d(b + kBBoxBytes, &map_b, &full[st], n0 + 64,
-                    step * kTcBK);
+  if (wg == 2) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kTcProducerRegs));
+    if (wtid == 0) {
+      int it = 0;  // the step over all of this CTA's tiles
+      for (int t = cid; t < tiles; t += clusters) {
+        const int m0 = (t % groups * cm + rank) * kTcBM;
+        const int n0 = t / groups * kBN;
+        for (int i = 0; i < steps; ++i, ++it) {
+          const int st = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) - 1) & 1);
+          uint8_t* a = base + st * kStageBytes;
+          uint8_t* b = a + kTcABytes;
+          mbar_expect_tx(&full[st], kStageBytes);
+          tma_load_2d(a, &map_a, &full[st], i * kTcBK, m0);
+          if (cm == 1) {
+#pragma unroll
+            for (int q = 0; q < kBoxes; ++q)
+              tma_load_2d(b + q * kTcBox, &map_b, &full[st], n0 + 64 * q,
+                          i * kTcBK);
+          } else {
+#pragma unroll
+            for (int h = 0; h < kBoxes / 2; ++h) {
+              const int q = rank * (kBoxes / 2) + h;
+              tma_load_2d_multicast(b + q * kTcBox, &map_b, &full[st],
+                                    n0 + 64 * q, i * kTcBK, 0x3);
+            }
+          }
+        }
       }
     }
+    __syncwarp();
+    cluster_sync();
     return;
   }
 
-  float d[64];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kTcConsumerRegs));
+  const int wl = wtid / 32, lane = tid & 31;
+  // this thread's rows of the warpgroup's 64 (and r + 8), and its staged
+  // output: kOut / 64 boxes of 64 x 64 in 128-byte rows, 16-byte chunk c
+  // of row r at chunk c ^ (r % 8)
+  constexpr int kOut = kBN < kTcOutCols ? kBN : kTcOutCols;
+  const int r = wl * 16 + lane / 4;
+  uint8_t* out_s = base + kTcRingBytes + wg * kTcOutBytes;
+  float acc[kAcc];
+  int it = 0;
+  auto release = [&](int step) {  // every consumer of the cluster is done
+    if (wtid == 0)                 // with stage step % kStages
+      for (int c = 0; c < cm; ++c)
+        mbar_arrive_cta(&empty[step % kStages], static_cast<uint32_t>(c));
+  };
+  for (int t = cid; t < tiles; t += clusters) {
+    const int m0 = (t % groups * cm + rank) * kTcBM;
+    const int n0 = t / groups * kBN;
+    const int row = m0 + wg * 64 + r;  // read while the products run
+    const float sc0 = row < S ? inv_rms[row] : 0.f;
+    const float sc1 = row + 8 < S ? inv_rms[row + 8] : 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  for (int step = 0; step < steps; ++step) {
-    const int st = step % kTcStages;
-    mbar_wait(&full[st], (step / kTcStages) & 1);
-    const uint32_t a_addr =
-        smem_u32(base + st * kTcStageBytes) + wg * 64 * 128;
-    const uint32_t b_addr = smem_u32(base + st * kTcStageBytes + kABytes);
-    fence_acc(d);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    for (int i = 0; i < steps; ++i, ++it) {
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      const uint32_t a_addr =
+          smem_u32(base + st * kStageBytes) + wg * 64 * 128;
+      const uint32_t b_addr = smem_u32(base + st * kStageBytes + kTcABytes);
+      fence_acc<kAcc>(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < kTcBK / 16; ++kk) {
-      // A: 16 columns of K are 32 bytes along the 128-byte rows, 8-row
-      // groups 1024 B apart; B: 16 rows of K are two 8-row groups
-      // (1024 B each), its two 64-column boxes kBBoxBytes apart
-      const uint64_t da = gmma_desc(a_addr + kk * 32, 16, 1024);
-      const uint64_t db = gmma_desc(b_addr + kk * 2048, kBBoxBytes, 1024);
-      wgmma_m64n128k16(d, da, db);
+      for (int kk = 0; kk < kTcBK / 16; ++kk) {
+        // A: 16 columns of K are 32 bytes along the 128-byte rows, 8-row
+        // groups 1024 B apart; B: 16 rows of K are two 8-row groups
+        // (1024 B each), its 64-column boxes kTcBox apart
+        const uint64_t da = gmma_desc(a_addr + kk * 32, 16, 1024);
+        const uint64_t db = gmma_desc(b_addr + kk * 2048, kTcBox, 1024);
+        wgmma_k16<kBN>(acc, da, db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_wait<1>();
+      fence_acc<kAcc>(acc);
+      if (i > 0) release(it - 1);  // the previous stage's products are done
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(d);
-    if (tid % 128 == 0) mbar_arrive(&empty[st]);  // stage st is free
-  }
+    wgmma_wait<0>();
+    fence_acc<kAcc>(acc);
+    release(it - 1);
 
-  // accumulator (i = 4j + 2h + c): row 16 wl + lane / 4 + 8h, column
-  // 8j + 2 (lane % 4) + c of the warpgroup's 64 x 128 tile
-  const int row = m0 + wg * 64 + wl * 16 + lane / 4;
-  const float sc0 = row < S ? inv_rms[row] : 0.f;
-  const float sc1 = row + 8 < S ? inv_rms[row + 8] : 0.f;
+    // accumulator (i = 4j + 2h + c): row r + 8h, column 8j + 2 (lane % 4)
+    // + c of the warpgroup's 64 x kBN tile
 #pragma unroll
-  for (int j = 0; j < kTcBN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * (lane % 4);
-    if (col >= F) continue;
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * F +
-                                         col) =
-          __floats2bfloat162_rn(d[4 * j] * sc0, d[4 * j + 1] * sc0);
-    if (row + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + static_cast<size_t>(row + 8) * F + col) =
-          __floats2bfloat162_rn(d[4 * j + 2] * sc1, d[4 * j + 3] * sc1);
+    for (int part = 0; part < kBN / kOut; ++part) {
+      if (wtid == 0)  // the last stores have read the staging
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(wg);
+#pragma unroll
+      for (int j = 0; j < kOut / 8; ++j) {
+        const int q = part * (kOut / 8) + j;
+        uint8_t* p = out_s + (j / 8) * kTcBox + r * 128 +
+                     (((j % 8) ^ (r % 8)) << 4) + 4 * (lane % 4);
+        const __nv_bfloat162 v0 =
+            __floats2bfloat162_rn(acc[4 * q] * sc0, acc[4 * q + 1] * sc0);
+        const __nv_bfloat162 v1 = __floats2bfloat162_rn(
+            acc[4 * q + 2] * sc1, acc[4 * q + 3] * sc1);
+        *reinterpret_cast<__nv_bfloat162*>(p) = v0;
+        *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) = v1;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(wg);
+      if (wtid == 0) {
+        const int y = m0 + wg * 64;
+#pragma unroll
+        for (int b = 0; b < kOut / 64; ++b) {
+          const int x = n0 + part * kOut + 64 * b;
+          if (x < F && y < S) tma_store_2d(&map_out, out_s + b * kTcBox, x, y);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
   }
+  if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+  cluster_sync();
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -842,7 +1028,7 @@ EncodeTiled encode_tiled() {
 
 // A bf16 2-D tensor map of rows x cols (row stride cols), boxes of 64
 // columns (128 bytes, swizzled in 128-byte rows) by box_rows rows; reads
-// outside the tensor give zeros.
+// outside the tensor give zeros, writes outside it are dropped.
 bool bf16_map(CUtensorMap* map, const void* ptr, int rows, int cols,
               int box_rows) {
   EncodeTiled enc = encode_tiled();
@@ -858,13 +1044,56 @@ bool bf16_map(CUtensorMap* map, const void* ptr, int rows, int cols,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int kBN>
+cudaError_t launch_wgmma_tiles(const CUtensorMap& map_a,
+                               const CUtensorMap& map_b,
+                               const CUtensorMap& map_out,
+                               const float* inv_rms, int S, int F,
+                               int steps, int cm, int ctas, cudaStream_t st) {
+  static bool set = false;
+  if (!set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_norm_matmul_wgmma_kernel<kBN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+    if (err != cudaSuccess) return err;
+    // setmaxnreg moves registers between the warpgroups of the block's
+    // allotment: it must hold the consumers' and the producer's
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, fused_norm_matmul_wgmma_kernel<kBN>);
+    if (err != cudaSuccess) return err;
+    if (fa.numRegs * kTcThreads <
+        256 * kTcConsumerRegs + 128 * kTcProducerRegs)
+      return cudaErrorInvalidConfiguration;
+    set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = kTcSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cm;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, fused_norm_matmul_wgmma_kernel<kBN>, map_a,
+                            map_b, map_out, inv_rms, S, F, steps, cm);
+}
+
+// The rows pass writes A = bf16(x * gamma) and inv_rms to ws, then the
+// tile kernel runs.
 cudaError_t launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* gamma,
                          const __nv_bfloat16* w, __nv_bfloat16* out, void* ws,
-                         int S, int d, int F, float eps, cudaStream_t st) {
+                         int S, int d, int F, float eps, int tile_n, int cm,
+                         int ctas, cudaStream_t st) {
   const int dp = (d + kPad - 1) / kPad * kPad;
   if (ws == nullptr || F % 8 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      (S + kTcBM - 1) / kTcBM > 65535)
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      (tile_n != 128 && tile_n != 256) || (cm != 1 && cm != 2) ||
+      ctas < cm || ctas % cm != 0)
     return cudaErrorInvalidValue;
   __nv_bfloat16* xg = static_cast<__nv_bfloat16*>(ws);
   float* inv_rms = reinterpret_cast<float*>(xg + static_cast<size_t>(S) * dp);
@@ -872,23 +1101,19 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* gamma,
       <<<S, kThreads, 0, st>>>(x, gamma, xg, inv_rms, d, dp, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  CUtensorMap map_a, map_b;
-  if (!bf16_map(&map_a, xg, S, dp, kTcBM) || !bf16_map(&map_b, w, d, F, kTcBK))
+  CUtensorMap map_a, map_b, map_out;
+  if (!bf16_map(&map_a, xg, S, dp, kTcBM) || !bf16_map(&map_b, w, d, F, kTcBK) ||
+      !bf16_map(&map_out, out, S, F, 64))
     return cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
-    err = cudaFuncSetAttribute(fused_norm_matmul_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kTcSmem);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  const dim3 grid((F + kTcBN - 1) / kTcBN, (S + kTcBM - 1) / kTcBM);
-  fused_norm_matmul_wgmma_kernel<<<grid, kTcThreads, kTcSmem, st>>>(
-      map_a, map_b, inv_rms, out, S, F, dp / kTcBK);
+  err = tile_n == 256 ? launch_wgmma_tiles<256>(map_a, map_b, map_out,
+                                                inv_rms, S, F, dp / kTcBK, cm,
+                                                ctas, st)
+                      : launch_wgmma_tiles<128>(map_a, map_b, map_out,
+                                                inv_rms, S, F, dp / kTcBK, cm,
+                                                ctas, st);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
-
 
 template <typename T>
 cudaError_t launch_stream(const T* x, const T* gamma, const T* w, T* out,
@@ -983,15 +1208,18 @@ cudaError_t launch_fma(const float* x, const float* gamma, const float* w,
 
 // dtype: 0 = float, 1 = bf16.  regime: 0 = stream (splits K-splits of
 // krange rows; ws holds splits * S * F + splits * S floats when splits > 1),
-// 1 = FMA tile (float only), 2 = wgmma (bf16 only), 3 = mma (bf16 only,
-// S <= 32; splits and ws as for 0); for 1 and 2 ws
-// holds x * gamma (S rows of d rounded up to 64, in the input type) and then
-// S floats of inv_rms.  Returns the cudaError_t of the launches.
+// 1 = FMA tile (float only), 2 = wgmma (bf16 only: tiles of 128 x tile_n
+// columns, 128 or 256, clusters of cm = 1 or 2 row tiles, a persistent grid
+// of ctas CTAs), 3 = mma (bf16 only, S <= 32; splits and ws as for 0);
+// for 1 and 2 ws holds x * gamma (S rows of d rounded up to 64, in the
+// input type) and then S floats of inv_rms.  tile_n, cm and ctas are read
+// by 2 alone.  Returns the cudaError_t of the launches.
 extern "C" int fused_norm_matmul_launch(const void* x, const void* gamma,
                                         const void* w, void* out, void* ws,
                                         int S, int d, int F, int dtype,
                                         float eps, int regime, int splits,
-                                        int krange, void* stream) {
+                                        int krange, int tile_n, int cm,
+                                        int ctas, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   using bf16 = __nv_bfloat16;
@@ -1020,6 +1248,6 @@ extern "C" int fused_norm_matmul_launch(const void* x, const void* gamma,
     err = launch_wgmma(static_cast<const bf16*>(x),
                        static_cast<const bf16*>(gamma),
                        static_cast<const bf16*>(w), static_cast<bf16*>(out),
-                       ws, S, d, F, eps, st);
+                       ws, S, d, F, eps, tile_n, cm, ctas, st);
   return static_cast<int>(err);
 }

@@ -94,8 +94,14 @@ FNM_KRANGE_UNIT = 32
 FNM_BLOCKS_PER_SM = 4
 FNM_MAX_SPLITS = 16
 FNM_PAD = 64
-# the output tiles of the FMA tile and of the tensor cores (rows, columns)
-FNM_FMA_TILE, FNM_WGMMA_TILE = (64, 64), (128, 128)
+# the output tiles of the FMA tile (rows, columns).  The tensor cores' CTA
+# tiles are FNM_WGMMA_ROWS rows by one of FNM_WGMMA_COLS columns (the plan
+# takes the one whose waves of tiles over the card cost least, the wider on
+# a tie), walked by a persistent grid, S first, in clusters of
+# FNM_WGMMA_CLUSTER row tiles that share w's column tile (one where S has
+# one row tile or the card one SM).
+FNM_FMA_TILE = (64, 64)
+FNM_WGMMA_ROWS, FNM_WGMMA_COLS, FNM_WGMMA_CLUSTER = 128, (256, 128), 2
 # the CUDA kernels a call may launch, as the profiler names them
 FNM_KERNELS = ("fused_norm_matmul_mma_kernel",
                "fused_norm_matmul_stream_kernel",
@@ -459,11 +465,26 @@ def _split_d(d: int, want: int, unit: int, most: int) -> tuple:
     return krange, -(-d // krange)
 
 
+def _wgmma_tiles(S: int, F: int, cols: int, cluster: int) -> int:
+    """Cluster tiles of the wgmma regime: groups of ``cluster`` row tiles
+    times column tiles of ``cols``."""
+    groups = -(-(-(-S // FNM_WGMMA_ROWS)) // cluster)
+    return groups * -(-F // cols)
+
+
+def fused_norm_matmul_ctas(S: int, F: int, cols: int, cluster: int,
+                           n_sm: int) -> int:
+    """The wgmma regime's persistent grid: a CTA an SM (``n_sm // cluster``
+    clusters), no more than there are cluster tiles."""
+    return cluster * min(n_sm // cluster, _wgmma_tiles(S, F, cols, cluster))
+
+
 def fused_norm_matmul_plan(S: int, d: int, F: int, elt: int, n_sm: int,
                            w_aligned: bool = True) -> dict:
     """How ``csrc/fused_norm_matmul.cu`` computes an (S, d) x (d, F) call
     of ``elt``-byte values on a card of ``n_sm`` SMs -> ``dict(regime,
-    tile, splits, krange)``.
+    tile, splits, krange)``, and for ``wgmma`` also ``cluster``, ``ctas``
+    and ``walk``.
 
     Up to 32 rows: ``mma`` (bf16 whose w rows are whole 16-byte chunks:
     ``F * elt % 16 == 0`` and ``w`` on a 16-byte boundary) or ``stream``
@@ -471,12 +492,24 @@ def fused_norm_matmul_plan(S: int, d: int, F: int, elt: int, n_sm: int,
     ``krange`` rows of d; one split finishes the output in one launch.
     More rows: ``wgmma`` (bf16) or ``fma`` (float32) with ``tile`` =
     (rows, columns) of an output tile over the whole of d, or ``stream``
-    where w rows are not whole chunks."""
+    where w rows are not whole chunks.  ``wgmma`` runs ``ctas`` persistent
+    CTAs in clusters of ``cluster`` row tiles, each walking its tiles as
+    :func:`fused_norm_matmul_walk` lists them (``walk="s"``: S first); its
+    tile is the one of FNM_WGMMA_COLS whose rounds of cluster tiles over the
+    clusters, times its width, are least (the wider on a tie: it pulls
+    fewer bytes from L2 a product)."""
     whole = F * elt % 16 == 0 and w_aligned
     if S > FNM_DECODE_MAX_ROWS and whole:
         if elt == 2:
-            return dict(regime="wgmma", tile=FNM_WGMMA_TILE, splits=1,
-                        krange=d)
+            cluster = FNM_WGMMA_CLUSTER \
+                if S > FNM_WGMMA_ROWS and n_sm >= FNM_WGMMA_CLUSTER else 1
+            slots = n_sm // cluster
+            cols = min(FNM_WGMMA_COLS, key=lambda c: (
+                -(-_wgmma_tiles(S, F, c, cluster) // slots) * c, -c))
+            return dict(regime="wgmma", tile=(FNM_WGMMA_ROWS, cols),
+                        splits=1, krange=d, cluster=cluster,
+                        ctas=fused_norm_matmul_ctas(S, F, cols, cluster,
+                                                    n_sm), walk="s")
         return dict(regime="fma", tile=FNM_FMA_TILE, splits=1, krange=d)
     if S <= FNM_DECODE_MAX_ROWS and whole and elt == 2:
         tiles = -(-F // FNM_MMA_COLS)
@@ -493,13 +526,31 @@ def fused_norm_matmul_plan(S: int, d: int, F: int, elt: int, n_sm: int,
     return dict(regime="stream", tile=tile, splits=splits, krange=krange)
 
 
+def fused_norm_matmul_walk(plan: dict, S: int, F: int) -> list:
+    """The wgmma regime's tiles, CTA by CTA in launch order, each CTA's in
+    the order it computes them: (first row, first column) of each.  CTA b
+    is rank ``b % cluster`` of cluster ``b // cluster``; cluster c takes
+    cluster tiles c, c + clusters, ... of ``groups`` x column tiles, S
+    first (tile t: group ``t % groups``, column tile ``t // groups``), and
+    its rank r the group's row tile ``cluster * group + r``, which may lie
+    past S (then it loads and multiplies zeros and writes nothing)."""
+    rows, cols = plan["tile"]
+    cluster, ctas = plan["cluster"], plan["ctas"]
+    groups = -(-(-(-S // rows)) // cluster)
+    tiles = _wgmma_tiles(S, F, cols, cluster)
+    clusters = ctas // cluster
+    return [[((t % groups * cluster + b % cluster) * rows, t // groups * cols)
+             for t in range(b // cluster, tiles, clusters)]
+            for b in range(ctas)]
+
+
 def fused_norm_matmul_workspace(plan: dict, S: int, d: int, F: int,
                                 elt: int) -> int:
     """Float32 workspace a call of ``plan`` needs, in floats: the stream
     and mma regimes' partials ``(splits, S, F)`` and x^2 sums
-    ``(splits, S)`` when they have more than one split; the prefill
-    regimes' x * gamma (S rows of d padded to ``FNM_PAD``, in the input
-    type) and inverse RMS (S)."""
+    ``(splits, S)`` when they have more than one split; the rows pass's
+    x * gamma (S rows of d padded to ``FNM_PAD``, in the input type) and
+    inverse RMS (S) for ``fma`` and ``wgmma``."""
     if plan["regime"] in ("stream", "mma"):
         n = plan["splits"]
         return 0 if n == 1 else n * S * F + n * S
@@ -570,24 +621,35 @@ def _fused_norm_matmul_run(x, gamma, w):
     device = x.device
     if device.type == "cpu":
         return ref.fused_norm_matmul_ref(x, gamma, w, eps=NORM_EPS)
-    if device.type == "meta":
+    if device.type == "meta" or not (S and F):
         return torch.empty((S, F), dtype=x.dtype, device=device)
+    plan = fused_norm_matmul_plan(S, d, F, x.element_size(),
+                                  _sm_count(device), w.data_ptr() % 16 == 0)
+    return _fused_norm_matmul_launch(x, gamma, w, plan)
+
+
+def _fused_norm_matmul_launch(x, gamma, w, plan: dict):
+    """The kernel on CUDA tensors checked by :func:`_check_fnm` (S and F
+    not 0), computed as ``plan`` says (the on-card tests also give it plans
+    other than :func:`fused_norm_matmul_plan`'s)."""
+    (S, d), F = x.shape, w.shape[1]
+    device = x.device
     out = torch.empty((S, F), dtype=x.dtype, device=device)
-    if S and F:
-        elt = x.element_size()
-        plan = fused_norm_matmul_plan(S, d, F, elt, _sm_count(device),
-                                      w.data_ptr() % 16 == 0)
-        n_ws = fused_norm_matmul_workspace(plan, S, d, F, elt)
-        ws = torch.empty(n_ws, dtype=torch.float32, device=device) \
-            if n_ws else None
-        err = _launch(device, build.launcher("fused_norm_matmul"),
-                      x.data_ptr(), gamma.data_ptr(), w.data_ptr(),
-                      out.data_ptr(), None if ws is None else ws.data_ptr(),
-                      S, d, F, POOL_DTYPES[x.dtype], NORM_EPS,
-                      FNM_REGIMES.index(plan["regime"]), plan["splits"],
-                      plan["krange"], _stream(device))
-        _raise_on(err, "fused_norm_matmul")
-        LAUNCHES["fused_norm_matmul"] += 1
+    elt = x.element_size()
+    n_ws = fused_norm_matmul_workspace(plan, S, d, F, elt)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=device) \
+        if n_ws else None
+    wgmma = plan["regime"] == "wgmma"
+    err = _launch(device, build.launcher("fused_norm_matmul"),
+                  x.data_ptr(), gamma.data_ptr(), w.data_ptr(),
+                  out.data_ptr(), None if ws is None else ws.data_ptr(),
+                  S, d, F, POOL_DTYPES[x.dtype], NORM_EPS,
+                  FNM_REGIMES.index(plan["regime"]), plan["splits"],
+                  plan["krange"], plan["tile"][1] if wgmma else 0,
+                  plan["cluster"] if wgmma else 0,
+                  plan["ctas"] if wgmma else 0, _stream(device))
+    _raise_on(err, "fused_norm_matmul")
+    LAUNCHES["fused_norm_matmul"] += 1
     return out
 
 

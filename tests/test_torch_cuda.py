@@ -497,6 +497,64 @@ def test_fused_norm_matmul_takes_its_plan_on_card(card):
                                rtol=3e-2, atol=3e-2)
 
 
+# The wgmma regime (bf16, S > 32): both tile widths and clusters, forced
+# where the plan would not take them, and a single cluster walking every
+# tile (the ring's phases across many tiles): a cluster whose partner row
+# tile lies past S (S = 2049, 300; S = 33 with a forced cluster), a ragged
+# last column tile (F = 9736, 136; F = 131 takes the stream regime), d off
+# 64 (1000, 2568), and the training entries of qwen3-4b (S = 2048, d =
+# 2560) and llama3.2-1b (d = 2048), with PR 16's prefill shape.
+WGMMA_SHAPES = [(2049, 1000, 1024), (33, 1000, 4096), (2049, 2568, 9736),
+                (300, 1000, 9736), (129, 2568, 136), (2049, 1000, 131),
+                (300, 1004, 1024), (256, 2048, 8192),
+                (2048, 2560, 4096), (2048, 2560, 1024), (2048, 2560, 9728),
+                (2048, 2048, 2048), (2048, 2048, 512), (2048, 2048, 8192)]
+
+
+@pytest.mark.parametrize("S,d,F", WGMMA_SHAPES)
+def test_fused_norm_matmul_wgmma_plans_on_card(card, S, d, F):
+    """Every tile width, cluster and a one-cluster grid against the plain
+    version within 3e-2, each plan's two calls bit for bit alike and alike
+    to the plan's own."""
+    x, g, w, got = _check_fnm(S, d, F, "bfloat16", seed=S + F)
+    plan = ops.fused_norm_matmul_plan(S, d, F, 2, card)
+    assert plan["regime"] == ("stream" if F % 8 else "wgmma")
+    if plan["regime"] != "wgmma":
+        return
+    assert torch.equal(ops.fused_norm_matmul(x, g, w), got)
+    want = ref.fused_norm_matmul_ref(x, g, w).float()
+    for cols in ops.FNM_WGMMA_COLS:
+        for cluster in (1, ops.FNM_WGMMA_CLUSTER):
+            full = ops.fused_norm_matmul_ctas(S, F, cols, cluster, card)
+            # one cluster walks every tile where that takes under a second
+            for ctas in (full, cluster) if S * d * F <= 1 << 32 else (full,):
+                p = dict(plan, tile=(ops.FNM_WGMMA_ROWS, cols),
+                         cluster=cluster, ctas=ctas)
+                one = ops._fused_norm_matmul_launch(x, g, w, p)
+                two = ops._fused_norm_matmul_launch(x, g, w, p)
+                torch.testing.assert_close(one.float(), want, rtol=3e-2,
+                                           atol=3e-2)
+                # the products are summed as with 128-wide tiles: every
+                # plan gives the plan's bits
+                assert torch.equal(one, two) and torch.equal(one, got), p
+
+
+def test_fused_norm_matmul_wgmma_off_16_bytes_on_card(card):
+    """x or gamma off a 16-byte boundary: the rows pass reads them element
+    by element; the same bits as on aligned copies, two calls alike."""
+    S, d, F = 300, 1000, 1024
+    x, g, w, aligned = _check_fnm(S, d, F, "bfloat16", seed=21)
+    for name in ("x", "gamma"):
+        t = x if name == "x" else g
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")[1:]
+        buf[:t.numel()].copy_(t.reshape(-1))
+        off = buf[:t.numel()].view(t.shape)  # 2 bytes past a 16-byte start
+        args = (off, g, w) if name == "x" else (x, off, w)
+        got = ops.fused_norm_matmul(*args)
+        assert torch.equal(got, aligned)
+        assert torch.equal(ops.fused_norm_matmul(*args), got)
+
+
 # --------------------------------------------------- CN cache and the store
 def _cache_state_equal(a, b) -> None:
     sa, sb = a.state(), b.state()

@@ -2,10 +2,13 @@
 
 ``csrc/fused_norm_matmul.cu`` factors the norm out of the dot: up to 32
 rows of x it streams w in K-splits whose float32 partials (and partial sums
-of x^2) a combine pass adds in split order; more rows take a rows pass
-(x * gamma, rounded to bf16 for the tensor cores, and the inverse RMS) and
-a tiled product.  ``ops.fused_norm_matmul_plan`` picks the regime and the
-splits; it is pinned here at llama3.2-1b's serve shapes.  The plain models
+of x^2) a combine pass adds in split order; more rows take a tiled product
+of x * gamma (rounded to bf16 for the tensor cores), which a rows pass
+writes with the inverse RMS.  ``ops.fused_norm_matmul_plan`` picks the
+regime and the splits, and for the tensor cores the tile, the cluster and
+the persistent grid whose walk ``ops.fused_norm_matmul_walk`` lists; they
+are pinned here at llama3.2-1b's serve shapes and at the training
+entries.  The plain models
 of ``ref.py`` (``fused_norm_matmul_split_partials`` with
 ``combine_fused_norm_matmul_partials``, and ``fused_norm_matmul_rows``) are
 held against ``repro``'s Pallas ``fused_norm_matmul_kernel`` in interpret
@@ -60,10 +63,86 @@ def test_plan_at_the_serve_shapes(F):
 
 
 def test_plan_at_the_prefill_shape():
+    """S = 256: one group of two row tiles; 64 column tiles of 128 fill the
+    card's 66 clusters once, where 32 of 256 would leave half idle."""
     assert ops.fused_norm_matmul_plan(256, 2048, 8192, 2, 132) == dict(
-        regime="wgmma", tile=(128, 128), splits=1, krange=2048)
+        regime="wgmma", tile=(128, 128), splits=1, krange=2048, cluster=2,
+        ctas=128, walk="s")
     assert ops.fused_norm_matmul_plan(256, 2048, 8192, 4, 132) == dict(
         regime="fma", tile=(64, 64), splits=1, krange=2048)
+
+
+TRAIN = {  # (d, F) at S = 2048 rows, bf16 -> (tile columns, cluster, CTAs)
+    (2560, 4096): (256, 2, 132),  # qwen3-4b's wq: 128 tiles, 2 rounds
+    (2560, 1024): (128, 2, 128),  # wk, wv: 64 tiles of 128, one round
+    (2560, 9728): (256, 2, 132),  # w_gate, w_up: 304 tiles, 4.6 rounds
+    (2048, 2048): (256, 2, 128),  # llama3.2-1b's wq: 64 tiles, one round
+    (2048, 512): (128, 2, 64),    # wk, wv: 32 tiles of 128
+    (2048, 8192): (256, 2, 132),  # w_gate, w_up: 256 tiles
+}
+
+
+@pytest.mark.parametrize("d,F", sorted(TRAIN))
+def test_plan_at_the_training_shapes(d, F):
+    """The training entries of qwen3-4b and llama3.2-1b on 132 SMs: the
+    tile whose rounds over the 66 clusters cost least (the wider on a tie),
+    clusters of two row tiles, a CTA an SM or one a cluster tile."""
+    p = ops.fused_norm_matmul_plan(2048, d, F, 2, 132)
+    assert p["regime"] == "wgmma" and p["splits"] == 1 and p["krange"] == d
+    assert (p["tile"][1], p["cluster"], p["ctas"]) == TRAIN[d, F]
+    assert p["tile"][0] == 128 and p["walk"] == "s"
+    # bf16 x * gamma of 2048 rows of d (a multiple of 64), then 2048 floats
+    assert ops.fused_norm_matmul_workspace(p, 2048, d, F, 2) \
+        == 2048 * d // 2 + 2048
+
+
+@pytest.mark.parametrize("S,F", [(2048, 9728), (2048, 1024), (2049, 9736),
+                                 (33, 4096), (129, 131 * 8), (256, 8192),
+                                 (300, 100 * 8), (6000, 5120)])
+def test_walk_covers_every_tile_once(S, F):
+    """Every output tile is computed by exactly one CTA on any card of 1 to
+    132 SMs; a cluster's CTAs walk the same column tiles in the same order
+    (a cluster never straddles two column tiles of F), rank r the row tile
+    r of its group; tiles past S are only partners of the last group."""
+    for n_sm in range(1, 133):
+        p = ops.fused_norm_matmul_plan(S, 1000, F, 2, n_sm)
+        rows, cols = p["tile"]
+        cm, ctas = p["cluster"], p["ctas"]
+        assert ctas % cm == 0 and cm <= ctas <= max(n_sm, cm)
+        assert cm == (2 if S > 128 and n_sm >= 2 else 1)
+        walk = ops.fused_norm_matmul_walk(p, S, F)
+        assert len(walk) == ctas
+        seen = [t for cta in walk for t in cta if t[0] < S]
+        want = {(m, n) for m in range(0, S, rows) for n in range(0, F, cols)}
+        assert len(seen) == len(want) and set(seen) == want
+        m_tiles = -(-S // rows)
+        for c in range(0, ctas, cm):
+            lead = walk[c]
+            for r in range(cm):
+                cta = walk[c + r]
+                assert [n for _, n in cta] == [n for _, n in lead]
+                assert all(m // rows % cm == r for m, _ in cta)
+                assert all(m // rows < m_tiles or (r == cm - 1 and
+                                                   m_tiles % cm)
+                           for m, _ in cta)
+        # S first: the clusters' first tiles are the first tiles of the
+        # grid, all the groups of a column tile before the next column tile
+        groups = -(-m_tiles // cm)
+        firsts = [walk[c][0] for c in range(0, ctas, cm) if walk[c]]
+        assert firsts == [((i % groups) * cm * rows, i // groups * cols)
+                          for i in range(len(firsts))]
+
+
+@pytest.mark.parametrize("S,d,F", [(33, 1000, 4096), (2048, 2560, 9728),
+                                   (2049, 2568, 1024), (64, 64, 64),
+                                   (300, 1004, 1024), (40, 7, 8)])
+def test_wgmma_workspace_size(S, d, F):
+    """The rows pass's x * gamma in bf16, S rows of d padded to 64, then S
+    floats of the inverse RMS, whatever the tile and cluster."""
+    p = ops.fused_norm_matmul_plan(S, d, F, 2, 132)
+    dp = -(-d // 64) * 64
+    assert p["regime"] == "wgmma"
+    assert ops.fused_norm_matmul_workspace(p, S, d, F, 2) == S * dp // 2 + S
 
 
 @pytest.mark.parametrize("n_sm,F,want", [

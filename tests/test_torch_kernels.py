@@ -343,6 +343,8 @@ FNM_SHAPES = [
     (128, 1024, 512, "bfloat16", 128, 128),
     (7, 200, 100, "float32", 7, 100),
     (9, 64, 131, "bfloat16", 9, 131),
+    # qwen3-4b's width (d = 2560) at a prefill of S = 256, its k / v F
+    (256, 2560, 1024, "bfloat16", 128, 512),
 ]
 FNM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py:138
 
